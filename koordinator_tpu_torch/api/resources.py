@@ -1,0 +1,99 @@
+"""The canonical resource-dimension model (numpy only; the port's own copy
+of ``koordinator_tpu/api/resources.py``, whose package import pulls in JAX).
+
+The reference passes ``map[v1.ResourceName]int64`` resource lists everywhere and
+vectorizes ad hoc (``pkg/scheduler/plugins/loadaware/helper.go`` —
+``NewResourceVectorizer``). Here the vectorization IS the model: every resource
+list is a fixed-width ``(R,)`` int32 vector with a global dimension order, so a
+cluster is a ``(nodes, R)`` matrix and a pending-pod batch is a ``(pods, R)``
+matrix that go straight onto the device.
+
+Units are chosen so per-node quantities stay below 2^31/100 (the score and
+percentage kernels multiply by MaxNodeScore=100 in int32; see
+state/cluster_state.py MAX_QUANTITY — the reference does this math in int64,
+we keep integer exactness by bounding units instead):
+
+    cpu:            milli-cores   (bound 21.4M mcores = 21k cores per node)
+    memory:         MiB           (bound 21.4M MiB ~ 20 TiB per node)
+    ephemeral:      MiB
+    gpu:            milli-GPU     (koordinator's kubernetes.io/gpu convention)
+    gpu_memory:     MiB
+    rdma:           milli-VF
+    batch/mid cpu:  milli-cores   (kubernetes.io/batch-cpu etc., apis/extension/resource.go:27-30)
+    batch/mid mem:  MiB
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import Mapping
+
+import numpy as np
+
+
+class ResourceDim(enum.IntEnum):
+    """Global resource dimension order for all (…, R) tensors. Do not reorder."""
+
+    CPU = 0
+    MEMORY = 1
+    EPHEMERAL = 2
+    GPU = 3
+    GPU_MEMORY = 4
+    RDMA = 5
+    BATCH_CPU = 6
+    BATCH_MEMORY = 7
+    MID_CPU = 8
+    MID_MEMORY = 9
+
+
+NUM_RESOURCE_DIMS = len(ResourceDim)
+
+#: Dimensions accounted in the "prod" pool vs the overcommitted pools.
+PROD_DIMS = (ResourceDim.CPU, ResourceDim.MEMORY)
+BATCH_DIMS = (ResourceDim.BATCH_CPU, ResourceDim.BATCH_MEMORY)
+MID_DIMS = (ResourceDim.MID_CPU, ResourceDim.MID_MEMORY)
+
+#: name <-> dim mapping using koordinator's resource-name protocol
+#: (apis/extension/resource.go:27-30).
+RESOURCE_NAMES: dict[str, ResourceDim] = {
+    "cpu": ResourceDim.CPU,
+    "memory": ResourceDim.MEMORY,
+    "ephemeral-storage": ResourceDim.EPHEMERAL,
+    "kubernetes.io/gpu": ResourceDim.GPU,
+    "kubernetes.io/gpu-memory": ResourceDim.GPU_MEMORY,
+    "koordinator.sh/rdma": ResourceDim.RDMA,
+    "kubernetes.io/batch-cpu": ResourceDim.BATCH_CPU,
+    "kubernetes.io/batch-memory": ResourceDim.BATCH_MEMORY,
+    "kubernetes.io/mid-cpu": ResourceDim.MID_CPU,
+    "kubernetes.io/mid-memory": ResourceDim.MID_MEMORY,
+}
+
+DIM_TO_NAME = {dim: name for name, dim in RESOURCE_NAMES.items()}
+
+ResourceVector = np.ndarray  # (R,) int32, host-side alias
+
+
+def resource_vector(quantities: Mapping[str, int] | None = None, **kw: int) -> np.ndarray:
+    """Build an (R,) int32 vector from {resource-name: quantity-in-canonical-units}.
+
+    Keyword form accepts dim names: ``resource_vector(cpu=4000, memory=8192)``.
+    """
+    vec = np.zeros(NUM_RESOURCE_DIMS, dtype=np.int32)
+    if quantities:
+        for name, q in quantities.items():
+            vec[RESOURCE_NAMES[name]] = q
+    for name, q in kw.items():
+        vec[ResourceDim[name.upper()]] = q
+    return vec
+
+
+def stack_vectors(vectors, capacity: int | None = None) -> np.ndarray:
+    """Stack host resource vectors into an (N, R) matrix, zero-padded to capacity."""
+    n = len(vectors)
+    cap = capacity if capacity is not None else n
+    if cap < n:
+        raise ValueError(f"capacity {cap} < {n} vectors")
+    out = np.zeros((cap, NUM_RESOURCE_DIMS), dtype=np.int32)
+    if n:
+        out[:n] = np.stack(vectors)
+    return out

@@ -1,0 +1,202 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled at first use with ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface,
+``_build/libkoord_kernels.so`` beside this file, and loaded with ``ctypes``.
+Each source compiles in its own ``nvcc`` process (all started together), and
+the objects link once.  The library is rebuilt when a source's hash changes:
+the hash of every source is kept in ``_build/sources.sha256``.
+
+Nothing here runs at import time: the package imports on machines with no
+``nvcc`` and no GPU, where the kernels' wrappers take their plain versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+LIB_PATH = os.path.join(BUILD_DIR, "libkoord_kernels.so")
+_STAMP = os.path.join(BUILD_DIR, "sources.sha256")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for path in sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the port's kernels")
+
+
+def build(force: bool = False, log_path: str | None = None) -> str:
+    """Compile the sources if they changed since the last build; returns
+    the library path.  Raises with the compiler's output on failure.
+    ``log_path`` adds ``-Xptxas -v`` and writes every compiler message
+    there (registers, shared memory and spills per kernel)."""
+    digest = _digest()
+    if (not force and os.path.exists(LIB_PATH) and os.path.exists(_STAMP)
+            and open(_STAMP).read().strip() == digest):
+        return LIB_PATH
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    extra = ("-Xptxas", "-v") if log_path else ()
+    objs, procs = [], []
+    for src in sources():
+        obj = os.path.join(
+            BUILD_DIR, os.path.splitext(os.path.basename(src))[0] + ".o")
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *extra, "-I", CSRC, "-c", src, "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"== {os.path.basename(src)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{os.path.basename(src)}:\n{out}")
+    if log_path:
+        with open(log_path, "w") as f:
+            f.write("\n".join(logs))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = LIB_PATH + ".tmp"
+    link = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", tmp],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError("nvcc link failed:\n" + link.stdout)
+    os.replace(tmp, LIB_PATH)
+    with open(_STAMP, "w") as f:
+        f.write(digest + "\n")
+    return LIB_PATH
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+#: exported C functions and their argument types (every one returns the
+#: launch's cudaGetLastError() as an int)
+_SIGNATURES = {
+    "koord_select_candidates": [
+        _P, _P, _P, _P, _P, _P,          # node alloc/requested/usage/base/valid/class
+        _P, _P, _P, _P,                  # pod requests/estimates/valid/rot_id
+        _P, _I, _P,                      # selector mask (P, C) + C, dense mask (N, P)
+        _P, _I,                          # config int vector + its length
+        _I, _I, _I,                      # P, N, strata count
+        _I, _I, _I, _I,                  # strata shifts, per-stratum k
+        _P, _P, _P,                      # out cand_key, cand_node, cand_score
+        _P,                              # stream
+    ],
+    "koord_round_fit_choose": [
+        _P, _P, _P, _P, _P,              # cand_key, cand_node, free, requests, active
+        _I, _I, _I,                      # P, k, N
+        _P, _P,                          # out choice, has
+        _P,                              # stream
+    ],
+    "koord_segmented_prefix_accept": [
+        _P, _P, _P, _P, _P, _P,          # pos, order, seg, requests, choice_free, active
+        _I, _I,                          # P, overflow segment id
+        _P,                              # out fits
+        _P,                              # stream
+    ],
+}
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, building it first if needed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a kernel's launch reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+#: launches per kernel since the last reset_launch_counts(): each wrapper
+#: adds one where it launches its kernel, and nowhere else (a plain-version
+#: call on CPU tensors launches nothing)
+LAUNCHES = {"select_candidates": 0, "round_fit_choose": 0,
+            "segmented_prefix_accept": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def on_cpu(*tensors) -> bool:
+    """True when every tensor lies on the CPU (the plain version's case),
+    False when every tensor lies on one CUDA device; raises otherwise."""
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    return False
+
+
+def expect(t, name: str, dtype, shape: tuple) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` and ``shape``
+    (None in ``shape`` accepts any extent)."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if len(t.shape) != len(shape) or any(
+            want is not None and got != want
+            for got, want in zip(t.shape, shape)):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def stream_of(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

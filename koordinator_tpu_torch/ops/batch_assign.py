@@ -1,0 +1,202 @@
+"""Batch-parallel assignment: propose/accept rounds instead of an O(P) scan
+(port of ``koordinator_tpu/ops/batch_assign.py`` up to the incremental
+candidate cache).
+
+    1. ONE fused Filter+Score pass over the (P, N) problem with a per-pod
+       rotated tie-break, reduced to each pod's k best candidate nodes —
+       the K1 kernel (``kernels/select_candidates.py``);
+    2. up to ``rounds`` propose/accept rounds on the (P, k) candidates:
+       every active pod proposes its best candidate that still fits (K3a,
+       ``kernels/round_fit_choose.py``), and conflicts resolve by a
+       segmented prefix sum over requests in priority order, per node and
+       per quota-ancestor level (K3b, ``kernels/prefix_accept.py``).
+
+Ported scope: the packed key regime (node capacity <= 2**15) and the
+candidate methods ``exact``, ``chunked_exact`` and ``auto`` (which is
+``exact`` here, as in JAX off the TPU).  The wide regime and the ``approx``
+and ``chunked`` methods raise ``ValueError``.
+
+PyTorch idiom in place of the JAX control flow: ``lexsort`` is one stable
+sort, ``segment_sum`` is ``index_add_``, and the ``while_loop`` is a Python
+loop of at most ``rounds`` rounds that stops when no pod is active.  The
+JAX round skips the sorted acceptance when no segment is oversubscribed;
+the sorted path returns the same bits in that case, so the port always
+runs it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from koordinator_tpu_torch.kernels.prefix_accept import (  # noqa: F401
+    segmented_prefix_accept,
+    segmented_prefix_accept_plain as _prefix_accept_sorted_choice,
+)
+from koordinator_tpu_torch.kernels.round_fit_choose import (  # noqa: F401
+    _choose_candidate,
+    round_fit_choose,
+)
+from koordinator_tpu_torch.kernels.select_candidates import (  # noqa: F401
+    _SCORE_CLIP,
+    _TB_BITS,
+    MAX_NODE_CAPACITY,
+    PACKED_NODE_CAPACITY,
+    _candidate_tb,
+    _rank_parts,
+    _reduce_candidates,
+    _stratum_splits,
+    _topk_by_rank,
+    check_node_capacity,
+    select_candidates_kernel,
+)
+from koordinator_tpu_torch.ops.assignment import ScoringConfig, priority_order
+from koordinator_tpu_torch.quota.admission import (
+    QuotaDeviceState,
+    charge_quota_batch,
+    quota_admission_mask,
+)
+from koordinator_tpu_torch.state.cluster_state import ClusterState, PodBatch
+
+#: the JAX package's candidate-selection strategies
+CANDIDATE_METHODS = ("auto", "exact", "approx", "chunked", "chunked_exact")
+#: the ones this port implements ("auto" is "exact")
+PORTED_METHODS = ("auto", "exact", "chunked_exact")
+
+#: pod-chunk width of method="chunked_exact"'s plain version: peak score
+#: memory is (CANDIDATE_CHUNK, N) instead of (P, N)
+CANDIDATE_CHUNK = 4096
+
+
+def select_candidates(
+    state: ClusterState,
+    pods: PodBatch,
+    cfg: ScoringConfig,
+    k: int = 32,
+    spread_bits=(5, 15),
+    method: str = "auto",
+    with_scores: bool = False,
+):
+    """(cand_key, cand_node), each (P, k), plus (P, k) cand_score (the
+    clipped composite score, -1 on invalid slots) with ``with_scores``.
+
+    ``spread_bits`` may be an int or a tuple (STRATIFIED selection: k splits
+    evenly over the strata, each picks its share by its own quantized key,
+    and the first stratum's key orders all candidates in the rounds).
+    ``exact`` and ``chunked_exact`` give the same rows; on the GPU both run
+    the streaming kernel, which never writes a (P, N) tensor."""
+    if method not in CANDIDATE_METHODS:
+        raise ValueError(f"unknown candidate method {method!r}; "
+                         f"one of {CANDIDATE_METHODS}")
+    if method not in PORTED_METHODS:
+        raise ValueError(f"candidate method {method!r} is not ported; "
+                         f"the port implements {PORTED_METHODS}")
+    strata = (tuple(spread_bits) if isinstance(spread_bits, (tuple, list))
+              else (spread_bits,))
+    chunk = CANDIDATE_CHUNK if method == "chunked_exact" else None
+    key, node, score = select_candidates_kernel(state, pods, cfg, k, strata,
+                                                chunk=chunk)
+    return (key, node, score) if with_scores else (key, node)
+
+
+def _prefix_accept(choice, requests, free, order, active):
+    """(P,) bool: the cumulative request per segment (taken in ``order``
+    among active proposers) fits the segment's headroom ``free`` (S, R),
+    counting the pod itself."""
+    s = free.shape[0]
+    safe = torch.clamp(choice, 0, s - 1).long()
+    choice_free = torch.where(active[:, None], free[safe], 0)
+    return _prefix_accept_choice(choice, requests, choice_free, s, order,
+                                 active)
+
+
+def _prefix_accept_choice(choice, requests, choice_free, num_segments: int,
+                          order, active):
+    """The choice-indexed core of :func:`_prefix_accept`: inactive pods go
+    to the overflow segment ``num_segments``."""
+    seg = torch.where(active, choice, num_segments).to(torch.int32)
+    return segmented_prefix_accept(seg, requests, choice_free, order, active,
+                                   num_segments)
+
+
+def _quota_prefix_accept(quota: QuotaDeviceState, requests, pods: PodBatch,
+                         order, active):
+    """(P,) bool: within-round quota headroom conflict resolution, one
+    prefix acceptance per ancestor level of the quota chain, plus the min
+    headroom of non-preemptible pods at their own quota."""
+    qid = torch.clamp(pods.quota_id, min=0).long()
+    has_quota = pods.quota_id >= 0
+    checked = quota.checked[qid]
+    req_m = torch.where(checked, requests, 0)
+    ok = torch.ones(pods.capacity, dtype=torch.bool, device=requests.device)
+    for d in range(quota.chain.shape[1]):
+        anc = quota.chain[qid, d]
+        act_d = active & has_quota & (anc >= 0)
+        acc = _prefix_accept(torch.clamp(anc, min=0), req_m, quota.headroom,
+                             order, act_d)
+        ok = ok & (acc | ~act_d)
+    np_act = active & has_quota & pods.non_preemptible
+    np_acc = _prefix_accept(qid.to(torch.int32), req_m, quota.min_headroom,
+                            order, np_act)
+    ok = ok & (np_acc | ~np_act)
+    return ok | ~has_quota
+
+
+def _assign_rounds(state: ClusterState, pods: PodBatch, quota, cand_key,
+                   cand_node, rounds: int):
+    """The propose/accept stage over (P, k) candidates.  Returns
+    (assignments, new_state, new_quota); the input state is not modified
+    (the round's node accounting is a copy updated in place)."""
+    check_node_capacity(state.capacity)
+    order = priority_order(pods)
+    active = pods.valid & torch.any(cand_key >= 0, dim=1)
+    requested = state.node_requested.clone()
+    assignments = torch.full((pods.capacity,), -1, dtype=torch.int32,
+                             device=requested.device)
+    alloc, node_valid = state.node_allocatable, state.node_valid
+    for _ in range(rounds):
+        if not bool(torch.any(active)):
+            break
+        free = torch.where(node_valid[:, None], alloc - requested, 0)
+        choice, has = round_fit_choose(cand_key, cand_node, free,
+                                       pods.requests, active)
+        act = active & has
+        if quota is not None:
+            act = act & quota_admission_mask(quota, pods.requests,
+                                             pods.quota_id,
+                                             pods.non_preemptible)
+        accept = _prefix_accept(choice, pods.requests, free, order, act)
+        if quota is not None:
+            accept = accept & _quota_prefix_accept(quota, pods.requests, pods,
+                                                   order, act)
+        safe = torch.where(accept, choice, 0).long()
+        requested.index_add_(0, safe,
+                             torch.where(accept[:, None], pods.requests, 0))
+        if quota is not None:
+            quota = charge_quota_batch(quota, pods.requests, pods.quota_id,
+                                       accept, pods.non_preemptible)
+        assignments = torch.where(accept, choice, assignments)
+        # free capacity and quota headroom only shrink within a solve, so a
+        # pod with no fitting admitted candidate now can never gain one
+        active = act & ~accept
+    return assignments, state.replace(node_requested=requested), quota
+
+
+def batch_assign(
+    state: ClusterState,
+    pods: PodBatch,
+    cfg: ScoringConfig,
+    quota: QuotaDeviceState | None = None,
+    k: int = 32,
+    rounds: int = 12,
+    spread_bits=(5, 15),
+    method: str = "auto",
+):
+    """Assign a pending batch in data-parallel propose/accept rounds.
+
+    Same returns as ``greedy_assign``: (assignments, new_state, new_quota),
+    assignments (P,) int32 with -1 = unassigned.  The default stratified
+    ``spread_bits=(5, 15)`` splits k between a score-faithful stratum and a
+    pure-rotation coverage stratum."""
+    cand_key, cand_node = select_candidates(
+        state, pods, cfg, k=k, spread_bits=spread_bits, method=method)
+    return _assign_rounds(state, pods, quota, cand_key, cand_node, rounds)

@@ -1,0 +1,80 @@
+"""The port stands alone: it imports neither JAX nor anything of the JAX
+package, not at import time and not after a full scheduling round."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_ROUND = r"""
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(2)
+import koordinator_tpu_torch
+from koordinator_tpu_torch import convert
+from koordinator_tpu_torch.kernels import build, prefix_accept, round_fit_choose, select_candidates
+from koordinator_tpu_torch.ops import batch_assign, gang
+from koordinator_tpu_torch.quota.tree import QuotaTree
+from koordinator_tpu_torch.scheduler.scheduler import Scheduler
+from koordinator_tpu_torch.scheduler.snapshot import ClusterSnapshot, NodeSpec, PodSpec
+
+rng = np.random.default_rng(0)
+snap = ClusterSnapshot(capacity=32, device="cpu")
+for i in range(24):
+    a = np.zeros(10, np.int32)
+    a[0], a[1] = rng.integers(8000, 64000), rng.integers(16384, 262144)
+    snap.upsert_node(NodeSpec(name=f"n{i}", allocatable=a))
+tree = QuotaTree(np.full(10, 10**7, np.int64))
+tree.add("q", np.zeros(10, np.int64), np.full(10, 10**6, np.int64))
+binds = []
+sched = Scheduler(snap, quota_tree=tree, bind_fn=lambda p, n: binds.append(p),
+                  batch_solver_threshold=64, device="cpu")
+for j in range(96):
+    q = np.zeros(10, np.int32)
+    q[0], q[1] = rng.integers(100, 4000), rng.integers(128, 8192)
+    sched.enqueue(PodSpec(name=f"p{j}", requests=q, priority=int(j % 7),
+                          quota="q" if j % 2 else None))
+res = sched.schedule_round()
+assert sched.last_solver == "batch" and len(binds) == len(res.assignments) > 0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "koordinator_tpu"))
+print("LOADED", bad)
+"""
+
+
+def test_port_runs_a_round_without_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", _ROUND], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LOADED []" in out.stdout, out.stdout[-2000:]
+
+
+_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|koordinator_tpu)"
+                     r"(\.|\s|$)")
+
+
+def _sources():
+    root = os.path.join(REPO, "koordinator_tpu_torch")
+    for dirpath, _dirs, files in os.walk(root):
+        for name in files:
+            if name.endswith(".py"):
+                yield os.path.join(dirpath, name)
+    for script in ("chip_smoke.py", "profile_torch_round.py"):
+        path = os.path.join(REPO, script)
+        if os.path.exists(path):
+            yield path
+
+
+@pytest.mark.parametrize("path", sorted(_sources()),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_import_lines(path):
+    with open(path) as f:
+        hits = [line for line in f if _IMPORT.match(line)]
+    assert hits == []
