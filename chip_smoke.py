@@ -18,13 +18,35 @@ first failure:
 5. main path: ``Scheduler.schedule_round`` on 50,000 pending pods over
    10,240 nodes (R = 10), twice from the same seed (warm-up, then the
    reported round), with each kernel's launch count over the reported round;
-6. kernel table: each kernel's time at the main path's shapes against its
-   plain version, its bound and, for K1, ``torch.topk`` over a (P, N) key.
+6. kernel table: K1, K3a, K3b at the main path's shapes against their plain
+   versions, their bounds and, for K1, ``torch.topk`` over a (P, N) key;
+7. refresh: K2 against its plain version at the main path's width (65,536
+   rows, 50,000 valid, over 10,240 nodes, k = 32), its cache from K1, after
+   a usage refresh of 1% of the nodes (D = 128 padded dirty columns);
+8. greedy: K4 against its plain version at 1,000 pods x 10,240 nodes with a
+   two-level quota tree and selector classes;
+9. steady state: the flagship cluster behind an ElasticQuota tree (root, 4
+   parents, 16 leaves; 80% of the pods in leaves that admit ~60% of their
+   cpu), one cold round and five rounds that each follow a usage refresh
+   of 1% of the nodes and 500 arrivals, on three schedulers: the JAX
+   defaults, the dirty threshold at 1.0 (K2 every steady round) and the
+   incremental path off.  Their binds must agree every round.  K3b is
+   held against its plain version on each quota level of the cold round,
+   and K4 on the last steady round's rescue (the ~17,000 compacted
+   quota-blocked leftovers over 10,240 nodes);
+10. small rounds: on the filled cluster, with the pending queue withdrawn
+   before each round (a quota-blocked backlog keeps every round above the
+   batch threshold), three rounds of 500 arrivals (the greedy path, K4)
+   against the same rounds through the plain versions.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the last
-is ``{"ok": true, "device": {...}}``.  Every comparison is exact equality
-(all outputs are int32 or bool).  Nothing here imports JAX or the JAX
-package.  Without a CUDA device it exits non-zero and prints no result.
+is ``{"ok": true, "device": {...}}``.  Before them, one JSON line lists the
+five kernels: time, launches over the steady-state run of the forced-
+threshold scheduler (the slice's main path), bound, plain and library time;
+K4's numbers are those at the steady round's rescue.
+Every comparison is exact equality (all outputs are int32 or bool).  Nothing
+here imports JAX or the JAX package.  Without a CUDA device it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -41,6 +63,7 @@ import numpy as np
 R = 10
 CPU, MEM = 0, 1
 OUT_DIR = "chiprun_out"
+CSRC = "koordinator_tpu_torch/kernels/csrc/"
 
 #: H100 SXM peaks (NVIDIA data sheet), against which bound_ms is computed
 HBM_BYTES_PER_S = 3.35e12
@@ -196,22 +219,29 @@ def quota_setup(pods, device, seed: int = 0):
 
 @contextlib.contextmanager
 def plain_path():
-    """Route ``batch_assign`` through the kernels' plain versions on any
-    device (the wrappers would launch the kernels on CUDA tensors)."""
-    from koordinator_tpu_torch.kernels import prefix_accept, round_fit_choose
+    """Route the solvers through the kernels' plain versions on any device
+    (the wrappers would launch the kernels on CUDA tensors)."""
+    from koordinator_tpu_torch.kernels import greedy_scan, prefix_accept
+    from koordinator_tpu_torch.kernels import refresh_candidates as k2
+    from koordinator_tpu_torch.kernels import round_fit_choose
     from koordinator_tpu_torch.kernels import select_candidates as k1
+    from koordinator_tpu_torch.ops import assignment
     from koordinator_tpu_torch.ops import batch_assign as ba
 
-    saved = (ba.select_candidates_kernel, ba.round_fit_choose,
-             ba.segmented_prefix_accept)
+    saved = (ba.select_candidates_kernel, ba.refresh_candidates_kernel,
+             ba.round_fit_choose, ba.segmented_prefix_accept,
+             greedy_scan.greedy_scan_kernel)
     ba.select_candidates_kernel = k1.select_candidates_plain
+    ba.refresh_candidates_kernel = k2.refresh_candidates_plain
     ba.round_fit_choose = round_fit_choose.round_fit_choose_plain
     ba.segmented_prefix_accept = prefix_accept.segmented_prefix_accept_plain
+    greedy_scan.greedy_scan_kernel = assignment.greedy_assign_plain
     try:
         yield
     finally:
-        (ba.select_candidates_kernel, ba.round_fit_choose,
-         ba.segmented_prefix_accept) = saved
+        (ba.select_candidates_kernel, ba.refresh_candidates_kernel,
+         ba.round_fit_choose, ba.segmented_prefix_accept,
+         greedy_scan.greedy_scan_kernel) = saved
 
 
 @contextlib.contextmanager
@@ -347,36 +377,50 @@ def main_path_specs(seed: int = 0, n_nodes: int = 10_240,
 @contextlib.contextmanager
 def solve_probe(log: list, device):
     """Time each solve the scheduler makes (CUDA events on the card) and
-    keep its inputs, by wrapping the scheduler module's ``gang_assign``."""
+    keep its inputs, by wrapping the scheduler module's ``gang_assign`` (the
+    full batch path and the greedy rescue and rounds) and
+    ``Scheduler._solve_batch_incremental`` (the candidate-cache path)."""
     import torch
 
     from koordinator_tpu_torch.scheduler import scheduler as sched_mod
 
     real = sched_mod.gang_assign
+    real_inc = sched_mod.Scheduler._solve_batch_incremental
     on_card = torch.device(device).type == "cuda"
 
-    def probe(state, batch, cfg, gangs, quota=None, **kw):
+    def timed(fn, **entry):
         if on_card:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
         t0 = time.perf_counter()
-        out = real(state, batch, cfg, gangs, quota, **kw)
+        out = fn()
         if on_card:
             end.record()
             torch.cuda.synchronize()
             ms = start.elapsed_time(end)
         else:
             ms = (time.perf_counter() - t0) * 1e3
-        log.append(dict(solver=kw.get("solver"), ms=ms, state=state,
-                        batch=batch, cfg=cfg))
+        log.append(dict(entry, ms=ms))
         return out
 
+    def probe(state, batch, cfg, gangs, quota=None, **kw):
+        return timed(lambda: real(state, batch, cfg, gangs, quota, **kw),
+                     solver=kw.get("solver"), state=state, batch=batch,
+                     cfg=cfg, quota=quota)
+
+    def probe_inc(self, pods, batch, quota):
+        return timed(lambda: real_inc(self, pods, batch, quota),
+                     solver="batch", state=self.snapshot.state, batch=batch,
+                     cfg=self.config, quota=quota)
+
     sched_mod.gang_assign = probe
+    sched_mod.Scheduler._solve_batch_incremental = probe_inc
     try:
         yield
     finally:
         sched_mod.gang_assign = real
+        sched_mod.Scheduler._solve_batch_incremental = real_inc
 
 
 def run_round(device, n_nodes: int, n_pods: int, seed: int = 0):
@@ -447,8 +491,11 @@ def phase_main(device, n_nodes: int = 10_240, n_pods: int = 50_000):
             rescue_ms=[s["ms"] for s in log if s["solver"] == "greedy"],
             peak_mem_bytes=peak))
     check(sched.last_solver == "batch", "the batch solver ran")
+    for kernel in ("select_candidates", "round_fit_choose",
+                   "segmented_prefix_accept"):
+        check(launches[kernel] > 0, f"{kernel} launched on the cold round")
     emit("main_path", pods=n_pods, nodes=n_nodes, rounds=rounds,
-         launches=launches)
+         solve_path=sched.last_solve_path, launches=launches)
     return launches, log
 
 
@@ -497,7 +544,7 @@ def phase_table(device, launches: dict, log: list, reps: int = 3):
         sub = _pod_rows(pods, i, min(i + CANDIDATE_CHUNK, p))
         scores, feas = score_pods(state, sub, cfg)
         key[i:i + CANDIDATE_CHUNK] = _rank_parts(scores, feas, 5, sub.rot_id,
-                                                 n)[0]
+                                                 n_total=n)[0]
         del scores, feas
     topk_ms = timed_ms(lambda: torch.topk(key, k // 2, dim=1), device,
                        reps=reps)
@@ -553,7 +600,7 @@ def phase_table(device, launches: dict, log: list, reps: int = 3):
     k3b_bytes = p * (8 + 8 + 4 + 2 * R * 4 + 1 + 1)
     k3b_bound = k3b_bytes / HBM_BYTES_PER_S * 1e3
 
-    base = "koordinator_tpu_torch/kernels/csrc/"
+    base = CSRC
     kernels = [
         dict(name="select_candidates", route="cuda",
              source=base + "select_candidates.cu",
@@ -583,6 +630,536 @@ def phase_table(device, launches: dict, log: list, reps: int = 3):
     return kernels
 
 
+
+def phase_refresh(device, log: list, n_dirty: int = 102, reps: int = 10):
+    """K2 at the main path's width: the reported round's batch over 10,240
+    nodes, its cache from K1, then a usage refresh of ``n_dirty`` nodes
+    (D padded to 128).  The kernel must equal its plain version exactly,
+    and the refreshed rows whose cache missed every dirty node must equal a
+    full K1 selection on the refreshed state."""
+    import torch
+
+    from koordinator_tpu_torch.kernels.refresh_candidates import (
+        refresh_candidates_kernel,
+        refresh_candidates_plain,
+    )
+    from koordinator_tpu_torch.kernels.select_candidates import (
+        select_candidates_kernel,
+    )
+    from koordinator_tpu_torch.ops import batch_assign as ba
+    from koordinator_tpu_torch.state.cluster_state import _bucket
+
+    solve = next(s for s in log if s["solver"] == "batch")
+    state, pods, cfg = solve["state"], solve["batch"], solve["cfg"]
+    p, n, k, strata = pods.capacity, state.capacity, 32, (5, 15)
+    p_valid = int(pods.valid.sum())
+    cache = ba.CandidateCache(*select_candidates_kernel(state, pods, cfg, k,
+                                                        strata))
+    rng = np.random.default_rng(11)
+    rows = np.sort(rng.choice(n, n_dirty, replace=False))
+    usage = state.node_usage.clone()
+    alloc = state.node_allocatable[rows].cpu().numpy()
+    fresh = (alloc * rng.random(alloc.shape) * 0.5).astype(np.int32)
+    usage[torch.from_numpy(rows).to(device)] = torch.from_numpy(fresh).to(
+        device)
+    state2 = state.replace(node_usage=usage)
+    d = _bucket(n_dirty, minimum=64)
+    drows = np.zeros(d, np.int32)
+    drows[:n_dirty] = rows
+    dvalid = np.zeros(d, bool)
+    dvalid[:n_dirty] = True
+    dirty = np.zeros(n, bool)
+    dirty[rows] = True
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    aligned, touch = ba.align_candidate_cache(
+        cache, torch.arange(p, dtype=torch.int32, device=device),
+        pods.valid, dev(dirty))
+    args = (state2, pods, cfg, aligned.cand_node, aligned.cand_score,
+            dev(drows), dev(dvalid), k, strata)
+    got = refresh_candidates_kernel(*args)
+    want = refresh_candidates_plain(*args)
+    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    check(err == 0, "K2 equals its plain version at the main path's width")
+    full = select_candidates_kernel(state2, pods, cfg, k, strata)
+    keep = pods.valid & ~touch
+    for g, f in zip(got, full):
+        check(max_abs_err(g[keep], f[keep]) == 0,
+              "K2 equals a full selection on the untouched rows")
+    ms = timed_ms(lambda: refresh_candidates_kernel(*args), device,
+                  reps=reps)
+    plain_ms = timed_ms(lambda: refresh_candidates_plain(*args), device,
+                        reps=1)
+    # bytes: the cache read (node, score) and the three outputs written,
+    # the pod inputs, the gathered dirty rows and the (N,) dirty mask;
+    # bytes and operations count the n_dirty real columns, not the padding
+    c = pods.selector_mask.shape[1]
+    nbytes = (p * k * (2 * 4 + 3 * 4) + p * (2 * R * 4 + 1 + 4 + c)
+              + n_dirty * (4 * R * 4 + 1 + 4 + 4 + 1) + n)
+    ops = p_valid * n_dirty * (12 * R + 40)
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S) * 1e3
+    by = ("operations" if ops / SCALAR_OPS_PER_S >= nbytes / HBM_BYTES_PER_S
+          else "bytes")
+    emit("refresh", pods=p, valid_pods=p_valid, nodes=n, k=k,
+         dirty_nodes=n_dirty, dirty_columns=d,
+         touched_pods=int(touch.sum()), max_abs_err=err, ms=ms,
+         plain_ms=plain_ms, bytes=nbytes, ops=ops, bound_ms=bound,
+         bound_by=by)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by)
+
+
+def phase_greedy(device, n_pods: int = 1_000, n_nodes: int = 10_240,
+                 reps: int = 3):
+    """K4 against its plain version (the Python loop) on one seeded problem
+    with selector classes and a two-level quota tree: assignments, node
+    accounting and every quota field equal."""
+    from koordinator_tpu_torch.kernels.greedy_scan import greedy_scan_kernel
+    from koordinator_tpu_torch.ops.assignment import greedy_assign_plain
+
+    state, pods = random_problem(21, n_nodes, n_pods, device, "classes")
+    quota, pods = quota_setup(pods, device, 21)
+    cfg = scoring_config("default", device)
+    a, st, q = greedy_scan_kernel(state, pods, cfg, quota)
+    pa, pst, pq = greedy_assign_plain(state, pods, cfg, quota)
+    errs = [max_abs_err(a, pa),
+            max_abs_err(st.node_requested, pst.node_requested)]
+    errs += [max_abs_err(getattr(q, f), getattr(pq, f))
+             for f in ("headroom", "min_headroom", "checked", "chain",
+                       "valid")]
+    err = max(errs)
+    check(err == 0, "K4 equals its plain version")
+    assigned = int((a >= 0).sum())
+    check(0 < assigned < n_pods, "K4 placed some pods and quota held some")
+    ms = timed_ms(lambda: greedy_scan_kernel(state, pods, cfg, quota),
+                  device, reps=reps)
+    plain_ms = timed_ms(lambda: greedy_assign_plain(state, pods, cfg, quota),
+                        device, reps=1, warmup=0)
+    p_valid = int(pods.valid.sum())
+    c = pods.selector_mask.shape[1]
+    nbytes = (n_nodes * (4 * R * 4 + 1 + 4) + n_nodes * R * 4
+              + pods.capacity * (2 * R * 4 + 1 + 4 + 4 + 1 + c)
+              + 2 * q.headroom.numel() * 4 * 2)
+    ops = p_valid * n_nodes * (12 * R + 40)
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S) * 1e3
+    emit("greedy", pods=n_pods, nodes=n_nodes, assigned=assigned,
+         max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops,
+         bound_ms=bound, bound_note="the chain of P dependent steps, not "
+         "bytes or operations, sets this kernel's floor")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="operations")
+
+
+def admitted_steps(pods, quota, assignments) -> int:
+    """The scan steps that pass quota admission, replayed on the host from
+    the scan's assignments: K4 scans the N nodes only on those steps."""
+    from koordinator_tpu_torch.ops.assignment import priority_order
+
+    valid = pods.valid.cpu().numpy()
+    order = priority_order(pods).cpu().numpy()
+    req = pods.requests.cpu().numpy().astype(np.int64)
+    qid = pods.quota_id.cpu().numpy()
+    non_pre = pods.non_preemptible.cpu().numpy()
+    a = assignments.cpu().numpy()
+    head = quota.headroom.cpu().numpy().astype(np.int64)
+    min_head = quota.min_headroom.cpu().numpy().astype(np.int64)
+    checked = quota.checked.cpu().numpy()
+    chain = quota.chain.cpu().numpy()
+    qvalid = quota.valid.cpu().numpy()
+    steps = 0
+    for i in order:
+        if not valid[i]:
+            continue
+        q = int(qid[i])
+        if q >= 0:
+            need = checked[q] & (req[i] != 0)
+            anc = chain[q][chain[q] >= 0]
+            ok = bool(qvalid[q]) and not np.any(
+                need & (req[i] > head[anc]))
+            if non_pre[i]:
+                ok = ok and not np.any(need & (req[i] > min_head[q]))
+            if not ok:
+                continue
+        steps += 1
+        if a[i] >= 0 and q >= 0 and qvalid[q]:
+            head[anc] -= req[i]
+            if non_pre[i]:
+                min_head[q] -= req[i]
+    return steps
+
+
+def phase_rescue(device, solve: dict, reps: int = 3):
+    """K4 at the main path's shape: the greedy rescue's input of a steady
+    round (the compacted quota-blocked leftovers over 10,240 nodes behind
+    the 16-leaf tree), kernel against plain version: assignments, node
+    accounting and every quota field equal."""
+    from koordinator_tpu_torch.kernels.greedy_scan import greedy_scan_kernel
+    from koordinator_tpu_torch.ops.assignment import greedy_assign_plain
+
+    state, pods, cfg, quota = (solve["state"], solve["batch"], solve["cfg"],
+                               solve["quota"])
+    check(quota is not None, "the rescue's quota was recorded")
+    a, st, q = greedy_scan_kernel(state, pods, cfg, quota)
+    sync(device)
+    t0 = time.perf_counter()
+    pa, pst, pq = greedy_assign_plain(state, pods, cfg, quota)
+    sync(device)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    errs = [max_abs_err(a, pa),
+            max_abs_err(st.node_requested, pst.node_requested)]
+    errs += [max_abs_err(getattr(q, f), getattr(pq, f))
+             for f in ("headroom", "min_headroom", "checked", "chain",
+                       "valid")]
+    err = max(errs)
+    check(err == 0, "K4 equals its plain version on a steady round's rescue")
+    ms = timed_ms(lambda: greedy_scan_kernel(state, pods, cfg, quota),
+                  device, reps=reps)
+    n, p = state.capacity, pods.capacity
+    p_valid = int(pods.valid.sum())
+    scans = admitted_steps(pods, quota, a)
+    c = pods.selector_mask.shape[1]
+    # the node tensors read and node_requested written once, the pod rows
+    # and the quota state read and written; operations only on the steps
+    # that pass quota admission
+    nbytes = (n * (4 * R * 4 + 1 + 4) + n * R * 4
+              + p * (2 * R * 4 + 1 + 4 + 4 + 1 + c)
+              + 2 * quota.headroom.numel() * 4 * 2)
+    ops = scans * n * (12 * R + 40)
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S) * 1e3
+    by = ("operations" if ops / SCALAR_OPS_PER_S >= nbytes / HBM_BYTES_PER_S
+          else "bytes")
+    emit("rescue", pods=p, valid_pods=p_valid, nodes=n,
+         quotas=quota.capacity, admitted_steps=scans,
+         assigned=int((a >= 0).sum()), max_abs_err=err, ms=ms,
+         plain_ms=plain_ms, bytes=nbytes, ops=ops, bound_ms=bound,
+         bound_by=by, bound_note="the chain of P dependent steps, not "
+         "bytes or operations, sets this kernel's floor")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by)
+
+
+def phase_quota_levels(device, solve: dict, reps: int = 5):
+    """K3b on the quota levels of a cold round's first propose/accept
+    round at full size (the steady phase's round 0): each chain level with
+    active proposers and the non-preemptible level, kernel against plain
+    version, and the node level beside them."""
+    import torch
+
+    from koordinator_tpu_torch.kernels.prefix_accept import (
+        segmented_prefix_accept,
+        segmented_prefix_accept_plain,
+    )
+    from koordinator_tpu_torch.kernels.round_fit_choose import (
+        round_fit_choose,
+    )
+    from koordinator_tpu_torch.kernels.select_candidates import (
+        select_candidates_kernel,
+    )
+    from koordinator_tpu_torch.ops.assignment import priority_order
+    from koordinator_tpu_torch.quota.admission import quota_admission_mask
+
+    state, pods, cfg, quota = (solve["state"], solve["batch"], solve["cfg"],
+                               solve["quota"])
+    n, q = state.capacity, quota.capacity
+    key, node, _ = select_candidates_kernel(state, pods, cfg, 32)
+    free = torch.where(state.node_valid[:, None],
+                       state.node_allocatable - state.node_requested, 0)
+    active = pods.valid & torch.any(key >= 0, dim=1)
+    choice, has = round_fit_choose(key, node, free, pods.requests, active)
+    act = active & has & quota_admission_mask(
+        quota, pods.requests, pods.quota_id, pods.non_preemptible)
+    order = priority_order(pods)
+    qid = torch.clamp(pods.quota_id, min=0).long()
+    has_quota = pods.quota_id >= 0
+    req_m = torch.where(quota.checked[qid], pods.requests, 0)
+    cases = [("node", torch.where(act, choice, n).to(torch.int32),
+              pods.requests,
+              torch.where(act[:, None], free[torch.clamp(choice, 0, n - 1)
+                                             .long()], 0), act, n)]
+    for d in range(quota.chain.shape[1]):
+        anc = quota.chain[qid, d]
+        act_d = act & has_quota & (anc >= 0)
+        safe = torch.clamp(anc, min=0).long()
+        cases.append((f"chain_{d}", torch.where(act_d, anc, q)
+                      .to(torch.int32), req_m,
+                      torch.where(act_d[:, None], quota.headroom[safe], 0),
+                      act_d, q))
+    np_act = act & has_quota & pods.non_preemptible
+    cases.append(("non_preemptible", torch.where(np_act, qid, q)
+                  .to(torch.int32), req_m,
+                  torch.where(np_act[:, None], quota.min_headroom[qid], 0),
+                  np_act, q))
+    levels = []
+    for name, seg, req, cfree, act_l, nseg in cases:
+        args = (seg, req, cfree, order, act_l, nseg)
+        got = segmented_prefix_accept(*args)
+        want = segmented_prefix_accept_plain(*args)
+        err = max_abs_err(got, want)
+        check(err == 0, f"K3b equals its plain version ({name} level)")
+        proposers = int(act_l.sum())
+        segments = int(torch.unique(seg[act_l]).numel()) if proposers else 0
+        levels.append(dict(
+            level=name, proposers=proposers, segments=segments,
+            accepted=int(got.sum()), max_abs_err=err,
+            ms=timed_ms(lambda: segmented_prefix_accept(*args), device,
+                        reps=reps),
+            plain_ms=timed_ms(lambda: segmented_prefix_accept_plain(*args),
+                              device, reps=2)))
+    emit("quota_levels", pods=pods.capacity, nodes=n, quotas=q,
+         levels=levels)
+
+N_LEAVES, N_PARENTS = 16, 4
+
+
+def steady_specs(seed: int = 3, n_nodes: int = 10_240, n_pods: int = 50_000):
+    """The flagship nodes and pods, 80% of the pods in one of 16 leaf
+    quotas; returns (nodes, pods, leaf cpu max) with each leaf's max cpu
+    at 60% of its pods' cpu requests."""
+    import dataclasses
+
+    nodes, pods = main_path_specs(seed, n_nodes, n_pods)
+    rng = np.random.default_rng(seed + 100)
+    leaf = rng.integers(0, N_LEAVES, n_pods)
+    quota_on = rng.random(n_pods) < 0.8
+    non_pre = rng.random(n_pods) < 0.05
+    cpu = np.zeros(N_LEAVES, np.int64)
+    out = []
+    for j, pod in enumerate(pods):
+        q = f"leaf-{leaf[j]}" if quota_on[j] else None
+        if q is not None:
+            cpu[leaf[j]] += int(pod.requests[CPU])
+        out.append(dataclasses.replace(
+            pod, quota=q, non_preemptible=bool(non_pre[j] and q)))
+    return nodes, out, (cpu * 6) // 10
+
+
+def steady_tree(nodes, leaf_max_cpu):
+    """root -> 4 parents -> 16 leaves, cpu checked at both levels."""
+    from koordinator_tpu_torch.quota.tree import QuotaTree
+
+    total = np.sum([n.allocatable for n in nodes], axis=0).astype(np.int64)
+    tree = QuotaTree(total)
+    per = N_LEAVES // N_PARENTS
+    for i in range(N_PARENTS):
+        mx = np.full(R, -1, np.int64)
+        mx[CPU] = int(leaf_max_cpu[i * per:(i + 1) * per].sum())
+        tree.add(f"parent-{i}", np.zeros(R, np.int64), mx)
+        for j in range(i * per, (i + 1) * per):
+            leaf_mx = np.full(R, -1, np.int64)
+            leaf_mx[CPU] = int(leaf_max_cpu[j])
+            mn = np.zeros(R, np.int64)
+            mn[CPU] = int(leaf_max_cpu[j]) // 20
+            tree.add(f"leaf-{j}", mn, leaf_mx, parent=f"parent-{i}")
+    return tree
+
+
+def arrivals(rng, start: int, count: int):
+    """``count`` new flagship-shaped pods, 20% of them with no quota."""
+    from koordinator_tpu_torch.scheduler.snapshot import PodSpec
+
+    out = []
+    for j in range(start, start + count):
+        req = np.zeros(R, np.int32)
+        req[CPU] = rng.integers(100, 4_000)
+        req[MEM] = rng.integers(128, 8_192)
+        q = (None if rng.random() < 0.2
+             else f"leaf-{rng.integers(0, N_LEAVES)}")
+        out.append(PodSpec(name=f"new-{j}", requests=req,
+                           priority=int(rng.integers(3000, 9999)),
+                           quota=q, creation=float(j)))
+    return out
+
+
+def usage_refresh(rng, nodes: list, count: int):
+    """New NodeSpecs for ``count`` random nodes with fresh usage (the 1%
+    NodeMetric delta of bench_stages.py's refresh_incremental_1pct)."""
+    import dataclasses
+
+    out = []
+    for i in rng.choice(len(nodes), count, replace=False):
+        spec = nodes[i]
+        usage = (spec.allocatable * rng.random(R) * 0.5).astype(np.int32)
+        nodes[i] = dataclasses.replace(spec, usage=usage)
+        out.append(nodes[i])
+    return out
+
+
+STEADY_SCHEDULERS = (("defaults", {}), ("forced", {"threshold": 1.0}),
+                     ("full", {"incremental": False}))
+
+
+def steady_scheduler(device, nodes, pods, leaf_max, incremental=True,
+                     threshold=None):
+    """A scheduler over a fresh snapshot of ``nodes`` behind the 16-leaf
+    quota tree, with ``pods`` pending."""
+    from koordinator_tpu_torch.scheduler.scheduler import Scheduler
+    from koordinator_tpu_torch.scheduler.snapshot import ClusterSnapshot
+
+    snap = ClusterSnapshot(capacity=len(nodes), device=device)
+    for spec in nodes:
+        snap.upsert_node(spec)
+    sched = Scheduler(snap, quota_tree=steady_tree(nodes, leaf_max),
+                      incremental_solve=incremental, device=device)
+    if threshold is not None:
+        sched.incremental_dirty_threshold = threshold
+    sched.enqueue_many(pods)
+    return sched
+
+
+def steady_delta(rng, nodes: list, rnd: int, n_arrivals: int = 500):
+    """One steady round's delta: (node specs with refreshed usage for 1%
+    of the nodes, the round's arrivals)."""
+    return (usage_refresh(rng, nodes, len(nodes) // 100),
+            arrivals(rng, (rnd - 1) * n_arrivals, n_arrivals))
+
+
+def phase_steady(device, n_nodes: int = 10_240, n_pods: int = 50_000,
+                 steady_rounds: int = 5, n_arrivals: int = 500):
+    """The steady-state batch path on three schedulers over one sequence;
+    their binds must agree every round.  K3b's quota levels are checked on
+    the forced scheduler's cold round and K4 on its last round's rescue
+    (phase_rescue).  Returns (schedulers, the forced scheduler's launches
+    over the whole run, the round records, K4's numbers at the rescue)."""
+    from koordinator_tpu_torch.kernels import build
+
+    nodes, pods, leaf_max = steady_specs(3, n_nodes, n_pods)
+    scheds = {name: steady_scheduler(device, nodes, pods, leaf_max, **opt)
+              for name, opt in STEADY_SCHEDULERS}
+    rng = np.random.default_rng(5)
+    enqueued = {}
+    totals = {kname: 0 for kname in build.LAUNCHES}
+    binds_by = {name: {} for name in scheds}
+    records = []
+    for rnd in range(1 + steady_rounds):
+        if rnd > 0:
+            refreshed, new = steady_delta(rng, nodes, rnd, n_arrivals)
+            enqueued.update((p.name, p) for p in new)
+            for sched in scheds.values():
+                for spec in refreshed:
+                    sched.snapshot.upsert_node(spec)
+                sched.enqueue_many(new)
+        results = {}
+        for name, sched in scheds.items():
+            log: list = []
+            build.reset_launch_counts()
+            with solve_probe(log, device):
+                sync(device)
+                t0 = time.perf_counter()
+                res = sched.schedule_round()
+                sync(device)
+                wall = time.perf_counter() - t0
+            launches = dict(build.LAUNCHES)
+            if name == "forced":
+                for kname, count in launches.items():
+                    totals[kname] += count
+                if rnd == 0:
+                    phase_quota_levels(device, next(
+                        s for s in log if s["solver"] == "batch"))
+                if rnd == steady_rounds:
+                    rescues = [s for s in log if s["solver"] == "greedy"]
+                    check(len(rescues) == 1, "the last steady round rescued")
+                    rescue = phase_rescue(device, rescues[0])
+            results[name] = res
+            binds_by[name].update(res.assignments)
+            records.append(dict(
+                round=rnd, scheduler=name, path=sched.last_solve_path,
+                dirty_node_frac=sched.last_dirty_node_frac,
+                dirty_pod_frac=sched.last_dirty_pod_frac,
+                pods=res.round_pods, wall_s=wall,
+                solve_ms=[s["ms"] for s in log if s["solver"] == "batch"],
+                rescue_ms=[s["ms"] for s in log if s["solver"] == "greedy"],
+                k1=launches["select_candidates"],
+                k2=launches["refresh_candidates"],
+                k3a=launches["round_fit_choose"],
+                k3b=launches["segmented_prefix_accept"],
+                k4=launches["greedy_scan"], binds=len(res.assignments),
+                rescued=res.rescued, failed=len(res.failures)))
+            emit("steady_round", **records[-1])
+        first = results["defaults"]
+        for name, res in results.items():
+            check(res.assignments == first.assignments,
+                  f"round {rnd}: {name} binds equal the defaults'")
+            check(set(res.failures) == set(first.failures),
+                  f"round {rnd}: {name} failures equal the defaults'")
+        check(len(first.assignments) > 0, f"round {rnd} bound pods")
+    forced = [r for r in records if r["scheduler"] == "forced"]
+    check(forced[0]["path"] == "full_cold", "the first round is cold")
+    check(all(r["path"] == "incremental" for r in forced[1:]),
+          "the forced scheduler refreshed every steady round")
+    for kname, count in totals.items():
+        check(count > 0, f"{kname} launched on the steady-state path")
+    by_name = {p.name: p for p in pods}
+    by_name.update(enqueued)
+    for name, sched in scheds.items():
+        st = sched.snapshot.state
+        requested = st.node_requested.cpu().numpy().astype(np.int64)
+        alloc = st.node_allocatable.cpu().numpy().astype(np.int64)
+        check(bool((requested <= alloc).all()), f"{name}: no overcommit")
+        expect = np.zeros_like(requested)
+        for pod, node in binds_by[name].items():
+            spec = by_name[pod]
+            expect[sched.snapshot.node_index[node]] += spec.requests
+        check(np.array_equal(expect, requested),
+              f"{name}: accounting = sum of binds")
+        for qname, q in sched.quota_tree.nodes.items():
+            if not sched.quota_tree.children[qname]:
+                check(bool((q.used[CPU] <= q.max[CPU])),
+                      f"{name}: {qname} used within its max")
+    emit("steady", nodes=n_nodes, pods=n_pods, rounds=1 + steady_rounds,
+         arrivals=n_arrivals, forced_launches=totals,
+         backlog=len(scheds["defaults"].pending))
+    return scheds, totals, records, rescue
+
+
+def phase_small(device, scheds: dict, rounds: int = 3,
+                n_arrivals: int = 500):
+    """Small rounds on the filled cluster: before each round the pending
+    queue is withdrawn (the quota-blocked backlog and the last round's
+    failures), so each round holds just its 500 arrivals and goes greedy
+    (K4) on the defaults scheduler, and through the plain versions on the
+    incremental-off one; binds equal."""
+    from koordinator_tpu_torch.kernels import build
+
+    kern, plain = scheds["defaults"], scheds["full"]
+    rng = np.random.default_rng(9)
+    out = []
+    for rnd in range(rounds):
+        for sched in (kern, plain):
+            for name in list(sched.pending):
+                sched.dequeue(name)
+        new = arrivals(rng, 100_000 + rnd * n_arrivals, n_arrivals)
+        kern.enqueue_many(new)
+        plain.enqueue_many(new)
+        build.reset_launch_counts()
+        sync(device)
+        t0 = time.perf_counter()
+        kr = kern.schedule_round()
+        sync(device)
+        kernel_s = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        with plain_path():
+            t0 = time.perf_counter()
+            pr = plain.schedule_round()
+            sync(device)
+            plain_s = time.perf_counter() - t0
+        check(kern.last_solve_path == "greedy", "small rounds go greedy")
+        check(launches["greedy_scan"] > 0, "K4 launched on a small round")
+        check(kr.assignments == pr.assignments,
+              f"small round {rnd}: binds equal the plain path's")
+        check(set(kr.failures) == set(pr.failures),
+              f"small round {rnd}: failures equal the plain path's")
+        check(max_abs_err(kern.snapshot.state.node_requested,
+                          plain.snapshot.state.node_requested) == 0,
+              f"small round {rnd}: node accounting equal")
+        out.append(dict(round=rnd, pods=kr.round_pods,
+                        binds=len(kr.assignments), kernel_s=kernel_s,
+                        plain_s=plain_s, k4=launches["greedy_scan"]))
+    emit("small_rounds", rounds=out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -608,9 +1185,26 @@ def main() -> int:
     phase_kernels(device)
     phase_solve(device)
     launches, log = phase_main(device)
-    for kernel, count in launches.items():
-        check(count > 0, f"{kernel} launched on the main path")
     kernels = phase_table(device, launches, log)
+    k2 = phase_refresh(device, log)
+    del log
+    phase_greedy(device)
+    scheds, totals, _, k4 = phase_steady(device)
+    phase_small(device, scheds)
+    del scheds
+    kernels[1:1] = [dict(
+        name="refresh_candidates", route="cuda",
+        source=CSRC + "refresh_candidates.cu",
+        replaces="koordinator_tpu/ops/batch_assign.py:731", **k2,
+        library_ms=None)]
+    kernels.append(dict(
+        name="greedy_scan", route="cuda", source=CSRC + "greedy_scan.cu",
+        replaces="koordinator_tpu/ops/assignment.py:169", **k4,
+        library_ms=None))
+    # launches: the slice's main path, the forced-threshold scheduler's
+    # cold round and five steady rounds
+    for entry in kernels:
+        entry["launches"] = totals[entry["name"]]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,8 +1,14 @@
 """Hand-written CUDA kernels of the port, each with its plain PyTorch version.
 
 - ``select_candidates`` (K1): fused Filter + Score + stratified top-k;
+- ``refresh_candidates`` (K2): the incremental candidate cache's refresh
+  over the dirty node columns;
 - ``round_fit_choose`` (K3a): a round's candidate fit and choice;
-- ``prefix_accept`` (K3b): segmented priority-order prefix acceptance.
+- ``prefix_accept`` (K3b): segmented priority-order prefix acceptance;
+- ``greedy_scan`` (K4): the exact sequential greedy scan.
+
+The Filter + Score of a (pod, node) pair and the candidate ranking are one
+CUDA definition (``csrc/koord_score.cuh``) that K1, K2 and K4 compile.
 
 A wrapper handed CPU tensors computes its plain version; handed CUDA tensors
 it launches its kernel (built on first use by :mod:`.build`) or raises.

@@ -130,6 +130,31 @@ _SIGNATURES = {
         _P,                              # out fits
         _P,                              # stream
     ],
+    "koord_refresh_candidates": [
+        _P, _P, _P, _P, _P, _P,          # node alloc/requested/usage/base/valid/class
+        _P, _P, _P, _P,                  # pod requests/estimates/valid/rot_id
+        _P, _I,                          # selector mask (P, C) + C
+        _P, _I,                          # config int vector + its length
+        _P, _P,                          # cached cand_node, cand_score (P, k)
+        _P, _P, _I, _P,                  # dirty rows, valid flags, D, (N,) mask
+        _I, _I, _I,                      # P, N, strata count
+        _I, _I, _I, _I,                  # strata shifts, per-stratum k
+        _P, _P, _P,                      # out cand_key, cand_node, cand_score
+        _P,                              # stream
+    ],
+    "koord_greedy_scan": [
+        _P, _P, _P, _P, _P, _P,          # node alloc/requested (in/out)/usage/base/valid/class
+        _P,                              # est_added scratch (N, R), zeroed
+        _P, _P, _P, _P,                  # pod requests/estimates/valid, order
+        _P, _I, _P,                      # selector mask (P, C) + C, dense mask (P, N)
+        _P, _I,                          # config int vector + its length
+        _P, _P,                          # quota headroom, min_headroom (in/out)
+        _P, _P, _P, _I,                  # quota checked, chain, valid, chain depth
+        _P, _P,                          # pod quota_id, non_preemptible
+        _I, _I,                          # P, N
+        _P,                              # out assignments
+        _P,                              # stream
+    ],
 }
 
 
@@ -156,8 +181,9 @@ def check(err: int, what: str) -> None:
 #: launches per kernel since the last reset_launch_counts(): each wrapper
 #: adds one where it launches its kernel, and nowhere else (a plain-version
 #: call on CPU tensors launches nothing)
-LAUNCHES = {"select_candidates": 0, "round_fit_choose": 0,
-            "segmented_prefix_accept": 0}
+LAUNCHES = {"select_candidates": 0, "refresh_candidates": 0,
+            "round_fit_choose": 0, "segmented_prefix_accept": 0,
+            "greedy_scan": 0}
 
 
 def reset_launch_counts() -> None:

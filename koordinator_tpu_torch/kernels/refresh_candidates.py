@@ -1,0 +1,198 @@
+"""K2: incremental refresh of the candidate cache over the dirty node columns.
+
+:func:`refresh_candidates_kernel` is the wrapper: CPU tensors take
+:func:`refresh_candidates_plain`, CUDA tensors launch
+``csrc/refresh_candidates.cu``.  The plain version is the JAX package's
+``refresh_candidates`` (``ops/batch_assign.py``): score the (P, D) dirty
+sub-problem, invalidate cached slots on dirty nodes, recompute each
+stratum's keys from the cached raw scores, and keep per stratum the best
+k_i of cached and fresh, position-stable over ``[cached, fresh]``.
+
+Only the packed key regime and the factored (selector-class) feasibility
+form are taken: the scheduler runs the refresh only on such batches, and
+the JAX version cannot gather a dense (P, N) mask to the dirty columns.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from koordinator_tpu_torch.api.resources import NUM_RESOURCE_DIMS
+from koordinator_tpu_torch.kernels import build
+from koordinator_tpu_torch.kernels.select_candidates import (
+    _SCORE_CLIP,
+    _TB_BITS,
+    KERNEL_MAX_PER_STRATUM,
+    _candidate_tb,
+    _config_vector,
+    _rank_parts,
+    _stratum_splits,
+    _topk_by_rank,
+    check_node_capacity,
+)
+from koordinator_tpu_torch.ops.assignment import (
+    ScoringConfig,
+    pod_estimates,
+    score_pods,
+)
+from koordinator_tpu_torch.state.cluster_state import ClusterState, PodBatch
+
+#: the kernel packs a merge position into 16 bits: k_i + dirty column
+MAX_DIRTY_COLUMNS = 0xFFFF - KERNEL_MAX_PER_STRATUM
+
+
+def _candidate_keys(score: torch.Tensor, node: torch.Tensor,
+                    rot_id: torch.Tensor, spread_bits: int,
+                    n_total: int) -> torch.Tensor:
+    """Ranking key recomputed from a cached candidate's raw clipped score
+    and node row: bit-identical to the key ``_rank_parts`` gives the same
+    (pod, node) pair.  ``score < 0`` marks an invalid slot."""
+    key = ((score >> spread_bits) << _TB_BITS) | _candidate_tb(
+        node, rot_id, n_total)
+    return torch.where(score >= 0, key, -1)
+
+
+def dirty_node_mask(dirty_rows: torch.Tensor, dirty_valid: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """(N,) bool: the rows named by the valid entries of ``dirty_rows``.
+    An OR, so a padded entry (row 0, invalid) never clears a real bit."""
+    hits = torch.zeros(n, dtype=torch.int32, device=dirty_rows.device)
+    hits.index_add_(0, dirty_rows.long(), dirty_valid.to(torch.int32))
+    return hits > 0
+
+
+def _check_factored(pods: PodBatch) -> None:
+    if pods.selector_mask is None:
+        raise ValueError("the candidate refresh takes factored selector "
+                         "masks only (a dense (P, N) mask has no dirty-"
+                         "column form)")
+
+
+def refresh_candidates_plain(state: ClusterState, pods: PodBatch,
+                             cfg: ScoringConfig, cand_node: torch.Tensor,
+                             cand_score: torch.Tensor,
+                             dirty_rows: torch.Tensor,
+                             dirty_valid: torch.Tensor, k: int = 32,
+                             strata=(5, 15)):
+    """The plain version: (cand_key, cand_node, cand_score), each (P, k)
+    int32, from an aligned cache's nodes and raw scores and the (D,)
+    padded dirty rows."""
+    _check_factored(pods)
+    n = state.capacity
+    check_node_capacity(n)
+    k = min(k, n)
+    d = dirty_rows.shape[0]
+    rot = pods.rot_id
+    sub = state.gather_rows(dirty_rows, dirty_valid)
+    scores, feasible = score_pods(sub, pods, cfg)            # (P, D)
+    clipped = torch.clamp(scores, 0, _SCORE_CLIP)
+    dirty_mask = dirty_node_mask(dirty_rows, dirty_valid, n)
+    stale_score = torch.where(dirty_mask[cand_node.long()], -1, cand_score)
+
+    nodes_out, scores_out = [], []
+    off = 0
+    for sb, k_i in zip(strata, _stratum_splits(k, len(strata))):
+        if k_i == 0:
+            continue
+        seg_node = cand_node[:, off:off + k_i]
+        seg_score = stale_score[:, off:off + k_i]
+        off += k_i
+        dkey, dtb = _rank_parts(scores, feasible, sb, rot,
+                                node_ids=dirty_rows, n_total=n)
+        if k_i < d:
+            dval, idx = _topk_by_rank(dkey, dtb, k_i, n)
+            d_node = dirty_rows[idx.long()]
+            d_score = torch.where(
+                dval >= 0, torch.gather(clipped, 1, idx.long()), -1)
+        else:
+            dval = dkey
+            d_node = dirty_rows[None, :].expand(dkey.shape[0], d)
+            d_score = torch.where(dval >= 0, clipped, -1)
+        c_key = _candidate_keys(seg_score, seg_node, rot, sb, n)
+        m_key = torch.cat([c_key, dval], dim=1)
+        m_node = torch.cat([seg_node, d_node], dim=1)
+        m_score = torch.cat([seg_score, d_score], dim=1)
+        mval, midx = _topk_by_rank(m_key, _candidate_tb(m_node, rot, n),
+                                   k_i, n)
+        midx = midx.long()
+        nodes_out.append(torch.gather(m_node, 1, midx))
+        scores_out.append(torch.where(
+            mval >= 0, torch.gather(m_score, 1, midx), -1))
+    node = torch.cat(nodes_out, dim=1)
+    score = torch.cat(scores_out, dim=1)
+    return _candidate_keys(score, node, rot, strata[0], n), node, score
+
+
+def refresh_candidates_kernel(state: ClusterState, pods: PodBatch,
+                              cfg: ScoringConfig, cand_node: torch.Tensor,
+                              cand_score: torch.Tensor,
+                              dirty_rows: torch.Tensor,
+                              dirty_valid: torch.Tensor, k: int = 32,
+                              strata=(5, 15)):
+    """K2's wrapper; see :func:`refresh_candidates_plain`."""
+    strata = tuple(strata)
+    if build.on_cpu(state.node_allocatable, pods.requests, cand_node,
+                    dirty_rows, cfg.usage_thresholds):
+        return refresh_candidates_plain(state, pods, cfg, cand_node,
+                                        cand_score, dirty_rows, dirty_valid,
+                                        k, strata)
+    _check_factored(pods)
+    n, r = state.capacity, NUM_RESOURCE_DIMS
+    check_node_capacity(n)
+    p = pods.capacity
+    k = min(k, n)
+    d = dirty_rows.shape[0]
+    splits = _stratum_splits(k, len(strata))
+    if len(strata) > 2 or max(splits) > KERNEL_MAX_PER_STRATUM:
+        raise ValueError(
+            f"the kernel takes at most 2 strata of at most "
+            f"{KERNEL_MAX_PER_STRATUM} candidates each (got strata={strata}, "
+            f"k={k})")
+    if d > MAX_DIRTY_COLUMNS:
+        raise ValueError(f"the kernel takes at most {MAX_DIRTY_COLUMNS} "
+                         f"dirty columns, got {d}")
+    for name in ("node_allocatable", "node_requested", "node_usage",
+                 "node_agg_usage"):
+        build.expect(getattr(state, name), name, torch.int32, (n, r))
+    build.expect(state.node_valid, "node_valid", torch.bool, (n,))
+    build.expect(state.node_class, "node_class", torch.int32, (n,))
+    build.expect(pods.requests, "requests", torch.int32, (p, r))
+    build.expect(pods.valid, "valid", torch.bool, (p,))
+    build.expect(pods.rot_id, "rot_id", torch.int32, (p,))
+    build.expect(pods.selector_mask, "selector_mask", torch.bool, (p, None))
+    build.expect(cand_node, "cand_node", torch.int32, (p, k))
+    build.expect(cand_score, "cand_score", torch.int32, (p, k))
+    build.expect(dirty_rows, "dirty_rows", torch.int32, (d,))
+    build.expect(dirty_valid, "dirty_valid", torch.bool, (d,))
+    c = pods.selector_mask.shape[1]
+    if c > 64:
+        raise ValueError(f"the kernel takes at most 64 node classes, got {c}")
+    est = pod_estimates(pods, cfg).contiguous()
+    agg_enabled = bool(torch.any(cfg.agg_usage_thresholds > 0))
+    base = state.node_agg_usage if agg_enabled else state.node_usage
+    cfgv = _config_vector(cfg, agg_enabled)
+    dmask = dirty_node_mask(dirty_rows, dirty_valid, n)
+
+    dev = pods.requests.device
+    key = torch.empty((p, k), dtype=torch.int32, device=dev)
+    node = torch.empty((p, k), dtype=torch.int32, device=dev)
+    score = torch.empty((p, k), dtype=torch.int32, device=dev)
+    if p == 0:
+        return key, node, score
+    sb = list(strata) + [0] * (2 - len(strata))
+    ks = splits + [0] * (2 - len(splits))
+    err = build.lib().koord_refresh_candidates(
+        build.ptr(state.node_allocatable), build.ptr(state.node_requested),
+        build.ptr(state.node_usage), build.ptr(base),
+        build.ptr(state.node_valid), build.ptr(state.node_class),
+        build.ptr(pods.requests), build.ptr(est), build.ptr(pods.valid),
+        build.ptr(pods.rot_id), build.ptr(pods.selector_mask), c,
+        build.ptr(cfgv), cfgv.numel(), build.ptr(cand_node),
+        build.ptr(cand_score), build.ptr(dirty_rows),
+        build.ptr(dirty_valid), d, build.ptr(dmask), p, n, len(strata),
+        sb[0], sb[1], ks[0], ks[1],
+        build.ptr(key), build.ptr(node), build.ptr(score),
+        build.stream_of(key))
+    build.check(err, "refresh_candidates")
+    build.LAUNCHES["refresh_candidates"] += 1
+    return key, node, score

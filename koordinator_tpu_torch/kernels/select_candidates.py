@@ -56,18 +56,22 @@ def check_node_capacity(n: int) -> None:
 
 def _rank_parts(scores: torch.Tensor, feasible: torch.Tensor,
                 spread_bits: int = 0, rot_id: torch.Tensor | None = None,
+                node_ids: torch.Tensor | None = None,
                 n_total: int | None = None):
     """(key, tb): the packed ranking key ``(clip(score) >> sb) << 15 | tb``
     (-1 where infeasible) and the per-pod rotated tie-break
     ``(N-1) - ((node - rot_id*7919) mod N)``.  ``rot_id * 7919`` and the
-    difference wrap in int32 as in JAX; ``%`` floors."""
+    difference wrap in int32 as in JAX; ``%`` floors.  ``node_ids`` /
+    ``n_total`` rank a gathered column subset (the incremental refresh's
+    dirty columns) by their global node ids."""
     p, n = scores.shape
     n_total = n if n_total is None else n_total
     check_node_capacity(n_total)
     if rot_id is None:
         rot_id = torch.arange(p, dtype=torch.int32, device=scores.device)
     rot = (rot_id.to(torch.int32) * 7919)[:, None]
-    ids = torch.arange(n, dtype=torch.int32, device=scores.device)[None, :]
+    ids = (torch.arange(n, dtype=torch.int32, device=scores.device)
+           if node_ids is None else node_ids.to(torch.int32))[None, :]
     tb = (n_total - 1) - ((ids - rot) % n_total)
     q = torch.clamp(scores, 0, _SCORE_CLIP) >> spread_bits
     key = (q << _TB_BITS) | tb
@@ -106,13 +110,14 @@ def _reduce_candidates(scores, feasible, strata, k: int, rot_id=None):
     short lists read -1)."""
     n_total = scores.shape[1]
     order_key, order_tb = _rank_parts(scores, feasible, strata[0], rot_id,
-                                      n_total)
+                                      n_total=n_total)
     cols = []
     for sb, k_i in zip(strata, _stratum_splits(k, len(strata))):
         if k_i == 0:
             continue
         key, tb = ((order_key, order_tb) if sb == strata[0]
-                   else _rank_parts(scores, feasible, sb, rot_id, n_total))
+                   else _rank_parts(scores, feasible, sb, rot_id,
+                                    n_total=n_total))
         cols.append(_topk_by_rank(key, tb, k_i, n_total)[1])
     cand_cols = torch.cat(cols, dim=1) if len(cols) > 1 else cols[0]
     cols_l = cand_cols.long()

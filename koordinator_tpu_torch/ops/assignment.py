@@ -6,8 +6,9 @@
   candidate-selection kernel (``kernels/select_candidates.py``).
 - :func:`greedy_assign` — sequential greedy assignment with capacity feedback
   in priority order (the reference's scheduleOne loop over a whole queue).
-  Here it is a plain Python loop over pods; the rescue pass and rounds under
-  the batch-solver threshold run it.
+  On CUDA tensors it runs the K4 kernel (``kernels/greedy_scan.py``); its
+  plain version :func:`greedy_assign_plain` is a Python loop over pods.  The
+  rescue pass and rounds under the batch-solver threshold run it.
 
 The scoring pipeline composes the scheduler profile's score plugins:
   final = la_w * LoadAware + fp_w * NodeResourcesFitPlus + sc_w * ScarceResourceAvoidance
@@ -156,6 +157,17 @@ def priority_order(pods: PodBatch) -> torch.Tensor:
 
 def greedy_assign(state: ClusterState, pods: PodBatch, cfg: ScoringConfig,
                   quota=None):
+    """Assign a whole pending batch sequentially in priority order: the K4
+    kernel's wrapper (``kernels/greedy_scan.py``), which takes
+    :func:`greedy_assign_plain` on CPU tensors.  Same returns."""
+    # imported here: the kernel module imports this one
+    from koordinator_tpu_torch.kernels import greedy_scan
+
+    return greedy_scan.greedy_scan_kernel(state, pods, cfg, quota)
+
+
+def greedy_assign_plain(state: ClusterState, pods: PodBatch,
+                        cfg: ScoringConfig, quota=None):
     """Assign a whole pending batch sequentially in priority order (the JAX
     package's ``greedy_assign``/``_greedy_scan`` without the reservation
     branch): one pod per step, each filtered and scored against the

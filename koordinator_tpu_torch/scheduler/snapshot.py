@@ -1,10 +1,12 @@
 """Incremental cluster snapshot: informer deltas -> device tensors (port of
-``koordinator_tpu/scheduler/snapshot.py`` without solver sharding and without
-the incremental candidate cache's dirty tracking).
+``koordinator_tpu/scheduler/snapshot.py`` without solver sharding and
+reservations).
 
 The host keeps name -> row maps and a dirty-row set; :meth:`flush` ships only
 changed rows, written IN PLACE into the device tensors (``index_copy_``).
-Capacity grows by power-of-two buckets.
+Capacity grows by power-of-two buckets.  A second dirty set,
+``_cand_dirty``, names the rows whose solver-visible state changed since the
+scheduler's incremental candidate cache last consumed them.
 """
 
 from __future__ import annotations
@@ -69,6 +71,11 @@ class ClusterSnapshot:
         self.node_specs: dict[str, NodeSpec] = {}
         self._free_rows: list[int] = list(range(capacity - 1, -1, -1))
         self._dirty: set[int] = set()
+        #: rows whose solver-visible state changed since the candidate cache
+        #: last consumed them: spec upserts and removals AND accounting
+        #: changes (solve adoption); a superset of _dirty, which only tracks
+        #: host-spec rows pending a device flush
+        self._cand_dirty: set[int] = set()
         # rows whose accumulated node_requested must be zeroed (freed by
         # remove_node; a reused row must not inherit the dead node's
         # accounting)
@@ -82,6 +89,13 @@ class ClusterSnapshot:
     def class_capacity(self) -> int:
         """Padded equivalence-class count for (P, C) selector masks."""
         return _bucket(max(len(self._class_sigs), 1), minimum=8)
+
+    @property
+    def class_count(self) -> int:
+        """Registered equivalence classes (ids never recycle): batch cache
+        keys use this, not class_capacity, so a new class within the same
+        padding bucket still invalidates."""
+        return len(self._class_sigs)
 
     @property
     def capacity(self) -> int:
@@ -129,6 +143,7 @@ class ClusterSnapshot:
         self.node_specs[spec.name] = spec
         self._class_of(spec)
         self._dirty.add(row)
+        self._cand_dirty.add(row)
         return row
 
     def remove_node(self, name: str) -> None:
@@ -139,6 +154,7 @@ class ClusterSnapshot:
         del self._row_to_name[row]
         self._free_rows.append(row)
         self._dirty.add(row)
+        self._cand_dirty.add(row)
         self._reset_requested.add(row)
 
     def _grow(self) -> None:
@@ -211,11 +227,26 @@ class ClusterSnapshot:
 
     # -- accounting ---------------------------------------------------------
 
-    def adopt_state(self, state: ClusterState) -> None:
-        """Adopt solver-updated accounting (post gang/greedy assign)."""
+    def adopt_state(self, state: ClusterState, changed_rows=None) -> None:
+        """Adopt solver-updated accounting (post gang/greedy assign).
+
+        ``changed_rows`` names the node rows whose ``node_requested`` the
+        solver touched (the assigned rows), so the candidate cache only
+        invalidates those; None marks every valid row dirty."""
         if state.capacity != self.capacity:
             raise ValueError("state capacity mismatch")
+        if changed_rows is None:
+            self._cand_dirty.update(self.node_index.values())
+        else:
+            self._cand_dirty.update(int(r) for r in changed_rows)
         self.state = state
+
+    def consume_candidate_dirty(self) -> list[int]:
+        """Rows dirtied since the last consume (sorted), clearing the set:
+        called exactly when the candidate cache is rebuilt or refreshed."""
+        rows = sorted(self._cand_dirty)
+        self._cand_dirty.clear()
+        return rows
 
     # -- queries ------------------------------------------------------------
 

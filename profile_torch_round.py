@@ -1,11 +1,16 @@
 #!/usr/bin/env python3
 """Where one scheduling round of the PyTorch port spends its time on the GPU.
 
-    python3 profile_torch_round.py [--nodes 10240] [--pods 50000]
+    python3 profile_torch_round.py [--nodes 10240] [--pods 50000] [--steady]
 
 Runs the port's main path (``Scheduler.schedule_round`` on the flagship
 problem that chip_smoke.py drives) once to warm up, then once under
-``torch.profiler`` with CPU and CUDA activities, and prints JSON lines:
+``torch.profiler`` with CPU and CUDA activities.  With ``--steady`` the
+profiled round is a steady-state one instead: chip_smoke.py's phase 9 setup
+(the flagship cluster behind the 16-leaf quota tree, the dirty threshold at
+1.0), a cold round and one steady round to warm up, then a steady round
+after a usage refresh of 1% of the nodes and 500 arrivals.  Prints JSON
+lines:
 
 - ``round``: the profiled round's wall time, the summed device time of every
   kernel and copy, and the device's idle share (1 - device / wall);
@@ -14,7 +19,8 @@ problem that chip_smoke.py drives) once to warm up, then once under
 - ``host_phases``: wall time of the round's host steps, measured by
   timing the scheduler's own methods.
 
-The trace goes to ``chiprun_out/round_trace.json``.  Needs a CUDA device.
+The trace goes to ``chiprun_out/round_trace.json`` (``steady_trace.json``
+with ``--steady``).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -42,15 +48,51 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--nodes", type=int, default=10_240)
     ap.add_argument("--pods", type=int, default=50_000)
+    ap.add_argument("--steady", action="store_true",
+                    help="profile a steady-state round of the candidate "
+                    "cache instead of a cold round")
     args = ap.parse_args()
     os.makedirs("chiprun_out", exist_ok=True)
     build.lib()
-    chip_smoke.run_round("cuda", args.nodes, args.pods)        # warm-up
+    if args.steady:
+        import numpy as np
+
+        nodes, pods, leaf_max = chip_smoke.steady_specs(3, args.nodes,
+                                                        args.pods)
+        sched = chip_smoke.steady_scheduler("cuda", nodes, pods, leaf_max,
+                                            threshold=1.0)
+        rng = np.random.default_rng(5)
+        rnd = 0
+
+        def run():
+            nonlocal rnd
+            if rnd > 0:
+                refreshed, new = chip_smoke.steady_delta(rng, nodes, rnd)
+                for spec in refreshed:
+                    sched.snapshot.upsert_node(spec)
+                sched.enqueue_many(new)
+            rnd += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = sched.schedule_round()
+            torch.cuda.synchronize()
+            return result, time.perf_counter() - t0, []
+
+        run()                                   # cold round
+        run()                                   # warm-up steady round
+    else:
+        def run():
+            result, _sched, wall, log, _pods, _nodes = chip_smoke.run_round(
+                "cuda", args.nodes, args.pods)
+            return result, wall, log
+
+        run()                                   # warm-up
 
     # host steps of the round, timed around the scheduler's own methods
     phases: dict[str, float] = {}
     wrapped = {}
     for name in ("_active_pods", "_build_quota", "_build_batch",
+                 "_dispatch_batch_incremental", "_finish_batch_incremental",
                  "_commit_binds"):
         real = getattr(sched_mod.Scheduler, name)
         wrapped[name] = real
@@ -65,8 +107,7 @@ def main() -> int:
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            result, sched, wall, log, _pods, _nodes = chip_smoke.run_round(
-                "cuda", args.nodes, args.pods)
+            result, wall, log = run()
     finally:
         for name, real in wrapped.items():
             setattr(sched_mod.Scheduler, name, real)
@@ -81,7 +122,8 @@ def main() -> int:
     events = [e for e in prof.key_averages() if dev_us(e) > 0]
     device_s = sum(dev_us(e) for e in events) / 1e6
     print(json.dumps({
-        "round": "profiled", "device": torch.cuda.get_device_name(0),
+        "round": "steady" if args.steady else "cold",
+        "device": torch.cuda.get_device_name(0),
         "nvidia_smi": chip_smoke.smi_name_power(), "pods": args.pods,
         "nodes": args.nodes, "assigned": len(result.assignments),
         "wall_s": wall, "solve_ms": [s["ms"] for s in log],
@@ -93,7 +135,9 @@ def main() -> int:
         {"name": e.key[:80], "calls": e.count, "device_ms": dev_us(e) / 1e3}
         for e in top]}), flush=True)
     print(json.dumps({"host_phases": phases}), flush=True)
-    prof.export_chrome_trace(os.path.join("chiprun_out", "round_trace.json"))
+    prof.export_chrome_trace(os.path.join(
+        "chiprun_out", "steady_trace.json" if args.steady
+        else "round_trace.json"))
     return 0
 
 

@@ -310,8 +310,9 @@ def test_cpu_wrappers_launch_nothing_and_other_devices_raise():
     js, jp = problem(2, "factored")
     tba.batch_assign(port(js, "ClusterState"), port(jp, "PodBatch"),
                      port(config(), "ScoringConfig"))
-    assert build.LAUNCHES == {"select_candidates": 0, "round_fit_choose": 0,
-                              "segmented_prefix_accept": 0}
+    assert build.LAUNCHES == {"select_candidates": 0,
+                              "refresh_candidates": 0, "round_fit_choose": 0,
+                              "segmented_prefix_accept": 0, "greedy_scan": 0}
     meta = dict(device="meta")
     key = torch.empty((4, 8), dtype=torch.int32, **meta)
     with pytest.raises(ValueError, match="no kernel for device"):
@@ -335,8 +336,8 @@ def test_kernel_sources_carry_their_note_and_build_lazily():
 
     srcs = build.sources()
     assert sorted(os.path.basename(s) for s in srcs) == [
-        "round_fit_choose.cu", "segmented_prefix_accept.cu",
-        "select_candidates.cu"]
+        "greedy_scan.cu", "refresh_candidates.cu", "round_fit_choose.cu",
+        "segmented_prefix_accept.cu", "select_candidates.cu"]
     for path in srcs:
         head = open(path).read().split("#include")[0]
         assert "koordinator_tpu/ops/" in head and "bounds it" in head, path

@@ -1,5 +1,7 @@
 """The port stands alone: it imports neither JAX nor anything of the JAX
-package, not at import time and not after a full scheduling round."""
+package, not at import time and not after scheduling rounds down every path
+(a cold batch round, an incremental round over the candidate cache, and a
+greedy round)."""
 
 import os
 import re
@@ -17,7 +19,7 @@ import torch
 torch.set_num_threads(2)
 import koordinator_tpu_torch
 from koordinator_tpu_torch import convert
-from koordinator_tpu_torch.kernels import build, prefix_accept, round_fit_choose, select_candidates
+from koordinator_tpu_torch.kernels import build, greedy_scan, prefix_accept, refresh_candidates, round_fit_choose, select_candidates
 from koordinator_tpu_torch.ops import batch_assign, gang
 from koordinator_tpu_torch.quota.tree import QuotaTree
 from koordinator_tpu_torch.scheduler.scheduler import Scheduler
@@ -41,6 +43,21 @@ for j in range(96):
                           quota="q" if j % 2 else None))
 res = sched.schedule_round()
 assert sched.last_solver == "batch" and len(binds) == len(res.assignments) > 0
+assert sched.last_solve_path == "full_cold"
+sched.incremental_dirty_threshold = 1.0
+for j in range(96, 200):
+    q = np.zeros(10, np.int32)
+    q[0], q[1] = rng.integers(100, 4000), rng.integers(128, 8192)
+    sched.enqueue(PodSpec(name=f"p{j}", requests=q, priority=int(j % 7)))
+sched.schedule_round()
+assert sched.last_solve_path == "incremental"
+sched.batch_solver_threshold = 10**6
+for j in range(200, 230):
+    q = np.zeros(10, np.int32)
+    q[0], q[1] = rng.integers(100, 4000), rng.integers(128, 8192)
+    sched.enqueue(PodSpec(name=f"p{j}", requests=q, priority=int(j % 7)))
+sched.schedule_round()
+assert sched.last_solve_path == "greedy"
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "koordinator_tpu"))
 print("LOADED", bad)

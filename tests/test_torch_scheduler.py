@@ -1,6 +1,8 @@
 """Parity of the port's reduced scheduler and snapshot with the JAX
-``Scheduler(incremental_solve=False)``: the same NodeSpec/PodSpec lists give
-the same binds and failed-pod sets round after round.
+``Scheduler(incremental_solve=False)``, the port's scheduler set the same
+way: the same NodeSpec/PodSpec lists give the same binds and failed-pod sets
+round after round.  tests/test_torch_incremental.py holds both schedulers'
+defaults (the incremental candidate cache) against each other.
 
 Node capacity stays below 1,024 so the JAX solver kit does not shard over
 the test platform's virtual devices; rounds hold at least 1,024 pods so the
@@ -74,7 +76,7 @@ def _pair(nodes, capacity, rot_start=None):
                     incremental_solve=False)
     tsched = Scheduler(tsnap, quota_tree=ttree,
                        bind_fn=lambda p, n: tbinds.append((p, n)),
-                       device="cpu")
+                       incremental_solve=False, device="cpu")
     if rot_start is not None:
         jsched._rot_counter = tsched._rot_counter = rot_start
     return jsched, tsched, jbinds, tbinds
