@@ -7,12 +7,20 @@ Drives the port (``koordinator_tpu_torch``) on the card, phase by phase,
 printing one JSON line per phase and stopping with a non-zero exit at the
 first failure:
 
-1. device: the card's name and power limit;
+1. device: the card's name and power limit, and its int32 issue rate
+   (SMs x 64 a clock x the maximum SM clock), which the operations bounds
+   use (the operations each kernel's inputs need, counted by pair_ops);
 2. build: compiles the kernels from ``koordinator_tpu_torch/kernels/csrc``;
+   then ``ptxas``: K1's and K4's registers and spills from the compiler's
+   log (a spill fails the run);
 3. kernels: K1 against its plain PyTorch version at 2,048 pods x 1,024 nodes
    under four configurations (instantaneous thresholds, aggregated
    thresholds, selector classes, dense feasibility), and K3a/K3b against
    theirs on the inputs of every round of a real solve of that problem;
+   then ``k1_edges``: K1 at node counts off its tile and cluster sizes,
+   rows with fewer feasible nodes than k, usage at the int32 wrap edge,
+   rot ids whose tie-break wraps, and scoring configurations with the
+   terms the default leaves off;
 4. solve: ``batch_assign`` at 4,096 pods x 1,024 nodes with a quota tree,
    kernel path against the plain path on the card;
 5. main path: ``Scheduler.schedule_round`` on 50,000 pending pods over
@@ -24,7 +32,10 @@ first failure:
    rows, 50,000 valid, over 10,240 nodes, k = 32), its cache from K1, after
    a usage refresh of 1% of the nodes (D = 128 padded dirty columns);
 8. greedy: K4 against its plain version at 1,000 pods x 10,240 nodes with a
-   two-level quota tree and selector classes;
+   two-level quota tree and selector classes; then ``greedy_edges``: at
+   1,000, 10,000 and 32,768 nodes (the last with its node columns in
+   global memory), dense feasibility and selector classes, the quota tree
+   with non-preemptible pods, the scoring configurations of ``k1_edges``;
 9. steady state: the flagship cluster behind an ElasticQuota tree (root, 4
    parents, 16 leaves; 80% of the pods in leaves that admit ~60% of their
    cpu), one cold round and five rounds that each follow a usage refresh
@@ -43,7 +54,11 @@ The line before the last is ``nvidia-smi``'s name and power limit; the last
 is ``{"ok": true, "device": {...}}``.  Before them, one JSON line lists the
 five kernels: time, launches over the steady-state run of the forced-
 threshold scheduler (the slice's main path), bound, plain and library time;
-K4's numbers are those at the steady round's rescue.
+K4's numbers are those at the steady round's rescue.  An earlier line
+(``earlier_design``) puts this run's K1 and K4 times beside those of
+their earlier designs (commit e9fcd1c), which are constants recorded in
+PERF.md, not measured here (``profile_torch_round.py --kernels --root``
+measures both designs in one run).
 Every comparison is exact equality (all outputs are int32 or bool).  Nothing
 here imports JAX or the JAX package.  Without a CUDA device it exits
 non-zero and prints no result.
@@ -65,10 +80,16 @@ CPU, MEM = 0, 1
 OUT_DIR = "chiprun_out"
 CSRC = "koordinator_tpu_torch/kernels/csrc/"
 
-#: H100 SXM peaks (NVIDIA data sheet), against which bound_ms is computed
+#: H100 SXM memory rate (NVIDIA data sheet), against which bound_ms is
+#: computed
 HBM_BYTES_PER_S = 3.35e12
-#: 32-bit scalar (non-tensor-core) peak; int32 operations are counted at it
-SCALAR_OPS_PER_S = 67e12
+#: 32-bit integer issue rate of the card, set by main() from
+#: int32_ops_per_s(): Hopper issues 32-bit integer add, multiply, compare,
+#: bitwise and shift at 64 per clock per SM (CUDA C++ Programming Guide,
+#: arithmetic instruction throughput, compute capability 9.0); the 128 a
+#: clock of float32 FMA lanes (the 67 T/s of the data sheet) do not apply
+INT32_OPS_PER_S: float | None = None
+INT32_OPS_PER_CLOCK_PER_SM = 64
 
 
 def emit(phase: str, **fields) -> None:
@@ -85,6 +106,140 @@ def smi_name_power() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else ""
+
+
+def int32_ops_per_s() -> float:
+    """SMs x 64 x the card's maximum SM clock (nvidia-smi), in int32
+    operations a second."""
+    import torch
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_OPS_PER_CLOCK_PER_SM * mhz * 1e6
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    int32 operations over the card's int32 issue rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+#: int32 operations of the Filter + Score + ranking of one (pod, node) pair,
+#: by term, as pair_ops counts them: each term only over the dimensions it
+#: reads, and the score and ranking only on pairs that pass the filter
+PAIR_OPS = dict(
+    pair=3,         # the node's validity or selector bit; fit and threshold
+                    # verdicts combined
+    fit_dim=2,      # a nonzero request: compare with the free capacity, and
+    thr_dim=3,      # a threshold on an allocatable dim: add, compare, and
+    la_dim=12,      # a LoadAware weight: used, free, clamp, x100, the
+                    # division (4), the guard (2), weigh, sum
+    la_min_dim=1,   # the dominant (min) term, when its weight is not 0
+    la=6,           # the weight-sum division (4), weigh, add
+    la_dominant=2,  # weigh the dominant term, add
+    fp_dim=12,      # a FitPlus weight on a requested dim: the requested
+                    # amount (2), clamp, x100, the division (4), the guard
+                    # (2), weigh, sum
+    fp=6,           # the weight-sum division (4), weigh, add
+    scarce=10,      # two population counts, the masks, the ratio (4),
+                    # weigh, add
+    rank=8,         # clip (2), tie-break (3), pack (2), the list's compare
+)
+
+
+def pair_ops(cfg, requests, alloc, feasible) -> int:
+    """The int32 operations that Filter + Score + ranking must do over the
+    pairs of the pods ``requests`` (p, R) and the nodes ``alloc`` (n, R),
+    ``feasible`` (p, n) marking the pairs that pass the filter: the filter
+    on every pair, over the pod's nonzero requests and the node's
+    thresholded allocatable dims; the score and the ranking on the
+    feasible pairs, each plugin only when its weight is not 0 and over the
+    dims it weighs (PAIR_OPS)."""
+    import torch
+
+    from koordinator_tpu_torch.kernels.select_candidates import (
+        _config_vector,
+    )
+
+    v = _config_vector(cfg)[0].tolist()
+    dev = alloc.device
+    thr = torch.tensor([t > 0 for t in v[R + 2:2 * R + 2]], device=dev)
+    fp_w = torch.tensor([w != 0 for w in v[2 * R + 2:3 * R + 2]],
+                        device=dev)
+    la_dims = sum(w != 0 for w in v[:R])
+    la_dw, la_pw, fp_pw, sc_pw = v[R], v[R + 1], v[5 * R + 2], v[5 * R + 3]
+    o = PAIR_OPS
+    p, n = feasible.shape
+    ops = (p * n * o["pair"]
+           + n * int((requests != 0).sum()) * o["fit_dim"]
+           + p * int(((alloc > 0) & thr).sum()) * o["thr_dim"])
+    per = torch.full((p,), o["rank"], dtype=torch.int64, device=dev)
+    if la_pw:
+        per += o["la"] + la_dims * o["la_dim"]
+        if la_dw:
+            per += o["la_dominant"] + la_dims * o["la_min_dim"]
+    if fp_pw:
+        per += o["fp"] + ((requests > 0) & fp_w).sum(1) * o["fp_dim"]
+    if sc_pw:
+        per += o["scarce"]
+    return ops + int((feasible.sum(1) * per).sum())
+
+
+def batch_ops(state, pods, cfg, columns=None) -> int:
+    """pair_ops over a batch's valid pods and every node (or the node rows
+    ``columns``), the feasible pairs found by the plain Filter in chunks
+    of the batch solve's width."""
+    from koordinator_tpu_torch.kernels.select_candidates import _pod_rows
+    from koordinator_tpu_torch.ops.assignment import score_pods
+    from koordinator_tpu_torch.ops.batch_assign import CANDIDATE_CHUNK
+
+    alloc = state.node_allocatable
+    if columns is not None:
+        alloc = alloc[columns]
+    ops = 0
+    for i in range(0, pods.capacity, CANDIDATE_CHUNK):
+        sub = _pod_rows(pods, i, min(i + CANDIDATE_CHUNK, pods.capacity))
+        feas = score_pods(state, sub, cfg)[1][sub.valid]
+        if columns is not None:
+            feas = feas[:, columns]
+        ops += pair_ops(cfg, sub.requests[sub.valid], alloc, feas)
+        del feas
+    return ops
+
+
+def scan_ops(state, pods, cfg, rows, assignments) -> int:
+    """pair_ops over K4's scan: each step that passes quota admission (the
+    pod ``rows``, in scan order) filters and scores every node against the
+    accounting its predecessors left, as greedy_assign_plain keeps it (the
+    requests and the estimates added to usage of the pods placed)."""
+    import torch
+
+    from koordinator_tpu_torch.kernels.select_candidates import _pod_rows
+    from koordinator_tpu_torch.ops.assignment import pod_estimates, score_pods
+
+    est = pod_estimates(pods, cfg)
+    requested = state.node_requested.clone()
+    added = torch.zeros_like(state.node_usage)
+    a = assignments.cpu().numpy()
+    ops = 0
+    for i in rows:
+        now = state.replace(node_requested=requested,
+                            node_usage=state.node_usage + added,
+                            node_agg_usage=state.node_agg_usage + added)
+        sub = _pod_rows(pods, i, i + 1)
+        ops += pair_ops(cfg, sub.requests, state.node_allocatable,
+                        score_pods(now, sub, cfg)[1])
+        if a[i] >= 0:
+            requested[a[i]] += pods.requests[i]
+            added[a[i]] += est[i]
+    return ops
 
 
 def sync(device) -> None:
@@ -174,10 +329,36 @@ def scoring_config(variant: str, device):
     from koordinator_tpu_torch.ops.assignment import ScoringConfig
 
     cfg = ScoringConfig.default(device)
+
+    def vec(dtype=torch.int32, **at):
+        v = torch.zeros(R, dtype=dtype)
+        for dim, val in at.items():
+            v[{"cpu": CPU, "mem": MEM, "gpu": 3}[dim]] = val
+        return v.to(device)
+
+    def scalar(v):
+        return torch.tensor(v, dtype=torch.int32, device=device)
+
     if variant == "agg":
-        agg = torch.zeros(R, dtype=torch.int32, device=device)
-        agg[CPU], agg[MEM] = 55, 80
-        cfg = cfg.replace(agg_usage_thresholds=agg)
+        cfg = cfg.replace(agg_usage_thresholds=vec(cpu=55, mem=80))
+    elif variant == "dominant":
+        cfg = cfg.replace(loadaware_dominant_weight=scalar(2),
+                          loadaware_resource_weights=vec(cpu=3, mem=1, gpu=2),
+                          scarce_plugin_weight=scalar(2))
+    elif variant == "most_allocated":
+        cfg = cfg.replace(
+            fitplus_most_allocated=vec(torch.bool, cpu=True),
+            fitplus_resource_weights=vec(cpu=2, mem=1, gpu=3),
+            fitplus_plugin_weight=scalar(3))
+    elif variant == "everything":
+        # every term on, a negative LoadAware weight among them
+        cfg = cfg.replace(
+            agg_usage_thresholds=vec(mem=70),
+            loadaware_dominant_weight=scalar(1),
+            loadaware_resource_weights=vec(cpu=2, mem=1, gpu=-1),
+            fitplus_most_allocated=vec(torch.bool, mem=True),
+            scarce_plugin_weight=scalar(1),
+            loadaware_plugin_weight=scalar(2))
     return cfg
 
 
@@ -320,6 +501,109 @@ def phase_kernels(device, n_pods: int = 2_048, n_nodes: int = 1_024) -> None:
                             k3b_accepted=stats["k3b_accepted"],
                             quota=quota is not None))
     emit("kernels", pods=n_pods, nodes=n_nodes, configs=results)
+
+
+def danger_rot_ids(rng, count: int, n_nodes: int) -> np.ndarray:
+    """Rot ids whose rot*7919 (int32-wrapped) lies within n_nodes above
+    -2**31: the tie-break difference wraps for some nodes, and where
+    2**32 is not a multiple of N two nodes can share a tie-break."""
+    inv = pow(7919, -1, 2**32)
+    target = (2**31 + rng.integers(0, n_nodes, count)) % 2**32
+    rot = (target.astype(object) * inv) % 2**32
+    return np.array([r - 2**32 if r >= 2**31 else r for r in rot], np.int32)
+
+
+def phase_k1_edges(device) -> None:
+    """K1 against its plain version where its design has edges: node
+    counts that are not a multiple of its 32-node tile or its 8-CTA
+    cluster (10,000 and 1,000), rows with fewer feasible nodes than a
+    stratum's 16 (0, 1..5 and 12 feasible), capacities and usage near the
+    int32 wrap of 100 * (cap - used), rot ids whose tie-break difference
+    wraps (two nodes may share a key), and scoring configurations that
+    turn on the terms the default leaves off (dominant weight,
+    most-allocated, scarce weight, a negative weight)."""
+    import torch
+
+    from koordinator_tpu_torch.kernels.select_candidates import (
+        select_candidates_kernel,
+        select_candidates_plain,
+    )
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    results = []
+    cases = {"n10000_classes": "most_allocated", "n1000_dense": "everything",
+             "few_feasible": "dominant", "wrap_edge": "default",
+             "wrapped_tie_break": "default"}
+    for seed, (name, variant) in enumerate(cases.items()):
+        cfg = scoring_config(variant, device)
+        rng = np.random.default_rng(300 + seed)
+        if name == "n10000_classes":
+            state, pods = random_problem(300, 10_000, 2_048, device,
+                                         "classes")
+        elif name == "n1000_dense":
+            state, pods = random_problem(301, 1_000, 1_024, device, "dense")
+        elif name == "few_feasible":
+            state, pods = random_problem(302, 1_000, 1_024, device,
+                                         "classes")
+            cls = np.zeros(1_000, np.int32)
+            cls[rng.choice(1_000, 5, replace=False)] = 1
+            cls[rng.choice(np.flatnonzero(cls == 0), 12, replace=False)] = 2
+            sel = np.zeros((1_024, 8), bool)
+            which = rng.integers(0, 4, 1_024)
+            sel[which == 0, 1] = True      # <= 5 feasible nodes
+            sel[which == 1, 2] = True      # <= 12
+            sel[which == 2, 7] = True      # no node has class 7: 0
+            sel[which == 3] = rng.random((int((which == 3).sum()), 8)) < 0.5
+            state = state.replace(node_class=dev(cls))
+            pods = pods.replace(selector_mask=dev(sel))
+        elif name == "wrap_edge":
+            state, pods = random_problem(303, 2_000, 1_024, device, "plain")
+            n = 2_000
+            alloc = state.node_allocatable.cpu().numpy().copy()
+            alloc[:, CPU] = rng.integers(2**30, 2**31 - 1, n)
+            alloc[:, MEM] = rng.integers(2**24, 2**31 - 1, n)
+            frac = rng.random((n, R))
+            usage = (alloc * frac * 0.9).astype(np.int32)
+            usage[: n // 2, CPU] = alloc[: n // 2, CPU] - rng.integers(
+                0, 50_000_000, n // 2)
+            req = (alloc * rng.random((n, R)) * 0.3).astype(np.int32)
+            state = state.replace(node_allocatable=dev(alloc),
+                                  node_usage=dev(usage),
+                                  node_agg_usage=dev(usage),
+                                  node_requested=dev(req))
+        else:
+            state, pods = random_problem(304, 10_000, 2_048, device,
+                                         "classes")
+            rot = pods.rot_id.cpu().numpy().copy()
+            rot[::2] = danger_rot_ids(rng, (len(rot) + 1) // 2, 10_000)
+            pods = pods.replace(rot_id=dev(rot))
+        got = select_candidates_kernel(state, pods, cfg)
+        want = select_candidates_plain(state, pods, cfg)
+        err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        check(err == 0, f"K1 equals its plain version ({name})")
+        key = got[0]
+        feasible_slots = (key >= 0).sum(dim=1)
+        # stratum 1 (spread bits 15) ranks by tie-break alone: two of its
+        # slots with one tie-break are two nodes sharing a key
+        tb1 = torch.where(key[:, 16:] >= 0, key[:, 16:] & 0x7FFF, -1 -
+                          torch.arange(16, device=key.device))
+        shared = int((torch.sort(tb1, dim=1).values.diff(dim=1) == 0)
+                     .any(dim=1).sum())
+        results.append(dict(
+            config=name, scoring=variant, pods=pods.capacity,
+            nodes=state.capacity,
+            max_abs_err=err, valid_slots=int(feasible_slots.sum()),
+            rows_short_of_k=int(((feasible_slots < key.shape[1])
+                                 & pods.valid).sum()),
+            rows_with_shared_keys=shared))
+    by = {r["config"]: r for r in results}
+    check(by["few_feasible"]["rows_short_of_k"] > 0,
+          "rows with fewer feasible nodes than k")
+    check(by["wrapped_tie_break"]["rows_with_shared_keys"] > 0,
+          "rows where two nodes share a key")
+    emit("k1_edges", configs=results)
 
 
 def phase_solve(device, n_pods: int = 4_096, n_nodes: int = 1_024) -> None:
@@ -555,12 +839,9 @@ def phase_table(device, launches: dict, log: list, reps: int = 3):
                  else pods.selector_mask.numel())
     k1_bytes = (n * (4 * R * 4 + 1 + 4) + p * (2 * R * 4 + 1 + 4)
                 + sel_bytes + 3 * p * k * 4)
-    # operations: per valid (pod, node) pair, 12 int32 operations per
-    # resource dim (fit, threshold, scarce, and the score terms) plus 40
-    # per pair (score combination, selector, ranking key, two insertion
-    # compares); the top-k insertions themselves are not counted
-    k1_ops = p_valid * n * (12 * R + 40)
-    k1_bound = max(k1_bytes / HBM_BYTES_PER_S, k1_ops / SCALAR_OPS_PER_S) * 1e3
+    # operations: the valid pods' pairs with every node (pair_ops)
+    k1_ops = batch_ops(state, pods, cfg)
+    k1_bound, k1_by = bound(k1_bytes, k1_ops)
 
     # K3a on the first round's inputs
     cand_key, cand_node = got[0], got[1]
@@ -607,9 +888,7 @@ def phase_table(device, launches: dict, log: list, reps: int = 3):
              replaces="koordinator_tpu/ops/batch_assign.py:404",
              launches=launches["select_candidates"], max_abs_err=k1_err,
              ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound,
-             bound_by=("operations" if k1_ops / SCALAR_OPS_PER_S
-                       >= k1_bytes / HBM_BYTES_PER_S else "bytes"),
-             library_ms=topk_ms),
+             bound_by=k1_by, library_ms=topk_ms),
         dict(name="round_fit_choose", route="cuda",
              source=base + "round_fit_choose.cu",
              replaces="koordinator_tpu/ops/batch_assign.py:606",
@@ -698,63 +977,96 @@ def phase_refresh(device, log: list, n_dirty: int = 102, reps: int = 10):
     c = pods.selector_mask.shape[1]
     nbytes = (p * k * (2 * 4 + 3 * 4) + p * (2 * R * 4 + 1 + 4 + c)
               + n_dirty * (4 * R * 4 + 1 + 4 + 4 + 1) + n)
-    ops = p_valid * n_dirty * (12 * R + 40)
-    bound = max(nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S) * 1e3
-    by = ("operations" if ops / SCALAR_OPS_PER_S >= nbytes / HBM_BYTES_PER_S
-          else "bytes")
+    ops = batch_ops(state2, pods, cfg, torch.from_numpy(rows).to(device))
+    bound_ms, by = bound(nbytes, ops)
     emit("refresh", pods=p, valid_pods=p_valid, nodes=n, k=k,
          dirty_nodes=n_dirty, dirty_columns=d,
          touched_pods=int(touch.sum()), max_abs_err=err, ms=ms,
-         plain_ms=plain_ms, bytes=nbytes, ops=ops, bound_ms=bound,
+         plain_ms=plain_ms, bytes=nbytes, ops=ops, bound_ms=bound_ms,
          bound_by=by)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=by)
 
 
-def phase_greedy(device, n_pods: int = 1_000, n_nodes: int = 10_240,
-                 reps: int = 3):
+def greedy_case(device, seed: int, n_nodes: int, n_pods: int, mode: str,
+                reps: int = 3, variant: str = "default") -> dict:
     """K4 against its plain version (the Python loop) on one seeded problem
-    with selector classes and a two-level quota tree: assignments, node
-    accounting and every quota field equal."""
+    with a two-level quota tree (some pods non-preemptible): assignments,
+    node accounting and every quota field equal.  Returns the case's
+    numbers, its bound counted over the steps that pass admission."""
     from koordinator_tpu_torch.kernels.greedy_scan import greedy_scan_kernel
     from koordinator_tpu_torch.ops.assignment import greedy_assign_plain
 
-    state, pods = random_problem(21, n_nodes, n_pods, device, "classes")
-    quota, pods = quota_setup(pods, device, 21)
-    cfg = scoring_config("default", device)
+    state, pods = random_problem(seed, n_nodes, n_pods, device, mode)
+    quota, pods = quota_setup(pods, device, seed)
+    cfg = scoring_config(variant, device)
     a, st, q = greedy_scan_kernel(state, pods, cfg, quota)
+    sync(device)
+    t0 = time.perf_counter()
     pa, pst, pq = greedy_assign_plain(state, pods, cfg, quota)
+    sync(device)
+    plain_ms = (time.perf_counter() - t0) * 1e3
     errs = [max_abs_err(a, pa),
             max_abs_err(st.node_requested, pst.node_requested)]
     errs += [max_abs_err(getattr(q, f), getattr(pq, f))
              for f in ("headroom", "min_headroom", "checked", "chain",
                        "valid")]
     err = max(errs)
-    check(err == 0, "K4 equals its plain version")
+    check(err == 0, f"K4 equals its plain version ({n_nodes} nodes, {mode})")
     assigned = int((a >= 0).sum())
     check(0 < assigned < n_pods, "K4 placed some pods and quota held some")
     ms = timed_ms(lambda: greedy_scan_kernel(state, pods, cfg, quota),
                   device, reps=reps)
-    plain_ms = timed_ms(lambda: greedy_assign_plain(state, pods, cfg, quota),
-                        device, reps=1, warmup=0)
-    p_valid = int(pods.valid.sum())
-    c = pods.selector_mask.shape[1]
+    rows = admitted_rows(pods, quota, a)
+    scans = len(rows)
+    c = 0 if pods.selector_mask is None else pods.selector_mask.shape[1]
+    dense = 0 if pods.feasible is None else scans * n_nodes
+    # the node tensors read and node_requested written once, the pod rows
+    # and the quota state read and written; operations on the steps that
+    # pass quota admission
     nbytes = (n_nodes * (4 * R * 4 + 1 + 4) + n_nodes * R * 4
-              + pods.capacity * (2 * R * 4 + 1 + 4 + 4 + 1 + c)
+              + pods.capacity * (2 * R * 4 + 1 + 4 + 4 + 1 + c) + dense
               + 2 * q.headroom.numel() * 4 * 2)
-    ops = p_valid * n_nodes * (12 * R + 40)
-    bound = max(nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S) * 1e3
-    emit("greedy", pods=n_pods, nodes=n_nodes, assigned=assigned,
-         max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops,
-         bound_ms=bound, bound_note="the chain of P dependent steps, not "
+    ops = scan_ops(state, pods, cfg, rows, a)
+    bound_ms, by = bound(nbytes, ops)
+    return dict(pods=n_pods, nodes=n_nodes, mode=mode, scoring=variant,
+                assigned=assigned,
+                admitted_steps=scans, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bytes=nbytes, ops=ops, bound_ms=bound_ms,
+                bound_by=by)
+
+
+def phase_greedy(device, n_pods: int = 1_000, n_nodes: int = 10_240,
+                 reps: int = 3):
+    """K4 at 1,000 pods x 10,240 nodes with selector classes and a
+    two-level quota tree, against its plain version."""
+    out = greedy_case(device, 21, n_nodes, n_pods, "classes", reps)
+    emit("greedy", **out, bound_note="the chain of dependent steps, not "
          "bytes or operations, sets this kernel's floor")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by="operations")
+    return {key: out[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by")}
 
 
-def admitted_steps(pods, quota, assignments) -> int:
-    """The scan steps that pass quota admission, replayed on the host from
-    the scan's assignments: K4 scans the N nodes only on those steps."""
+def phase_greedy_edges(device, n_pods: int = 400) -> None:
+    """K4 at node counts that do not divide into its 16 CTAs' ranges
+    (1,000 and 10,000) and at 32,768 (the packed regime's ceiling, where
+    the node columns stream from global memory), under dense feasibility
+    and selector classes and the scoring configurations of
+    phase_k1_edges, behind the quota tree with non-preemptible pods."""
+    cases = []
+    for i, (n_nodes, mode, variant) in enumerate((
+            (1_000, "dense", "everything"), (1_000, "classes", "dominant"),
+            (10_000, "dense", "most_allocated"), (10_000, "classes", "agg"),
+            (32_768, "classes", "default"))):
+        cases.append(greedy_case(device, 60 + i, n_nodes, n_pods, mode,
+                                 reps=2, variant=variant))
+    emit("greedy_edges", cases=cases)
+
+
+def admitted_rows(pods, quota, assignments) -> list[int]:
+    """The pod rows whose scan steps pass quota admission, in scan order,
+    replayed on the host from the scan's assignments: K4 scans the N nodes
+    only on those steps."""
     from koordinator_tpu_torch.ops.assignment import priority_order
 
     valid = pods.valid.cpu().numpy()
@@ -768,7 +1080,7 @@ def admitted_steps(pods, quota, assignments) -> int:
     checked = quota.checked.cpu().numpy()
     chain = quota.chain.cpu().numpy()
     qvalid = quota.valid.cpu().numpy()
-    steps = 0
+    rows = []
     for i in order:
         if not valid[i]:
             continue
@@ -782,12 +1094,12 @@ def admitted_steps(pods, quota, assignments) -> int:
                 ok = ok and not np.any(need & (req[i] > min_head[q]))
             if not ok:
                 continue
-        steps += 1
+        rows.append(int(i))
         if a[i] >= 0 and q >= 0 and qvalid[q]:
             head[anc] -= req[i]
             if non_pre[i]:
                 min_head[q] -= req[i]
-    return steps
+    return rows
 
 
 def phase_rescue(device, solve: dict, reps: int = 3):
@@ -818,7 +1130,8 @@ def phase_rescue(device, solve: dict, reps: int = 3):
                   device, reps=reps)
     n, p = state.capacity, pods.capacity
     p_valid = int(pods.valid.sum())
-    scans = admitted_steps(pods, quota, a)
+    rows = admitted_rows(pods, quota, a)
+    scans = len(rows)
     c = pods.selector_mask.shape[1]
     # the node tensors read and node_requested written once, the pod rows
     # and the quota state read and written; operations only on the steps
@@ -826,17 +1139,15 @@ def phase_rescue(device, solve: dict, reps: int = 3):
     nbytes = (n * (4 * R * 4 + 1 + 4) + n * R * 4
               + p * (2 * R * 4 + 1 + 4 + 4 + 1 + c)
               + 2 * quota.headroom.numel() * 4 * 2)
-    ops = scans * n * (12 * R + 40)
-    bound = max(nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S) * 1e3
-    by = ("operations" if ops / SCALAR_OPS_PER_S >= nbytes / HBM_BYTES_PER_S
-          else "bytes")
+    ops = scan_ops(state, pods, cfg, rows, a)
+    bound_ms, by = bound(nbytes, ops)
     emit("rescue", pods=p, valid_pods=p_valid, nodes=n,
          quotas=quota.capacity, admitted_steps=scans,
          assigned=int((a >= 0).sum()), max_abs_err=err, ms=ms,
-         plain_ms=plain_ms, bytes=nbytes, ops=ops, bound_ms=bound,
-         bound_by=by, bound_note="the chain of P dependent steps, not "
+         plain_ms=plain_ms, bytes=nbytes, ops=ops, bound_ms=bound_ms,
+         bound_by=by, bound_note="the chain of dependent steps, not "
          "bytes or operations, sets this kernel's floor")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=by)
 
 
@@ -1160,6 +1471,62 @@ def phase_small(device, scheds: dict, rounds: int = 3,
     return out
 
 
+def ptxas_summary(path: str) -> list[dict]:
+    """Registers, spills and shared memory of every kernel in the
+    compiler's -Xptxas -v log (one entry per compiled entry function)."""
+    import re
+
+    out, cur = [], None
+    for line in open(path):
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = dict(entry=m.group(1))
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"] = int(m.group(1))
+            cur["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def phase_ptxas(path: str) -> None:
+    """K1's and K4's registers and spills, from the build's ptxas log:
+    neither kernel may spill."""
+    entries = ptxas_summary(path)
+    picked = [e for e in entries
+              if "select_candidates_kernel" in e["entry"]
+              or "greedy_scan_kernel" in e["entry"]]
+    check(len(picked) >= 4, "ptxas reported K1 and K4")
+    for e in picked:
+        check(e.get("spill_stores", 1) == 0 and e.get("spill_loads", 1) == 0,
+              f"no spills in {e['entry']}")
+    emit("ptxas", kernels=[dict(
+        kernel=("select_candidates" if "select_candidates" in e["entry"]
+                else "greedy_scan"),
+        entry=e["entry"], registers=e.get("registers"),
+        spill_stores=e.get("spill_stores"), spill_loads=e.get("spill_loads"),
+        smem=e.get("smem")) for e in picked])
+
+
+#: K1's and K4's earlier designs (commit e9fcd1c), as recorded in PERF.md
+#: (their chip runs on an NVIDIA H100 80GB HBM3 at 700 W): ms per launch
+#: at the same shapes
+EARLIER_DESIGN_MS = {
+    "select_candidates": [25.41, 25.56, 25.51],
+    "greedy_scan (rescue)": [24.32],
+    "greedy_scan (1,000 pods)": [67.78, 68.41, 67.51, 68.80],
+}
+
+
 def main() -> int:
     import torch
 
@@ -1171,24 +1538,32 @@ def main() -> int:
     t_start = time.perf_counter()
     os.makedirs(OUT_DIR, exist_ok=True)
     device = "cuda"
+    global INT32_OPS_PER_S
+    INT32_OPS_PER_S = int32_ops_per_s()
     smi = smi_name_power()
     emit("device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi,
-         torch=torch.__version__, cuda=torch.version.cuda)
+         torch=torch.__version__, cuda=torch.version.cuda,
+         int32_ops_per_s=INT32_OPS_PER_S,
+         sms=torch.cuda.get_device_properties(0).multi_processor_count)
 
     t0 = time.perf_counter()
-    build.build(force=True, log_path=os.path.join(OUT_DIR, "ptxas.txt"))
+    ptxas = os.path.join(OUT_DIR, "ptxas.txt")
+    build.build(force=True, log_path=ptxas)
     build.lib()
     emit("build", seconds=time.perf_counter() - t0,
          sources=[os.path.basename(s) for s in build.sources()])
+    phase_ptxas(ptxas)
 
     phase_kernels(device)
+    phase_k1_edges(device)
     phase_solve(device)
     launches, log = phase_main(device)
     kernels = phase_table(device, launches, log)
     k2 = phase_refresh(device, log)
     del log
-    phase_greedy(device)
+    k4_1000 = phase_greedy(device)
+    phase_greedy_edges(device)
     scheds, totals, _, k4 = phase_steady(device)
     phase_small(device, scheds)
     del scheds
@@ -1205,6 +1580,14 @@ def main() -> int:
     # cold round and five steady rounds
     for entry in kernels:
         entry["launches"] = totals[entry["name"]]
+    emit("earlier_design", note="the earlier designs' times as PERF.md "
+         "records them, beside this run's, at the same shapes", kernels=[
+             dict(name="select_candidates", ms=kernels[0]["ms"],
+                  earlier_ms=EARLIER_DESIGN_MS["select_candidates"]),
+             dict(name="greedy_scan (rescue)", ms=k4["ms"],
+                  earlier_ms=EARLIER_DESIGN_MS["greedy_scan (rescue)"]),
+             dict(name="greedy_scan (1,000 pods)", ms=k4_1000["ms"],
+                  earlier_ms=EARLIER_DESIGN_MS["greedy_scan (1,000 pods)"])])
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

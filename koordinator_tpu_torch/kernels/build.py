@@ -115,6 +115,7 @@ _SIGNATURES = {
         _P, _I,                          # config int vector + its length
         _I, _I, _I,                      # P, N, strata count
         _I, _I, _I, _I,                  # strata shifts, per-stratum k
+        _P,                              # packed node rows scratch
         _P, _P, _P,                      # out cand_key, cand_node, cand_score
         _P,                              # stream
     ],
@@ -144,12 +145,12 @@ _SIGNATURES = {
     ],
     "koord_greedy_scan": [
         _P, _P, _P, _P, _P, _P,          # node alloc/requested (in/out)/usage/base/valid/class
-        _P,                              # est_added scratch (N, R), zeroed
+        _P,                              # node-column scratch
         _P, _P, _P, _P,                  # pod requests/estimates/valid, order
         _P, _I, _P,                      # selector mask (P, C) + C, dense mask (P, N)
         _P, _I,                          # config int vector + its length
         _P, _P,                          # quota headroom, min_headroom (in/out)
-        _P, _P, _P, _I,                  # quota checked, chain, valid, chain depth
+        _P, _P, _P, _I, _I,              # quota checked, chain, valid, Q, depth
         _P, _P,                          # pod quota_id, non_preemptible
         _I, _I,                          # P, N
         _P,                              # out assignments
@@ -158,17 +159,32 @@ _SIGNATURES = {
 }
 
 
+#: exported C functions that size a kernel's global scratch, in bytes
+_SCRATCH = {
+    "koord_select_candidates_scratch_bytes": [_I],      # N
+    "koord_greedy_scan_scratch_bytes": [_I, _I, _I],    # N, Q, chain depth
+}
+
+
+def _bind(handle: ctypes.CDLL) -> ctypes.CDLL:
+    """``handle`` with its C functions typed."""
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    for name, argtypes in _SCRATCH.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_longlong
+    return handle
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, building it first if needed."""
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(build())
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = handle
+            _lib = _bind(ctypes.CDLL(build()))
         return _lib
 
 

@@ -1,4 +1,4 @@
-// K4: the exact sequential greedy scan, one persistent kernel per call.
+// K4: the exact sequential greedy scan, one cluster of CTAs per call.
 //
 // Replaces the XLA scan of the JAX package's
 //   koordinator_tpu/ops/assignment.py:169-280 _greedy_scan (no reservations)
@@ -6,197 +6,487 @@
 // greedy_assign_plain in ops/assignment.py, a Python loop over pods.
 //
 // What bounds it on the H100: neither bytes nor operations but the chain of
-// P dependent steps.  Each pod is filtered and scored against the
+// dependent steps.  Each admitted pod is filtered and scored against the
 // accounting its predecessors left, so step s cannot start before step s-1
-// has charged its node and quota.  Per step the work is N pairs of K1's
-// Filter + Score (operations) and one pass over the node tensors (~2 MB at
-// 10,240 nodes, held in L2).
+// has charged its node and quota.  Per admitted step the work is N pairs of
+// K1's Filter + Score (operations).
 //
-// Design: ONE block of 1,024 threads walks the pods in priority order
-// (the order comes from the wrapper, as priority_order computes it).  For
-// each valid pod:
-//   1. thread 0 answers quota admission, a per-pod scalar over the pod's
-//      ancestor chain (quota_admission_mask: headroom at every level on the
-//      pod's own checked dims, min headroom at its own quota when it is
-//      non-preemptible, the quota row valid); threads 0..R-1 stage the
-//      pod's request and estimate in shared memory;
-//   2. if admitted, every thread scores its nodes (n = tid, tid + 1024,
-//      ...) with pair_score (koord_score.cuh) against node usage plus the
-//      in-flight estimates (est_added, wrapping int32 sums), and keeps the
-//      best (score, -node) rank; a warp shuffle and a shared-memory pass
-//      take the block's maximum, which is jnp.argmax's lowest index on
-//      ties;
-//   3. thread 0 commits: the node's requested and est_added rows, the
-//      assignment, and the quota charge (charge_quota: every ancestor's
-//      headroom, and the own quota's min headroom when non-preemptible).
-// A barrier closes every step, so the next pod sees the charges.  State
-// stays in global memory (node tensors, ~0.8 MB of mutable accounting,
-// resident in L2).  An invalid pod is skipped: the JAX scan assigns it -1
-// and adds zero.
+// Design: one cluster of 16 CTAs (a non-portable cluster size) walks the
+// pods in priority order (the order comes from the wrapper, as
+// priority_order computes it).
+// - Each CTA owns a contiguous range of ~N/16 nodes and keeps that range's
+//   node state in shared memory, in columns (one row of the range per
+//   resource dimension, so neighbouring threads read neighbouring words):
+//   pair_score's node terms (koord_score.cuh) with the in-flight estimates
+//   folded in: allocatable, free capacity, usage, the threshold's two
+//   sides, the allocatable's magic divisors, flags and class.  A charge
+//   updates three of them in place.
+//   When the range does not fit shared memory (large N) the same columns
+//   live in a global scratch buffer instead: still this kernel.
+// - Every CTA keeps a replica of the quota state (headroom, min headroom,
+//   checked, chain, valid) in shared memory and charges it identically, so
+//   the replicas stay equal and admission needs no communication.
+// - Admission a warp at a time: warp 0 tests the next 32 valid pods in
+//   priority order against the current headroom, one pod per lane
+//   (quota_admission_mask's predicate), and jumps with __ballot_sync /
+//   __ffs to the first one admitted.  A pod rejected there, like a pod no
+//   node takes, leaves every carried tensor unchanged in the reference
+//   (assignment.py:254-265 add nothing unless assigned), so it is skipped
+//   with no barrier.  The pod order, quota ids, flags and requests are
+//   staged in a shared-memory window of 256 pods as the scan reaches them;
+//   an admitted pod's estimate and selector bits are loaded then, one
+//   value a lane.
+// - An admitted pod is scored by every CTA over its own nodes; each CTA
+//   reduces its best (score, -node) rank, the 16 ranks meet through
+//   distributed shared memory after one cluster barrier, and every CTA
+//   takes the same maximum (jnp.argmax's lowest index on ties).  The CTA
+//   owning the node charges its columns; every CTA charges its quota
+//   replica.  Node accounting and quota state are written back at the end.
+
+#include <cooperative_groups.h>
 
 #include "koord_score.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using namespace koord;
 
-constexpr int kThreads = 1024;
+constexpr int kCluster = 16;
+constexpr int kThreads = 640;
 constexpr int kWarps = kThreads / 32;
+constexpr int kWin = 256;           // pods staged per window
+constexpr int kWinInts = 3 + kDims;  // ints per staged pod
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 __device__ __forceinline__ long long warp_max(long long v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    v = max(v, __shfl_xor_sync(0xFFFFFFFFu, v, off));
+    v = max(v, __shfl_xor_sync(kFull, v, off));
   return v;
 }
 
-__device__ bool quota_admits(const int* preq, int qid_raw, bool np,
-                             const int* head, const int* min_head,
-                             const uint8_t* checked, const int* chain,
-                             const uint8_t* qvalid, int QD) {
-  if (head == nullptr || qid_raw < 0) return true;
-  const int qid = qid_raw;
-  bool ok = true;
-  for (int d = 0; d < QD; ++d) {
-    const int anc = chain[qid * QD + d];
-    if (anc < 0) continue;
-    for (int r = 0; r < kDims; ++r) {
-      const int q = preq[r];
-      if (!(q <= head[anc * kDims + r] || !checked[qid * kDims + r] ||
-            q == 0))
-        ok = false;
-    }
-  }
-  if (np) {
-    for (int r = 0; r < kDims; ++r) {
-      const int q = preq[r];
-      if (!(q <= min_head[qid * kDims + r] || !checked[qid * kDims + r] ||
-            q == 0))
-        ok = false;
-    }
-  }
-  return ok && qvalid[qid];
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
 
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Where each piece of a CTA's state lies: ints first, then bytes.
+struct Layout {
+  int S;                 // nodes per CTA (a multiple of 4)
+  long long quota_ints;  // headroom, min headroom (Q x R), chain (Q x QD)
+  long long win_ints;    // window: pod row, flags, quota id, request (R)
+  long long node_ints;   // 6 x (R x S) columns, class and flags (S)
+  long long quota_bytes; // checked (Q x R), valid (Q), padded to 4
+  long long node_bytes;  // magic shifts (R x S)
+
+  __host__ __device__ Layout(int N, int Q, int QD) {
+    S = ((N + kCluster - 1) / kCluster + 3) / 4 * 4;
+    quota_ints = 2ll * Q * kDims + static_cast<long long>(Q) * QD;
+    win_ints = static_cast<long long>(kWin) * kWinInts;
+    node_ints = (6ll * kDims + 2) * S;
+    quota_bytes = (static_cast<long long>(Q) * (kDims + 1) + 3) / 4 * 4;
+    node_bytes = static_cast<long long>(kDims) * S;
+  }
+  __host__ __device__ long long smem_bytes(bool nodes) const {
+    return 4 * (quota_ints + win_ints + (nodes ? node_ints : 0)) +
+           quota_bytes + (nodes ? node_bytes : 0);
+  }
+  __host__ __device__ long long scratch_bytes() const {
+    return 4 * node_ints + (node_bytes + 3) / 4 * 4;
+  }
+};
+
+// quota_admission_mask for one pod: headroom at every level of its chain
+// on its checked, requested dims, the min headroom at its own quota when
+// it is non-preemptible, and its quota row valid.  A pod without a quota
+// (or a call without quota state) is admitted.
+__device__ __forceinline__ bool quota_admits(
+    const int* req, int qid, bool np, bool has_quota, const int* head,
+    const int* min_head, const uint8_t* checked, const int* chain,
+    const uint8_t* qvalid, int QD) {
+  if (!has_quota || qid < 0) return true;
+  bool ok = qvalid[qid] != 0;
+  for (int r = 0; r < kDims; ++r) {
+    const int q = req[r];
+    if (q == 0 || !checked[qid * kDims + r]) continue;
+    for (int d = 0; d < QD; ++d) {
+      const int anc = chain[qid * QD + d];
+      if (anc >= 0 && q > head[anc * kDims + r]) ok = false;
+    }
+    if (np && q > min_head[qid * kDims + r]) ok = false;
+  }
+  return ok;
+}
+
+template <bool kNodesInSmem>
 __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
-    const int* __restrict__ alloc, int* reqd, const int* __restrict__ usage,
+    const int* __restrict__ alloc, int* reqd_g, const int* __restrict__ usage,
     const int* __restrict__ base, const uint8_t* __restrict__ nvalid,
-    const int* __restrict__ nclass, int* est_added,
+    const int* __restrict__ nclass, unsigned char* scratch,
     const int* __restrict__ preq_g, const int* __restrict__ pest_g,
     const uint8_t* __restrict__ pvalid_g, const int* __restrict__ order,
     const uint8_t* __restrict__ sel, int C,
-    const uint8_t* __restrict__ feas, const int* __restrict__ cfg_g,
-    int* q_head, int* q_min, const uint8_t* __restrict__ q_checked,
-    const int* __restrict__ q_chain, const uint8_t* __restrict__ q_valid,
-    int QD, const int* __restrict__ pquota, const uint8_t* __restrict__ pnp,
-    int P, int N, int* __restrict__ out_assign) {
-  __shared__ int s_cfg[kCfgLen];
+    const uint8_t* __restrict__ feas, const __grid_constant__ ScoreCfg cfg,
+    int* q_head_g, int* q_min_g, const uint8_t* __restrict__ q_checked_g,
+    const int* __restrict__ q_chain_g, const uint8_t* __restrict__ q_valid_g,
+    int Q, int QD, const int* __restrict__ pquota,
+    const uint8_t* __restrict__ pnp, int P, int N,
+    int* __restrict__ out_assign) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ long long s_best[2];
+  __shared__ long long s_warp[kWarps];
   __shared__ int s_req[kDims];
   __shared__ int s_est[kDims];
-  __shared__ long long s_warp[kWarps];
-  __shared__ int s_admit;
+  __shared__ PodScalars s_ps;
+  __shared__ unsigned long long s_mask;
+  __shared__ int s_pod, s_qid, s_np;
 
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int wid = tid >> 5;
-  for (int i = tid; i < kCfgLen; i += kThreads) s_cfg[i] = cfg_g[i];
-  __syncthreads();
-  const int la_wsum = loadaware_weight_sum(s_cfg);
+  const Layout L(N, Q, QD);
+  const int S = L.S;
+  const int lo = rank * S;
+  const int cnt = max(0, min(N, lo + S) - lo);
+  const bool has_quota = q_head_g != nullptr;
 
-  for (int step = 0; step < P; ++step) {
-    const int idx = order[step];
-    if (!pvalid_g[idx]) continue;  // uniform: every thread reads the flag
-    const long long prow = static_cast<long long>(idx) * kDims;
-    if (tid < kDims) {
-      s_req[tid] = preq_g[prow + tid];
-      s_est[tid] = pest_g[prow + tid];
+  int* head = reinterpret_cast<int*>(smem);
+  int* min_head = head + Q * kDims;
+  int* chain = min_head + Q * kDims;
+  int* w_idx = chain + Q * QD;
+  int* w_flags = w_idx + kWin;
+  int* w_qid = w_flags + kWin;
+  int* w_req = w_qid + kWin;
+  unsigned char* qbytes =
+      smem + 4 * (L.quota_ints + L.win_ints + (kNodesInSmem ? L.node_ints
+                                                             : 0));
+  uint8_t* checked = qbytes;
+  uint8_t* qvalid = qbytes + Q * kDims;
+  int* node_i;
+  unsigned char* node_b;
+  if (kNodesInSmem) {
+    node_i = w_req + kWin * kDims;
+    node_b = qbytes + L.quota_bytes;
+  } else {
+    node_i = reinterpret_cast<int*>(scratch + rank * L.scratch_bytes());
+    node_b = reinterpret_cast<unsigned char*>(node_i + L.node_ints);
+  }
+  int* n_alloc = node_i;
+  int* n_free = n_alloc + kDims * S;
+  int* n_use = n_free + kDims * S;
+  int* n_thx = n_use + kDims * S;
+  int* n_thy = n_thx + kDims * S;
+  uint32_t* n_mag = reinterpret_cast<uint32_t*>(n_thy + kDims * S);
+  int* n_cls = reinterpret_cast<int*>(n_mag + kDims * S);
+  uint32_t* n_flags = reinterpret_cast<uint32_t*>(n_cls + S);
+  uint8_t* n_shf = node_b;
+
+  // stage this CTA's node columns as pair_score's node terms (in-flight
+  // estimates start at zero) and the quota replica
+  for (int i = tid; i < S; i += kThreads) {
+    const bool in = i < cnt;
+    const bool nv = in && nvalid[lo + i];
+    const long long row = static_cast<long long>(in ? lo + i : 0) * kDims;
+    uint32_t flags = nv ? kValidFlag : 0u;
+    for (int r = 0; r < kDims; ++r) {
+      const int a = in ? alloc[row + r] : 0;
+      const DimTerms t = node_dim_terms(a, in ? reqd_g[row + r] : 0,
+                                        in ? base[row + r] : 0, nv,
+                                        cfg.thr[r]);
+      n_alloc[r * S + i] = a;
+      n_free[r * S + i] = t.fr;
+      n_use[r * S + i] = in ? usage[row + r] : 0;
+      n_thx[r * S + i] = t.thx;
+      n_thy[r * S + i] = t.thy;
+      n_mag[r * S + i] = t.mg.m;
+      n_shf[r * S + i] = static_cast<uint8_t>(t.mg.l);
+      if (a > 0) flags |= 1u << r;
     }
-    if (tid == 0) {
-      s_admit = quota_admits(preq_g + prow, pquota ? pquota[idx] : -1,
-                             pnp ? pnp[idx] != 0 : false, q_head, q_min,
-                             q_checked, q_chain, q_valid, QD);
+    n_flags[i] = flags;
+    n_cls[i] = in ? nclass[lo + i] : 0;
+  }
+  if (has_quota) {
+    for (int i = tid; i < Q * kDims; i += kThreads) {
+      head[i] = q_head_g[i];
+      min_head[i] = q_min_g[i];
+      checked[i] = q_checked_g[i];
+    }
+    for (int i = tid; i < Q * QD; i += kThreads) chain[i] = q_chain_g[i];
+    for (int i = tid; i < Q; i += kThreads) qvalid[i] = q_valid_g[i];
+  }
+  __syncthreads();
+  cluster.sync();  // every CTA runs before any reads a peer's s_best
+
+  // warp 0's scan position and staged window [win_lo, win_hi)
+  int cursor = 0, win_lo = 0, win_hi = 0;
+  int parity = 0;
+  for (;;) {
+    if (wid == 0) {
+      int found = -1;
+      while (cursor < P) {
+        if (cursor >= win_hi) {
+          win_lo = cursor;
+          win_hi = min(P, cursor + kWin);
+          for (int i = lane; i < win_hi - win_lo; i += 32) {
+            const int id = order[win_lo + i];
+            w_idx[i] = id;
+            w_flags[i] = (pvalid_g[id] ? 1 : 0) |
+                         ((pnp != nullptr && pnp[id]) ? 2 : 0);
+            w_qid[i] = pquota != nullptr ? pquota[id] : -1;
+            const long long row = static_cast<long long>(id) * kDims;
+#pragma unroll
+            for (int r = 0; r < kDims; ++r)
+              w_req[i * kDims + r] = preq_g[row + r];
+          }
+          __syncwarp();
+        }
+        const int pos = cursor + lane;
+        bool admit = false;
+        if (pos < win_hi) {
+          const int i = pos - win_lo;
+          const int flags = w_flags[i];
+          admit = (flags & 1) &&
+                  quota_admits(w_req + i * kDims, w_qid[i], flags & 2,
+                               has_quota, head, min_head, checked, chain,
+                               qvalid, QD);
+        }
+        const unsigned ballot = __ballot_sync(kFull, admit);
+        if (ballot != 0) {
+          found = cursor + __ffs(ballot) - 1;
+          break;
+        }
+        cursor = min(cursor + 32, win_hi);
+      }
+      if (found >= 0) {
+        const int i = found - win_lo;
+        const int idx = w_idx[i];
+        // the admitted pod's estimate and selector bits, one load per lane
+        if (lane < kDims) {
+          s_req[lane] = w_req[i * kDims + lane];
+          s_est[lane] = pest_g[static_cast<long long>(idx) * kDims + lane];
+        }
+        unsigned long long mask = 0;
+        if (sel != nullptr) {
+          const long long row = static_cast<long long>(idx) * C;
+          const unsigned lo_bits =
+              __ballot_sync(kFull, lane < C && sel[row + lane]);
+          const unsigned hi_bits =
+              __ballot_sync(kFull, lane + 32 < C && sel[row + lane + 32]);
+          mask = lo_bits | (static_cast<unsigned long long>(hi_bits) << 32);
+        }
+        __syncwarp();
+        if (lane == 0) {
+          s_pod = idx;
+          s_qid = w_qid[i];
+          s_np = (w_flags[i] >> 1) & 1;
+          s_mask = mask;
+          s_ps = pod_scalars(s_req, cfg);
+        }
+        cursor = found + 1;
+      } else if (lane == 0) {
+        s_pod = -1;
+      }
     }
     __syncthreads();
-    if (s_admit) {
-      const unsigned long long mask =
-          sel != nullptr ? selector_bits(sel, idx, C) : 0ull;
-      long long best = LLONG_MIN;
-      for (int n = tid; n < N; n += kThreads) {
-        const long long row = static_cast<long long>(n) * kDims;
-        int use[kDims], bs[kDims];
-#pragma unroll
-        for (int r = 0; r < kDims; ++r) {
-          const int ea = est_added[row + r];
-          use[r] = wadd(usage[row + r], ea);
-          bs[r] = wadd(base[row + r], ea);
-        }
-        const bool nv = nvalid[n];
-        bool ok;
-        const int score = pair_score(s_req, s_est, alloc + row, reqd + row,
-                                     use, bs, nv, s_cfg, la_wsum, ok);
-        bool fe = ok && nv;
-        if (sel != nullptr) {
-          fe = fe && selector_ok(mask, nclass[n], C);
-        } else {
-          fe = fe && feas[static_cast<long long>(idx) * N + n];
-        }
-        best = max(best, rank_of(fe ? score : -1, n));
+    const int idx = s_pod;
+    if (idx < 0) break;
+
+    // this CTA's best (score, -node) rank over its nodes
+    const unsigned long long mask = s_mask;
+    const PodRef pod{s_req, s_est, 1, s_ps};
+    long long best = LLONG_MIN;
+    for (int i = tid; i < cnt; i += kThreads) {
+      const int n = lo + i;
+      const StridedRow nr{n_alloc + i, n_free + i, n_use + i, n_thx + i,
+                          n_thy + i,   n_mag + i,  n_shf + i, S,
+                          n_flags[i]};
+      const bool nv = (nr.flags & kValidFlag) != 0;
+      bool ok;
+      const int score = pair_score(nr, pod, cfg, ok);
+      bool fe = ok && nv;
+      if (sel != nullptr) {
+        fe = fe && selector_ok(mask, n_cls[i], C);
+      } else {
+        fe = fe && feas[static_cast<long long>(idx) * N + n];
       }
-      best = warp_max(best);
-      if (lane == 0) s_warp[wid] = best;
-      __syncthreads();
-      if (wid == 0) {
-        best = warp_max(s_warp[lane]);
-        const int value = static_cast<int>(best >> 32);
-        if (lane == 0 && value >= 0) {
-          const int node = 0x7FFFFFFF -
-                           static_cast<int>(best & 0xFFFFFFFFll);
-          const long long row = static_cast<long long>(node) * kDims;
-          out_assign[idx] = node;
-          for (int r = 0; r < kDims; ++r) {
-            reqd[row + r] = wadd(reqd[row + r], s_req[r]);
-            est_added[row + r] = wadd(est_added[row + r], s_est[r]);
+      best = max(best, rank_of(fe ? score : -1, n));
+    }
+    best = warp_max(best);
+    if (lane == 0) s_warp[wid] = best;
+    __syncthreads();
+    if (wid == 0) {
+      best = warp_max(lane < kWarps ? s_warp[lane] : LLONG_MIN);
+      if (lane == 0) s_best[parity] = best;
+    }
+    // the cluster's maximum: every CTA reads the 16 ranks
+    cluster_arrive();
+    cluster_wait();
+    if (wid == 0) {
+      best = warp_max(lane < kCluster
+                          ? *cluster.map_shared_rank(&s_best[parity], lane)
+                          : LLONG_MIN);
+      const int value = static_cast<int>(best >> 32);
+      if (value >= 0) {
+        const int node =
+            0x7FFFFFFF - static_cast<int>(best & 0xFFFFFFFFll);
+        const int i = node - lo;
+        if (i >= 0 && i < cnt) {
+          if (lane < kDims) {
+            // requested += req, the in-flight estimate += est: the free
+            // capacity falls by req, the usage and the threshold's
+            // left side rise by est and 100 * est
+            const int o = lane * S + i;
+            n_free[o] = wsub(n_free[o], s_req[lane]);
+            n_use[o] = wadd(n_use[o], s_est[lane]);
+            n_thx[o] = wadd(n_thx[o], wmul(kMaxScore, s_est[lane]));
           }
-          const int qid = pquota ? pquota[idx] : -1;
-          if (q_head != nullptr && qid >= 0 && q_valid[qid]) {
-            for (int d = 0; d < QD; ++d) {
-              const int anc = q_chain[qid * QD + d];
-              if (anc < 0) continue;
-              for (int r = 0; r < kDims; ++r)
-                q_head[anc * kDims + r] =
-                    wsub(q_head[anc * kDims + r], s_req[r]);
-            }
-            if (pnp[idx]) {
-              for (int r = 0; r < kDims; ++r)
-                q_min[qid * kDims + r] = wsub(q_min[qid * kDims + r],
-                                              s_req[r]);
-            }
+          if (lane == 0) out_assign[idx] = node;
+        }
+        const int qid = s_qid;
+        if (has_quota && qid >= 0 && qvalid[qid] && lane < kDims) {
+          const int q = s_req[lane];
+          for (int d = 0; d < QD; ++d) {
+            const int anc = chain[qid * QD + d];
+            if (anc >= 0)
+              head[anc * kDims + lane] = wsub(head[anc * kDims + lane], q);
           }
+          if (s_np)
+            min_head[qid * kDims + lane] =
+                wsub(min_head[qid * kDims + lane], q);
         }
       }
     }
+    parity ^= 1;
     __syncthreads();
   }
+
+  // write back this CTA's node accounting (requested = a - free on the
+  // valid nodes, the only ones charged), and (once) the quota state
+  for (int i = tid; i < cnt; i += kThreads) {
+    if (!(n_flags[i] & kValidFlag)) continue;
+    const long long row = static_cast<long long>(lo + i) * kDims;
+    for (int r = 0; r < kDims; ++r)
+      reqd_g[row + r] = wsub(n_alloc[r * S + i], n_free[r * S + i]);
+  }
+  if (has_quota && rank == 0) {
+    for (int i = tid; i < Q * kDims; i += kThreads) {
+      q_head_g[i] = head[i];
+      q_min_g[i] = min_head[i];
+    }
+  }
+  cluster.sync();  // no CTA leaves while a peer may still read its s_best
+}
+
+template <bool kNodesInSmem>
+cudaError_t launch(long long smem, cudaStream_t st, const int* alloc,
+                   int* reqd, const int* usage, const int* base,
+                   const uint8_t* nvalid, const int* nclass,
+                   unsigned char* scratch, const int* preq, const int* pest,
+                   const uint8_t* pvalid, const int* order,
+                   const uint8_t* sel, int C, const uint8_t* feas,
+                   const ScoreCfg& cfg, int* q_head, int* q_min,
+                   const uint8_t* q_checked, const int* q_chain,
+                   const uint8_t* q_valid, int Q, int QD, const int* pquota,
+                   const uint8_t* pnp, int P, int N, int* out_assign) {
+  auto kernel = greedy_scan_kernel<kNodesInSmem>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t lc = {};
+  lc.gridDim = dim3(kCluster);
+  lc.blockDim = dim3(kThreads);
+  lc.dynamicSmemBytes = static_cast<size_t>(smem);
+  lc.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  lc.attrs = attr;
+  lc.numAttrs = 1;
+  return cudaLaunchKernelEx(&lc, kernel, alloc, reqd, usage, base, nvalid,
+                            nclass, scratch, preq, pest, pvalid, order, sel,
+                            C, feas, cfg, q_head, q_min, q_checked, q_chain,
+                            q_valid, Q, QD, pquota, pnp, P, N, out_assign);
+}
+
+// The dynamic shared memory a K4 CTA may take: the card's opt-in limit
+// less the kernel's static shared memory.
+cudaError_t smem_room(long long* room) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes fa;
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&fa, greedy_scan_kernel<true>);
+  if (err == cudaSuccess)
+    *room = optin - static_cast<long long>(fa.sharedSizeBytes);
+  return err;
 }
 
 }  // namespace
 
+// Bytes of the global scratch koord_greedy_scan needs: the node columns of
+// every CTA when they do not fit its shared memory beside the quota
+// replica, else 0 (the scratch may then be null).  -1 when the card cannot
+// be asked.
+extern "C" long long koord_greedy_scan_scratch_bytes(int N, int Q, int QD) {
+  long long room = 0;
+  if (smem_room(&room) != cudaSuccess) return -1;
+  const Layout L(N, Q, QD);
+  return L.smem_bytes(true) <= room ? 0 : kCluster * L.scratch_bytes();
+}
+
 extern "C" int koord_greedy_scan(
     const int* alloc, int* reqd, const int* usage, const int* base,
-    const uint8_t* nvalid, const int* nclass, int* est_added,
+    const uint8_t* nvalid, const int* nclass, unsigned char* scratch,
     const int* preq, const int* pest, const uint8_t* pvalid,
     const int* order, const uint8_t* sel, int C, const uint8_t* feas,
     const int* cfg, int cfg_len, int* q_head, int* q_min,
     const uint8_t* q_checked, const int* q_chain, const uint8_t* q_valid,
-    int QD, const int* pquota, const uint8_t* pnp, int P, int N,
+    int Q, int QD, const int* pquota, const uint8_t* pnp, int P, int N,
     int* out_assign, void* stream) {
-  if (cfg_len != kCfgLen || C > 64 || (sel == nullptr) == (feas == nullptr)) {
+  if (cfg_len != kCfgLen || cfg == nullptr || C > 64 || N < 1 ||
+      (sel == nullptr) == (feas == nullptr) ||
+      (q_head != nullptr && (Q < 1 || QD < 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (q_head == nullptr) Q = QD = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  greedy_scan_kernel<<<1, kThreads, 0, st>>>(
-      alloc, reqd, usage, base, nvalid, nclass, est_added, preq, pest, pvalid,
-      order, sel, C, feas, cfg, q_head, q_min, q_checked, q_chain, q_valid,
-      QD, pquota, pnp, P, N, out_assign);
+  ScoreCfg sc;
+  load_score_cfg(sc, cfg);
+  long long room = 0;
+  cudaError_t err = smem_room(&room);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Layout L(N, Q, QD);
+  if (L.smem_bytes(true) <= room) {
+    err = launch<true>(L.smem_bytes(true), st, alloc, reqd, usage, base,
+                       nvalid, nclass, scratch, preq, pest, pvalid, order,
+                       sel, C, feas, sc, q_head, q_min, q_checked, q_chain,
+                       q_valid, Q, QD, pquota, pnp, P, N, out_assign);
+  } else if (scratch == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    // the quota replica and the window must fit; the node columns stream
+    // from the global scratch
+    err = launch<false>(L.smem_bytes(false), st, alloc, reqd, usage, base,
+                        nvalid, nclass, scratch, preq, pest, pvalid, order,
+                        sel, C, feas, sc, q_head, q_min, q_checked, q_chain,
+                        q_valid, Q, QD, pquota, pnp, P, N, out_assign);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,13 +12,13 @@ namespace koord {
 // Resource dimensions of every (.., R) tensor (api/resources.py).
 constexpr int kDims = 10;
 
-__device__ __forceinline__ int wadd(int a, int b) {
+__host__ __device__ __forceinline__ int wadd(int a, int b) {
   return static_cast<int>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
 }
-__device__ __forceinline__ int wsub(int a, int b) {
+__host__ __device__ __forceinline__ int wsub(int a, int b) {
   return static_cast<int>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
 }
-__device__ __forceinline__ int wmul(int a, int b) {
+__host__ __device__ __forceinline__ int wmul(int a, int b) {
   return static_cast<int>(static_cast<uint32_t>(a) * static_cast<uint32_t>(b));
 }
 

@@ -9,6 +9,16 @@
 //   tie_break     koordinator_tpu/ops/batch_assign.py _rank_parts /
 //                 _candidate_tb
 //   rank_of       the (key desc, column asc) order of lax.top_k
+//
+// Every floor division of a score divides by a value that does not change
+// along one axis: a node's allocatable (per node), the LoadAware weight sum
+// (per call), the FitPlus weight sum (per pod) and the scarce-dimension
+// count (1..R).  Each is divided through a magic multiplier and shift
+// (magic_fdiv) computed once for its axis, instead of the integer divide
+// the compiler emulates in a few dozen instructions.  The PyTorch mirror
+// of this arithmetic, tested on the CPU against floor division, is
+// magic_divisor / magic_floordiv / scarce_floordiv in
+// kernels/select_candidates.py.
 #pragma once
 
 #include <climits>
@@ -35,79 +45,257 @@ constexpr int kFpPw = 5 * kDims + 2;
 constexpr int kScPw = 5 * kDims + 3;
 constexpr int kCfgLen = 5 * kDims + 4;
 
-// least_used_score / least_requested_score (ops/scoring.py)
-__device__ __forceinline__ int least_used(int used, int cap) {
-  if (!(cap > 0 && used <= cap)) return 0;
-  return fdiv(wmul(max(wsub(cap, used), 0), kMaxScore), max(cap, 1));
+// ---- floor division by an invariant divisor ------------------------------
+
+// For 1 <= d < 2^31: l = ceil(log2 d), m = ceil(2^(31+l) / d) < 2^32.
+// Then 0 <= m*d - 2^(31+l) < d <= 2^l, so for every 0 <= u < 2^31,
+// floor(u*m / 2^(31+l)) == floor(u / d) (Granlund & Montgomery 1994,
+// Thm 4.2, with N = 31).
+struct Magic {
+  uint32_t m;
+  uint32_t l;
+};
+
+__host__ __device__ __forceinline__ Magic magic_for(int d) {
+  const uint32_t ud = static_cast<uint32_t>(d);
+#ifdef __CUDA_ARCH__
+  const uint32_t l = 32u - __clz(ud - 1u);
+#else
+  const uint32_t l = ud > 1u ? 32u - __builtin_clz(ud - 1u) : 0u;
+#endif
+  const unsigned long long m = ((1ull << (31u + l)) + ud - 1u) / ud;
+  return {static_cast<uint32_t>(m), l};
 }
 
-// The LoadAware weight sum of the config (dominant weight included).
-__device__ __forceinline__ int loadaware_weight_sum(const int* cfg) {
-  int s = cfg[kLaDw];
-  for (int r = 0; r < kDims; ++r) s = wadd(s, cfg[kLaW + r]);
-  return s;
+// floor(x / d) for any int32 x, from d's magic.  A negative x folds to
+// ~x = -x-1 >= 0: floor(x / d) == ~floor(~x / d) for d > 0.
+__device__ __forceinline__ int magic_fdiv(int x, uint32_t m, uint32_t l) {
+  const int s = x >> 31;
+  const uint32_t u = static_cast<uint32_t>(x ^ s);
+  const unsigned long long p = static_cast<unsigned long long>(u) * m;
+  // p < 2^63, so p >> 31 fits 32 bits
+  const uint32_t q = __funnelshift_r(static_cast<uint32_t>(p),
+                                     static_cast<uint32_t>(p >> 32), 31) >>
+                     l;
+  return static_cast<int>(q) ^ s;
 }
 
-// Filter + Score of one (pod, node) pair: returns the composite score and
-// sets ok to the fit & usage-threshold verdict.  Node rows are read through
-// pointers to their R values (shared memory, global memory or registers).
-// use is the usage LoadAware scores against, base the usage the threshold
-// checks (the aggregated usage when that policy is configured).
-__device__ __forceinline__ int pair_score(
-    const int* preq, const int* pest, const int* alloc, const int* reqd,
-    const int* use, const int* base, bool node_valid, const int* cfg,
-    int la_wsum, bool& ok) {
-  bool fit = true, thr_ok = true;
-  int la_sum = 0, dominant = kMaxScore;
-  int fp_num = 0, fp_den = 0;
-  int n_diff = 0, n_inter = 0;
+// (n_diff - n_inter) * 100 // n_diff with n_diff in 1..R: the numerator is
+// at most 100 * R, where (x * ceil(2^20 / n)) >> 20 is exact.
+static __constant__ uint32_t kScarceRecip[kDims + 1] = {
+    0,           1u << 20,           (1u << 20) / 2,
+    349526u,     (1u << 20) / 4,     209716u,
+    174763u,     149797u,            (1u << 20) / 8,
+    116509u,     104858u};
+
+__device__ __forceinline__ int scarce_div(int x, int n) {
+  return static_cast<int>((static_cast<uint32_t>(x) * kScarceRecip[n]) >>
+                          20);
+}
+
+// ---- the score -------------------------------------------------------------
+//
+// The pair score is computed from per-node terms, precomputed once per node
+// (node_dim_terms), and the pod's request and estimate.  With a the node's
+// allocatable, rq its requested, base the usage the threshold checks and
+// thr the dimension's usage threshold:
+//   fr  = valid ? a - rq : 0         (NodeResourcesFit's free capacity)
+//   thx = 100 * base + (a >> 1)      (the threshold's left side without
+//                                     the pod: 100 * (base + e) + a/2 is
+//                                     thx + 100 * e, all wrapping int32)
+//   thy = (thr + 1) * a              (its right side)
+// and the magic divisor of max(a, 1).  The requested amount a FitPlus
+// score needs is a - fr, exact for a valid node; an invalid node is never
+// feasible, so its score is never used.  Which dimensions take which terms
+// is a bit mask per call (ScoreCfg) and per pod (bit r of qpos: q[r] > 0),
+// so each term walks only the dimensions it weighs, and the
+// scarce-dimension counts are two population counts.  The kernels take
+// the ScoreCfg as a __grid_constant__ parameter, so the config's masks and
+// weights are uniform values in the constant bank.
+
+struct __align__(16) ScoreCfg {
+  int thr[kDims];   // usage threshold (aggregated when configured)
+  int lw[kDims];    // LoadAware weight
+  int fpw[kDims];   // FitPlus weight
+  uint32_t thr_mask, la_mask, fp_mask, most_mask, scarce_mask;
+  int la_dw, la_pw, fp_pw, sc_pw;
+  int la_wsum;      // LoadAware weight sum (dominant weight included)
+  uint32_t la_m, la_l;
+};
+
+// Fill ``s`` from the packed config vector (on the host, before a launch).
+__host__ __device__ __forceinline__ void load_score_cfg(ScoreCfg& s,
+                                                        const int* cfg) {
+  int wsum = cfg[kLaDw];
+  uint32_t thr_m = 0, la_m = 0, fp_m = 0, most_m = 0, sc_m = 0;
+  for (int r = 0; r < kDims; ++r) {
+    s.thr[r] = cfg[kThr + r];
+    s.lw[r] = cfg[kLaW + r];
+    s.fpw[r] = cfg[kFpW + r];
+    thr_m |= (cfg[kThr + r] > 0 ? 1u : 0u) << r;
+    la_m |= (cfg[kLaW + r] != 0 ? 1u : 0u) << r;
+    fp_m |= (cfg[kFpW + r] != 0 ? 1u : 0u) << r;
+    most_m |= (cfg[kFpMost + r] ? 1u : 0u) << r;
+    sc_m |= (cfg[kScarce + r] ? 1u : 0u) << r;
+    wsum = wadd(wsum, cfg[kLaW + r]);
+  }
+  s.thr_mask = thr_m;
+  s.la_mask = la_m;
+  s.fp_mask = fp_m;
+  s.most_mask = most_m;
+  s.scarce_mask = sc_m;
+  s.la_dw = cfg[kLaDw];
+  s.la_pw = cfg[kLaPw];
+  s.fp_pw = cfg[kFpPw];
+  s.sc_pw = cfg[kScPw];
+  s.la_wsum = wsum;
+  const Magic mg = magic_for(max(wsum, 1));
+  s.la_m = mg.m;
+  s.la_l = mg.l;
+}
+
+// The per-node terms of one dimension (see above).
+struct DimTerms {
+  int fr, thx, thy;
+  Magic mg;
+};
+
+__device__ __forceinline__ DimTerms node_dim_terms(int a, int rq, int base,
+                                                   bool nv, int thr) {
+  return {nv ? wsub(a, rq) : 0, wadd(wmul(kMaxScore, base), a >> 1),
+          wmul(wadd(thr, 1), a), magic_for(max(a, 1))};
+}
+
+// The per-pod terms: the mask of the dims it requests (q > 0) and of the
+// dims whose request is not 0, and NodeResourcesFitPlus's weight sum over
+// the requested dims (a divisor).  The request and estimate themselves are
+// read through the pod accessor (q(r), e(r)), so that a dimension index
+// known only at run time reads memory and not a register array.
+struct PodScalars {
+  uint32_t qpos, qnz;
+  int fp_den;
+  uint32_t fp_m, fp_l;
+};
+
+__device__ __forceinline__ PodScalars pod_scalars(const int* q,
+                                                  const ScoreCfg& c) {
+  int den = 0;
+  uint32_t qpos = 0, qnz = 0;
 #pragma unroll
   for (int r = 0; r < kDims; ++r) {
-    const int a = alloc[r];
-    const int q = preq[r];
-    // NodeResourcesFit against the request-free capacity (0 when invalid)
-    const int free_r = node_valid ? wsub(a, reqd[r]) : 0;
-    fit = fit && ((q <= free_r) || (q == 0));
-    // usage threshold, cross-multiplied round-half-up (filtering.py:62-72)
-    const int thr = cfg[kThr + r];
-    const int est = wadd(base[r], pest[r]);
-    const int lhs = wadd(wmul(kMaxScore, est), a >> 1);
-    if (thr > 0 && a > 0 && lhs >= wmul(wadd(thr, 1), a)) thr_ok = false;
-    // LoadAware: weighted least-used plus the dominant (min) term
-    const int lw = cfg[kLaW + r];
-    if (lw != 0) {
-      const int per = least_used(wadd(use[r], pest[r]), a);
-      la_sum = wadd(la_sum, wmul(per, lw));
-      if (lw > 0) dominant = min(dominant, per);
+    if (q[r] > 0) {
+      den = wadd(den, c.fpw[r]);
+      qpos |= 1u << r;
     }
-    // NodeResourcesFitPlus over the requested dims
-    const int fw = q > 0 ? cfg[kFpW + r] : 0;
-    if (fw != 0) {
-      const int combined = wadd(reqd[r], q);
-      int per;
-      if (cfg[kFpMost + r]) {
-        per = a > 0 ? fdiv(wmul(min(combined, a), kMaxScore), max(a, 1)) : 0;
-      } else {
-        per = least_used(combined, a);
-      }
-      fp_num = wadd(fp_num, wmul(per, fw));
-      fp_den = wadd(fp_den, fw);
-    }
-    // ScarceResourceAvoidance
-    const bool diff = (a > 0) && !(q > 0);
-    n_diff += diff;
-    n_inter += diff && cfg[kScarce + r];
+    if (q[r] != 0) qnz |= 1u << r;
   }
-  ok = fit && thr_ok;
-  const int node_score = wadd(la_sum, wmul(dominant, cfg[kLaDw]));
-  const int la = la_wsum > 0 ? fdiv(node_score, max(la_wsum, 1)) : 0;
-  const int fp = fp_den > 0 ? fdiv(fp_num, max(fp_den, 1)) : kMaxScore;
-  const int sc = (n_diff == 0 || n_inter == 0)
-                     ? kMaxScore
-                     : fdiv((n_diff - n_inter) * kMaxScore, max(n_diff, 1));
-  return wadd(wadd(wmul(la, cfg[kLaPw]), wmul(fp, cfg[kFpPw])),
-              wmul(sc, cfg[kScPw]));
+  const Magic mg = magic_for(max(den, 1));
+  return {qpos, qnz, den, mg.m, mg.l};
 }
+
+// A pod whose request and estimate lie ``stride`` ints apart per dimension
+// (K1 and K2: one column per pod of a block's shared memory; K4: the
+// scan's current pod, stride 1).
+struct PodRef {
+  const int* q_;
+  const int* e_;
+  int stride;
+  PodScalars s;
+  __device__ __forceinline__ int q(int r) const { return q_[r * stride]; }
+  __device__ __forceinline__ int e(int r) const { return e_[r * stride]; }
+};
+
+// Filter + Score of one (pod, node) pair: returns the composite score and
+// sets ok to the fit & usage-threshold verdict (when ok is false the score
+// is 0 and meaningless: every caller masks infeasible pairs).  ``Row``
+// reads the node's terms: a(r), fr(r), use(r) (the usage LoadAware scores
+// against), thx(r), thy(r), m(r), l(r) (the magic of max(a, 1)) and
+// apos() (bit r: a > 0).  Each term walks only its own dimensions, as bit
+// masks: the pod's nonzero requests (fit), the configured thresholds on
+// allocatable dims, the LoadAware weights, the FitPlus weights on
+// requested dims.
+template <class Row>
+__device__ __forceinline__ int pair_score(const Row& n, const PodRef& t,
+                                          const ScoreCfg& c, bool& ok) {
+  const uint32_t apos = n.apos();
+  // NodeResourcesFit against the request-free capacity (0 when invalid)
+  bool fit = true;
+  for (uint32_t m = t.s.qnz; m != 0; m &= m - 1) {
+    const int r = __ffs(m) - 1;
+    fit = fit & (t.q(r) <= n.fr(r));
+  }
+  // usage threshold, cross-multiplied round-half-up (filtering.py:62-72)
+  bool thr_ok = true;
+  for (uint32_t m = c.thr_mask & apos; m != 0; m &= m - 1) {
+    const int r = __ffs(m) - 1;
+    thr_ok = thr_ok & (wadd(n.thx(r), wmul(kMaxScore, t.e(r))) < n.thy(r));
+  }
+  // the score of an infeasible pair is never used: skip it
+  ok = fit & thr_ok;
+  if (!ok) return 0;
+  // LoadAware: weighted least-used plus the dominant (min) term
+  int la_sum = 0, dominant = kMaxScore;
+  for (uint32_t m = c.la_mask; m != 0; m &= m - 1) {
+    const int r = __ffs(m) - 1;
+    const int a = n.a(r);
+    const int used = wadd(n.use(r), t.e(r));
+    const int v = magic_fdiv(wmul(max(wsub(a, used), 0), kMaxScore), n.m(r),
+                             n.l(r));
+    const int per = (((apos >> r) & 1u) && used <= a) ? v : 0;
+    const int lw = c.lw[r];
+    la_sum = wadd(la_sum, wmul(per, lw));
+    if (lw > 0) dominant = min(dominant, per);
+  }
+  // NodeResourcesFitPlus over the requested dims
+  int fp_num = 0;
+  for (uint32_t m = c.fp_mask & t.s.qpos; m != 0; m &= m - 1) {
+    const int r = __ffs(m) - 1;
+    const int a = n.a(r);
+    const int combined = wadd(wsub(a, n.fr(r)), t.q(r));
+    const bool pos = (apos >> r) & 1u;
+    const bool most = (c.most_mask >> r) & 1u;
+    const int num = most ? wmul(min(combined, a), kMaxScore)
+                         : wmul(max(wsub(a, combined), 0), kMaxScore);
+    const int v = magic_fdiv(num, n.m(r), n.l(r));
+    const int per = (pos && (most || combined <= a)) ? v : 0;
+    fp_num = wadd(fp_num, wmul(per, c.fpw[r]));
+  }
+  // ScarceResourceAvoidance: allocatable but not requested dims
+  const uint32_t diff = apos & ~t.s.qpos;
+  const int n_diff = __popc(diff);
+  const int n_inter = __popc(diff & c.scarce_mask);
+  const int node_score = wadd(la_sum, wmul(dominant, c.la_dw));
+  const int la = c.la_wsum > 0 ? magic_fdiv(node_score, c.la_m, c.la_l) : 0;
+  const int fp_v = magic_fdiv(fp_num, t.s.fp_m, t.s.fp_l);
+  const int fp = t.s.fp_den > 0 ? fp_v : kMaxScore;
+  const int sc_v = scarce_div((n_diff - n_inter) * kMaxScore, n_diff);
+  const int sc = (n_diff == 0 || n_inter == 0) ? kMaxScore : sc_v;
+  return wadd(wadd(wmul(la, c.la_pw), wmul(fp, c.fp_pw)), wmul(sc, c.sc_pw));
+}
+
+// A node whose terms lie in columns: value r of node i at p[r * stride + i]
+// (K4's node ranges, stride S) or in a row (K2's staged rows, stride 1).
+struct StridedRow {
+  const int *a_, *fr_, *use_, *thx_, *thy_;
+  const uint32_t* m_;
+  const uint8_t* l_;
+  int stride;
+  uint32_t flags;  // bits 0..R-1: a > 0, bit R: valid
+  __device__ __forceinline__ int a(int r) const { return a_[r * stride]; }
+  __device__ __forceinline__ int fr(int r) const { return fr_[r * stride]; }
+  __device__ __forceinline__ int use(int r) const { return use_[r * stride]; }
+  __device__ __forceinline__ int thx(int r) const { return thx_[r * stride]; }
+  __device__ __forceinline__ int thy(int r) const { return thy_[r * stride]; }
+  __device__ __forceinline__ uint32_t m(int r) const { return m_[r * stride]; }
+  __device__ __forceinline__ uint32_t l(int r) const { return l_[r * stride]; }
+  __device__ __forceinline__ uint32_t apos() const {
+    return flags & ((1u << kDims) - 1u);
+  }
+};
+
+constexpr uint32_t kValidFlag = 1u << kDims;
+
+// ---- ranking ---------------------------------------------------------------
 
 // Rotated tie-break of _rank_parts: (N-1) - ((n - rot*7919) mod N), with the
 // product and difference wrapping in int32 and the mod floored.
@@ -129,9 +317,11 @@ __device__ __forceinline__ long long rank_of(int key, int n) {
       hi | static_cast<unsigned int>(0x7FFFFFFF - n));
 }
 
-// Insert v into the descending list a[0..K-1] (drop the smallest).
-__device__ __forceinline__ void insert_sorted(long long (&a)[kMaxPerStratum],
-                                              long long v) {
+// Insert v into the descending list a[0..K-1] (drop the smallest).  A value
+// equal to the last one is not inserted, so among equal values the one
+// inserted first stays.
+template <typename T>
+__device__ __forceinline__ void insert_sorted(T (&a)[kMaxPerStratum], T v) {
   if (v <= a[kMaxPerStratum - 1]) return;
 #pragma unroll
   for (int j = kMaxPerStratum - 1; j > 0; --j) {

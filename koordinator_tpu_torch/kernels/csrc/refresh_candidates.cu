@@ -15,10 +15,11 @@
 // loads its k cached slots; a slot on a dirty node is invalidated (score
 // -1), and each stratum's ranking key is recomputed from the cached raw
 // score and node (_candidate_keys).  The block then stages the gathered
-// dirty rows 64 at a time in shared memory and streams them through
-// pair_score (koord_score.cuh, the one definition K1 and K4 compile too),
-// with the tie-break taken on the GLOBAL node id.  Every entry goes into a
-// per-stratum sorted list of int64 ranks in registers:
+// dirty rows 64 at a time in shared memory as pair_score's node terms,
+// and streams them through pair_score (koord_score.cuh,
+// the one definition K1 and K4 compile too), with the tie-break taken on
+// the GLOBAL node id.  Every entry goes into a per-stratum sorted list of
+// int64 ranks in registers:
 //   high word: the ranking key;
 //   low word:  (0xFFFF - position) << 15 | clipped score,
 // where position is the slot (cached entries, 0..k_i-1) or k_i + the dirty
@@ -66,23 +67,27 @@ __global__ void __launch_bounds__(kThreads) refresh_candidates_kernel(
     const uint8_t* __restrict__ nvalid, const int* __restrict__ nclass,
     const int* __restrict__ preq_g, const int* __restrict__ pest_g,
     const uint8_t* __restrict__ pvalid_g, const int* __restrict__ rot_g,
-    const uint8_t* __restrict__ sel, int C, const int* __restrict__ cfg_g,
+    const uint8_t* __restrict__ sel, int C,
+    const __grid_constant__ ScoreCfg cfg,
     const int* __restrict__ cache_node, const int* __restrict__ cache_score,
     const int* __restrict__ drows, const uint8_t* __restrict__ dvalid, int D,
     const uint8_t* __restrict__ dmask, int P, int N, int sb0, int sb1,
     int k0, int k1, int* __restrict__ out_key, int* __restrict__ out_node,
     int* __restrict__ out_score) {
-  __shared__ int s_cfg[kCfgLen];
   __shared__ int s_alloc[kTile * kDims];
-  __shared__ int s_reqd[kTile * kDims];
+  __shared__ int s_free[kTile * kDims];
   __shared__ int s_use[kTile * kDims];
-  __shared__ int s_base[kTile * kDims];
-  __shared__ uint8_t s_valid[kTile];
+  __shared__ int s_thx[kTile * kDims];
+  __shared__ int s_thy[kTile * kDims];
+  __shared__ uint32_t s_mag[kTile * kDims];
+  __shared__ uint8_t s_shf[kTile * kDims];
+  __shared__ uint32_t s_flags[kTile];
   __shared__ int s_class[kTile];
   __shared__ int s_row[kTile];
+  __shared__ int s_pq[kDims * kThreads];   // each pod's request and
+  __shared__ int s_pe[kDims * kThreads];   // estimate, a column per thread
 
   const int p = blockIdx.x * kThreads + threadIdx.x;
-  for (int i = threadIdx.x; i < kCfgLen; i += kThreads) s_cfg[i] = cfg_g[i];
 
   const bool in_range = p < P;
   const bool pvalid = in_range && pvalid_g[p];
@@ -121,16 +126,21 @@ __global__ void __launch_bounds__(kThreads) refresh_candidates_kernel(
     }
   }
 
-  int preq[kDims], pest[kDims];
-#pragma unroll
-  for (int r = 0; r < kDims; ++r) {
-    preq[r] = pvalid ? preq_g[p * kDims + r] : 0;
-    pest[r] = pvalid ? pest_g[p * kDims + r] : 0;
-  }
   const unsigned long long mask = pvalid ? selector_bits(sel, p, C) : 0ull;
 
   __syncthreads();
-  const int la_wsum = loadaware_weight_sum(s_cfg);
+  PodRef pt;
+  {
+    const int tid = threadIdx.x;
+    int q[kDims];
+#pragma unroll
+    for (int r = 0; r < kDims; ++r) {
+      q[r] = pvalid ? preq_g[p * kDims + r] : 0;
+      s_pq[r * kThreads + tid] = q[r];
+      s_pe[r * kThreads + tid] = pvalid ? pest_g[p * kDims + r] : 0;
+    }
+    pt = PodRef{s_pq + tid, s_pe + tid, kThreads, pod_scalars(q, cfg)};
+  }
 
   // the fresh dirty columns (an invalid pod's are all infeasible)
   const bool any_valid = __syncthreads_or(pvalid);
@@ -138,33 +148,47 @@ __global__ void __launch_bounds__(kThreads) refresh_candidates_kernel(
     for (int d0 = 0; d0 < D; d0 += kTile) {
       const int tn = min(kTile, D - d0);
       __syncthreads();
-      // a row outside [0, N) is read as row 0 and scored as invalid
+      // a row outside [0, N) is read as row 0 and scored as invalid; each
+      // staged row gets its node terms (koord_score.cuh: node_dim_terms)
       for (int i = threadIdx.x; i < tn * kDims; i += kThreads) {
         const int row = drows[d0 + i / kDims];
-        const long long src =
-            static_cast<long long>(in_nodes(row, N) ? row : 0) * kDims +
-            i % kDims;
-        s_alloc[i] = alloc[src];
-        s_reqd[i] = reqd[src];
+        const bool in = in_nodes(row, N);
+        const int r = i % kDims;
+        const long long src = static_cast<long long>(in ? row : 0) * kDims + r;
+        const bool nv = in && nvalid[in ? row : 0] && dvalid[d0 + i / kDims];
+        const int a = alloc[src];
+        const DimTerms t = node_dim_terms(a, reqd[src], base[src], nv,
+                                          cfg.thr[r]);
+        s_alloc[i] = a;
+        s_free[i] = t.fr;
         s_use[i] = usage[src];
-        s_base[i] = base[src];
+        s_thx[i] = t.thx;
+        s_thy[i] = t.thy;
+        s_mag[i] = t.mg.m;
+        s_shf[i] = static_cast<uint8_t>(t.mg.l);
       }
       for (int i = threadIdx.x; i < tn; i += kThreads) {
         const int row = drows[d0 + i];
         const bool in = in_nodes(row, N);
+        const long long src = static_cast<long long>(in ? row : 0) * kDims;
+        uint32_t flags =
+            (in && nvalid[in ? row : 0] && dvalid[d0 + i]) ? kValidFlag : 0u;
+        for (int r = 0; r < kDims; ++r)
+          if (alloc[src + r] > 0) flags |= 1u << r;
         s_row[i] = row;
-        s_valid[i] = in && nvalid[in ? row : 0] && dvalid[d0 + i];
+        s_flags[i] = flags;
         s_class[i] = nclass[in ? row : 0];
       }
       __syncthreads();
       if (!pvalid) continue;
       for (int t = 0; t < tn; ++t) {
-        const bool nv = s_valid[t];
+        const int o = t * kDims;
+        const StridedRow nr{s_alloc + o, s_free + o, s_use + o, s_thx + o,
+                            s_thy + o,   s_mag + o,  s_shf + o, 1,
+                            s_flags[t]};
+        const bool nv = (nr.flags & kValidFlag) != 0;
         bool ok;
-        const int score = pair_score(preq, pest, s_alloc + t * kDims,
-                                     s_reqd + t * kDims, s_use + t * kDims,
-                                     s_base + t * kDims, nv, s_cfg, la_wsum,
-                                     ok);
+        const int score = pair_score(nr, pt, cfg, ok);
         if (!(ok && nv && selector_ok(mask, s_class[t], C))) continue;
         const int tb = tie_break(s_row[t], rot7919, N);
         const int clipped = clip_score(score);
@@ -216,22 +240,25 @@ extern "C" int koord_refresh_candidates(
     const uint8_t* dvalid, int D, const uint8_t* dmask, int P, int N,
     int n_strata, int sb0, int sb1, int k0, int k1, int* out_key,
     int* out_node, int* out_score, void* stream) {
-  if (cfg_len != kCfgLen || n_strata < 1 || n_strata > 2 ||
+  if (cfg_len != kCfgLen || cfg == nullptr || n_strata < 1 ||
+      n_strata > 2 ||
       k0 > kMaxPerStratum || k1 > kMaxPerStratum || C > 64 || C < 1 ||
       D + kMaxPerStratum > kMaxPosition) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  ScoreCfg sc;
+  load_score_cfg(sc, cfg);
   const dim3 grid((P + kThreads - 1) / kThreads);
   if (n_strata == 1) {
     refresh_candidates_kernel<1><<<grid, kThreads, 0, st>>>(
         alloc, reqd, usage, base, nvalid, nclass, preq, pest, pvalid, rot_id,
-        sel, C, cfg, cache_node, cache_score, drows, dvalid, D, dmask, P, N,
+        sel, C, sc, cache_node, cache_score, drows, dvalid, D, dmask, P, N,
         sb0, sb1, k0, 0, out_key, out_node, out_score);
   } else {
     refresh_candidates_kernel<2><<<grid, kThreads, 0, st>>>(
         alloc, reqd, usage, base, nvalid, nclass, preq, pest, pvalid, rot_id,
-        sel, C, cfg, cache_node, cache_score, drows, dvalid, D, dmask, P, N,
+        sel, C, sc, cache_node, cache_score, drows, dvalid, D, dmask, P, N,
         sb0, sb1, k0, k1, out_key, out_node, out_score);
   }
   return static_cast<int>(cudaGetLastError());

@@ -10,171 +10,487 @@
 // kernels/select_candidates.py.
 //
 // What bounds it on the H100: the work is P*N pairs, each an R=10 loop of
-// int32 compares, multiplies and a few integer divisions (operations), and
-// the only bytes that must move are the (P, R) / (N, R) inputs and the
-// (P, k) outputs.  The XLA version writes three (P, N) int32 tensors to
-// device memory (2.6 GB each at 65,536 x 10,240); this kernel writes none:
-// each pod's row of N keys lives in registers and is folded, node by node,
-// into a running top-k per stratum.
+// int32 compares, multiplies and a few floor divisions (operations); the
+// only bytes that must move are the (P, R) / (N, R) inputs and the (P, k)
+// outputs.  No (P, N) tensor is written: each pod's row of N keys is folded,
+// node by node, into a running top-k per stratum held in registers.
 //
-// Design: one thread per pod, 128 pods per block.  The block walks the node
-// axis in tiles of 64 nodes staged in shared memory; every thread reads the
-// same node at the same time, so each shared-memory read is a broadcast.  A
-// thread keeps, per stratum, its pod's best 16 (key, node) pairs as a
-// sorted list of int64 values in registers (fully unrolled insertion, so
-// the list never leaves registers); the list is the pod's final top-k, so
-// no merge across threads is needed.  The order is (key descending, node
-// ascending), which is lax.top_k's order including the -1 slots of rows
-// with fewer feasible nodes than k.  An epilogue re-scores the k chosen
-// nodes to emit the stratum-0 key and the clipped score of every slot.
-// The pair score and the ranking helpers live in koord_score.cuh, shared
-// with K2 and K4.  What it does not yet do: every block re-reads the whole
-// node table from L2 (P/128 times in all), which is the first thing to fix
-// when it is made fast (larger pod tiles, thread-block clusters sharing one
-// tile load).
+// Design (four threads per pod, 32 pods per CTA, clusters of 2 CTAs; the
+// choices measured on the H100 with profile_torch_round.py --kernels
+// --variants, PERF.md):
+// - A first small kernel packs the node table into 352-byte rows of
+//   pair_score's node terms (koord_score.cuh: allocatable, free capacity,
+//   usage, the usage threshold's two sides, the allocatable's magic
+//   divisors, flags, class), padded with invalid rows to whole tiles, so a
+//   tile of 32 nodes is one contiguous 11 KB block.
+// - The CTAs of a cluster share each tile: CTA r copies slice r of the
+//   tile with one cp.async.bulk ... .multicast::cluster, which lands in
+//   every CTA of the cluster from one L2 read.  Completion goes to each
+//   CTA's mbarrier for that stage; a ring of 3 stages keeps the next tiles
+//   in flight while one is scored.  One cluster barrier per tile (split
+//   arrive/wait, a tile behind) frees a stage before it is refilled.
+//   Larger clusters cut L2 reads further but couple more CTAs to the
+//   slowest of them.
+// - A pod's four threads take every fourth node of each tile and merge
+//   their partial lists by shuffles at the end.  A thread's pair score is
+//   a chain of dependent steps; four threads a pod give each scheduler the
+//   warps to hide that latency at the flagship's 50,000 pods.
+// - Each term of the score walks only the dimensions it weighs (bit masks
+//   of the config, a kernel parameter, and of the pod), and every floor
+//   division goes through a magic multiplier: per node from the packed
+//   rows, per call for the LoadAware weight sum, per pod for the FitPlus
+//   weight sum.
+// - The per-stratum lists hold int32 keys ((clipped >> sb) << 15 | tb),
+//   not int64 (key, node) ranks: 32 registers instead of 64.  The node of
+//   a key is recovered from its tie-break (its preimages, re-scored when
+//   the rotation's difference wraps and two nodes share a tie-break), and
+//   the -1 slots of rows with fewer feasible nodes than a stratum's k are
+//   filled with the row's lowest infeasible columns, lax.top_k's order.
+//   kernels/select_candidates.py mirrors both rules (tie_break_preimages,
+//   topk_from_int32_keys), tested against the JAX package on the CPU.
+// - An epilogue, stratum s on the pod's thread s, re-scores each chosen
+//   node to emit the stratum-0 key and the clipped score of every slot.
+
+#include <cooperative_groups.h>
 
 #include "koord_score.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using namespace koord;
 
-constexpr int kThreads = 128;   // pods per block
-constexpr int kTile = 64;       // nodes per shared-memory tile
+constexpr int kThreads = 128;
+constexpr int kLanes = 4;                      // threads per pod
+constexpr int kPods = kThreads / kLanes;       // pods per CTA
+constexpr int kCluster = 2;                    // CTAs sharing each tile
+constexpr int kTile = 32;                      // nodes per tile
+constexpr int kStages = 3;                     // tiles in flight
+constexpr int kRowInts = 88;                   // packed node row: 352 B
+constexpr int kTileBytes = kTile * kRowInts * 4;
+constexpr int kSliceBytes = kTileBytes / kCluster;
+static_assert(kSliceBytes % 16 == 0, "bulk copies move 16-byte multiples");
+
+// Packed row layout (ints, each group padded to 12 for 16-byte loads):
+// [0,12) allocatable, [12,24) free capacity, [24,36) usage, [36,48) and
+// [48,60) the threshold's two sides, [60,72) magic multipliers, [72,84)
+// magic shifts; 84 flags (bit r: a > 0, bit R: valid), 85 class
+// (koord_score.cuh: node_dim_terms).
+constexpr int kRowA = 0, kRowF = 12, kRowU = 24, kRowX = 36, kRowY = 48;
+constexpr int kRowM = 60, kRowL = 72, kRowFlags = 84, kRowClass = 85;
+
+__global__ void pack_node_rows(const int* __restrict__ alloc,
+                               const int* __restrict__ reqd,
+                               const int* __restrict__ usage,
+                               const int* __restrict__ base,
+                               const uint8_t* __restrict__ nvalid,
+                               const int* __restrict__ nclass,
+                               const __grid_constant__ ScoreCfg cfg, int N,
+                               int n_pad, int* __restrict__ rows) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= n_pad) return;
+  int* row = rows + static_cast<long long>(n) * kRowInts;
+  const bool in = n < N;
+  const bool nv = in && nvalid[n];
+  const long long src = static_cast<long long>(in ? n : 0) * kDims;
+  unsigned int flags = nv ? kValidFlag : 0u;
+  for (int r = 0; r < 12; ++r) {
+    const bool d = in && r < kDims;
+    const int a = d ? alloc[src + r] : 0;
+    const DimTerms t = node_dim_terms(a, d ? reqd[src + r] : 0,
+                                      d ? base[src + r] : 0, nv,
+                                      r < kDims ? cfg.thr[r] : 0);
+    row[kRowA + r] = a;
+    row[kRowF + r] = t.fr;
+    row[kRowU + r] = d ? usage[src + r] : 0;
+    row[kRowX + r] = t.thx;
+    row[kRowY + r] = t.thy;
+    row[kRowM + r] = static_cast<int>(t.mg.m);
+    row[kRowL + r] = static_cast<int>(t.mg.l);
+    if (r < kDims && a > 0) flags |= 1u << r;
+  }
+  row[kRowFlags] = static_cast<int>(flags);
+  row[kRowClass] = in ? nclass[n] : 0;
+  for (int r = kRowClass + 1; r < kRowInts; ++r) row[r] = 0;
+}
+
+// One packed node row (shared or global memory) as pair_score reads it;
+// its flags and class come in one 16-byte load.
+struct PackedRow {
+  const int* p;
+  int4 meta;
+  __device__ __forceinline__ explicit PackedRow(const int* row) : p(row) {
+    meta = reinterpret_cast<const int4*>(row)[kRowFlags / 4];
+  }
+  __device__ __forceinline__ int a(int r) const { return p[kRowA + r]; }
+  __device__ __forceinline__ int fr(int r) const { return p[kRowF + r]; }
+  __device__ __forceinline__ int use(int r) const { return p[kRowU + r]; }
+  __device__ __forceinline__ int thx(int r) const { return p[kRowX + r]; }
+  __device__ __forceinline__ int thy(int r) const { return p[kRowY + r]; }
+  __device__ __forceinline__ uint32_t m(int r) const {
+    return static_cast<uint32_t>(p[kRowM + r]);
+  }
+  __device__ __forceinline__ uint32_t l(int r) const {
+    return static_cast<uint32_t>(p[kRowL + r]);
+  }
+  __device__ __forceinline__ uint32_t apos() const {
+    return static_cast<uint32_t>(meta.x) & ((1u << kDims) - 1u);
+  }
+  __device__ __forceinline__ bool valid() const {
+    return (static_cast<uint32_t>(meta.x) & kValidFlag) != 0;
+  }
+  __device__ __forceinline__ int cls() const { return meta.y; }
+};
+
+// Filter + Score of the pod against one packed node row; sets feas to the
+// full feasibility verdict.
+__device__ __forceinline__ int score_row(
+    const int* row, int n, int p, int P, const PodRef& pt,
+    const ScoreCfg& c, const uint8_t* feas_t,
+    unsigned long long mask, bool has_sel, int C, bool& feas) {
+  const PackedRow nr(row);
+  bool ok;
+  const int score = pair_score(nr, pt, c, ok);
+  feas = ok && nr.valid() &&
+         (has_sel ? selector_ok(mask, nr.cls(), C)
+                  : feas_t[static_cast<long long>(n) * P + p] != 0);
+  // (a padding row past N is invalid, so feas_t is read only below N)
+  return score;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Copy ``bytes`` from global memory into the same shared-memory offset of
+// every CTA in ``mask``, completing on each one's mbarrier at ``bar``'s
+// offset.
+__device__ __forceinline__ void bulk_multicast(void* dst, const void* src,
+                                               int bytes, uint64_t* bar,
+                                               uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(mask)
+      : "memory");
+}
 
 template <int NS>
-__global__ void __launch_bounds__(kThreads) select_candidates_kernel(
-    const int* __restrict__ alloc, const int* __restrict__ reqd,
-    const int* __restrict__ usage, const int* __restrict__ base,
-    const uint8_t* __restrict__ nvalid, const int* __restrict__ nclass,
+__global__ void __launch_bounds__(kThreads, 6) select_candidates_kernel(
+    const int* __restrict__ rows, int n_tiles,
     const int* __restrict__ preq_g, const int* __restrict__ pest_g,
     const uint8_t* __restrict__ pvalid_g, const int* __restrict__ rot_g,
     const uint8_t* __restrict__ sel, int C, const uint8_t* __restrict__ feas_t,
-    const int* __restrict__ cfg_g, int P, int N, int sb0, int sb1, int k0,
-    int k1, int* __restrict__ out_key, int* __restrict__ out_node,
-    int* __restrict__ out_score) {
-  __shared__ int s_cfg[kCfgLen];
-  __shared__ int s_alloc[kTile * kDims];
-  __shared__ int s_reqd[kTile * kDims];
-  __shared__ int s_use[kTile * kDims];
-  __shared__ int s_base[kTile * kDims];
-  __shared__ uint8_t s_valid[kTile];
-  __shared__ int s_class[kTile];
+    const __grid_constant__ ScoreCfg cfg, int P, int N, int sb0, int sb1,
+    int k0,
+    int k1, int group_stride, int* __restrict__ out_key,
+    int* __restrict__ out_node, int* __restrict__ out_score) {
+  extern __shared__ __align__(128) int4 s_tiles[];
+  __shared__ __align__(8) uint64_t s_full[kStages];
+  __shared__ int s_any;
 
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  for (int i = threadIdx.x; i < kCfgLen; i += kThreads) s_cfg[i] = cfg_g[i];
-
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned int rank = cluster.block_rank();
+  const int tid = threadIdx.x;
+  // cluster c takes pod group (c * group_stride) mod G: clusters launched
+  // side by side take groups far apart, so the valid rows a batch holds at
+  // its front spread over the card instead of filling its first SMs
+  const int n_groups = gridDim.x / kCluster;
+  const int group = static_cast<int>(
+      static_cast<long long>(blockIdx.x / kCluster) * group_stride %
+      n_groups);
+  // the kLanes threads of a pod are neighbours in a warp; lane h scores
+  // the nodes h, h + kLanes, ... of every tile
+  const int slot = tid / kLanes;
+  const int lane = tid % kLanes;
+  const int p = (group * kCluster + static_cast<int>(rank)) * kPods + slot;
   const bool in_range = p < P;
   const bool pvalid = in_range && pvalid_g[p];
-  int preq[kDims], pest[kDims];
-#pragma unroll
-  for (int r = 0; r < kDims; ++r) {
-    preq[r] = in_range ? preq_g[p * kDims + r] : 0;
-    pest[r] = in_range ? pest_g[p * kDims + r] : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(&s_full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const int rot7919 = in_range ? wmul(rot_g[p], 7919) : 0;
-  const unsigned long long mask =
-      (pvalid && sel != nullptr) ? selector_bits(sel, p, C) : 0ull;
-  const int shifts[2] = {sb0, sb1};
-  const int ks[2] = {k0, k1};
+  const int any_local = __syncthreads_or(pvalid);
+  if (tid == 0) s_any = any_local;
+  cluster.sync();
+  // the cluster sweeps the node tiles if any of its CTAs holds a valid pod
+  bool any = false;
+  for (int r = 0; r < kCluster; ++r)
+    any = any || *cluster.map_shared_rank(&s_any, r) != 0;
+  cluster.sync();  // every peer has read s_any
 
+  // the pod's request and estimate, one column per pod of shared memory
+  // (pair_score reads them at dimension indices known at run time)
+  int* s_pq = reinterpret_cast<int*>(s_tiles) + kStages * kTile * kRowInts;
+  int* s_pe = s_pq + kDims * kPods;
+  PodRef pt;
+  {
+    int q[kDims];
+#pragma unroll
+    for (int r = 0; r < kDims; ++r) {
+      q[r] = pvalid ? preq_g[p * kDims + r] : 0;
+      if (lane == 0) {
+        s_pq[r * kPods + slot] = q[r];
+        s_pe[r * kPods + slot] = pvalid ? pest_g[p * kDims + r] : 0;
+      }
+    }
+    pt = PodRef{s_pq + slot, s_pe + slot, kPods, pod_scalars(q, cfg)};
+  }
   __syncthreads();
-  const int la_wsum = loadaware_weight_sum(s_cfg);
+  const int rot7919 = in_range ? wmul(rot_g[p], 7919) : 0;
+  const bool has_sel = sel != nullptr;
+  const unsigned long long mask =
+      (pvalid && has_sel) ? selector_bits(sel, p, C) : 0ull;
 
-  long long lists[NS][kMaxPerStratum];
+  int lists[NS][kMaxPerStratum];
 #pragma unroll
   for (int s = 0; s < NS; ++s)
 #pragma unroll
-    for (int j = 0; j < kMaxPerStratum; ++j) lists[s][j] = LLONG_MIN;
+    for (int j = 0; j < kMaxPerStratum; ++j) lists[s][j] = INT_MIN;
+  int n_feas = 0;
 
-  // a block whose pods are all invalid skips the node sweep: every key is
-  // -1 and the epilogue's default (the first k columns) is the answer
-  const bool any_valid = __syncthreads_or(pvalid);
-  if (any_valid) {
-    for (int n0 = 0; n0 < N; n0 += kTile) {
-      const int tn = min(kTile, N - n0);
-      __syncthreads();
-      const long long off = static_cast<long long>(n0) * kDims;
-      for (int i = threadIdx.x; i < tn * kDims; i += kThreads) {
-        s_alloc[i] = alloc[off + i];
-        s_reqd[i] = reqd[off + i];
-        s_use[i] = usage[off + i];
-        s_base[i] = base[off + i];
-      }
-      for (int i = threadIdx.x; i < tn; i += kThreads) {
-        s_valid[i] = nvalid[n0 + i];
-        s_class[i] = nclass[n0 + i];
-      }
-      __syncthreads();
-      if (!pvalid) continue;
-      for (int t = 0; t < tn; ++t) {
-        const int n = n0 + t;
-        const bool nv = s_valid[t];
-        bool ok;
-        const int score = pair_score(preq, pest, s_alloc + t * kDims,
-                                     s_reqd + t * kDims, s_use + t * kDims,
-                                     s_base + t * kDims, nv, s_cfg, la_wsum,
-                                     ok);
-        bool feas = ok && nv;
-        if (sel != nullptr) {
-          feas = feas && selector_ok(mask, s_class[t], C);
-        } else {
-          feas = feas && feas_t[static_cast<long long>(n) * P + p];
-        }
-        const int tb = tie_break(n, rot7919, N);
-        const int clipped = clip_score(score);
-#pragma unroll
-        for (int s = 0; s < NS; ++s) {
-          const int key = feas ? (((clipped >> shifts[s]) << kTbBits) | tb)
-                               : -1;
-          insert_sorted(lists[s], rank_of(key, n));
-        }
+  if (any) {
+    const uint16_t all = static_cast<uint16_t>((1u << kCluster) - 1u);
+    const char* src = reinterpret_cast<const char*>(rows);
+    char* ring = reinterpret_cast<char*>(s_tiles);
+    if (tid == 0) {
+      for (int t = 0; t < kStages && t < n_tiles; ++t) {
+        mbar_expect_tx(&s_full[t], kTileBytes);
+        bulk_multicast(ring + t * kTileBytes + rank * kSliceBytes,
+                       src + static_cast<long long>(t) * kTileBytes +
+                           rank * kSliceBytes,
+                       kSliceBytes, &s_full[t], all);
       }
     }
+    for (int t = 0; t < n_tiles; ++t) {
+      const int stage = t % kStages;
+      mbar_wait(&s_full[stage], static_cast<uint32_t>((t / kStages) & 1));
+      if (pvalid) {
+        const int* tile = reinterpret_cast<const int*>(s_tiles) +
+                          stage * (kTile * kRowInts);
+        const int n0 = t * kTile;
+        // this lane's share of the tile; the padding rows past N are
+        // invalid, hence never feasible
+        for (int i = lane; i < kTile; i += kLanes) {
+          const int n = n0 + i;
+          bool feas;
+          const int score = score_row(tile + i * kRowInts, n, p, P, pt, cfg,
+                                      feas_t, mask, has_sel, C, feas);
+          if (!(feas && n < N)) continue;
+          ++n_feas;
+          const int tb = tie_break(n, rot7919, N);
+          const int clipped = clip_score(score);
+#pragma unroll
+          for (int s = 0; s < NS; ++s)
+            insert_sorted(lists[s],
+                          ((clipped >> (s == 0 ? sb0 : sb1)) << kTbBits) | tb);
+        }
+      }
+      if (t >= 1) {
+        cluster_wait();  // every CTA is done with tile t-1
+        const int refill = t - 1 + kStages;
+        if (tid == 0 && refill < n_tiles) {
+          const int st = (t - 1) % kStages;
+          mbar_expect_tx(&s_full[st], kTileBytes);
+          bulk_multicast(ring + st * kTileBytes + rank * kSliceBytes,
+                         src + static_cast<long long>(refill) * kTileBytes +
+                             rank * kSliceBytes,
+                         kSliceBytes, &s_full[st], all);
+        }
+      }
+      cluster_arrive();
+    }
+    cluster_wait();
+  }
+  // merge the pod's kLanes partial lists (a butterfly: after log2(kLanes)
+  // exchanges every lane holds the top of the union); the lists hold key
+  // values only, so the order of merging does not matter
+#pragma unroll
+  for (int off = 1; off < kLanes; off <<= 1) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      int other[kMaxPerStratum];
+#pragma unroll
+      for (int j = 0; j < kMaxPerStratum; ++j)
+        other[j] = __shfl_xor_sync(0xFFFFFFFFu, lists[s][j], off);
+#pragma unroll
+      for (int j = 0; j < kMaxPerStratum; ++j)
+        insert_sorted(lists[s], other[j]);
+    }
+    n_feas += __shfl_xor_sync(0xFFFFFFFFu, n_feas, off);
   }
   if (!in_range) return;
 
-  // epilogue: decode each stratum's winners, re-score them for the
-  // stratum-0 key and the clipped score of every slot
+  // epilogue, lane s of the pod for stratum s.  Pass 1: the lists' keys
+  // into the key output (the lists are register arrays, so this loop is
+  // unrolled and indexes them statically)
   const int k_total = k0 + (NS > 1 ? k1 : 0);
-  int slot = 0;
+  const long long row0 = static_cast<long long>(p) * k_total;
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
+    if (s % kLanes != lane) continue;
 #pragma unroll
     for (int j = 0; j < kMaxPerStratum; ++j) {
-      if (j >= ks[s]) break;
+      if (j < (s == 0 ? k0 : k1)) out_key[row0 + (s == 0 ? 0 : k0) + j] =
+          lists[s][j];
+    }
+  }
+
+  // pass 2: each slot's node, re-scored from the packed rows in global
+  // memory for the stratum-0 key and the clipped score.  The preimages of a
+  // tie-break: n1 below the first node whose difference wraps
+  // (2^31 + rot7919), n2 at or above it (tie_break_preimages).
+
+  const long long wrap_from = static_cast<long long>(rot7919) + (1ll << 31);
+  const bool wraps = wrap_from < N;
+  const int rot_mod = fmod_floor(rot7919, N);
+  const int two32_mod = static_cast<int>((1ull << 32) % N);
+  for (int s = 0; s < NS; ++s) {
+    if (s % kLanes != lane) continue;
+    const int ks_s = s == 0 ? k0 : k1;
+    const int sb = s == 0 ? sb0 : sb1;
+    const long long base_o = row0 + (s == 0 ? 0 : k0);
+    const int f = min(n_feas, ks_s);
+    int prev = INT_MIN;
+    int fill = 0;  // next column to test for the -1 slots
+    for (int j = 0; j < ks_s; ++j) {
+      const long long o = base_o + j;
       int n, key = -1, cscore = -1;
-      if (!pvalid) {
-        n = j;  // all keys -1: top_k takes the lowest columns
+      if (j < f) {
+        const int v = out_key[o];
+        int n1 = (N - 1) - (v & kScoreClip) + rot_mod;
+        if (n1 >= N) n1 -= N;
+        n = n1;
+        bool feas;
+        int score = score_row(rows + static_cast<long long>(n1) * kRowInts,
+                              n1, p, P, pt, cfg, feas_t, mask,
+                              has_sel, C, feas);
+        if (wraps) {
+          // the first copy of v takes the lower matching preimage, a
+          // second copy the higher one (lax.top_k's column order)
+          const bool ok1 =
+              n1 < wrap_from && feas &&
+              (((clip_score(score) >> sb) << kTbBits) |
+               tie_break(n1, rot7919, N)) == v;
+          if (!ok1 || prev == v) {
+            n = n1 + two32_mod;
+            if (n >= N) n -= N;
+            score = score_row(rows + static_cast<long long>(n) * kRowInts,
+                              n, p, P, pt, cfg, feas_t, mask,
+                              has_sel, C, feas);
+          }
+        }
+        prev = v;
+        cscore = clip_score(score);
+        key = ((cscore >> sb0) << kTbBits) | tie_break(n, rot7919, N);
       } else {
-        n = 0x7FFFFFFF - static_cast<int>(lists[s][j] & 0xFFFFFFFFll);
-        const long long row = static_cast<long long>(n) * kDims;
-        const bool nv = nvalid[n];
-        bool ok;
-        const int score =
-            pair_score(preq, pest, alloc + row, reqd + row, usage + row,
-                       base + row, nv, s_cfg, la_wsum, ok);
-        bool feas = ok && nv;
-        if (sel != nullptr) {
-          feas = feas && selector_ok(mask, nclass[n], C);
-        } else {
-          feas = feas && feas_t[static_cast<long long>(n) * P + p];
+        // lax.top_k's -1 slots: the row's infeasible columns, ascending
+        for (;; ++fill) {
+          bool feas = false;
+          if (pvalid) {
+            score_row(rows + static_cast<long long>(fill) * kRowInts, fill,
+                      p, P, pt, cfg, feas_t, mask, has_sel, C, feas);
+          }
+          if (!feas) break;
         }
-        if (feas) {
-          cscore = clip_score(score);
-          key = ((cscore >> sb0) << kTbBits) | tie_break(n, rot7919, N);
-        }
+        n = fill++;
       }
-      const long long o = static_cast<long long>(p) * k_total + slot;
       out_key[o] = key;
       out_node[o] = n;
       out_score[o] = cscore;
-      ++slot;
     }
   }
 }
 
+template <int NS>
+cudaError_t launch(const int* rows, int n_tiles, const int* preq,
+                   const int* pest, const uint8_t* pvalid, const int* rot_id,
+                   const uint8_t* sel, int C, const uint8_t* feas_t,
+                   const ScoreCfg& cfg, int P, int N, int sb0, int sb1,
+                   int k0,
+                   int k1, int* out_key, int* out_node, int* out_score,
+                   cudaStream_t st) {
+  auto kernel = select_candidates_kernel<NS>;
+  const int smem = kStages * kTileBytes + 2 * kDims * kPods * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (P + kPods - 1) / kPods;
+  const int n_groups = (blocks + kCluster - 1) / kCluster;
+  // a stride near 0.618 n_groups, coprime with it: a permutation of the
+  // groups that scatters neighbours (Fibonacci hashing)
+  int stride = max(1, static_cast<int>(n_groups * 0.618));
+  auto gcd = [](int a, int b) {
+    while (b) {
+      const int t = a % b;
+      a = b;
+      b = t;
+    }
+    return a;
+  };
+  while (gcd(stride, n_groups) != 1) ++stride;
+  cudaLaunchConfig_t lc = {};
+  lc.gridDim = dim3(n_groups * kCluster);
+  lc.blockDim = dim3(kThreads);
+  lc.dynamicSmemBytes = smem;
+  lc.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  lc.attrs = attr;
+  lc.numAttrs = 1;
+  return cudaLaunchKernelEx(&lc, kernel, rows, n_tiles, preq, pest, pvalid,
+                            rot_id, sel, C, feas_t, cfg, P, N, sb0, sb1, k0,
+                            k1, stride, out_key, out_node, out_score);
+}
+
 }  // namespace
+
+// Bytes of the packed node rows koord_select_candidates needs as scratch.
+extern "C" long long koord_select_candidates_scratch_bytes(int N) {
+  const long long tiles = (N + kTile - 1) / kTile;
+  return tiles * kTileBytes;
+}
 
 extern "C" int koord_select_candidates(
     const int* alloc, const int* reqd, const int* usage, const int* base,
@@ -182,23 +498,30 @@ extern "C" int koord_select_candidates(
     const int* pest, const uint8_t* pvalid, const int* rot_id,
     const uint8_t* sel, int C, const uint8_t* feas_t, const int* cfg,
     int cfg_len, int P, int N, int n_strata, int sb0, int sb1, int k0,
-    int k1, int* out_key, int* out_node, int* out_score, void* stream) {
-  if (cfg_len != kCfgLen || n_strata < 1 || n_strata > 2 ||
-      k0 > kMaxPerStratum || k1 > kMaxPerStratum || C > 64) {
+    int k1, int* rows, int* out_key, int* out_node, int* out_score,
+    void* stream) {
+  if (cfg_len != kCfgLen || cfg == nullptr || n_strata < 1 ||
+      n_strata > 2 ||
+      k0 > kMaxPerStratum || k1 > kMaxPerStratum || C > 64 || N < 1 ||
+      (reinterpret_cast<uintptr_t>(rows) & 15) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((P + kThreads - 1) / kThreads);
-  if (n_strata == 1) {
-    select_candidates_kernel<1><<<grid, kThreads, 0, st>>>(
-        alloc, reqd, usage, base, nvalid, nclass, preq, pest, pvalid, rot_id,
-        sel, C, feas_t, cfg, P, N, sb0, sb1, k0, 0, out_key, out_node,
-        out_score);
-  } else {
-    select_candidates_kernel<2><<<grid, kThreads, 0, st>>>(
-        alloc, reqd, usage, base, nvalid, nclass, preq, pest, pvalid, rot_id,
-        sel, C, feas_t, cfg, P, N, sb0, sb1, k0, k1, out_key, out_node,
-        out_score);
-  }
+  ScoreCfg sc;
+  load_score_cfg(sc, cfg);
+  const int n_tiles = (N + kTile - 1) / kTile;
+  const int n_pad = n_tiles * kTile;
+  pack_node_rows<<<(n_pad + 255) / 256, 256, 0, st>>>(
+      alloc, reqd, usage, base, nvalid, nclass, sc, N, n_pad, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = n_strata == 1
+            ? launch<1>(rows, n_tiles, preq, pest, pvalid, rot_id, sel, C,
+                        feas_t, sc, P, N, sb0, sb1, k0, 0, out_key,
+                        out_node, out_score, st)
+            : launch<2>(rows, n_tiles, preq, pest, pvalid, rot_id, sel, C,
+                        feas_t, sc, P, N, sb0, sb1, k0, k1, out_key,
+                        out_node, out_score, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,12 @@
-"""K4: the exact sequential greedy scan as one persistent kernel.
+"""K4: the exact sequential greedy scan as one kernel on a cluster of CTAs.
 
 :func:`greedy_scan_kernel` is the wrapper: CPU tensors take
 ``ops/assignment.py`` :func:`greedy_assign_plain` (the JAX package's
 ``_greedy_scan`` without the reservation branch, as a Python loop over
-pods), CUDA tensors launch ``csrc/greedy_scan.cu`` once for the whole scan.
+pods), CUDA tensors launch ``csrc/greedy_scan.cu`` once for the whole scan
+(16 CTAs, each owning a range of the nodes; see the source's header).
+A launch the card refuses (a cluster or shared-memory request it cannot
+meet, e.g. a quota tree too large for each CTA's replica) raises.
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ def greedy_scan_kernel(state: ClusterState, pods: PodBatch,
     requested = state.node_requested.clone()
     assignments = torch.full((p,), -1, dtype=torch.int32, device=dev)
     new_quota = None
-    q_args = [None] * 5 + [0]
+    q_args = [None] * 5 + [0, 0]
     if quota is not None:
         q, d = quota.capacity, quota.chain.shape[1]
         build.expect(quota.headroom, "headroom", torch.int32, (q, r))
@@ -68,21 +71,28 @@ def greedy_scan_kernel(state: ClusterState, pods: PodBatch,
         new_quota = quota.replace(headroom=quota.headroom.clone(),
                                   min_headroom=quota.min_headroom.clone())
         q_args = [new_quota.headroom, new_quota.min_headroom, quota.checked,
-                  quota.chain, quota.valid, d]
+                  quota.chain, quota.valid, q, d]
     new_state = state.replace(node_requested=requested)
     if p == 0:
         return assignments, new_state, new_quota
     est = pod_estimates(pods, cfg).contiguous()
-    agg_enabled = bool(torch.any(cfg.agg_usage_thresholds > 0))
+    cfgv, agg_enabled = _config_vector(cfg)
     base = state.node_agg_usage if agg_enabled else state.node_usage
-    cfgv = _config_vector(cfg, agg_enabled)
     order = priority_order(pods).to(torch.int32)
-    est_added = torch.zeros((n, r), dtype=torch.int32, device=dev)
-    err = build.lib().koord_greedy_scan(
+    lib = build.lib()
+    # the node columns' global home, needed only when they do not fit a
+    # CTA's shared memory beside the quota replica
+    nbytes = lib.koord_greedy_scan_scratch_bytes(n, q_args[5], q_args[6])
+    if nbytes < 0:
+        raise RuntimeError("greedy_scan: the card's shared memory could not "
+                           "be queried")
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+               if nbytes else None)
+    err = lib.koord_greedy_scan(
         build.ptr(state.node_allocatable), build.ptr(requested),
         build.ptr(state.node_usage), build.ptr(base),
         build.ptr(state.node_valid), build.ptr(state.node_class),
-        build.ptr(est_added), build.ptr(pods.requests), build.ptr(est),
+        build.ptr(scratch), build.ptr(pods.requests), build.ptr(est),
         build.ptr(pods.valid), build.ptr(order), build.ptr(sel), c,
         build.ptr(feas), build.ptr(cfgv), cfgv.numel(),
         *(build.ptr(t) if torch.is_tensor(t) else t for t in q_args),

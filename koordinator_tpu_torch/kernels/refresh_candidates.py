@@ -168,9 +168,8 @@ def refresh_candidates_kernel(state: ClusterState, pods: PodBatch,
     if c > 64:
         raise ValueError(f"the kernel takes at most 64 node classes, got {c}")
     est = pod_estimates(pods, cfg).contiguous()
-    agg_enabled = bool(torch.any(cfg.agg_usage_thresholds > 0))
+    cfgv, agg_enabled = _config_vector(cfg)
     base = state.node_agg_usage if agg_enabled else state.node_usage
-    cfgv = _config_vector(cfg, agg_enabled)
     dmask = dirty_node_mask(dirty_rows, dirty_valid, n)
 
     dev = pods.requests.device

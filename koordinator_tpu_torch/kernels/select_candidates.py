@@ -126,6 +126,122 @@ def _reduce_candidates(scores, feasible, strata, k: int, rot_id=None):
     return cand_key, cand_cols, torch.where(cand_key >= 0, raw, -1)
 
 
+# -- what the kernel computes instead of the plain version's steps ----------
+#
+# The functions below mirror, in PyTorch, three pieces of arithmetic the CUDA
+# kernels (csrc/koord_score.cuh, csrc/select_candidates.cu) do differently
+# from the plain version, so the CPU tests can hold each against the JAX
+# package: floor division by an invariant divisor without a divide, the node
+# recovered from an int32 ranking key, and lax.top_k's -1 slots.
+
+
+def _bit_length(x: torch.Tensor) -> torch.Tensor:
+    """Bits of each non-negative int64 value (0 for 0)."""
+    out = torch.zeros_like(x)
+    for b in range(63):
+        out += (x >> b) > 0
+    return out
+
+
+def magic_divisor(d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(m, l), int64, for divisors ``d`` in 1..2**31-1: ``l`` is
+    ceil(log2 d) and ``m`` = ceil(2**(31+l) / d) < 2**32 (the kernels'
+    ``magic_for``)."""
+    d = d.to(torch.int64)
+    if bool(torch.any(d < 1)):
+        raise ValueError("magic divisors are for d >= 1")
+    l = _bit_length(d - 1)
+    m = ((torch.ones_like(d) << (31 + l)) + d - 1) // d
+    return m, l
+
+
+def magic_floordiv(x: torch.Tensor, m: torch.Tensor,
+                   l: torch.Tensor) -> torch.Tensor:
+    """floor(x / d) for int32 ``x`` of either sign, from ``d``'s magic
+    (the kernels' ``magic_fdiv``).  A negative x is folded to ~x = -x-1 >= 0
+    and back: floor(x / d) = ~floor(~x / d).  For 0 <= u < 2**31,
+    u * m < 2**63 and (u * m) >> (31 + l) == u // d (Granlund-Montgomery,
+    because 0 <= m * d - 2**(31+l) < d <= 2**l)."""
+    x = x.to(torch.int64)
+    s = torch.where(x < 0, -1, 0)
+    u = x ^ s
+    q = ((u * m) >> 31) >> l
+    return (q ^ s).to(torch.int32)
+
+
+#: ScarceResourceAvoidance's (n_diff - n_inter) * 100 // n_diff, n_diff in
+#: 1..R, as (x * SCARCE_RECIP[n]) >> 20: exact for 0 <= x <= 100 * R
+#: because x * (ceil(2**20/n) - 2**20/n) / 2**20 < 1/n there
+SCARCE_RECIP = tuple(((1 << 20) + n - 1) // n if n else 0
+                     for n in range(NUM_RESOURCE_DIMS + 1))
+
+
+def scarce_floordiv(x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """x // n for 0 <= x <= 100 * R and 1 <= n <= R, the kernels' way."""
+    recip = torch.tensor(SCARCE_RECIP, dtype=torch.int64)[n.long()]
+    return ((x.to(torch.int64) * recip) >> 20).to(torch.int32)
+
+
+def tie_break_preimages(tb: torch.Tensor, rot_id: torch.Tensor,
+                        n_total: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The nodes whose rotated tie-break (:func:`_candidate_tb`) is ``tb``:
+    (first, second), second -1 when there is one, first < second.
+
+    ``_candidate_tb`` computes ``(n - rot*7919) mod N`` on the int32-wrapped
+    difference.  With R = rot*7919 (wrapped), the difference wraps exactly
+    for the nodes n >= 2**31 + R, which exist only when R < N - 2**31; for
+    them the result is ``(n - R - 2**32) mod N``.  So a tie-break value has
+    one preimage below that boundary, ``(v + R) mod N``, and one at or above
+    it, ``(v + R + 2**32) mod N``, each counted only if it lies on its side
+    (v = N-1-tb).  Without the wrap the tie-break is a permutation and
+    ``first`` is the node; with it two nodes may share a tie-break, unless
+    2**32 is a multiple of N."""
+    rot = (rot_id.to(torch.int32) * 7919).to(torch.int64)
+    v = (n_total - 1) - tb.to(torch.int64)
+    boundary = rot + 2**31          # first node whose difference wraps
+    n1 = (v + rot) % n_total
+    n2 = (v + rot + 2**32) % n_total
+    ok1 = n1 < boundary
+    ok2 = n2 >= boundary
+    first = torch.where(ok1, n1, torch.where(ok2, n2, -1))
+    second = torch.where(ok1 & ok2, n2, -1)
+    return first.to(torch.int32), second.to(torch.int32)
+
+
+def topk_from_int32_keys(key: torch.Tensor, k: int, rot_id: torch.Tensor,
+                         n_total: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row top-k (key_sel, col_idx) as the kernel forms it: it keeps
+    only the best k int32 keys, in descending order, and a count f of the
+    row's feasible columns, and recovers the columns afterwards.
+
+    - Slot j < f holds a feasible key v; its column is the preimage of v's
+      tie-break (:func:`tie_break_preimages`) whose own key is v.  When two
+      preimages carry the same key (the wrapped tie-break), the kernel's
+      insertion keeps them in column order, so the first copy of v takes
+      the lower column and a second copy the higher: lax.top_k's order.
+    - Slot j >= f is a -1 slot: lax.top_k fills those with the row's
+      infeasible columns in ascending order, so slot j takes the
+      (j - f)-th infeasible column.  They lie among the first k columns.
+    Equals ``_topk_by_rank`` in the packed regime."""
+    p, n = key.shape
+    k = min(k, n)
+    vals = torch.sort(key, dim=1, descending=True, stable=True).values[:, :k]
+    f = (key >= 0).sum(dim=1, keepdim=True)
+    j = torch.arange(k, device=key.device)[None, :]
+    first, second = tie_break_preimages(vals & ((1 << _TB_BITS) - 1),
+                                        rot_id[:, None].expand(p, k),
+                                        n_total)
+    key_first = torch.gather(key, 1, first.clamp(min=0).long())
+    dup = torch.zeros_like(vals, dtype=torch.bool)
+    dup[:, 1:] = vals[:, 1:] == vals[:, :-1]
+    node = torch.where(dup | (key_first != vals), second, first)
+    infeasible_first = torch.sort((key >= 0).to(torch.int8), dim=1,
+                                  stable=True).indices[:, :k]
+    fill = torch.gather(infeasible_first, 1, (j - f).clamp(min=0))
+    cols = torch.where(j < f, node, fill.to(torch.int32))
+    return torch.where(j < f, vals, -1), cols.to(torch.int32)
+
+
 def _pod_rows(pods: PodBatch, start: int, stop: int) -> PodBatch:
     def cut(a):
         return None if a is None else a[start:stop]
@@ -158,23 +274,34 @@ def select_candidates_plain(state: ClusterState, pods: PodBatch,
     return tuple(torch.cat(parts, dim=0) for parts in zip(*outs))
 
 
-def _config_vector(cfg: ScoringConfig, agg_enabled: bool) -> torch.Tensor:
-    """The packed int32 config the kernel reads (layout: k* offsets at the
-    top of csrc/select_candidates.cu)."""
-    thr = cfg.agg_usage_thresholds if agg_enabled else cfg.usage_thresholds
+def _config_vector(cfg: ScoringConfig) -> tuple[torch.Tensor, bool]:
+    """(the packed int32 config on the host, whether the aggregated usage
+    thresholds apply), with one copy from the device.  The kernels' C
+    functions read the vector on the host and pass the config to the card
+    as a kernel parameter (layout: the k* offsets of
+    csrc/koord_score.cuh).  The aggregated-percentile policy, when
+    configured, replaces the instantaneous thresholds."""
 
     def one(t):
         return t.reshape(1).to(torch.int32)
 
-    return torch.cat([
+    r = NUM_RESOURCE_DIMS
+    full = torch.cat([
         cfg.loadaware_resource_weights.to(torch.int32),
         one(cfg.loadaware_dominant_weight), one(cfg.loadaware_plugin_weight),
-        thr.to(torch.int32),
+        cfg.usage_thresholds.to(torch.int32),
         cfg.fitplus_resource_weights.to(torch.int32),
         cfg.fitplus_most_allocated.to(torch.int32),
         cfg.scarce_dims.to(torch.int32),
         one(cfg.fitplus_plugin_weight), one(cfg.scarce_plugin_weight),
-    ]).contiguous()
+        cfg.agg_usage_thresholds.to(torch.int32),
+    ]).cpu()
+    agg = full[-r:]
+    agg_enabled = bool(torch.any(agg > 0))
+    vec = full[:-r].clone()
+    if agg_enabled:
+        vec[r + 2:2 * r + 2] = agg
+    return vec.contiguous(), agg_enabled
 
 
 def select_candidates_kernel(state: ClusterState, pods: PodBatch,
@@ -222,9 +349,8 @@ def select_candidates_kernel(state: ClusterState, pods: PodBatch,
         sel, c = None, 1
         feas_t = pods.feasible.t().contiguous()   # (N, P): coalesced reads
     est = pod_estimates(pods, cfg).contiguous()
-    agg_enabled = bool(torch.any(cfg.agg_usage_thresholds > 0))
+    cfgv, agg_enabled = _config_vector(cfg)
     base = state.node_agg_usage if agg_enabled else state.node_usage
-    cfgv = _config_vector(cfg, agg_enabled)
 
     dev = pods.requests.device
     key = torch.empty((p, k), dtype=torch.int32, device=dev)
@@ -234,14 +360,17 @@ def select_candidates_kernel(state: ClusterState, pods: PodBatch,
         return key, node, score
     sb = list(strata) + [0] * (2 - len(strata))
     ks = splits + [0] * (2 - len(splits))
-    err = build.lib().koord_select_candidates(
+    lib = build.lib()
+    rows = torch.empty(lib.koord_select_candidates_scratch_bytes(n),
+                       dtype=torch.uint8, device=dev)
+    err = lib.koord_select_candidates(
         build.ptr(state.node_allocatable), build.ptr(state.node_requested),
         build.ptr(state.node_usage), build.ptr(base),
         build.ptr(state.node_valid), build.ptr(state.node_class),
         build.ptr(pods.requests), build.ptr(est), build.ptr(pods.valid),
         build.ptr(pods.rot_id), build.ptr(sel), c, build.ptr(feas_t),
         build.ptr(cfgv), cfgv.numel(), p, n, len(strata),
-        sb[0], sb[1], ks[0], ks[1],
+        sb[0], sb[1], ks[0], ks[1], build.ptr(rows),
         build.ptr(key), build.ptr(node), build.ptr(score),
         build.stream_of(key))
     build.check(err, "select_candidates")

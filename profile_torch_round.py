@@ -21,15 +21,254 @@ lines:
 
 The trace goes to ``chiprun_out/round_trace.json`` (``steady_trace.json``
 with ``--steady``).  Needs a CUDA device.
+
+    python3 profile_torch_round.py --kernels [--variants] [--root DIR]
+
+times K1 on the cold flagship round's own batch (65,536 rows, 50,000
+valid, x 10,240 nodes), K4 at 1,000 pods x 10,240 nodes (chip_smoke.py
+phase 8's problem) and K4 on the rescue of a steady round (phase 9's
+setup, its first steady round), and prints one JSON line.  ``--root``
+takes the port, its build and chip_smoke.py from another checkout (``git
+archive`` of an earlier commit unpacked in a gitignored directory): run
+it beside this tree in one call to compare two designs on one card.
+``--variants`` also builds copies of the kernels' sources with one change
+each (VARIANTS below, under ``probe_results/variants/``) with the
+package's compiler flags, and times them in turns with the tree's own
+kernels, every variant's outputs required equal.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
+import shutil
+import subprocess
 import sys
 import time
+
+
+#: one-change copies of the kernel sources, each isolating one cause of
+#: K1's or K4's time: (name, [(file under csrc/, old text, new text)])
+VARIANTS = [
+    # K1's tiles loaded by each CTA alone (a cluster of 1): the multicast
+    ("k1_no_multicast", [("select_candidates.cu",
+                          "constexpr int kCluster = 2;",
+                          "constexpr int kCluster = 1;")]),
+    # every score division through the compiler's integer divide
+    ("fdiv", [
+        ("koord_score.cuh",
+         "magic_fdiv(wmul(max(wsub(a, used), 0), kMaxScore), n.m(r),\n"
+         "                             n.l(r));",
+         "fdiv(wmul(max(wsub(a, used), 0), kMaxScore), max(a, 1));"),
+        ("koord_score.cuh", "magic_fdiv(num, n.m(r), n.l(r));",
+         "fdiv(num, max(a, 1));"),
+        ("koord_score.cuh", "magic_fdiv(node_score, c.la_m, c.la_l)",
+         "fdiv(node_score, max(c.la_wsum, 1))"),
+        ("koord_score.cuh", "magic_fdiv(fp_num, t.s.fp_m, t.s.fp_l)",
+         "fdiv(fp_num, max(t.s.fp_den, 1))"),
+        ("koord_score.cuh",
+         "scarce_div((n_diff - n_inter) * kMaxScore, n_diff)",
+         "fdiv((n_diff - n_inter) * kMaxScore, max(n_diff, 1))")]),
+    # K1 streaming its tiles with no scoring and no epilogue (outputs not
+    # comparable): the staging's own time, with and without the multicast
+    ("k1_staging_only", [
+        ("select_candidates.cu", "if (pvalid) {\n        const int* tile",
+         "if (false) {\n        const int* tile"),
+        ("select_candidates.cu", "  if (!in_range) return;",
+         "  return;")]),
+    ("k1_staging_only_no_multicast", [
+        ("select_candidates.cu", "if (pvalid) {\n        const int* tile",
+         "if (false) {\n        const int* tile"),
+        ("select_candidates.cu", "  if (!in_range) return;",
+         "  return;"),
+        ("select_candidates.cu", "constexpr int kCluster = 2;",
+         "constexpr int kCluster = 1;")]),
+    # K1's pod groups taken by the clusters in order (no spreading)
+    ("k1_groups_in_order", [("select_candidates.cu",
+                             "while (gcd(stride, n_groups) != 1) ++stride;",
+                             "stride = 1;")]),
+    # K1 with one, two or eight threads a pod instead of four
+    ("k1_lanes_1", [("select_candidates.cu", "constexpr int kLanes = 4;",
+                     "constexpr int kLanes = 1;")]),
+    ("k1_lanes_2", [("select_candidates.cu", "constexpr int kLanes = 4;",
+                     "constexpr int kLanes = 2;")]),
+    ("k1_lanes_8", [("select_candidates.cu", "constexpr int kLanes = 4;",
+                     "constexpr int kLanes = 8;")]),
+    # K1's ring of 2 or 4 tiles instead of 3 (4 stages leave room for 4
+    # CTAs an SM instead of 6)
+    ("k1_stages_2", [("select_candidates.cu", "constexpr int kStages = 3;",
+                      "constexpr int kStages = 2;")]),
+    ("k1_stages_4", [("select_candidates.cu", "constexpr int kStages = 3;",
+                      "constexpr int kStages = 4;")]),
+    # K1's tiles shared by 4 or 8 CTAs
+    ("k1_cluster_4", [("select_candidates.cu",
+                       "constexpr int kCluster = 2;",
+                       "constexpr int kCluster = 4;")]),
+    ("k1_cluster_8", [("select_candidates.cu",
+                       "constexpr int kCluster = 2;",
+                       "constexpr int kCluster = 8;")]),
+    # K4 on 8 CTAs: its node columns no longer fit shared memory
+    ("k4_cluster_8", [("greedy_scan.cu", "constexpr int kCluster = 16;",
+                       "constexpr int kCluster = 8;")]),
+    # K4 with 256 or 512 threads a CTA instead of 640
+    ("k4_threads_256", [("greedy_scan.cu", "constexpr int kThreads = 640;",
+                         "constexpr int kThreads = 256;")]),
+    ("k4_threads_512", [("greedy_scan.cu", "constexpr int kThreads = 640;",
+                         "constexpr int kThreads = 512;")]),
+]
+
+
+def patched_sources(name: str, patches, csrc: str) -> str:
+    """A copy of ``csrc`` with ``patches`` applied under
+    ``probe_results/variants/<name>`` (gitignored); returns its path."""
+    root = os.path.join("probe_results", "variants", name, "csrc")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(csrc, root)
+    for fname, old, new in patches:
+        path = os.path.join(root, fname)
+        with open(path) as f:
+            text = f.read()
+        if old not in text:
+            raise RuntimeError(f"variant {name}: {old!r} not in {fname}")
+        with open(path, "w") as f:
+            f.write(text.replace(old, new))
+    return root
+
+
+def build_copy(build, csrc: str) -> ctypes.CDLL:
+    """Compile and link one copy of the sources as the package builds its
+    own (one nvcc per source, then one link); the typed library."""
+    nvcc = build._nvcc()
+    out = os.path.dirname(csrc)
+    procs = []
+    for src in sorted(os.listdir(csrc)):
+        if src.endswith(".cu"):
+            obj = os.path.join(out, src[:-3] + ".o")
+            procs.append((obj, subprocess.Popen(
+                [nvcc, *build.NVCC_FLAGS, "-I", csrc, "-c",
+                 os.path.join(csrc, src), "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for obj, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {obj}:\n{log}")
+    path = os.path.join(out, "libkoord_kernels.so")
+    link = subprocess.run(
+        [nvcc, *build.NVCC_FLAGS, "-shared", *(o for o, _ in procs), "-o",
+         path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError("nvcc link failed:\n" + link.stdout)
+    return build._bind(ctypes.CDLL(os.path.abspath(path)))
+
+
+def build_variants(build) -> dict:
+    """Every variant's typed library (three built at a time): name ->
+    CDLL.  The patches are exact text of the sources they were written
+    for: a later edit of those lines stops this with the variant's name
+    before anything is built."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    copies = [(name, patched_sources(name, patches, build.CSRC))
+              for name, patches in VARIANTS]
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        return dict(zip((n for n, _ in copies),
+                        pool.map(lambda c: build_copy(build, c[1]), copies)))
+
+
+def kernel_cases(dev: str):
+    """({name: closure}, shapes): K1 on the cold flagship round's own
+    batch, K4 at 1,000 pods x 10,240 nodes (chip_smoke.py phase 8's
+    problem) and K4 on the rescue of a steady round (phase 9's setup, a
+    cold round and one steady round on the forced-threshold scheduler)."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from koordinator_tpu_torch.kernels.greedy_scan import greedy_scan_kernel
+    from koordinator_tpu_torch.kernels.select_candidates import (
+        select_candidates_kernel,
+    )
+
+    _res, _sched, _wall, log, _pods, _nodes = cs.run_round(dev, 10_240,
+                                                           50_000)
+    solve = next(s for s in log if s["solver"] == "batch")
+    state, pods, cfg = solve["state"], solve["batch"], solve["cfg"]
+    gstate, gpods = cs.random_problem(21, 10_240, 1_000, dev, "classes")
+    quota, gpods = cs.quota_setup(gpods, dev, 21)
+    nodes, specs, leaf_max = cs.steady_specs(3, 10_240, 50_000)
+    sched = cs.steady_scheduler(dev, nodes, specs, leaf_max, threshold=1.0)
+    slog: list = []
+    with cs.solve_probe(slog, dev):
+        sched.schedule_round()
+        refreshed, new = cs.steady_delta(np.random.default_rng(5), nodes, 1)
+        for spec in refreshed:
+            sched.snapshot.upsert_node(spec)
+        sched.enqueue_many(new)
+        sched.schedule_round()
+    rescue = [s for s in slog if s["solver"] == "greedy"][-1]
+    cases = {
+        "k1_ms": lambda: select_candidates_kernel(state, pods, cfg, 32),
+        "k4_ms": lambda: greedy_scan_kernel(gstate, gpods, cfg, quota)[:1],
+        "k4_rescue_ms": lambda: greedy_scan_kernel(
+            rescue["state"], rescue["batch"], rescue["cfg"],
+            rescue["quota"])[:1],
+    }
+    shapes = {
+        "k1_shape": [pods.capacity, int(pods.valid.sum()), state.capacity],
+        "k4_shape": [gpods.capacity, gstate.capacity],
+        "k4_rescue_shape": [rescue["batch"].capacity,
+                            int(rescue["batch"].valid.sum()),
+                            rescue["state"].capacity],
+    }
+    return cases, shapes
+
+
+def digest(cases: dict) -> list[int]:
+    """Sums of every output of every case: equal outputs, equal digests."""
+    import torch
+
+    return [int(t.to(torch.int64).sum()) for fn in cases.values()
+            for t in fn() if torch.is_tensor(t)]
+
+
+def kernel_times(args) -> int:
+    """K1 and K4 at the main shapes, three readings each; with --variants
+    also every one-change copy of the sources, in turns with the tree's
+    kernels, its outputs required equal to the tree's.  One JSON line."""
+    import torch
+
+    import chip_smoke as cs
+    from koordinator_tpu_torch.kernels import build
+
+    dev = "cuda"
+    t0 = time.perf_counter()
+    libs = {"tree": build.lib()}
+    if args.variants:
+        libs.update(build_variants(build))
+    build_s = time.perf_counter() - t0
+    cases, shapes = kernel_cases(dev)
+    times = {name: {case: [] for case in cases} for name in libs}
+    ref = None
+    try:
+        for _rep in range(3):
+            for name, handle in libs.items():
+                # the wrappers launch through build.lib(): point it here
+                build._lib = handle
+                d = digest(cases)
+                ref = d if ref is None else ref
+                if d != ref and not name.startswith("k1_staging_only"):
+                    raise RuntimeError(f"{name}: outputs differ from the "
+                                       "tree's")
+                for case, fn in cases.items():
+                    times[name][case].append(cs.timed_ms(fn, dev, reps=3))
+    finally:
+        build._lib = libs["tree"]
+    print(json.dumps({
+        "kernels": args.root or ".", "device": torch.cuda.get_device_name(0),
+        "nvidia_smi": cs.smi_name_power(), "build_s": build_s, **shapes,
+        "times": times, "digest": ref}), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -39,19 +278,30 @@ def main() -> int:
         print("profile_torch_round: no CUDA device is available",
               file=sys.stderr)
         return 2
-    from torch.profiler import ProfilerActivity, profile
-
-    import chip_smoke
-    from koordinator_tpu_torch.kernels import build
-    from koordinator_tpu_torch.scheduler import scheduler as sched_mod
-
     ap = argparse.ArgumentParser()
     ap.add_argument("--nodes", type=int, default=10_240)
     ap.add_argument("--pods", type=int, default=50_000)
     ap.add_argument("--steady", action="store_true",
                     help="profile a steady-state round of the candidate "
                     "cache instead of a cold round")
+    ap.add_argument("--kernels", action="store_true",
+                    help="time K1 and K4 at the main shapes instead")
+    ap.add_argument("--variants", action="store_true",
+                    help="with --kernels: time the one-change variants too")
+    ap.add_argument("--root", help="with --kernels: the checkout whose "
+                    "port (and chip_smoke.py) to time")
     args = ap.parse_args()
+    if args.kernels:
+        if args.root:
+            sys.path.insert(0, os.path.abspath(args.root))
+            os.chdir(args.root)
+        return kernel_times(args)
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from koordinator_tpu_torch.kernels import build
+    from koordinator_tpu_torch.scheduler import scheduler as sched_mod
+
     os.makedirs("chiprun_out", exist_ok=True)
     build.lib()
     if args.steady:

@@ -1,0 +1,232 @@
+"""The arithmetic the port's CUDA kernels compute differently from their
+plain versions, held on the CPU against floor division and the JAX package.
+
+``koordinator_tpu_torch/kernels/select_candidates.py`` mirrors each piece
+in PyTorch (the kernels themselves run only on the card; ``chip_smoke.py``
+holds them against their plain versions there):
+
+- (a) floor division by an invariant divisor through a magic multiplier
+  and shift (``magic_divisor`` / ``magic_floordiv``, and the small
+  ScarceResourceAvoidance table), against ``//``;
+- (b) the node recovered from a rotated tie-break
+  (``tie_break_preimages``), against ``_candidate_tb`` for every node;
+- (c) the top-k formed from int32 keys alone, with the -1 slots filled
+  from the row's lowest infeasible columns (``topk_from_int32_keys``),
+  against the JAX package's ``_topk_by_rank``.
+
+Tolerance 0 everywhere: every value is an integer.
+"""
+
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from koordinator_tpu_torch.kernels.select_candidates import (
+    _TB_BITS,
+    SCARCE_RECIP,
+    _candidate_tb,
+    magic_divisor,
+    magic_floordiv,
+    scarce_floordiv,
+    tie_break_preimages,
+    topk_from_int32_keys,
+)
+from tests.torch_parity import set_torch_threads
+
+set_torch_threads()
+
+INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
+
+
+def _wmul100(x: np.ndarray) -> np.ndarray:
+    """wmul(x, 100): the int32 product the scores divide, wrapped."""
+    return (x.astype(np.int64) * 100).astype(np.int32)
+
+
+def _check_division(numerators, divisors) -> None:
+    x = torch.tensor(np.asarray(numerators, np.int64).astype(np.int32))
+    d = torch.tensor(np.asarray(divisors, np.int64))
+    m, l = magic_divisor(d)
+    assert bool(torch.all((m >= 0) & (m < 2**32)))
+    got = magic_floordiv(x, m, l)
+    want = (x.to(torch.int64) // d).to(torch.int32)
+    assert torch.equal(got, want)
+
+
+@settings(max_examples=300, deadline=None)
+@given(d=st.integers(1, INT32_MAX),
+       xs=st.lists(st.integers(INT32_MIN, INT32_MAX), min_size=1,
+                   max_size=64),
+       caps=st.lists(st.integers(0, INT32_MAX), min_size=1, max_size=64))
+def test_magic_floordiv_equals_floor_division(d, xs, caps):
+    """(a) Any int32 numerator, including wmul(x, 100) products that wrap
+    negative, over any divisor in 1..2**31-1."""
+    wrapped = _wmul100(np.asarray(caps, np.int64))
+    nums = np.concatenate([np.asarray(xs, np.int64), wrapped])
+    _check_division(nums, np.full(nums.shape, d))
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 7, 100, 8_000, 64_000, 2**15 + 1,
+                               2**30, 2**30 + 1, 2**31 - 1])
+def test_magic_floordiv_at_the_wrap_edge(d):
+    """(a) Explicit edges: the int32 extremes, the numerators around the
+    point where wmul(x, 100) wraps (x = 21,474,836 -> 2,147,483,600 stays;
+    x = 21,474,837 -> -2,147,483,596 wraps), and multiples of d +- 1."""
+    edge = 2**31 // 100
+    xs = [0, 1, -1, INT32_MAX, INT32_MIN, INT32_MIN + 1, INT32_MAX - 1,
+          d, d - 1, d + 1, -d, -d - 1, -d + 1]
+    xs += list(_wmul100(np.arange(edge - 3, edge + 4)))
+    xs += list(_wmul100(np.array([INT32_MAX, INT32_MAX // 100 + 1])))
+    q = INT32_MAX // d
+    xs += [q * d, q * d - 1, -q * d, -q * d - 1]
+    xs = [x for x in xs if INT32_MIN <= x <= INT32_MAX]
+    _check_division(xs, [d] * len(xs))
+
+
+def test_magic_floordiv_dense_small_divisors():
+    """(a) Every divisor 1..4,096 against a seeded spread of numerators."""
+    rng = np.random.default_rng(0)
+    d = np.repeat(np.arange(1, 4_097), 16)
+    x = rng.integers(INT32_MIN, INT32_MAX, d.shape[0], endpoint=True)
+    _check_division(x, d)
+
+
+def test_scarce_table_equals_floor_division():
+    """(a) The ScarceResourceAvoidance division, exhaustively: numerators
+    (n_diff - n_inter) * 100 for every n_diff in 1..R."""
+    n = torch.arange(1, len(SCARCE_RECIP)).repeat_interleave(1_001)
+    x = torch.arange(0, 1_001).repeat(len(SCARCE_RECIP) - 1)
+    assert torch.equal(scarce_floordiv(x, n),
+                       (x // n).to(torch.int32))
+
+
+def _danger_rot(n_total: int, offset: int) -> int:
+    """A rot id whose rot*7919 (int32-wrapped) lies ``offset`` above
+    -2**31, so the tie-break difference wraps for the nodes
+    n >= 2**31 + rot*7919."""
+    target = (2**31 + offset) % 2**32          # -2**31 + offset, unsigned
+    inv = pow(7919, -1, 2**32)
+    rot = (target * inv) % 2**32
+    return rot - 2**32 if rot >= 2**31 else rot
+
+
+@pytest.mark.parametrize("n_total", [1, 7, 1_024, 10_240, 32_768])
+def test_tie_break_preimages_invert_candidate_tb(n_total):
+    """(b) For every node, at rot ids whose rot*7919 wraps (large ids) and
+    ones whose tie-break difference also wraps: the node is a preimage of
+    its own tie-break under the JAX package's and the port's
+    _candidate_tb, and without the difference wrap it is the only one."""
+    from koordinator_tpu.ops.batch_assign import _candidate_tb as jax_tb
+
+    plain = [0, 1, 3, 271_184, 2**31 - 1, -5, -(2**31), 1_000_003,
+             987_654_321]
+    danger = [_danger_rot(n_total, off)
+              for off in sorted({0, 1, n_total // 2, max(n_total - 2, 0)})]
+    rots = torch.tensor(plain + danger, dtype=torch.int32)
+    nodes = torch.arange(n_total, dtype=torch.int32)[None, :].expand(
+        len(rots), n_total).contiguous()
+    tb = _candidate_tb(nodes, rots, n_total)
+    want = np.asarray(jax_tb(nodes.numpy(), rots.numpy(), n_total))
+    assert np.array_equal(tb.numpy(), want)
+    first, second = tie_break_preimages(tb, rots[:, None].expand_as(tb),
+                                        n_total)
+    assert bool(torch.all((first == nodes) | (second == nodes)))
+    assert bool(torch.all((second < 0) | (first < second)))
+    # the preimages map back to the same tie-break
+    for cand in (first, second):
+        ok = cand >= 0
+        back = _candidate_tb(cand.clamp(min=0), rots, n_total)
+        assert torch.equal(back[ok], tb[ok])
+    rot_wrapped = (rots * 7919).to(torch.int64)
+    no_wrap = rot_wrapped >= n_total - 2**31
+    assert bool(torch.all(second[no_wrap] < 0))
+    assert bool(torch.all(first[no_wrap] == nodes[no_wrap]))
+
+
+def test_tie_break_collides_only_when_the_difference_wraps():
+    """(b) At N = 10,240 (2**32 mod N = 4,096) a rot id in the wrap zone
+    gives some tie-break two nodes; at N = 1,024 it never does."""
+    for n_total, shared in ((10_240, True), (1_024, False)):
+        rot = torch.tensor([_danger_rot(n_total, n_total // 2)],
+                           dtype=torch.int32)
+        nodes = torch.arange(n_total, dtype=torch.int32)[None, :]
+        tb = _candidate_tb(nodes, rot, n_total)
+        has_two = tb.unique().numel() < n_total
+        assert has_two == shared
+
+
+def _keys(rng, p: int, n: int, feasible_counts, rot: np.ndarray,
+          spread_bits: int):
+    """A (P, N) packed key with exactly feasible_counts[i] feasible
+    columns in row i (random columns, random scores), via _rank_parts."""
+    from koordinator_tpu_torch.kernels.select_candidates import _rank_parts
+
+    scores = torch.from_numpy(rng.integers(0, 400, (p, n)).astype(np.int32))
+    feas = np.zeros((p, n), bool)
+    for i, c in enumerate(feasible_counts):
+        feas[i, rng.choice(n, size=c, replace=False)] = True
+    key, tb = _rank_parts(scores, torch.from_numpy(feas), spread_bits,
+                          torch.from_numpy(rot), n_total=n)
+    return key, tb
+
+
+@pytest.mark.parametrize("n,k,spread_bits", [(40, 16, 0), (40, 16, 5),
+                                             (10_240, 16, 15), (7, 5, 0)])
+def test_topk_from_int32_keys_matches_jax_topk(n, k, spread_bits):
+    """(c) Rows with 0, 1, k-1, k and many feasible columns, at rot ids
+    with and without the wrapped tie-break, against the JAX package's
+    _topk_by_rank: the same keys and the same columns, the -1 slots
+    included."""
+    import jax.numpy as jnp
+
+    from koordinator_tpu.ops.batch_assign import _topk_by_rank
+
+    rng = np.random.default_rng(n + k + spread_bits)
+    k = min(k, n)
+    counts = [0, 1, k - 1, k, min(n, k + 1), n, n // 2, 2]
+    rot = np.array([_danger_rot(n, (i * 131) % max(n - 1, 1)) if i % 2
+                    else int(rng.integers(0, 2**31 - 1))
+                    for i in range(len(counts))], np.int32)
+    key, tb = _keys(rng, len(counts), n, counts, rot, spread_bits)
+    want_key, want_col = _topk_by_rank(jnp.asarray(key.numpy()),
+                                       jnp.asarray(tb.numpy()), k, n)
+    got_key, got_col = topk_from_int32_keys(key, k, torch.from_numpy(rot),
+                                            n)
+    assert np.array_equal(got_key.numpy(), np.asarray(want_key))
+    assert np.array_equal(got_col.numpy(), np.asarray(want_col))
+
+
+def test_topk_from_int32_keys_resolves_shared_tie_breaks():
+    """(c) Two feasible nodes with one key (a wrapped tie-break and the
+    same quantized score): the lower column comes first, as in
+    lax.top_k, whether both or only one of them fit in k."""
+    import jax.numpy as jnp
+
+    from koordinator_tpu.ops.batch_assign import _topk_by_rank
+    from koordinator_tpu_torch.kernels.select_candidates import _rank_parts
+
+    n = 10_240
+    rot = torch.tensor([_danger_rot(n, n // 2)] * 3, dtype=torch.int32)
+    tb_row = _candidate_tb(torch.arange(n, dtype=torch.int32)[None, :],
+                           rot[:1], n)[0]
+    vals, counts = torch.unique(tb_row, return_counts=True)
+    shared = int(vals[counts == 2][0])
+    a, b = torch.nonzero(tb_row == shared).flatten().tolist()
+    scores = torch.full((3, n), 50, dtype=torch.int32)
+    feas = torch.zeros((3, n), dtype=torch.bool)
+    feas[:, [a, b]] = True
+    feas[1, :8] = True               # more feasible columns, lower keys
+    scores[1, :8] = 10
+    feas[2, 100] = True              # a better node: k = 2 keeps one copy
+    scores[2, 100] = 90
+    key, tb = _rank_parts(scores, feas, 0, rot, n_total=n)
+    for k in (1, 2, 3, 16):
+        want_key, want_col = _topk_by_rank(jnp.asarray(key.numpy()),
+                                           jnp.asarray(tb.numpy()), k, n)
+        got_key, got_col = topk_from_int32_keys(key, k, rot, n)
+        assert np.array_equal(got_key.numpy(), np.asarray(want_key))
+        assert np.array_equal(got_col.numpy(), np.asarray(want_col))
+    assert (int(key[0, a]) == int(key[0, b])) and a < b
+    assert _TB_BITS == 15
