@@ -11,26 +11,36 @@ first failure:
    (SMs x 64 a clock x the maximum SM clock), which the operations bounds
    use (the operations each kernel's inputs need, counted by pair_ops);
 2. build: compiles the kernels from ``koordinator_tpu_torch/kernels/csrc``;
-   then ``ptxas``: K1's and K4's registers and spills from the compiler's
-   log (a spill fails the run);
+   then ``ptxas``: K1's, K2's, K3b's and K4's registers and spills from the
+   compiler's log (a spill fails the run);
 3. kernels: K1 against its plain PyTorch version at 2,048 pods x 1,024 nodes
    under four configurations (instantaneous thresholds, aggregated
    thresholds, selector classes, dense feasibility), and K3a/K3b against
-   theirs on the inputs of every round of a real solve of that problem;
+   theirs on the inputs of every round of a real solve of that problem
+   (K3b: the round's whole acceptance, one launch a round);
    then ``k1_edges``: K1 at node counts off its tile and cluster sizes,
    rows with fewer feasible nodes than k, usage at the int32 wrap edge,
    rot ids whose tie-break wraps, and scoring configurations with the
-   terms the default leaves off;
+   terms the default leaves off; ``k3b_edges``: K3b on a 65,536-row batch
+   in one node and one quota segment, runs of its 1,024-entry tile and
+   one either side, choice -1 rows, no active pod, no pod in the quota
+   tree, and a segment summing to 2**31 - 1;
 4. solve: ``batch_assign`` at 4,096 pods x 1,024 nodes with a quota tree,
-   kernel path against the plain path on the card;
+   kernel path against the plain path on the card, K3a and K3b also held
+   against their plain versions on every round;
 5. main path: ``Scheduler.schedule_round`` on 50,000 pending pods over
    10,240 nodes (R = 10), twice from the same seed (warm-up, then the
    reported round), with each kernel's launch count over the reported round;
 6. kernel table: K1, K3a, K3b at the main path's shapes against their plain
-   versions, their bounds and, for K1, ``torch.topk`` over a (P, N) key;
+   versions, their bounds and, for K1, ``torch.topk`` over a (P, N) key
+   (K3b: the first round's acceptance, the wrapper, its node-level sort
+   and the bare launch timed apart);
 7. refresh: K2 against its plain version at the main path's width (65,536
    rows, 50,000 valid, over 10,240 nodes, k = 32), its cache from K1, after
-   a usage refresh of 1% of the nodes (D = 128 padded dirty columns);
+   a usage refresh of 1% of the nodes (D = 128 padded dirty columns), the
+   wrapper and the bare launch timed apart; then ``refresh_edges``: D = 1,
+   65 and 128 with rot ids whose tie-break wraps, two dirty nodes sharing
+   the top tie-break of one pod;
 8. greedy: K4 against its plain version at 1,000 pods x 10,240 nodes with a
    two-level quota tree and selector classes; then ``greedy_edges``: at
    1,000, 10,000 and 32,768 nodes (the last with its node columns in
@@ -41,10 +51,12 @@ first failure:
    cpu), one cold round and five rounds that each follow a usage refresh
    of 1% of the nodes and 500 arrivals, on three schedulers: the JAX
    defaults, the dirty threshold at 1.0 (K2 every steady round) and the
-   incremental path off.  Their binds must agree every round.  K3b is
-   held against its plain version on each quota level of the cold round,
-   and K4 on the last steady round's rescue (the ~17,000 compacted
-   quota-blocked leftovers over 10,240 nodes);
+   incremental path off.  Their binds must agree every round, and each
+   launches K3b once per propose/accept round.  K3b is held against its
+   plain version on every round of the cold round's solve (the node
+   level, the chain's 8 columns and the non-preemptible level in one
+   launch), and K4 on the last steady round's rescue (the ~17,000
+   compacted quota-blocked leftovers over 10,240 nodes);
 10. small rounds: on the filled cluster, with the pending queue withdrawn
    before each round (a quota-blocked backlog keeps every round above the
    batch threshold), three rounds of 500 arrivals (the greedy path, K4)
@@ -54,11 +66,15 @@ The line before the last is ``nvidia-smi``'s name and power limit; the last
 is ``{"ok": true, "device": {...}}``.  Before them, one JSON line lists the
 five kernels: time, launches over the steady-state run of the forced-
 threshold scheduler (the slice's main path), bound, plain and library time;
-K4's numbers are those at the steady round's rescue.  An earlier line
-(``earlier_design``) puts this run's K1 and K4 times beside those of
-their earlier designs (commit e9fcd1c), which are constants recorded in
-PERF.md, not measured here (``profile_torch_round.py --kernels --root``
-measures both designs in one run).
+K4's numbers are those at the steady round's rescue, K3b's at the cold
+solve's first round behind the quota tree; K2 and K3b add ``device_ms``
+(the bare launch) beside ``ms`` (the wrapper), K3b also ``sort_ms`` (its
+node-level grouping by torch.sort).  An earlier line (``earlier_design``)
+puts this run's K1, K4, K3b and K2 times beside those of their earlier
+designs (K1 and K4: commit e9fcd1c; K3b and K2: commit bf2978c), which
+are constants recorded in PERF.md, not measured here
+(``profile_torch_round.py --kernels --root`` measures both designs in one
+run).
 Every comparison is exact equality (all outputs are int32 or bool).  Nothing
 here imports JAX or the JAX package.  Without a CUDA device it exits
 non-zero and prints no result.
@@ -410,29 +426,33 @@ def plain_path():
     from koordinator_tpu_torch.ops import batch_assign as ba
 
     saved = (ba.select_candidates_kernel, ba.refresh_candidates_kernel,
-             ba.round_fit_choose, ba.segmented_prefix_accept,
+             ba.round_fit_choose, ba.round_prefix_accept,
              greedy_scan.greedy_scan_kernel)
     ba.select_candidates_kernel = k1.select_candidates_plain
     ba.refresh_candidates_kernel = k2.refresh_candidates_plain
     ba.round_fit_choose = round_fit_choose.round_fit_choose_plain
-    ba.segmented_prefix_accept = prefix_accept.segmented_prefix_accept_plain
+    ba.round_prefix_accept = prefix_accept.round_prefix_accept_plain
     greedy_scan.greedy_scan_kernel = assignment.greedy_assign_plain
     try:
         yield
     finally:
         (ba.select_candidates_kernel, ba.refresh_candidates_kernel,
-         ba.round_fit_choose, ba.segmented_prefix_accept,
+         ba.round_fit_choose, ba.round_prefix_accept,
          greedy_scan.greedy_scan_kernel) = saved
 
 
 @contextlib.contextmanager
 def checked_rounds(stats: dict):
     """Run K3a and K3b's wrappers AND plain versions on every call the
-    rounds make, requiring equal outputs (the wrapper's result goes on)."""
-    from koordinator_tpu_torch.kernels import prefix_accept, round_fit_choose
+    rounds make, requiring equal outputs (the wrapper's result goes on).
+    K3b's call is a round's whole acceptance, every level in one launch;
+    ``stats["k3b_rounds"]`` gets each round's (active pods, quota entries,
+    accepted)."""
+    from koordinator_tpu_torch.kernels import build, prefix_accept
+    from koordinator_tpu_torch.kernels import round_fit_choose
     from koordinator_tpu_torch.ops import batch_assign as ba
 
-    saved = (ba.round_fit_choose, ba.segmented_prefix_accept)
+    saved = (ba.round_fit_choose, ba.round_prefix_accept)
 
     def fit_choose(*args):
         got = round_fit_choose.round_fit_choose(*args)
@@ -442,19 +462,27 @@ def checked_rounds(stats: dict):
         stats["k3a_calls"] += 1
         return got
 
-    def prefix(*args):
-        got = prefix_accept.segmented_prefix_accept(*args)
-        want = prefix_accept.segmented_prefix_accept_plain(*args)
+    def prefix(plan, *args):
+        before = build.LAUNCHES["segmented_prefix_accept"]
+        got = prefix_accept.round_prefix_accept(plan, *args)
+        check(build.LAUNCHES["segmented_prefix_accept"] - before
+              == (1 if got.is_cuda else 0), "K3b launched once a round")
+        want = prefix_accept.round_prefix_accept_plain(plan, *args)
         check(max_abs_err(got, want) == 0, "K3b equals its plain version")
         stats["k3b_calls"] += 1
         stats["k3b_accepted"] += int(got.sum())
+        stats.setdefault("k3b_rounds", []).append(dict(
+            active=int(args[1].sum()),
+            quota_entries=(0 if plan.entry_pod is None
+                           else plan.entry_pod.shape[0]),
+            accepted=int(got.sum())))
         return got
 
-    ba.round_fit_choose, ba.segmented_prefix_accept = fit_choose, prefix
+    ba.round_fit_choose, ba.round_prefix_accept = fit_choose, prefix
     try:
         yield
     finally:
-        ba.round_fit_choose, ba.segmented_prefix_accept = saved
+        ba.round_fit_choose, ba.round_prefix_accept = saved
 
 
 # -- phases ------------------------------------------------------------------
@@ -619,6 +647,11 @@ def phase_solve(device, n_pods: int = 4_096, n_nodes: int = 1_024) -> None:
     sync(device)
     kernel_s = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
+    stats = {"k3a_calls": 0, "k3b_calls": 0, "k3b_accepted": 0}
+    with checked_rounds(stats):
+        ca, _, _ = batch_assign(state, pods, cfg, quota)
+    check(max_abs_err(a, ca) == 0 and stats["k3b_calls"] > 0,
+          "K3a and K3b equal their plain versions on every round")
     with plain_path():
         t0 = time.perf_counter()
         pa, pst, pq = batch_assign(state, pods, cfg, quota)
@@ -633,7 +666,7 @@ def phase_solve(device, n_pods: int = 4_096, n_nodes: int = 1_024) -> None:
     check(int((a >= 0).sum()) > 0, "solve assigned pods")
     emit("solve", pods=n_pods, nodes=n_nodes, assigned=int((a >= 0).sum()),
          kernel_path_s=kernel_s, plain_path_s=plain_s, launches=launches,
-         equal=True)
+         rounds_checked=stats["k3b_calls"], equal=True)
 
 
 def main_path_specs(seed: int = 0, n_nodes: int = 10_240,
@@ -789,10 +822,7 @@ def phase_table(device, launches: dict, log: list, reps: int = 3):
     torch.topk over the (P, N) ranking key."""
     import torch
 
-    from koordinator_tpu_torch.kernels.prefix_accept import (
-        segmented_prefix_accept,
-        segmented_prefix_accept_plain,
-    )
+    from koordinator_tpu_torch.kernels.prefix_accept import accept_plan
     from koordinator_tpu_torch.kernels.round_fit_choose import (
         round_fit_choose,
         round_fit_choose_plain,
@@ -864,22 +894,10 @@ def phase_table(device, launches: dict, log: list, reps: int = 3):
                  + p * (1 + 4 + 1))
     k3a_bound = k3a_bytes / HBM_BYTES_PER_S * 1e3
 
-    # K3b on the first round's node-level acceptance
+    # K3b on the first round's acceptance (no quota: the node level)
     act = active & has
-    order = priority_order(pods)
-    safe = torch.clamp(choice, 0, n - 1).long()
-    choice_free = torch.where(act[:, None], free[safe], 0)
-    seg = torch.where(act, choice, n).to(torch.int32)
-    args = (seg, pods.requests, choice_free, order, act, n)
-    acc = segmented_prefix_accept(*args)
-    pacc = segmented_prefix_accept_plain(*args)
-    k3b_err = max_abs_err(acc, pacc)
-    check(k3b_err == 0, "K3b equals its plain version at the main shape")
-    k3b_ms = timed_ms(lambda: segmented_prefix_accept(*args), device, reps=10)
-    k3b_plain_ms = timed_ms(lambda: segmented_prefix_accept_plain(*args),
-                            device, reps=3)
-    k3b_bytes = p * (8 + 8 + 4 + 2 * R * 4 + 1 + 1)
-    k3b_bound = k3b_bytes / HBM_BYTES_PER_S * 1e3
+    plan = accept_plan(priority_order(pods), pods.requests)
+    k3b = k3b_round_numbers(device, plan, choice, act, free)
 
     base = CSRC
     kernels = [
@@ -895,18 +913,62 @@ def phase_table(device, launches: dict, log: list, reps: int = 3):
              launches=launches["round_fit_choose"], max_abs_err=k3a_err,
              ms=k3a_ms, plain_ms=k3a_plain_ms, bound_ms=k3a_bound,
              bound_by="bytes", library_ms=None),
-        dict(name="segmented_prefix_accept", route="cuda",
-             source=base + "segmented_prefix_accept.cu",
-             replaces="koordinator_tpu/ops/batch_assign.py:271",
-             launches=launches["segmented_prefix_accept"],
-             max_abs_err=k3b_err, ms=k3b_ms, plain_ms=k3b_plain_ms,
-             bound_ms=k3b_bound, bound_by="bytes", library_ms=None),
     ]
     emit("table", pods=p, valid_pods=p_valid, nodes=n, k=k,
          k1_ops=k1_ops, k1_bytes=k1_bytes, k3a_active=n_active,
-         k3a_bytes=k3a_bytes, k3b_bytes=k3b_bytes,
-         k3b_accepted=int(acc.sum()))
-    return kernels
+         k3a_bytes=k3a_bytes, k3b_first_round=k3b)
+    return kernels, k3b
+
+
+def k3b_round_numbers(device, plan, choice, act, free, headroom=None,
+                      min_headroom=None, reps: int = 10) -> dict:
+    """K3b on one round's whole acceptance: kernel against plain version
+    (exact), and its times: ``ms`` the wrapper (the node level's grouping
+    by a stable torch.sort, then the launch), ``sort_ms`` that grouping
+    alone, ``device_ms`` the launch alone (CUDA events around it), and
+    ``plain_ms``.  The bound counts the bytes of the round over all
+    levels: each input once (the choices, activity, priority order, the
+    requested dims of the pods' requests and of the headroom tables, the
+    quota entries) and the (P,) verdict."""
+    import torch
+
+    from koordinator_tpu_torch.kernels import prefix_accept as pa
+
+    n = free.shape[0]
+    args = (plan, choice, act, free, headroom, min_headroom)
+    got = pa.round_prefix_accept(*args)
+    want = pa.round_prefix_accept_plain(*args)
+    err = max_abs_err(got, want)
+    check(err == 0, "K3b equals its plain version on a round")
+
+    def group():
+        seg = torch.where(act, choice, n).to(torch.int32)
+        return torch.sort(seg[plan.order], stable=True)
+
+    node_seg, node_pos = group()
+    quota = plan if plan.chain is not None else None
+    launch, out = pa.prepare_launch(node_seg, node_pos, plan.order,
+                                    plan.requests, free, False, n, n, quota,
+                                    headroom, min_headroom, act, plan.dims)
+    launch()
+    check(max_abs_err(out, want) == 0, "K3b's bare launch equals the plain")
+    p = act.shape[0]
+    nd = bin(plan.dims).count("1")
+    m = 0 if quota is None else plan.entry_pod.shape[0]
+    nbytes = (p * (4 + 1 + 8 + 1) + p * nd * 4 + n * nd * 4
+              + (0 if quota is None else
+                 m * 12 + p * nd * 4 + 2 * plan.n_quotas * nd * 4))
+    return dict(
+        pods=p, active=int(act.sum()), quota_entries=m, dims=nd,
+        accepted=int(got.sum()), max_abs_err=err,
+        ms=timed_ms(lambda: pa.round_prefix_accept(*args), device,
+                    reps=reps),
+        sort_ms=timed_ms(group, device, reps=reps),
+        device_ms=timed_ms(launch, device, reps=reps),
+        plain_ms=timed_ms(lambda: pa.round_prefix_accept_plain(*args),
+                          device, reps=3),
+        bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes")
 
 
 
@@ -919,6 +981,7 @@ def phase_refresh(device, log: list, n_dirty: int = 102, reps: int = 10):
     import torch
 
     from koordinator_tpu_torch.kernels.refresh_candidates import (
+        prepare_refresh,
         refresh_candidates_kernel,
         refresh_candidates_plain,
     )
@@ -969,6 +1032,11 @@ def phase_refresh(device, log: list, n_dirty: int = 102, reps: int = 10):
               "K2 equals a full selection on the untouched rows")
     ms = timed_ms(lambda: refresh_candidates_kernel(*args), device,
                   reps=reps)
+    launch, outs = prepare_refresh(*args)
+    launch()
+    check(max(max_abs_err(g, w) for g, w in zip(outs, want)) == 0,
+          "K2's bare launch equals its plain version")
+    device_ms = timed_ms(launch, device, reps=reps)
     plain_ms = timed_ms(lambda: refresh_candidates_plain(*args), device,
                         reps=1)
     # bytes: the cache read (node, score) and the three outputs written,
@@ -982,10 +1050,104 @@ def phase_refresh(device, log: list, n_dirty: int = 102, reps: int = 10):
     emit("refresh", pods=p, valid_pods=p_valid, nodes=n, k=k,
          dirty_nodes=n_dirty, dirty_columns=d,
          touched_pods=int(touch.sum()), max_abs_err=err, ms=ms,
-         plain_ms=plain_ms, bytes=nbytes, ops=ops, bound_ms=bound_ms,
-         bound_by=by)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=by)
+         device_ms=device_ms, plain_ms=plain_ms, bytes=nbytes, ops=ops,
+         bound_ms=bound_ms, bound_by=by)
+    phase_refresh_edges(device, state, pods, cfg, cache)
+    return dict(max_abs_err=err, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+
+
+def top_shared_pair(n: int):
+    """(rot id, a, b): a rot id whose tie-break difference wraps so that
+    nodes a < b share the top tie-break N - 1 (possible where 2**32 is
+    not a multiple of N); None when no offset gives one."""
+    import torch
+
+    from koordinator_tpu_torch.kernels.select_candidates import (
+        _candidate_tb,
+    )
+
+    inv = pow(7919, -1, 2**32)
+    nodes = torch.arange(n, dtype=torch.int32)[None, :]
+    for o in list(range(n // 2, n)) + list(range(n // 2)):
+        rot = ((2**31 + o) * inv) % 2**32
+        rot = rot - 2**32 if rot >= 2**31 else rot
+        tb = _candidate_tb(nodes, torch.tensor([rot], dtype=torch.int32),
+                           n)[0]
+        top = torch.nonzero(tb == n - 1).flatten().tolist()
+        if len(top) == 2:
+            return rot, top[0], top[1]
+    return None
+
+
+def phase_refresh_edges(device, state, pods, cfg, cache) -> None:
+    """K2 against its plain version at the main path's width with D = 1,
+    65 and 128 dirty columns, half the pods at rot ids whose tie-break
+    wraps.  One valid pod gets a rot id under which two nodes share the
+    top tie-break: both are made identical and roomy and listed dirty (the
+    higher one first), so its stratum 1 keeps one key from two dirty
+    nodes, and the kernel must take them in column order.  Rows shorter
+    than k keep -1 slots of cached nodes."""
+    import torch
+
+    from koordinator_tpu_torch.kernels.refresh_candidates import (
+        refresh_candidates_kernel,
+        refresh_candidates_plain,
+    )
+    from koordinator_tpu_torch.ops import batch_assign as ba
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    p, n, k = pods.capacity, state.capacity, 32
+    rng = np.random.default_rng(12)
+    rot = pods.rot_id.cpu().numpy().copy()
+    rot[::2] = danger_rot_ids(rng, (p + 1) // 2, n)
+    pair = top_shared_pair(n)
+    check(pair is not None, f"two nodes share a tie-break at N = {n}")
+    i0 = int(torch.nonzero(pods.valid).flatten()[0])
+    rot[i0], a, b = pair
+    pods = pods.replace(rot_id=dev(rot))
+    base = {f: getattr(state, f).clone() for f in (
+        "node_allocatable", "node_requested", "node_usage",
+        "node_agg_usage", "node_class")}
+    for t in ("node_requested", "node_usage", "node_agg_usage"):
+        base[t][[a, b]] = 0
+    base["node_allocatable"][[a, b]] = base["node_allocatable"].max(dim=0
+                                                                    ).values
+    base["node_class"][b] = base["node_class"][a]
+    results = []
+    for d in (1, 65, 128):
+        rows = [b, a] + [int(x) for x in rng.choice(n, d, replace=False)
+                         if int(x) not in (a, b)]
+        rows = np.array(rows[:d], np.int32)
+        usage = base["node_usage"].cpu().numpy().copy()
+        alloc = base["node_allocatable"].cpu().numpy()
+        fresh = rows[~np.isin(rows, (a, b))]
+        usage[fresh] = (alloc[fresh] * rng.random((len(fresh), R)) * 0.5
+                        ).astype(np.int32)
+        st = state.replace(**dict(base, node_usage=dev(usage)))
+        dirty = np.zeros(n, bool)
+        dirty[rows] = True
+        aligned, _ = ba.align_candidate_cache(
+            cache, torch.arange(p, dtype=torch.int32, device=device),
+            pods.valid, dev(dirty))
+        args = (st, pods, cfg, aligned.cand_node, aligned.cand_score,
+                dev(rows), dev(np.ones(d, bool)), k, (5, 15))
+        got = refresh_candidates_kernel(*args)
+        want = refresh_candidates_plain(*args)
+        err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        check(err == 0, f"K2 equals its plain version (D = {d})")
+        key = got[0]
+        shared = int(((key[:, 1:] == key[:, :-1]) & (key[:, 1:] >= 0))
+                     .any(dim=1).sum())
+        results.append(dict(dirty_columns=d, max_abs_err=err,
+                            rows_with_shared_keys=shared,
+                            pair_rows=[int(x) for x in got[1][i0, 16:18]],
+                            minus_one_slots=int((key < 0).sum())))
+    check(results[-1]["pair_rows"] == [b, a],
+          "the shared top tie-break kept in column order")
+    emit("refresh_edges", pods=p, nodes=n, pair=[a, b], cases=results)
 
 
 def greedy_case(device, seed: int, n_nodes: int, n_pods: int, mode: str,
@@ -1151,29 +1313,39 @@ def phase_rescue(device, solve: dict, reps: int = 3):
                 bound_by=by)
 
 
-def phase_quota_levels(device, solve: dict, reps: int = 5):
-    """K3b on the quota levels of a cold round's first propose/accept
-    round at full size (the steady phase's round 0): each chain level with
-    active proposers and the non-preemptible level, kernel against plain
-    version, and the node level beside them."""
+def phase_quota_rounds(device, solve: dict, reps: int = 5) -> dict:
+    """K3b on every propose/accept round of a cold round's first solve at
+    full size behind the quota tree (the steady phase's round 0): each
+    round's whole acceptance (the node level, the chain's 8 columns, the
+    non-preemptible level) in ONE launch, held exactly against the plain
+    version that composes the levels one by one; the first round timed
+    (k3b_round_numbers)."""
     import torch
 
-    from koordinator_tpu_torch.kernels.prefix_accept import (
-        segmented_prefix_accept,
-        segmented_prefix_accept_plain,
-    )
+    from koordinator_tpu_torch.kernels import build
+    from koordinator_tpu_torch.kernels.prefix_accept import accept_plan
     from koordinator_tpu_torch.kernels.round_fit_choose import (
         round_fit_choose,
     )
     from koordinator_tpu_torch.kernels.select_candidates import (
         select_candidates_kernel,
     )
+    from koordinator_tpu_torch.ops import batch_assign as ba
     from koordinator_tpu_torch.ops.assignment import priority_order
     from koordinator_tpu_torch.quota.admission import quota_admission_mask
 
     state, pods, cfg, quota = (solve["state"], solve["batch"], solve["cfg"],
                                solve["quota"])
-    n, q = state.capacity, quota.capacity
+    check(quota is not None, "the cold round's quota was recorded")
+    stats = {"k3a_calls": 0, "k3b_calls": 0, "k3b_accepted": 0}
+    before = dict(build.LAUNCHES)
+    with checked_rounds(stats):
+        ba.batch_assign(state, pods, cfg, quota)
+    k3a = build.LAUNCHES["round_fit_choose"] - before["round_fit_choose"]
+    k3b = (build.LAUNCHES["segmented_prefix_accept"]
+           - before["segmented_prefix_accept"])
+    check(k3b == k3a == stats["k3b_calls"] > 0,
+          "K3b launched once per propose/accept round")
     key, node, _ = select_candidates_kernel(state, pods, cfg, 32)
     free = torch.where(state.node_valid[:, None],
                        state.node_allocatable - state.node_requested, 0)
@@ -1181,45 +1353,143 @@ def phase_quota_levels(device, solve: dict, reps: int = 5):
     choice, has = round_fit_choose(key, node, free, pods.requests, active)
     act = active & has & quota_admission_mask(
         quota, pods.requests, pods.quota_id, pods.non_preemptible)
-    order = priority_order(pods)
-    qid = torch.clamp(pods.quota_id, min=0).long()
-    has_quota = pods.quota_id >= 0
-    req_m = torch.where(quota.checked[qid], pods.requests, 0)
-    cases = [("node", torch.where(act, choice, n).to(torch.int32),
-              pods.requests,
-              torch.where(act[:, None], free[torch.clamp(choice, 0, n - 1)
-                                             .long()], 0), act, n)]
-    for d in range(quota.chain.shape[1]):
-        anc = quota.chain[qid, d]
-        act_d = act & has_quota & (anc >= 0)
-        safe = torch.clamp(anc, min=0).long()
-        cases.append((f"chain_{d}", torch.where(act_d, anc, q)
-                      .to(torch.int32), req_m,
-                      torch.where(act_d[:, None], quota.headroom[safe], 0),
-                      act_d, q))
-    np_act = act & has_quota & pods.non_preemptible
-    cases.append(("non_preemptible", torch.where(np_act, qid, q)
-                  .to(torch.int32), req_m,
-                  torch.where(np_act[:, None], quota.min_headroom[qid], 0),
-                  np_act, q))
-    levels = []
-    for name, seg, req, cfree, act_l, nseg in cases:
-        args = (seg, req, cfree, order, act_l, nseg)
-        got = segmented_prefix_accept(*args)
-        want = segmented_prefix_accept_plain(*args)
+    plan = accept_plan(priority_order(pods), pods.requests, pods.quota_id,
+                       pods.non_preemptible, quota.chain, quota.checked)
+    first = k3b_round_numbers(device, plan, choice, act, free,
+                              quota.headroom, quota.min_headroom, reps)
+    emit("quota_rounds", pods=pods.capacity, nodes=state.capacity,
+         quotas=quota.capacity, chain_columns=quota.chain.shape[1],
+         rounds=stats["k3b_rounds"], k3b_launches=k3b, first_round=first)
+    return first
+
+
+def k3b_edge_quota(device, q_rows: int = 8):
+    """(chain, checked, headroom, min_headroom) of root 0 -> parents 1, 2
+    -> leaves 3..6 (row 7 standalone), an 8-column chain."""
+    import torch
+
+    parent = [-1, 0, 0, 1, 1, 2, 2, -1]
+    chain = np.full((q_rows, 8), -1, np.int32)
+    for i in range(q_rows):
+        cur, d = i, 0
+        while cur >= 0:
+            chain[i, d], cur, d = cur, parent[cur], d + 1
+    checked = np.zeros((q_rows, R), bool)
+    checked[:, CPU] = True
+    checked[::2, MEM] = True
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return dev(chain), dev(checked)
+
+
+def phase_k3b_edges(device) -> None:
+    """K3b's per-round acceptance and its one-level form against their
+    plain versions where the parallel scan has edges: a 65,536-row batch
+    in one node and one leaf quota (a run across all 64 tiles of 1,024
+    entries at every level), runs of a tile and one entry either side of
+    it, rows whose choice is -1 (no fitting candidate, inactive), no
+    active pod at any level, a quota tree no pod belongs to (no quota
+    entries), and one segment whose sum reaches 2**31 - 1 (the edge of
+    the documented domain: the global int32 sum does not overflow)."""
+    import torch
+
+    from koordinator_tpu_torch.kernels import prefix_accept as pa
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    chain, checked = k3b_edge_quota(device)
+    rng = np.random.default_rng(500)
+    results = []
+
+    def run(name, req, choice, act, free, prio, qid=None, npre=None,
+            head=None, min_head=None):
+        order = torch.sort(-dev(prio), stable=True).indices
+        if qid is None:
+            plan = pa.accept_plan(order, dev(req))
+            extra = ()
+        else:
+            plan = pa.accept_plan(order, dev(req), dev(qid), dev(npre),
+                                  chain, checked)
+            extra = (dev(head), dev(min_head))
+        args = (plan, dev(choice), dev(act), dev(free), *extra)
+        got = pa.round_prefix_accept(*args)
+        want = pa.round_prefix_accept_plain(*args)
         err = max_abs_err(got, want)
-        check(err == 0, f"K3b equals its plain version ({name} level)")
-        proposers = int(act_l.sum())
-        segments = int(torch.unique(seg[act_l]).numel()) if proposers else 0
-        levels.append(dict(
-            level=name, proposers=proposers, segments=segments,
-            accepted=int(got.sum()), max_abs_err=err,
-            ms=timed_ms(lambda: segmented_prefix_accept(*args), device,
-                        reps=reps),
-            plain_ms=timed_ms(lambda: segmented_prefix_accept_plain(*args),
-                              device, reps=2)))
-    emit("quota_levels", pods=pods.capacity, nodes=n, quotas=q,
-         levels=levels)
+        check(err == 0, f"K3b equals its plain version ({name})")
+        results.append(dict(case=name, pods=len(act), active=int(act.sum()),
+                            accepted=int(got.sum()), max_abs_err=err,
+                            quota_entries=(0 if plan.entry_pod is None else
+                                           plan.entry_pod.shape[0])))
+        return got
+
+    def pods(p, cpu_hi=4_000):
+        req = np.zeros((p, R), np.int32)
+        req[:, CPU] = rng.integers(100, cpu_hi, p)
+        req[:, MEM] = rng.integers(128, 8_192, p)
+        req[rng.random(p) < 0.1, CPU] = 0
+        return req, rng.integers(3_000, 3_010, p).astype(np.int32)
+
+    # one node, one leaf quota: the whole batch is one run at every level
+    p = 65_536
+    req, prio = pods(p)
+    total = req.sum(axis=0).astype(np.int64)
+    free = np.zeros((16, R), np.int32)
+    free[0] = np.minimum(total // 2, 2**31 - 1)
+    head = np.full((8, R), 2**30, np.int32)
+    head[[3, 1, 0]] = np.minimum(total * 2 // 3, 2**30)
+    min_head = np.full((8, R), 2**30, np.int32)
+    min_head[3] = np.minimum(total // 40, 2**30)
+    got = run("one_segment_65536", req, np.zeros(p, np.int32),
+              np.ones(p, bool), free, prio, np.full(p, 3, np.int32),
+              rng.random(p) < 0.05, head, min_head)
+    check(0 < int(got.sum()) < p, "the one-segment batch is contended")
+    # runs of a tile (1,024 entries) and one either side, at the node and
+    # the leaf level; 30% of the rows with no fitting candidate
+    sizes = [1_023, 1_024, 1_025, 1, 2_047, 2_048, 2_049, 1_024, 1_023]
+    p = int(sum(sizes))
+    req, prio = pods(p)
+    prio[:] = 3_000                   # priority order is row order
+    choice = np.repeat(np.arange(len(sizes)), sizes).astype(np.int32)
+    free = np.zeros((len(sizes), R), np.int32)
+    for g in range(len(sizes)):
+        free[g] = req[choice == g].sum(axis=0) // 2
+    qid = np.repeat(np.arange(3, 3 + 4), -(-p // 4))[:p].astype(np.int32)
+    has = rng.random(p) < 0.7
+    run("tile_runs", req, choice, np.ones(p, bool), free, prio)
+    run("tile_runs_quota", req, np.where(has, choice, -1), has, free, prio,
+        qid, rng.random(p) < 0.2, np.full((8, R), 4_000_000, np.int32),
+        np.full((8, R), 200_000, np.int32))
+    # nothing active; a tree with no pod in it
+    run("no_active", req, choice, np.zeros(p, bool), free, prio, qid,
+        np.ones(p, bool), head, min_head)
+    got = run("no_quota_pods", req, choice, np.ones(p, bool), free, prio,
+              np.full(p, -1, np.int32), np.zeros(p, bool), head, min_head)
+    check(results[-1]["quota_entries"] == 0, "no quota entries")
+    # the wrap edge: 4,096 pods whose cpu sums to 2**31 - 1 in one node,
+    # the tail half of them just over their headroom
+    p = 4_096
+    req = np.zeros((p, R), np.int32)
+    req[:, CPU] = (2**31 - 1) // p
+    req[-1, CPU] += (2**31 - 1) - int(req[:, CPU].astype(np.int64).sum())
+    free = np.full((2, R), 2**31 - 1, np.int32)
+    got = run("wrap_edge", req, np.zeros(p, np.int32), np.ones(p, bool),
+              free, np.zeros(p, np.int32))
+    check(bool(got.all()), "the whole int32 range fits its headroom")
+    choice_free = np.full((p, R), 2**31 - 1, np.int32)
+    choice_free[p // 2:, CPU] = 2**31 - 2
+    args = (dev(np.zeros(p, np.int32)), dev(req), dev(choice_free),
+            torch.arange(p, device=device), dev(np.ones(p, bool)), 1)
+    got = pa.segmented_prefix_accept(*args)
+    err = max_abs_err(got, pa.segmented_prefix_accept_plain(*args))
+    check(err == 0 and not bool(got[-1]) and bool(got[: p // 2].all()),
+          "K3b's one-level form at the wrap edge")
+    results.append(dict(case="wrap_edge_one_level", pods=p,
+                        accepted=int(got.sum()), max_abs_err=err))
+    emit("k3b_edges", cases=results)
+
 
 N_LEAVES, N_PARENTS = 16, 4
 
@@ -1329,10 +1599,13 @@ def steady_delta(rng, nodes: list, rnd: int, n_arrivals: int = 500):
 def phase_steady(device, n_nodes: int = 10_240, n_pods: int = 50_000,
                  steady_rounds: int = 5, n_arrivals: int = 500):
     """The steady-state batch path on three schedulers over one sequence;
-    their binds must agree every round.  K3b's quota levels are checked on
-    the forced scheduler's cold round and K4 on its last round's rescue
-    (phase_rescue).  Returns (schedulers, the forced scheduler's launches
-    over the whole run, the round records, K4's numbers at the rescue)."""
+    their binds must agree every round, and every scheduler launches K3b
+    once per propose/accept round (as often as K3a).  K3b is held against
+    its plain version on every round of the forced scheduler's cold solve
+    (phase_quota_rounds) and K4 on its last round's rescue (phase_rescue).
+    Returns (schedulers, the forced scheduler's launches over the whole
+    run, the round records, K4's numbers at the rescue, K3b's at the cold
+    solve's first round)."""
     from koordinator_tpu_torch.kernels import build
 
     nodes, pods, leaf_max = steady_specs(3, n_nodes, n_pods)
@@ -1366,7 +1639,7 @@ def phase_steady(device, n_nodes: int = 10_240, n_pods: int = 50_000,
                 for kname, count in launches.items():
                     totals[kname] += count
                 if rnd == 0:
-                    phase_quota_levels(device, next(
+                    k3b = phase_quota_rounds(device, next(
                         s for s in log if s["solver"] == "batch"))
                 if rnd == steady_rounds:
                     rescues = [s for s in log if s["solver"] == "greedy"]
@@ -1388,6 +1661,9 @@ def phase_steady(device, n_nodes: int = 10_240, n_pods: int = 50_000,
                 k4=launches["greedy_scan"], binds=len(res.assignments),
                 rescued=res.rescued, failed=len(res.failures)))
             emit("steady_round", **records[-1])
+            check(records[-1]["k3b"] == records[-1]["k3a"],
+                  f"round {rnd}, {name}: one K3b launch a propose/accept "
+                  "round")
         first = results["defaults"]
         for name, res in results.items():
             check(res.assignments == first.assignments,
@@ -1421,7 +1697,7 @@ def phase_steady(device, n_nodes: int = 10_240, n_pods: int = 50_000,
     emit("steady", nodes=n_nodes, pods=n_pods, rounds=1 + steady_rounds,
          arrivals=n_arrivals, forced_launches=totals,
          backlog=len(scheds["defaults"].pending))
-    return scheds, totals, records, rescue
+    return scheds, totals, records, rescue, k3b
 
 
 def phase_small(device, scheds: dict, rounds: int = 3,
@@ -1498,32 +1774,46 @@ def ptxas_summary(path: str) -> list[dict]:
     return out
 
 
+#: the kernels' entry functions in the ptxas log, by kernel (K1 and K2
+#: come in one- and two-stratum instances)
+PTXAS_ENTRIES = {"select_candidates": ("select_candidates_kernel", 2),
+                 "refresh_candidates": ("refresh_candidates_kernel", 2),
+                 "segmented_prefix_accept": ("round_accept_kernel", 1),
+                 "greedy_scan": ("greedy_scan_kernel", 1)}
+
+
 def phase_ptxas(path: str) -> None:
-    """K1's and K4's registers and spills, from the build's ptxas log:
-    neither kernel may spill."""
+    """K1's, K2's, K3b's and K4's registers and spills, from the build's
+    ptxas log: none of them may spill."""
     entries = ptxas_summary(path)
-    picked = [e for e in entries
-              if "select_candidates_kernel" in e["entry"]
-              or "greedy_scan_kernel" in e["entry"]]
-    check(len(picked) >= 4, "ptxas reported K1 and K4")
+    picked = []
+    for kernel, (name, count) in PTXAS_ENTRIES.items():
+        found = [dict(e, kernel=kernel) for e in entries
+                 if name in e["entry"]]
+        check(len(found) >= count, f"ptxas reported {kernel}")
+        picked += found
     for e in picked:
         check(e.get("spill_stores", 1) == 0 and e.get("spill_loads", 1) == 0,
               f"no spills in {e['entry']}")
     emit("ptxas", kernels=[dict(
-        kernel=("select_candidates" if "select_candidates" in e["entry"]
-                else "greedy_scan"),
-        entry=e["entry"], registers=e.get("registers"),
+        kernel=e["kernel"], entry=e["entry"], registers=e.get("registers"),
         spill_stores=e.get("spill_stores"), spill_loads=e.get("spill_loads"),
         smem=e.get("smem")) for e in picked])
 
 
-#: K1's and K4's earlier designs (commit e9fcd1c), as recorded in PERF.md
-#: (their chip runs on an NVIDIA H100 80GB HBM3 at 700 W): ms per launch
-#: at the same shapes
+#: earlier designs, as recorded in PERF.md (chip runs on an NVIDIA H100
+#: 80GB HBM3 at 700 W), ms at the same shapes: K1's and K4's of commit
+#: e9fcd1c a launch; K3b's of commit bf2978c (one launch a level, one
+#: thread walking each run) a launch at the flagship's first round; K2's
+#: of bf2978c (one thread a pod, int64 lists), the wrapper and the device
 EARLIER_DESIGN_MS = {
     "select_candidates": [25.41, 25.56, 25.51],
     "greedy_scan (rescue)": [24.32],
     "greedy_scan (1,000 pods)": [67.78, 68.41, 67.51, 68.80],
+    "segmented_prefix_accept (a launch, node level, first round)": [5.65,
+                                                                    5.77],
+    "refresh_candidates (wrapper)": [0.863, 1.082],
+    "refresh_candidates (device)": [0.31],
 }
 
 
@@ -1557,14 +1847,15 @@ def main() -> int:
 
     phase_kernels(device)
     phase_k1_edges(device)
+    phase_k3b_edges(device)
     phase_solve(device)
     launches, log = phase_main(device)
-    kernels = phase_table(device, launches, log)
+    kernels, table_k3b = phase_table(device, launches, log)
     k2 = phase_refresh(device, log)
     del log
     k4_1000 = phase_greedy(device)
     phase_greedy_edges(device)
-    scheds, totals, _, k4 = phase_steady(device)
+    scheds, totals, _, k4, k3b = phase_steady(device)
     phase_small(device, scheds)
     del scheds
     kernels[1:1] = [dict(
@@ -1572,6 +1863,16 @@ def main() -> int:
         source=CSRC + "refresh_candidates.cu",
         replaces="koordinator_tpu/ops/batch_assign.py:731", **k2,
         library_ms=None)]
+    # K3b at the cold solve's first round behind the quota tree: every
+    # level in one launch
+    kernels.append(dict(
+        name="segmented_prefix_accept", route="cuda",
+        source=CSRC + "segmented_prefix_accept.cu",
+        replaces="koordinator_tpu/ops/batch_assign.py:271",
+        max_abs_err=k3b["max_abs_err"], ms=k3b["ms"],
+        device_ms=k3b["device_ms"], sort_ms=k3b["sort_ms"],
+        plain_ms=k3b["plain_ms"], bound_ms=k3b["bound_ms"],
+        bound_by=k3b["bound_by"], library_ms=None))
     kernels.append(dict(
         name="greedy_scan", route="cuda", source=CSRC + "greedy_scan.cu",
         replaces="koordinator_tpu/ops/assignment.py:169", **k4,
@@ -1587,7 +1888,19 @@ def main() -> int:
              dict(name="greedy_scan (rescue)", ms=k4["ms"],
                   earlier_ms=EARLIER_DESIGN_MS["greedy_scan (rescue)"]),
              dict(name="greedy_scan (1,000 pods)", ms=k4_1000["ms"],
-                  earlier_ms=EARLIER_DESIGN_MS["greedy_scan (1,000 pods)"])])
+                  earlier_ms=EARLIER_DESIGN_MS["greedy_scan (1,000 pods)"]),
+             dict(name="segmented_prefix_accept (a launch, node level, "
+                  "first round)", ms=table_k3b["device_ms"],
+                  wrapper_ms=table_k3b["ms"],
+                  earlier_ms=EARLIER_DESIGN_MS[
+                      "segmented_prefix_accept (a launch, node level, "
+                      "first round)"]),
+             dict(name="refresh_candidates (wrapper)", ms=k2["ms"],
+                  earlier_ms=EARLIER_DESIGN_MS[
+                      "refresh_candidates (wrapper)"]),
+             dict(name="refresh_candidates (device)", ms=k2["device_ms"],
+                  earlier_ms=EARLIER_DESIGN_MS[
+                      "refresh_candidates (device)"])])
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -104,6 +104,7 @@ def build(force: bool = False, log_path: str | None = None) -> str:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 #: exported C functions and their argument types (every one returns the
 #: launch's cudaGetLastError() as an int)
@@ -126,9 +127,13 @@ _SIGNATURES = {
         _P,                              # stream
     ],
     "koord_segmented_prefix_accept": [
-        _P, _P, _P, _P, _P, _P,          # pos, order, seg, requests, choice_free, active
-        _I, _I,                          # P, overflow segment id
-        _P,                              # out fits
+        _P, _P, _P, _P, _P,              # node entries' groups, positions, order, requests, headroom
+        _I, _I, _I, _I,                  # headroom by pod?, node entries, overflow id, S
+        _P, _P, _P, _P, _P, _P,          # quota entries' pods, groups, rows, requests, headroom, min headroom
+        _I, _I,                          # quota entries, Q
+        _P, _I,                          # (P,) activity, requested-dims bit mask
+        _P, _L,                          # look-back scratch + its ints
+        _P,                              # out accept (holds the activity on entry)
         _P,                              # stream
     ],
     "koord_refresh_candidates": [
@@ -137,9 +142,10 @@ _SIGNATURES = {
         _P, _I,                          # selector mask (P, C) + C
         _P, _I,                          # config int vector + its length
         _P, _P,                          # cached cand_node, cand_score (P, k)
-        _P, _P, _I, _P,                  # dirty rows, valid flags, D, (N,) mask
+        _P, _P, _I,                      # dirty rows, valid flags, D
         _I, _I, _I,                      # P, N, strata count
         _I, _I, _I, _I,                  # strata shifts, per-stratum k
+        _P, _P,                          # packed dirty rows scratch, (N,) column of each dirty node
         _P, _P, _P,                      # out cand_key, cand_node, cand_score
         _P,                              # stream
     ],
@@ -159,10 +165,13 @@ _SIGNATURES = {
 }
 
 
-#: exported C functions that size a kernel's global scratch, in bytes
+#: exported C functions that size a kernel's global scratch, in bytes (K3b's
+#: in int32 words)
 _SCRATCH = {
     "koord_select_candidates_scratch_bytes": [_I],      # N
+    "koord_refresh_candidates_scratch_bytes": [_I],     # D
     "koord_greedy_scan_scratch_bytes": [_I, _I, _I],    # N, Q, chain depth
+    "koord_segmented_prefix_accept_scratch_ints": [_L],  # entries
 }
 
 

@@ -347,4 +347,93 @@ __device__ __forceinline__ bool selector_ok(unsigned long long mask, int cls,
   return (mask >> c) & 1ull;
 }
 
+// ---- packed node rows (K1 and K2) ------------------------------------------
+//
+// One node's pair_score terms as a 352-byte row (ints, each group padded to
+// 12 for 16-byte loads): [0,12) allocatable, [12,24) free capacity, [24,36)
+// usage, [36,48) and [48,60) the threshold's two sides, [60,72) magic
+// multipliers, [72,84) magic shifts; 84 flags (bit r: a > 0, bit R: valid),
+// 85 class, 86 the node's row in the node table.
+constexpr int kRowInts = 88;
+constexpr int kRowA = 0, kRowF = 12, kRowU = 24, kRowX = 36, kRowY = 48;
+constexpr int kRowM = 60, kRowL = 72, kRowFlags = 84, kRowClass = 85;
+constexpr int kRowNode = 86;
+
+// Pack n_pad rows: row i from node ``ids[i]`` (node i when ``ids`` is
+// null), valid when that node is in [0, N), valid in the table and
+// ``id_valid[i]`` (when given).  Rows past ``n_ids`` are invalid padding.
+// ``col_of``, when given, gets col_of[node] = i for every valid-listed
+// node in [0, N) (any one of its rows when it is listed twice).  Static:
+// each source that includes this header compiles its own copy.
+static __global__ void pack_node_rows(const int* __restrict__ alloc,
+                               const int* __restrict__ reqd,
+                               const int* __restrict__ usage,
+                               const int* __restrict__ base,
+                               const uint8_t* __restrict__ nvalid,
+                               const int* __restrict__ nclass,
+                               const __grid_constant__ ScoreCfg cfg, int N,
+                               const int* __restrict__ ids,
+                               const uint8_t* __restrict__ id_valid,
+                               int n_ids, int n_pad, int* __restrict__ rows,
+                               int* __restrict__ col_of) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_pad) return;
+  int* row = rows + static_cast<long long>(i) * kRowInts;
+  const int n = i < n_ids ? (ids ? ids[i] : i) : -1;
+  const bool in = static_cast<unsigned int>(n) < static_cast<unsigned int>(N);
+  const bool listed = in && (id_valid == nullptr || id_valid[i]);
+  const bool nv = listed && nvalid[n];
+  if (col_of != nullptr && listed) col_of[n] = i;
+  const long long src = static_cast<long long>(in ? n : 0) * kDims;
+  unsigned int flags = nv ? kValidFlag : 0u;
+  for (int r = 0; r < 12; ++r) {
+    const bool d = in && r < kDims;
+    const int a = d ? alloc[src + r] : 0;
+    const DimTerms t = node_dim_terms(a, d ? reqd[src + r] : 0,
+                                      d ? base[src + r] : 0, nv,
+                                      r < kDims ? cfg.thr[r] : 0);
+    row[kRowA + r] = a;
+    row[kRowF + r] = t.fr;
+    row[kRowU + r] = d ? usage[src + r] : 0;
+    row[kRowX + r] = t.thx;
+    row[kRowY + r] = t.thy;
+    row[kRowM + r] = static_cast<int>(t.mg.m);
+    row[kRowL + r] = static_cast<int>(t.mg.l);
+    if (r < kDims && a > 0) flags |= 1u << r;
+  }
+  row[kRowFlags] = static_cast<int>(flags);
+  row[kRowClass] = in ? nclass[n] : 0;
+  row[kRowNode] = n;
+  row[kRowNode + 1] = 0;
+}
+
+// One packed node row (shared or global memory) as pair_score reads it;
+// its flags, class and node id come in one 16-byte load.
+struct PackedRow {
+  const int* p;
+  int4 meta;
+  __device__ __forceinline__ explicit PackedRow(const int* row) : p(row) {
+    meta = reinterpret_cast<const int4*>(row)[kRowFlags / 4];
+  }
+  __device__ __forceinline__ int a(int r) const { return p[kRowA + r]; }
+  __device__ __forceinline__ int fr(int r) const { return p[kRowF + r]; }
+  __device__ __forceinline__ int use(int r) const { return p[kRowU + r]; }
+  __device__ __forceinline__ int thx(int r) const { return p[kRowX + r]; }
+  __device__ __forceinline__ int thy(int r) const { return p[kRowY + r]; }
+  __device__ __forceinline__ uint32_t m(int r) const {
+    return static_cast<uint32_t>(p[kRowM + r]);
+  }
+  __device__ __forceinline__ uint32_t l(int r) const {
+    return static_cast<uint32_t>(p[kRowL + r]);
+  }
+  __device__ __forceinline__ uint32_t apos() const {
+    return static_cast<uint32_t>(meta.x) & ((1u << kDims) - 1u);
+  }
+  __device__ __forceinline__ bool valid() const {
+    return (static_cast<uint32_t>(meta.x) & kValidFlag) != 0;
+  }
+  __device__ __forceinline__ int cls() const { return meta.y; }
+  __device__ __forceinline__ int node() const { return meta.z; }
+};
+
 }  // namespace koord

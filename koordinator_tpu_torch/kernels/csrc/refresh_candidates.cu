@@ -5,36 +5,38 @@
 // (score_pods over the gathered dirty rows, then per stratum a top-k of the
 // dirty columns merged by a second top-k with the cached slots).  Its plain
 // PyTorch version is refresh_candidates_plain in
-// kernels/refresh_candidates.py.
+// kernels/refresh_candidates.py; refresh_from_int32_lists there mirrors
+// this kernel's int32 lists and their decoding.
 //
 // What bounds it on the H100: P x D pairs of the same Filter + Score as K1
 // (operations), plus reading and writing the (P, k) cache (bytes).  At the
 // steady state's D = 128 dirty columns the work is ~1% of K1's.
 //
-// Design: one thread per pod, 128 pods per block, as in K1.  A thread first
-// loads its k cached slots; a slot on a dirty node is invalidated (score
-// -1), and each stratum's ranking key is recomputed from the cached raw
-// score and node (_candidate_keys).  The block then stages the gathered
-// dirty rows 64 at a time in shared memory as pair_score's node terms,
-// and streams them through pair_score (koord_score.cuh,
-// the one definition K1 and K4 compile too), with the tie-break taken on
-// the GLOBAL node id.  Every entry goes into a per-stratum sorted list of
-// int64 ranks in registers:
-//   high word: the ranking key;
-//   low word:  (0xFFFF - position) << 15 | clipped score,
-// where position is the slot (cached entries, 0..k_i-1) or k_i + the dirty
-// column (fresh entries).  int64 order is then (key descending, position
-// ascending), the order lax.top_k gives the JAX merge over [cached, fresh],
-// and the score rides along without a parallel array.
-//
-// Exactness notes.  Valid keys are unique per stratum (the tie-break is a
-// permutation of node ids), so only the -1 entries depend on position.  The
-// merge keeps k_i entries and the cached segment alone holds k_i, so every
-// -1 entry it keeps is a cached one: fresh infeasible columns (the padded
-// dirty entries among them) are never kept and are not inserted.  That is
-// also why the JAX version's two branches (k_i < D: top-k of the dirty
-// columns first; k_i >= D: all of them) give the same result here: the
-// fresh entries that can be kept are the valid ones, in key order.
+// Design (K1's, over a dirty-column list):
+// - pack_node_rows (koord_score.cuh) packs the D dirty rows into 352-byte
+//   rows of pair_score's node terms, magic divisors included, and writes
+//   col_of[node] = its column for every listed node: a node is dirty when
+//   col_of names a listed column that holds it, so the (N,) dirty mask is
+//   never built (the buffer is not cleared between calls: a stale entry
+//   fails that check).
+// - Four threads a pod, 32 pods a CTA; the CTA stages 32 dirty rows at a
+//   time in shared memory, and lane h of a pod scores columns h, h + 4, ...
+//   of each tile.  The four lanes merge their lists by shuffles at the end.
+// - The per-stratum lists hold int32 values, (key << 1) | cached: int32
+//   order is then (key descending, cached before fresh), the order of
+//   lax.top_k over the JAX merge's [cached, fresh] among equal keys.
+//   Cached slots on dirty nodes are invalidated (score -1) before they are
+//   ranked; only valid entries are inserted.
+// - Decoding (lane s of the pod for stratum s): a cached value's slot is
+//   found among the pod's cached keys (kept in shared memory), the t-th
+//   copy of one value taking the t-th slot that holds it; a fresh value's
+//   node is the preimage of its global tie-break (the wrap rule:
+//   tie_break_preimages in kernels/select_candidates.py) that is dirty,
+//   re-scored for its clipped score, and when both preimages are dirty
+//   with that key, the t-th copy takes the t-th of their columns in the
+//   dirty list.  The merge keeps k_i entries and the cached segment alone
+//   holds k_i, so every -1 slot it keeps is a cached one: the -1 slots take
+//   the stratum's invalid cached slots in slot order, node and all.
 
 #include "koord_score.cuh"
 
@@ -42,194 +44,252 @@ namespace {
 
 using namespace koord;
 
-constexpr int kThreads = 128;   // pods per block
-constexpr int kTile = 64;       // dirty columns per shared-memory tile
-constexpr int kMaxPosition = 0xFFFF;
+constexpr int kThreads = 128;
+constexpr int kLanes = 4;                  // threads per pod
+constexpr int kPods = kThreads / kLanes;   // pods per CTA
+constexpr int kTile = 32;                  // dirty columns per staged tile
+constexpr int kTileInts = kTile * kRowInts;
+constexpr int kMaxK = 2 * kMaxPerStratum;
 
-__device__ __forceinline__ bool in_nodes(int row, int N) {
-  return static_cast<unsigned int>(row) < static_cast<unsigned int>(N);
-}
-
-__device__ __forceinline__ long long pack_entry(int key, int position,
-                                                int score) {
-  const unsigned long long hi =
-      static_cast<unsigned long long>(static_cast<long long>(key)) << 32;
-  const unsigned int lo =
-      (static_cast<unsigned int>(kMaxPosition - position) << 15) |
-      static_cast<unsigned int>(score & kScoreClip);
-  return static_cast<long long>(hi | lo);
+// The dirty column holding node n (-1 when n is not dirty).
+__device__ __forceinline__ int dirty_col(int n, int N, const int* col_of,
+                                         const int* drows,
+                                         const uint8_t* dvalid, int D) {
+  if (static_cast<unsigned int>(n) >= static_cast<unsigned int>(N)) return -1;
+  const int c = col_of[n];
+  return (static_cast<unsigned int>(c) < static_cast<unsigned int>(D) &&
+          drows[c] == n && dvalid[c])
+             ? c
+             : -1;
 }
 
 template <int NS>
 __global__ void __launch_bounds__(kThreads) refresh_candidates_kernel(
-    const int* __restrict__ alloc, const int* __restrict__ reqd,
-    const int* __restrict__ usage, const int* __restrict__ base,
-    const uint8_t* __restrict__ nvalid, const int* __restrict__ nclass,
+    const int* __restrict__ rows, int n_tiles, const int* __restrict__ col_of,
+    const int* __restrict__ drows, const uint8_t* __restrict__ dvalid, int D,
     const int* __restrict__ preq_g, const int* __restrict__ pest_g,
     const uint8_t* __restrict__ pvalid_g, const int* __restrict__ rot_g,
     const uint8_t* __restrict__ sel, int C,
     const __grid_constant__ ScoreCfg cfg,
     const int* __restrict__ cache_node, const int* __restrict__ cache_score,
-    const int* __restrict__ drows, const uint8_t* __restrict__ dvalid, int D,
-    const uint8_t* __restrict__ dmask, int P, int N, int sb0, int sb1,
-    int k0, int k1, int* __restrict__ out_key, int* __restrict__ out_node,
-    int* __restrict__ out_score) {
-  __shared__ int s_alloc[kTile * kDims];
-  __shared__ int s_free[kTile * kDims];
-  __shared__ int s_use[kTile * kDims];
-  __shared__ int s_thx[kTile * kDims];
-  __shared__ int s_thy[kTile * kDims];
-  __shared__ uint32_t s_mag[kTile * kDims];
-  __shared__ uint8_t s_shf[kTile * kDims];
-  __shared__ uint32_t s_flags[kTile];
-  __shared__ int s_class[kTile];
-  __shared__ int s_row[kTile];
-  __shared__ int s_pq[kDims * kThreads];   // each pod's request and
-  __shared__ int s_pe[kDims * kThreads];   // estimate, a column per thread
+    int P, int N, int sb0, int sb1, int k0, int k1, int* __restrict__ out_key,
+    int* __restrict__ out_node, int* __restrict__ out_score) {
+  __shared__ __align__(16) int s_tile[kTileInts];
+  __shared__ int s_pq[kDims * kPods];   // each pod's request and estimate,
+  __shared__ int s_pe[kDims * kPods];   // a column per pod
+  __shared__ int s_ckey[kPods][kMaxK];  // cached slots' keys, -1 invalid
 
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-
+  const int tid = threadIdx.x;
+  const int slot = tid / kLanes;
+  const int lane = tid % kLanes;
+  const int p = blockIdx.x * kPods + slot;
   const bool in_range = p < P;
   const bool pvalid = in_range && pvalid_g[p];
   const int K = k0 + (NS > 1 ? k1 : 0);
-  const int shifts[2] = {sb0, sb1};
-  const int ks[2] = {k0, k1};
   const int rot7919 = in_range ? wmul(rot_g[p], 7919) : 0;
+  const long long row0 = static_cast<long long>(p) * K;
 
-  long long lists[NS][kMaxPerStratum];
+  int lists[NS][kMaxPerStratum];
 #pragma unroll
   for (int s = 0; s < NS; ++s)
 #pragma unroll
-    for (int j = 0; j < kMaxPerStratum; ++j) lists[s][j] = LLONG_MIN;
+    for (int j = 0; j < kMaxPerStratum; ++j) lists[s][j] = INT_MIN;
 
-  // the cached slots, invalidated on dirty nodes, keys recomputed per
-  // stratum from the cached raw score
+  // the cached slots, lane h taking slots h, h + 4, ...: invalidated on
+  // dirty nodes, each stratum's key recomputed from the cached raw score
   if (in_range) {
-    const long long row = static_cast<long long>(p) * K;
-    int off = 0;
+    for (int j = lane; j < K; j += kLanes) {
+      const int node = cache_node[row0 + j];
+      const int score = cache_score[row0 + j];
+      const bool stale = dirty_col(node, N, col_of, drows, dvalid, D) >= 0;
+      const int sb = j < k0 ? sb0 : sb1;
+      const int key = (score >= 0 && !stale)
+                          ? (((score >> sb) << kTbBits) |
+                             tie_break(node, rot7919, N))
+                          : -1;
+      s_ckey[slot][j] = key;
+      if (key < 0) continue;
 #pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      for (int j = 0; j < ks[s]; ++j) {
-        const int node = cache_node[row + off + j];
-        int score = cache_score[row + off + j];
-        if (in_nodes(node, N) && dmask[node]) {
-          score = -1;
-        }
-        const int key =
-            score >= 0
-                ? (((score >> shifts[s]) << kTbBits) |
-                   tie_break(node, rot7919, N))
-                : -1;
-        insert_sorted(lists[s], pack_entry(key, j, score));
-      }
-      off += ks[s];
+      for (int s = 0; s < NS; ++s)
+        if ((j < k0) == (s == 0)) insert_sorted(lists[s], (key << 1) | 1);
     }
   }
 
-  const unsigned long long mask = pvalid ? selector_bits(sel, p, C) : 0ull;
-
-  __syncthreads();
+  // the pod's request and estimate (pair_score reads them at dimension
+  // indices known at run time)
   PodRef pt;
   {
-    const int tid = threadIdx.x;
     int q[kDims];
 #pragma unroll
     for (int r = 0; r < kDims; ++r) {
       q[r] = pvalid ? preq_g[p * kDims + r] : 0;
-      s_pq[r * kThreads + tid] = q[r];
-      s_pe[r * kThreads + tid] = pvalid ? pest_g[p * kDims + r] : 0;
+      if (lane == 0) {
+        s_pq[r * kPods + slot] = q[r];
+        s_pe[r * kPods + slot] = pvalid ? pest_g[p * kDims + r] : 0;
+      }
     }
-    pt = PodRef{s_pq + tid, s_pe + tid, kThreads, pod_scalars(q, cfg)};
+    pt = PodRef{s_pq + slot, s_pe + slot, kPods, pod_scalars(q, cfg)};
   }
+  const unsigned long long mask = pvalid ? selector_bits(sel, p, C) : 0ull;
 
   // the fresh dirty columns (an invalid pod's are all infeasible)
-  const bool any_valid = __syncthreads_or(pvalid);
-  if (any_valid) {
-    for (int d0 = 0; d0 < D; d0 += kTile) {
-      const int tn = min(kTile, D - d0);
+  if (__syncthreads_or(pvalid)) {
+    for (int t = 0; t < n_tiles; ++t) {
       __syncthreads();
-      // a row outside [0, N) is read as row 0 and scored as invalid; each
-      // staged row gets its node terms (koord_score.cuh: node_dim_terms)
-      for (int i = threadIdx.x; i < tn * kDims; i += kThreads) {
-        const int row = drows[d0 + i / kDims];
-        const bool in = in_nodes(row, N);
-        const int r = i % kDims;
-        const long long src = static_cast<long long>(in ? row : 0) * kDims + r;
-        const bool nv = in && nvalid[in ? row : 0] && dvalid[d0 + i / kDims];
-        const int a = alloc[src];
-        const DimTerms t = node_dim_terms(a, reqd[src], base[src], nv,
-                                          cfg.thr[r]);
-        s_alloc[i] = a;
-        s_free[i] = t.fr;
-        s_use[i] = usage[src];
-        s_thx[i] = t.thx;
-        s_thy[i] = t.thy;
-        s_mag[i] = t.mg.m;
-        s_shf[i] = static_cast<uint8_t>(t.mg.l);
-      }
-      for (int i = threadIdx.x; i < tn; i += kThreads) {
-        const int row = drows[d0 + i];
-        const bool in = in_nodes(row, N);
-        const long long src = static_cast<long long>(in ? row : 0) * kDims;
-        uint32_t flags =
-            (in && nvalid[in ? row : 0] && dvalid[d0 + i]) ? kValidFlag : 0u;
-        for (int r = 0; r < kDims; ++r)
-          if (alloc[src + r] > 0) flags |= 1u << r;
-        s_row[i] = row;
-        s_flags[i] = flags;
-        s_class[i] = nclass[in ? row : 0];
-      }
+      const int4* src = reinterpret_cast<const int4*>(
+          rows + static_cast<long long>(t) * kTileInts);
+      for (int i = tid; i < kTileInts / 4; i += kThreads)
+        reinterpret_cast<int4*>(s_tile)[i] = src[i];
       __syncthreads();
       if (!pvalid) continue;
-      for (int t = 0; t < tn; ++t) {
-        const int o = t * kDims;
-        const StridedRow nr{s_alloc + o, s_free + o, s_use + o, s_thx + o,
-                            s_thy + o,   s_mag + o,  s_shf + o, 1,
-                            s_flags[t]};
-        const bool nv = (nr.flags & kValidFlag) != 0;
+      for (int i = lane; i < kTile; i += kLanes) {
+        // a padding row past D is invalid, hence never feasible
+        const PackedRow nr(s_tile + i * kRowInts);
         bool ok;
         const int score = pair_score(nr, pt, cfg, ok);
-        if (!(ok && nv && selector_ok(mask, s_class[t], C))) continue;
-        const int tb = tie_break(s_row[t], rot7919, N);
+        if (!(ok && nr.valid() && selector_ok(mask, nr.cls(), C))) continue;
+        const int tb = tie_break(nr.node(), rot7919, N);
         const int clipped = clip_score(score);
 #pragma unroll
         for (int s = 0; s < NS; ++s) {
-          const int key = ((clipped >> shifts[s]) << kTbBits) | tb;
-          insert_sorted(lists[s], pack_entry(key, ks[s] + d0 + t, clipped));
+          const int key = ((clipped >> (s == 0 ? sb0 : sb1)) << kTbBits) | tb;
+          insert_sorted(lists[s], key << 1);
         }
       }
     }
   }
+  // merge the pod's kLanes partial lists (a butterfly on values only)
+#pragma unroll
+  for (int off = 1; off < kLanes; off <<= 1) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      int other[kMaxPerStratum];
+#pragma unroll
+      for (int j = 0; j < kMaxPerStratum; ++j)
+        other[j] = __shfl_xor_sync(0xFFFFFFFFu, lists[s][j], off);
+#pragma unroll
+      for (int j = 0; j < kMaxPerStratum; ++j)
+        insert_sorted(lists[s], other[j]);
+    }
+  }
+  __syncwarp();
   if (!in_range) return;
 
-  // decode each stratum's k_i winners; the stratum-0 key of every slot
-  // (_candidate_keys over the merged scores)
-  const long long row = static_cast<long long>(p) * K;
-  int off = 0;
+  // epilogue, lane s of the pod for stratum s.  Pass 1: the list's values
+  // into the key output (register arrays: the loop is unrolled)
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
+    if (s % kLanes != lane) continue;
 #pragma unroll
-    for (int j = 0; j < kMaxPerStratum; ++j) {
-      if (j >= ks[s]) break;
-      const long long v = lists[s][j];
-      const int key = static_cast<int>(v >> 32);
-      const unsigned int lo = static_cast<unsigned int>(v & 0xFFFFFFFFll);
-      const int position = kMaxPosition - static_cast<int>(lo >> 15);
-      const int node = position < ks[s] ? cache_node[row + off + position]
-                                        : drows[position - ks[s]];
-      const int score = key >= 0 ? static_cast<int>(lo & kScoreClip) : -1;
-      out_node[row + off + j] = node;
-      out_score[row + off + j] = score;
-      out_key[row + off + j] =
-          score >= 0 ? (((score >> sb0) << kTbBits) |
-                        tie_break(node, rot7919, N))
+    for (int j = 0; j < kMaxPerStratum; ++j)
+      if (j < (s == 0 ? k0 : k1))
+        out_key[row0 + (s == 0 ? 0 : k0) + j] = lists[s][j];
+  }
+
+  // pass 2: each slot's node and score, and the stratum-0 key
+  const long long wrap_from = static_cast<long long>(rot7919) + (1ll << 31);
+  const bool wraps = wrap_from < N;
+  const int rot_mod = fmod_floor(rot7919, N);
+  const int two32_mod = static_cast<int>((1ull << 32) % N);
+  for (int s = 0; s < NS; ++s) {
+    if (s % kLanes != lane) continue;
+    const int ks_s = s == 0 ? k0 : k1;
+    const int sb = s == 0 ? sb0 : sb1;
+    const int off = s == 0 ? 0 : k0;
+    int prev = INT_MIN, copy = 0;
+    int fill = 0;  // next cached slot to test for the -1 slots
+    for (int j = 0; j < ks_s; ++j) {
+      const long long o = row0 + off + j;
+      const int w = out_key[o];
+      int node, score = -1;
+      copy = w == prev ? copy + 1 : 0;
+      prev = w;
+      if (w >= 0 && (w & 1)) {
+        // cached: the copy-th slot holding this key
+        const int v = w >> 1;
+        int i = 0, seen = 0;
+        for (; i < ks_s - 1; ++i)
+          if (s_ckey[slot][off + i] == v && seen++ == copy) break;
+        node = cache_node[row0 + off + i];
+        score = cache_score[row0 + off + i];
+      } else if (w >= 0) {
+        // fresh: the dirty preimage of the tie-break carrying this key
+        const int v = w >> 1;
+        int n1 = (N - 1) - (v & kScoreClip) + rot_mod;
+        if (n1 >= N) n1 -= N;
+        int n2 = n1 + two32_mod;
+        if (n2 >= N) n2 -= N;
+        const bool ok1 = !wraps || n1 < wrap_from;
+        const bool ok2 = wraps && n2 >= wrap_from;
+        int c1 = ok1 ? dirty_col(n1, N, col_of, drows, dvalid, D) : -1;
+        int c2 = ok2 ? dirty_col(n2, N, col_of, drows, dvalid, D) : -1;
+        int sc1 = -1, sc2 = -1;
+        auto rescore = [&](int c) {
+          const PackedRow nr(rows + static_cast<long long>(c) * kRowInts);
+          bool ok;
+          const int sc = clip_score(pair_score(nr, pt, cfg, ok));
+          const bool feas =
+              ok && nr.valid() && selector_ok(mask, nr.cls(), C);
+          return (feas && (((sc >> sb) << kTbBits) |
+                           (v & kScoreClip)) == v)
+                     ? sc
                      : -1;
+        };
+        if (c1 >= 0) sc1 = rescore(c1);
+        if (c2 >= 0) sc2 = rescore(c2);
+        if (sc1 >= 0 && sc2 >= 0) {
+          // both carry the key: the copy-th of their columns, in order
+          int seen = 0;
+          for (int c = 0; c < D; ++c) {
+            if (!dvalid[c] || (drows[c] != n1 && drows[c] != n2)) continue;
+            if (seen++ == copy) {
+              sc2 = drows[c] == n2 ? sc2 : -1;
+              break;
+            }
+          }
+        }
+        node = sc2 >= 0 ? n2 : n1;
+        score = sc2 >= 0 ? sc2 : sc1;
+      } else {
+        // a -1 slot: the stratum's next invalid cached slot
+        while (fill < ks_s - 1 && s_ckey[slot][off + fill] >= 0) ++fill;
+        node = cache_node[row0 + off + fill];
+        ++fill;
+      }
+      out_node[o] = node;
+      out_score[o] = score;
+      out_key[o] = score >= 0 ? (((score >> sb0) << kTbBits) |
+                                 tie_break(node, rot7919, N))
+                              : -1;
     }
-    off += ks[s];
   }
 }
 
+template <int NS>
+cudaError_t launch(const int* rows, int n_tiles, const int* col_of,
+                   const int* drows, const uint8_t* dvalid, int D,
+                   const int* preq, const int* pest, const uint8_t* pvalid,
+                   const int* rot_id, const uint8_t* sel, int C,
+                   const ScoreCfg& sc, const int* cache_node,
+                   const int* cache_score, int P, int N, int sb0, int sb1,
+                   int k0, int k1, int* out_key, int* out_node,
+                   int* out_score, cudaStream_t st) {
+  const dim3 grid((P + kPods - 1) / kPods);
+  refresh_candidates_kernel<NS><<<grid, kThreads, 0, st>>>(
+      rows, n_tiles, col_of, drows, dvalid, D, preq, pest, pvalid, rot_id,
+      sel, C, sc, cache_node, cache_score, P, N, sb0, sb1, k0, k1, out_key,
+      out_node, out_score);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// Bytes of the packed dirty rows koord_refresh_candidates needs as scratch
+// (D rows padded to whole tiles).
+extern "C" long long koord_refresh_candidates_scratch_bytes(int D) {
+  const long long tiles = (D + kTile - 1) / kTile;
+  return tiles * kTileInts * 4;
+}
 
 extern "C" int koord_refresh_candidates(
     const int* alloc, const int* reqd, const int* usage, const int* base,
@@ -237,29 +297,33 @@ extern "C" int koord_refresh_candidates(
     const int* pest, const uint8_t* pvalid, const int* rot_id,
     const uint8_t* sel, int C, const int* cfg, int cfg_len,
     const int* cache_node, const int* cache_score, const int* drows,
-    const uint8_t* dvalid, int D, const uint8_t* dmask, int P, int N,
-    int n_strata, int sb0, int sb1, int k0, int k1, int* out_key,
+    const uint8_t* dvalid, int D, int P, int N, int n_strata, int sb0,
+    int sb1, int k0, int k1, int* rows, int* col_of, int* out_key,
     int* out_node, int* out_score, void* stream) {
   if (cfg_len != kCfgLen || cfg == nullptr || n_strata < 1 ||
-      n_strata > 2 ||
-      k0 > kMaxPerStratum || k1 > kMaxPerStratum || C > 64 || C < 1 ||
-      D + kMaxPerStratum > kMaxPosition) {
+      n_strata > 2 || k0 > kMaxPerStratum || k1 > kMaxPerStratum || C > 64 ||
+      C < 1 || N < 1 || D < 0 || (reinterpret_cast<uintptr_t>(rows) & 15)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   ScoreCfg sc;
   load_score_cfg(sc, cfg);
-  const dim3 grid((P + kThreads - 1) / kThreads);
-  if (n_strata == 1) {
-    refresh_candidates_kernel<1><<<grid, kThreads, 0, st>>>(
-        alloc, reqd, usage, base, nvalid, nclass, preq, pest, pvalid, rot_id,
-        sel, C, sc, cache_node, cache_score, drows, dvalid, D, dmask, P, N,
-        sb0, sb1, k0, 0, out_key, out_node, out_score);
-  } else {
-    refresh_candidates_kernel<2><<<grid, kThreads, 0, st>>>(
-        alloc, reqd, usage, base, nvalid, nclass, preq, pest, pvalid, rot_id,
-        sel, C, sc, cache_node, cache_score, drows, dvalid, D, dmask, P, N,
-        sb0, sb1, k0, k1, out_key, out_node, out_score);
+  const int n_tiles = (D + kTile - 1) / kTile;
+  if (n_tiles > 0) {
+    const int n_pad = n_tiles * kTile;
+    pack_node_rows<<<(n_pad + 255) / 256, 256, 0, st>>>(
+        alloc, reqd, usage, base, nvalid, nclass, sc, N, drows, dvalid, D,
+        n_pad, rows, col_of);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      n_strata == 1
+          ? launch<1>(rows, n_tiles, col_of, drows, dvalid, D, preq, pest,
+                      pvalid, rot_id, sel, C, sc, cache_node, cache_score, P,
+                      N, sb0, sb1, k0, 0, out_key, out_node, out_score, st)
+          : launch<2>(rows, n_tiles, col_of, drows, dvalid, D, preq, pest,
+                      pvalid, rot_id, sel, C, sc, cache_node, cache_score, P,
+                      N, sb0, sb1, k0, k1, out_key, out_node, out_score, st);
+  return static_cast<int>(err);
 }

@@ -18,11 +18,11 @@
 // Design (four threads per pod, 32 pods per CTA, clusters of 2 CTAs; the
 // choices measured on the H100 with profile_torch_round.py --kernels
 // --variants, PERF.md):
-// - A first small kernel packs the node table into 352-byte rows of
-//   pair_score's node terms (koord_score.cuh: allocatable, free capacity,
-//   usage, the usage threshold's two sides, the allocatable's magic
-//   divisors, flags, class), padded with invalid rows to whole tiles, so a
-//   tile of 32 nodes is one contiguous 11 KB block.
+// - A first small kernel (koord_score.cuh: pack_node_rows) packs the node
+//   table into 352-byte rows of pair_score's node terms (allocatable, free
+//   capacity, usage, the usage threshold's two sides, the allocatable's
+//   magic divisors, flags, class), padded with invalid rows to whole tiles,
+//   so a tile of 32 nodes is one contiguous 11 KB block.
 // - The CTAs of a cluster share each tile: CTA r copies slice r of the
 //   tile with one cp.async.bulk ... .multicast::cluster, which lands in
 //   every CTA of the cluster from one L2 read.  Completion goes to each
@@ -67,81 +67,9 @@ constexpr int kPods = kThreads / kLanes;       // pods per CTA
 constexpr int kCluster = 2;                    // CTAs sharing each tile
 constexpr int kTile = 32;                      // nodes per tile
 constexpr int kStages = 3;                     // tiles in flight
-constexpr int kRowInts = 88;                   // packed node row: 352 B
 constexpr int kTileBytes = kTile * kRowInts * 4;
 constexpr int kSliceBytes = kTileBytes / kCluster;
 static_assert(kSliceBytes % 16 == 0, "bulk copies move 16-byte multiples");
-
-// Packed row layout (ints, each group padded to 12 for 16-byte loads):
-// [0,12) allocatable, [12,24) free capacity, [24,36) usage, [36,48) and
-// [48,60) the threshold's two sides, [60,72) magic multipliers, [72,84)
-// magic shifts; 84 flags (bit r: a > 0, bit R: valid), 85 class
-// (koord_score.cuh: node_dim_terms).
-constexpr int kRowA = 0, kRowF = 12, kRowU = 24, kRowX = 36, kRowY = 48;
-constexpr int kRowM = 60, kRowL = 72, kRowFlags = 84, kRowClass = 85;
-
-__global__ void pack_node_rows(const int* __restrict__ alloc,
-                               const int* __restrict__ reqd,
-                               const int* __restrict__ usage,
-                               const int* __restrict__ base,
-                               const uint8_t* __restrict__ nvalid,
-                               const int* __restrict__ nclass,
-                               const __grid_constant__ ScoreCfg cfg, int N,
-                               int n_pad, int* __restrict__ rows) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= n_pad) return;
-  int* row = rows + static_cast<long long>(n) * kRowInts;
-  const bool in = n < N;
-  const bool nv = in && nvalid[n];
-  const long long src = static_cast<long long>(in ? n : 0) * kDims;
-  unsigned int flags = nv ? kValidFlag : 0u;
-  for (int r = 0; r < 12; ++r) {
-    const bool d = in && r < kDims;
-    const int a = d ? alloc[src + r] : 0;
-    const DimTerms t = node_dim_terms(a, d ? reqd[src + r] : 0,
-                                      d ? base[src + r] : 0, nv,
-                                      r < kDims ? cfg.thr[r] : 0);
-    row[kRowA + r] = a;
-    row[kRowF + r] = t.fr;
-    row[kRowU + r] = d ? usage[src + r] : 0;
-    row[kRowX + r] = t.thx;
-    row[kRowY + r] = t.thy;
-    row[kRowM + r] = static_cast<int>(t.mg.m);
-    row[kRowL + r] = static_cast<int>(t.mg.l);
-    if (r < kDims && a > 0) flags |= 1u << r;
-  }
-  row[kRowFlags] = static_cast<int>(flags);
-  row[kRowClass] = in ? nclass[n] : 0;
-  for (int r = kRowClass + 1; r < kRowInts; ++r) row[r] = 0;
-}
-
-// One packed node row (shared or global memory) as pair_score reads it;
-// its flags and class come in one 16-byte load.
-struct PackedRow {
-  const int* p;
-  int4 meta;
-  __device__ __forceinline__ explicit PackedRow(const int* row) : p(row) {
-    meta = reinterpret_cast<const int4*>(row)[kRowFlags / 4];
-  }
-  __device__ __forceinline__ int a(int r) const { return p[kRowA + r]; }
-  __device__ __forceinline__ int fr(int r) const { return p[kRowF + r]; }
-  __device__ __forceinline__ int use(int r) const { return p[kRowU + r]; }
-  __device__ __forceinline__ int thx(int r) const { return p[kRowX + r]; }
-  __device__ __forceinline__ int thy(int r) const { return p[kRowY + r]; }
-  __device__ __forceinline__ uint32_t m(int r) const {
-    return static_cast<uint32_t>(p[kRowM + r]);
-  }
-  __device__ __forceinline__ uint32_t l(int r) const {
-    return static_cast<uint32_t>(p[kRowL + r]);
-  }
-  __device__ __forceinline__ uint32_t apos() const {
-    return static_cast<uint32_t>(meta.x) & ((1u << kDims) - 1u);
-  }
-  __device__ __forceinline__ bool valid() const {
-    return (static_cast<uint32_t>(meta.x) & kValidFlag) != 0;
-  }
-  __device__ __forceinline__ int cls() const { return meta.y; }
-};
 
 // Filter + Score of the pod against one packed node row; sets feas to the
 // full feasibility verdict.
@@ -512,7 +440,8 @@ extern "C" int koord_select_candidates(
   const int n_tiles = (N + kTile - 1) / kTile;
   const int n_pad = n_tiles * kTile;
   pack_node_rows<<<(n_pad + 255) / 256, 256, 0, st>>>(
-      alloc, reqd, usage, base, nvalid, nclass, sc, N, n_pad, rows);
+      alloc, reqd, usage, base, nvalid, nclass, sc, N, nullptr, nullptr, N,
+      n_pad, rows, nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   err = n_strata == 1

@@ -7,6 +7,9 @@
 sub-problem, invalidate cached slots on dirty nodes, recompute each
 stratum's keys from the cached raw scores, and keep per stratum the best
 k_i of cached and fresh, position-stable over ``[cached, fresh]``.
+:func:`refresh_from_int32_lists` is the kernel's way to the same rows (int32
+value lists, nodes recovered afterwards), which the CPU tests hold against
+the JAX package.
 
 Only the packed key regime and the factored (selector-class) feasibility
 form are taken: the scheduler runs the refresh only on such batches, and
@@ -29,6 +32,7 @@ from koordinator_tpu_torch.kernels.select_candidates import (
     _stratum_splits,
     _topk_by_rank,
     check_node_capacity,
+    tie_break_preimages,
 )
 from koordinator_tpu_torch.ops.assignment import (
     ScoringConfig,
@@ -37,7 +41,8 @@ from koordinator_tpu_torch.ops.assignment import (
 )
 from koordinator_tpu_torch.state.cluster_state import ClusterState, PodBatch
 
-#: the kernel packs a merge position into 16 bits: k_i + dirty column
+#: the longest dirty list the kernel takes (a refresh lists a few percent
+#: of the nodes; longer lists have not been held against the plain version)
 MAX_DIRTY_COLUMNS = 0xFFFF - KERNEL_MAX_PER_STRATUM
 
 
@@ -123,6 +128,90 @@ def refresh_candidates_plain(state: ClusterState, pods: PodBatch,
     return _candidate_keys(score, node, rot, strata[0], n), node, score
 
 
+def refresh_from_int32_lists(state: ClusterState, pods: PodBatch,
+                             cfg: ScoringConfig, cand_node: torch.Tensor,
+                             cand_score: torch.Tensor,
+                             dirty_rows: torch.Tensor,
+                             dirty_valid: torch.Tensor, k: int = 32,
+                             strata=(5, 15)):
+    """:func:`refresh_candidates_plain`'s rows, formed as the kernel forms
+    them.  Per stratum the kernel keeps only the best k_i int32 values
+    ``(key << 1) | cached`` of the valid cached slots and the feasible
+    dirty columns, then recovers each kept value's node and score:
+
+    - a cached value: the t-th copy of a value takes the t-th cached slot
+      (slot order) whose recomputed key it is;
+    - a fresh value: the preimage of its tie-break
+      (:func:`tie_break_preimages`) that a valid dirty column holds with
+      that key, re-scored; when both preimages do, the t-th copy takes the
+      t-th of their columns in the dirty list;
+    - slot j past the f valid values: the (j - f)-th invalid cached slot,
+      its node kept (every -1 slot the JAX merge keeps is a cached one).
+    """
+    _check_factored(pods)
+    n = state.capacity
+    check_node_capacity(n)
+    k = min(k, n)
+    rot = pods.rot_id
+    sub = state.gather_rows(dirty_rows, dirty_valid)
+    scores, feasible = score_pods(sub, pods, cfg)            # (P, D)
+    clipped = torch.clamp(scores, 0, _SCORE_CLIP).tolist()
+    dirty = dirty_node_mask(dirty_rows, dirty_valid, n)
+    in_nodes = (cand_node >= 0) & (cand_node < n)
+    stale = in_nodes & dirty[cand_node.long().clamp(0, n - 1)]
+    rows, valid = dirty_rows.tolist(), dirty_valid.tolist()
+    low = -(2**31)
+    nodes_out, scores_out = [], []
+    off = 0
+    for sb, k_i in zip(strata, _stratum_splits(k, len(strata))):
+        if k_i == 0:
+            continue
+        c_node = cand_node[:, off:off + k_i]
+        c_score = torch.where(stale[:, off:off + k_i], -1,
+                              cand_score[:, off:off + k_i])
+        off += k_i
+        c_key = _candidate_keys(c_score, c_node, rot, sb, n)
+        d_key = _rank_parts(scores, feasible, sb, rot, node_ids=dirty_rows,
+                            n_total=n)[0]
+        values = torch.cat([torch.where(c_key >= 0, (c_key << 1) | 1, low),
+                            torch.where(d_key >= 0, d_key << 1, low)], dim=1)
+        kept = torch.sort(values, dim=1, descending=True).values[:, :k_i]
+        first, second = tie_break_preimages(
+            (kept >> 1) & ((1 << _TB_BITS) - 1),
+            rot[:, None].expand_as(kept), n)
+        node = torch.empty_like(kept)
+        score = torch.empty_like(kept)
+        for i, row in enumerate(kept.tolist()):
+            ckeys, cnodes = c_key[i].tolist(), c_node[i].tolist()
+            cscores = c_score[i].tolist()
+            dkeys = d_key[i].tolist()
+            prev, copy = None, 0
+            spare = (j for j, key in enumerate(ckeys) if key < 0)
+            for j, w in enumerate(row):
+                copy = copy + 1 if w == prev else 0
+                prev = w
+                if w < 0:
+                    slot = next(spare)
+                    node[i, j], score[i, j] = cnodes[slot], -1
+                elif w & 1:
+                    slot = [s for s, key in enumerate(ckeys)
+                            if key == w >> 1][copy]
+                    node[i, j], score[i, j] = cnodes[slot], cscores[slot]
+                else:
+                    pre = [int(first[i, j]), int(second[i, j])]
+                    cols = [c for c in range(len(rows))
+                            if valid[c] and rows[c] in pre
+                            and dkeys[c] == w >> 1]
+                    col = cols[copy if len({rows[c] for c in cols}) > 1
+                               else 0]
+                    node[i, j], score[i, j] = rows[col], clipped[i][col]
+        nodes_out.append(node)
+        scores_out.append(score)
+    node = torch.cat(nodes_out, dim=1)
+    score = torch.cat(scores_out, dim=1)
+    return _candidate_keys(score, node, rot, strata[0], n), node, score
+
+
 def refresh_candidates_kernel(state: ClusterState, pods: PodBatch,
                               cfg: ScoringConfig, cand_node: torch.Tensor,
                               cand_score: torch.Tensor,
@@ -130,12 +219,25 @@ def refresh_candidates_kernel(state: ClusterState, pods: PodBatch,
                               dirty_valid: torch.Tensor, k: int = 32,
                               strata=(5, 15)):
     """K2's wrapper; see :func:`refresh_candidates_plain`."""
-    strata = tuple(strata)
     if build.on_cpu(state.node_allocatable, pods.requests, cand_node,
                     dirty_rows, cfg.usage_thresholds):
         return refresh_candidates_plain(state, pods, cfg, cand_node,
                                         cand_score, dirty_rows, dirty_valid,
-                                        k, strata)
+                                        k, tuple(strata))
+    launch, out = prepare_refresh(state, pods, cfg, cand_node, cand_score,
+                                  dirty_rows, dirty_valid, k, strata)
+    launch()
+    return out
+
+
+def prepare_refresh(state: ClusterState, pods: PodBatch, cfg: ScoringConfig,
+                    cand_node: torch.Tensor, cand_score: torch.Tensor,
+                    dirty_rows: torch.Tensor, dirty_valid: torch.Tensor,
+                    k: int = 32, strata=(5, 15)):
+    """(launch, (cand_key, cand_node, cand_score)): the wrapper's checks
+    and buffers for CUDA tensors; ``launch()`` launches the kernel (the
+    pack of the dirty rows, then the refresh) into the outputs."""
+    strata = tuple(strata)
     _check_factored(pods)
     n, r = state.capacity, NUM_RESOURCE_DIMS
     check_node_capacity(n)
@@ -170,17 +272,22 @@ def refresh_candidates_kernel(state: ClusterState, pods: PodBatch,
     est = pod_estimates(pods, cfg).contiguous()
     cfgv, agg_enabled = _config_vector(cfg)
     base = state.node_agg_usage if agg_enabled else state.node_usage
-    dmask = dirty_node_mask(dirty_rows, dirty_valid, n)
 
     dev = pods.requests.device
     key = torch.empty((p, k), dtype=torch.int32, device=dev)
     node = torch.empty((p, k), dtype=torch.int32, device=dev)
     score = torch.empty((p, k), dtype=torch.int32, device=dev)
     if p == 0:
-        return key, node, score
+        return (lambda: None), (key, node, score)
     sb = list(strata) + [0] * (2 - len(strata))
     ks = splits + [0] * (2 - len(splits))
-    err = build.lib().koord_refresh_candidates(
+    lib = build.lib()
+    # the packed dirty rows, and each dirty node's column (the kernel
+    # checks an entry against the row list, so neither is cleared)
+    rows = torch.empty(lib.koord_refresh_candidates_scratch_bytes(d),
+                       dtype=torch.uint8, device=dev)
+    col_of = torch.empty(n, dtype=torch.int32, device=dev)
+    args = (
         build.ptr(state.node_allocatable), build.ptr(state.node_requested),
         build.ptr(state.node_usage), build.ptr(base),
         build.ptr(state.node_valid), build.ptr(state.node_class),
@@ -188,10 +295,16 @@ def refresh_candidates_kernel(state: ClusterState, pods: PodBatch,
         build.ptr(pods.rot_id), build.ptr(pods.selector_mask), c,
         build.ptr(cfgv), cfgv.numel(), build.ptr(cand_node),
         build.ptr(cand_score), build.ptr(dirty_rows),
-        build.ptr(dirty_valid), d, build.ptr(dmask), p, n, len(strata),
-        sb[0], sb[1], ks[0], ks[1],
+        build.ptr(dirty_valid), d, p, n, len(strata),
+        sb[0], sb[1], ks[0], ks[1], build.ptr(rows), build.ptr(col_of),
         build.ptr(key), build.ptr(node), build.ptr(score),
         build.stream_of(key))
-    build.check(err, "refresh_candidates")
-    build.LAUNCHES["refresh_candidates"] += 1
-    return key, node, score
+    keep = (est, base, cfgv, rows, col_of)   # alive while launch() is
+
+    def launch():
+        _ = keep
+        build.check(lib.koord_refresh_candidates(*args),
+                    "refresh_candidates")
+        build.LAUNCHES["refresh_candidates"] += 1
+
+    return launch, (key, node, score)

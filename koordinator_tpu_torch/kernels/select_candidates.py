@@ -14,6 +14,8 @@ score over a rotated node tie-break.  A wider capacity raises ``ValueError``.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from koordinator_tpu_torch.api.resources import NUM_RESOURCE_DIMS
@@ -276,12 +278,26 @@ def select_candidates_plain(state: ClusterState, pods: PodBatch,
 
 def _config_vector(cfg: ScoringConfig) -> tuple[torch.Tensor, bool]:
     """(the packed int32 config on the host, whether the aggregated usage
-    thresholds apply), with one copy from the device.  The kernels' C
-    functions read the vector on the host and pass the config to the card
-    as a kernel parameter (layout: the k* offsets of
-    csrc/koord_score.cuh).  The aggregated-percentile policy, when
-    configured, replaces the instantaneous thresholds."""
+    thresholds apply), with one copy from the device, kept on ``cfg`` and
+    taken again only when a field is another tensor or was written in
+    place since.  The kernels' C functions read the vector on the host
+    and pass the config to the card as a kernel parameter (layout: the k*
+    offsets of csrc/koord_score.cuh).  The aggregated-percentile policy,
+    when configured, replaces the instantaneous thresholds."""
+    fields = tuple(getattr(cfg, f.name) for f in dataclasses.fields(cfg))
+    versions = tuple(t._version for t in fields)
+    memo = cfg.__dict__.get("_packed")
+    if memo is not None:
+        last_fields, last_versions, packed = memo
+        if (versions == last_versions
+                and all(a is b for a, b in zip(fields, last_fields))):
+            return packed
+    packed = _pack_config(cfg)
+    cfg.__dict__["_packed"] = (fields, versions, packed)
+    return packed
 
+
+def _pack_config(cfg: ScoringConfig) -> tuple[torch.Tensor, bool]:
     def one(t):
         return t.reshape(1).to(torch.int32)
 

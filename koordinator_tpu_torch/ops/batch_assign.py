@@ -9,7 +9,8 @@ candidate cache).
        every active pod proposes its best candidate that still fits (K3a,
        ``kernels/round_fit_choose.py``), and conflicts resolve by a
        segmented prefix sum over requests in priority order, per node and
-       per quota-ancestor level (K3b, ``kernels/prefix_accept.py``).
+       per quota-ancestor level, all levels in one call a round (K3b,
+       ``kernels/prefix_accept.py``).
 
 Ported scope: the packed key regime (node capacity <= 2**15) and the
 candidate methods ``exact``, ``chunked_exact`` and ``auto`` (which is
@@ -35,7 +36,8 @@ import dataclasses
 import torch
 
 from koordinator_tpu_torch.kernels.prefix_accept import (  # noqa: F401
-    segmented_prefix_accept,
+    accept_plan,
+    round_prefix_accept,
     segmented_prefix_accept_plain as _prefix_accept_sorted_choice,
 )
 from koordinator_tpu_torch.kernels.refresh_candidates import (  # noqa: F401
@@ -120,49 +122,6 @@ def select_candidates(
     return (key, node, score) if with_scores else (key, node)
 
 
-def _prefix_accept(choice, requests, free, order, active):
-    """(P,) bool: the cumulative request per segment (taken in ``order``
-    among active proposers) fits the segment's headroom ``free`` (S, R),
-    counting the pod itself."""
-    s = free.shape[0]
-    safe = torch.clamp(choice, 0, s - 1).long()
-    choice_free = torch.where(active[:, None], free[safe], 0)
-    return _prefix_accept_choice(choice, requests, choice_free, s, order,
-                                 active)
-
-
-def _prefix_accept_choice(choice, requests, choice_free, num_segments: int,
-                          order, active):
-    """The choice-indexed core of :func:`_prefix_accept`: inactive pods go
-    to the overflow segment ``num_segments``."""
-    seg = torch.where(active, choice, num_segments).to(torch.int32)
-    return segmented_prefix_accept(seg, requests, choice_free, order, active,
-                                   num_segments)
-
-
-def _quota_prefix_accept(quota: QuotaDeviceState, requests, pods: PodBatch,
-                         order, active):
-    """(P,) bool: within-round quota headroom conflict resolution, one
-    prefix acceptance per ancestor level of the quota chain, plus the min
-    headroom of non-preemptible pods at their own quota."""
-    qid = torch.clamp(pods.quota_id, min=0).long()
-    has_quota = pods.quota_id >= 0
-    checked = quota.checked[qid]
-    req_m = torch.where(checked, requests, 0)
-    ok = torch.ones(pods.capacity, dtype=torch.bool, device=requests.device)
-    for d in range(quota.chain.shape[1]):
-        anc = quota.chain[qid, d]
-        act_d = active & has_quota & (anc >= 0)
-        acc = _prefix_accept(torch.clamp(anc, min=0), req_m, quota.headroom,
-                             order, act_d)
-        ok = ok & (acc | ~act_d)
-    np_act = active & has_quota & pods.non_preemptible
-    np_acc = _prefix_accept(qid.to(torch.int32), req_m, quota.min_headroom,
-                            order, np_act)
-    ok = ok & (np_acc | ~np_act)
-    return ok | ~has_quota
-
-
 def _assign_rounds(state: ClusterState, pods: PodBatch, quota, cand_key,
                    cand_node, rounds: int):
     """The propose/accept stage over (P, k) candidates.  Returns
@@ -170,6 +129,9 @@ def _assign_rounds(state: ClusterState, pods: PodBatch, quota, cand_key,
     (the round's node accounting is a copy updated in place)."""
     check_node_capacity(state.capacity)
     order = priority_order(pods)
+    plan = (accept_plan(order, pods.requests) if quota is None else
+            accept_plan(order, pods.requests, pods.quota_id,
+                        pods.non_preemptible, quota.chain, quota.checked))
     active = pods.valid & torch.any(cand_key >= 0, dim=1)
     requested = state.node_requested.clone()
     assignments = torch.full((pods.capacity,), -1, dtype=torch.int32,
@@ -186,10 +148,11 @@ def _assign_rounds(state: ClusterState, pods: PodBatch, quota, cand_key,
             act = act & quota_admission_mask(quota, pods.requests,
                                              pods.quota_id,
                                              pods.non_preemptible)
-        accept = _prefix_accept(choice, pods.requests, free, order, act)
-        if quota is not None:
-            accept = accept & _quota_prefix_accept(quota, pods.requests, pods,
-                                                   order, act)
+        # the node level and every quota level, one call (one K3b launch)
+        accept = round_prefix_accept(
+            plan, choice, act, free,
+            *((quota.headroom, quota.min_headroom) if quota is not None
+              else ()))
         safe = torch.where(accept, choice, 0).long()
         requested.index_add_(0, safe,
                              torch.where(accept[:, None], pods.requests, 0))

@@ -20,21 +20,30 @@ lines:
   timing the scheduler's own methods.
 
 The trace goes to ``chiprun_out/round_trace.json`` (``steady_trace.json``
-with ``--steady``).  Needs a CUDA device.
+with ``--steady``).  With ``--shapes`` the profiler also records input
+shapes, and an ``index_add`` line splits the ``index_add_`` device time
+by them (the shapes tell its call sites apart).
+Needs a CUDA device.
 
     python3 profile_torch_round.py --kernels [--variants] [--root DIR]
 
 times K1 on the cold flagship round's own batch (65,536 rows, 50,000
 valid, x 10,240 nodes), K4 at 1,000 pods x 10,240 nodes (chip_smoke.py
 phase 8's problem) and K4 on the rescue of a steady round (phase 9's
-setup, its first steady round), and prints one JSON line.  ``--root``
+setup, its first steady round), K3b's whole acceptance of a solve's first
+propose/accept round on the cold flagship round and on phase 9's cold
+round behind the quota tree (a port without the per-round acceptance
+runs its level-by-level calls), and K2 at phase 7's shape (D = 128); for
+K3b and K2 also their kernels' device time from torch.profiler
+(``device_ms``); and prints one JSON line.  ``--root``
 takes the port, its build and chip_smoke.py from another checkout (``git
 archive`` of an earlier commit unpacked in a gitignored directory): run
 it beside this tree in one call to compare two designs on one card.
-``--variants`` also builds copies of the kernels' sources with one change
-each (VARIANTS below, under ``probe_results/variants/``) with the
-package's compiler flags, and times them in turns with the tree's own
-kernels, every variant's outputs required equal.
+``--variants [PREFIX]`` also builds copies of the kernels' sources with
+one change each (VARIANTS below whose name starts with PREFIX, under
+``probe_results/variants/``) with the package's compiler flags, and times
+them in turns with the tree's own kernels, every variant's outputs
+required equal but those of INCOMPARABLE.
 """
 
 from __future__ import annotations
@@ -117,7 +126,26 @@ VARIANTS = [
                          "constexpr int kThreads = 256;")]),
     ("k4_threads_512", [("greedy_scan.cu", "constexpr int kThreads = 640;",
                          "constexpr int kThreads = 512;")]),
+    # K2 with one or two threads a pod instead of four
+    ("k2_lanes_1", [("refresh_candidates.cu", "constexpr int kLanes = 4;",
+                     "constexpr int kLanes = 1;")]),
+    ("k2_lanes_2", [("refresh_candidates.cu", "constexpr int kLanes = 4;",
+                     "constexpr int kLanes = 2;")]),
+    # K2 without scoring the dirty columns (the rows still staged), and
+    # without decoding the lists (outputs not comparable): where its time
+    # goes
+    ("k2_no_fresh", [("refresh_candidates.cu",
+                      "      if (!pvalid) continue;\n      for (int i = lane;",
+                      "      continue;\n      for (int i = lane;")]),
+    ("k2_no_decode", [("refresh_candidates.cu",
+                       "  // pass 2: each slot's node and score, and the",
+                       "  return;\n  // pass 2: each slot's node and score, "
+                       "and the")]),
 ]
+
+#: variants whose outputs differ from the tree's by design
+INCOMPARABLE = ("k1_staging_only", "k1_staging_only_no_multicast",
+                "k2_no_fresh", "k2_no_decode")
 
 
 def patched_sources(name: str, patches, csrc: str) -> str:
@@ -163,15 +191,16 @@ def build_copy(build, csrc: str) -> ctypes.CDLL:
     return build._bind(ctypes.CDLL(os.path.abspath(path)))
 
 
-def build_variants(build) -> dict:
-    """Every variant's typed library (three built at a time): name ->
-    CDLL.  The patches are exact text of the sources they were written
-    for: a later edit of those lines stops this with the variant's name
-    before anything is built."""
+def build_variants(build, prefix: str = "") -> dict:
+    """The typed library of every variant whose name starts with
+    ``prefix`` (three built at a time): name -> CDLL.  The patches are
+    exact text of the sources they were written for: a later edit of
+    those lines stops this with the variant's name before anything is
+    built."""
     from concurrent.futures import ThreadPoolExecutor
 
     copies = [(name, patched_sources(name, patches, build.CSRC))
-              for name, patches in VARIANTS]
+              for name, patches in VARIANTS if name.startswith(prefix)]
     with ThreadPoolExecutor(max_workers=3) as pool:
         return dict(zip((n for n, _ in copies),
                         pool.map(lambda c: build_copy(build, c[1]), copies)))
@@ -207,12 +236,17 @@ def kernel_cases(dev: str):
         sched.enqueue_many(new)
         sched.schedule_round()
     rescue = [s for s in slog if s["solver"] == "greedy"][-1]
+    cold = [s for s in slog if s["solver"] == "batch"][0]
     cases = {
         "k1_ms": lambda: select_candidates_kernel(state, pods, cfg, 32),
         "k4_ms": lambda: greedy_scan_kernel(gstate, gpods, cfg, quota)[:1],
         "k4_rescue_ms": lambda: greedy_scan_kernel(
             rescue["state"], rescue["batch"], rescue["cfg"],
             rescue["quota"])[:1],
+        "k3b_round_ms": first_round_accept(state, pods, cfg, None),
+        "k3b_quota_round_ms": first_round_accept(
+            cold["state"], cold["batch"], cold["cfg"], cold["quota"]),
+        "k2_ms": refresh_case(state, pods, cfg),
     }
     shapes = {
         "k1_shape": [pods.capacity, int(pods.valid.sum()), state.capacity],
@@ -220,8 +254,130 @@ def kernel_cases(dev: str):
         "k4_rescue_shape": [rescue["batch"].capacity,
                             int(rescue["batch"].valid.sum()),
                             rescue["state"].capacity],
+        "k3b_quota_round_shape": [cold["batch"].capacity,
+                                  int(cold["batch"].valid.sum()),
+                                  cold["state"].capacity,
+                                  cold["quota"].capacity],
+        "k2_shape": [pods.capacity, int(pods.valid.sum()), state.capacity,
+                     128],
     }
     return cases, shapes
+
+
+def first_round_accept(state, pods, cfg, quota):
+    """A closure of one propose/accept round's whole acceptance on the
+    first round of a solve (the node level, and with ``quota`` its chain
+    columns and the non-preemptible level): in a port that has the
+    per-round acceptance one call (its plan, built once a solve, made
+    here), else the earlier port's level-by-level calls."""
+    import torch
+
+    from koordinator_tpu_torch.kernels.round_fit_choose import (
+        round_fit_choose,
+    )
+    from koordinator_tpu_torch.kernels.select_candidates import (
+        select_candidates_kernel,
+    )
+    from koordinator_tpu_torch.ops import batch_assign as ba
+    from koordinator_tpu_torch.ops.assignment import priority_order
+    from koordinator_tpu_torch.quota.admission import quota_admission_mask
+
+    key, node, _ = select_candidates_kernel(state, pods, cfg, 32)
+    free = torch.where(state.node_valid[:, None],
+                       state.node_allocatable - state.node_requested, 0)
+    active = pods.valid & torch.any(key >= 0, dim=1)
+    choice, has = round_fit_choose(key, node, free, pods.requests, active)
+    act = active & has
+    if quota is not None:
+        act = act & quota_admission_mask(quota, pods.requests,
+                                         pods.quota_id, pods.non_preemptible)
+    order = priority_order(pods)
+    if not hasattr(ba, "round_prefix_accept"):
+        def levels():
+            acc = ba._prefix_accept(choice, pods.requests, free, order, act)
+            if quota is not None:
+                acc = acc & ba._quota_prefix_accept(quota, pods.requests,
+                                                    pods, order, act)
+            return (acc,)
+        return levels
+    if quota is None:
+        plan = ba.accept_plan(order, pods.requests)
+        return lambda: (ba.round_prefix_accept(plan, choice, act, free),)
+    plan = ba.accept_plan(order, pods.requests, pods.quota_id,
+                          pods.non_preemptible, quota.chain, quota.checked)
+    return lambda: (ba.round_prefix_accept(plan, choice, act, free,
+                                           quota.headroom,
+                                           quota.min_headroom),)
+
+
+def refresh_case(state, pods, cfg, n_dirty: int = 102):
+    """A closure of K2 at chip_smoke.py phase 7's shape: the batch's cache
+    from K1, then a usage refresh of ``n_dirty`` nodes (seed 11), D = 128
+    padded dirty columns."""
+    import numpy as np
+    import torch
+
+    from koordinator_tpu_torch.kernels.refresh_candidates import (
+        refresh_candidates_kernel,
+    )
+    from koordinator_tpu_torch.kernels.select_candidates import (
+        select_candidates_kernel,
+    )
+    from koordinator_tpu_torch.ops import batch_assign as ba
+
+    dev = state.node_usage.device
+    p, n = pods.capacity, state.capacity
+    cache = ba.CandidateCache(*select_candidates_kernel(state, pods, cfg, 32))
+    rng = np.random.default_rng(11)
+    rows = np.sort(rng.choice(n, n_dirty, replace=False))
+    usage = state.node_usage.clone()
+    alloc = state.node_allocatable[rows].cpu().numpy()
+    usage[torch.from_numpy(rows).to(dev)] = torch.from_numpy(
+        (alloc * rng.random(alloc.shape) * 0.5).astype(np.int32)).to(dev)
+    state2 = state.replace(node_usage=usage)
+    drows = np.zeros(128, np.int32)
+    drows[:n_dirty] = rows
+    dvalid = np.zeros(128, bool)
+    dvalid[:n_dirty] = True
+    dirty = np.zeros(n, bool)
+    dirty[rows] = True
+    aligned, _ = ba.align_candidate_cache(
+        cache, torch.arange(p, dtype=torch.int32, device=dev), pods.valid,
+        torch.from_numpy(dirty).to(dev))
+    args = (state2, pods, cfg, aligned.cand_node, aligned.cand_score,
+            torch.from_numpy(drows).to(dev), torch.from_numpy(dvalid).to(dev),
+            32, (5, 15))
+    return lambda: refresh_candidates_kernel(*args)
+
+
+#: kernels whose device time --kernels reads from the profiler, by case
+#: (names as the compiler emits them; both designs' names)
+DEVICE_KERNELS = {
+    "k3b_round_ms": ("prefix_accept_kernel", "round_accept_kernel"),
+    "k3b_quota_round_ms": ("prefix_accept_kernel", "round_accept_kernel"),
+    "k2_ms": ("refresh_candidates_kernel", "pack_node_rows"),
+}
+
+
+def device_ms(fn, names, reps: int = 3) -> float | None:
+    """Mean device time a call of ``fn`` spends in the kernels whose names
+    contain one of ``names``, from torch.profiler; None when the profiler
+    reports no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if any(n in e.key for n in names):
+            total += float(getattr(e, "self_device_time_total",
+                                   getattr(e, "self_cuda_time_total", 0.0)))
+    return total / 1e3 / reps if total > 0 else None
 
 
 def digest(cases: dict) -> list[int]:
@@ -233,7 +389,7 @@ def digest(cases: dict) -> list[int]:
 
 
 def kernel_times(args) -> int:
-    """K1 and K4 at the main shapes, three readings each; with --variants
+    """K1, K2, K3b and K4 at the main shapes, three readings each; with --variants
     also every one-change copy of the sources, in turns with the tree's
     kernels, its outputs required equal to the tree's.  One JSON line."""
     import torch
@@ -244,8 +400,8 @@ def kernel_times(args) -> int:
     dev = "cuda"
     t0 = time.perf_counter()
     libs = {"tree": build.lib()}
-    if args.variants:
-        libs.update(build_variants(build))
+    if args.variants is not None:
+        libs.update(build_variants(build, args.variants))
     build_s = time.perf_counter() - t0
     cases, shapes = kernel_cases(dev)
     times = {name: {case: [] for case in cases} for name in libs}
@@ -257,18 +413,38 @@ def kernel_times(args) -> int:
                 build._lib = handle
                 d = digest(cases)
                 ref = d if ref is None else ref
-                if d != ref and not name.startswith("k1_staging_only"):
+                if d != ref and name not in INCOMPARABLE:
                     raise RuntimeError(f"{name}: outputs differ from the "
                                        "tree's")
                 for case, fn in cases.items():
                     times[name][case].append(cs.timed_ms(fn, dev, reps=3))
+        device = {}
+        for name, handle in libs.items():
+            build._lib = handle
+            device[name] = {case: [device_ms(cases[case], names)
+                                   for _ in range(3)]
+                            for case, names in DEVICE_KERNELS.items()}
     finally:
         build._lib = libs["tree"]
     print(json.dumps({
         "kernels": args.root or ".", "device": torch.cuda.get_device_name(0),
         "nvidia_smi": cs.smi_name_power(), "build_s": build_s, **shapes,
-        "times": times, "digest": ref}), flush=True)
+        "times": times, "device_ms": device, "digest": ref}), flush=True)
     return 0
+
+
+def index_add_split(prof, dev_us) -> list:
+    """index_add_'s device time (ms) and calls by the shapes of its inputs
+    (the table it adds into, the index, the rows added), which tell its
+    call sites apart: an (N, R) table is the node accounting, a (Q, R) one
+    the quota state of charge_quota_batch (P x chain-depth rows into the
+    headroom, P rows into the min headroom)."""
+    out = []
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key == "aten::index_add_" and dev_us(e) > 0:
+            out.append(dict(shapes=e.input_shapes, calls=e.count,
+                            device_ms=dev_us(e) / 1e3))
+    return sorted(out, key=lambda d: -d["device_ms"])
 
 
 def main() -> int:
@@ -285,11 +461,17 @@ def main() -> int:
                     help="profile a steady-state round of the candidate "
                     "cache instead of a cold round")
     ap.add_argument("--kernels", action="store_true",
-                    help="time K1 and K4 at the main shapes instead")
-    ap.add_argument("--variants", action="store_true",
-                    help="with --kernels: time the one-change variants too")
+                    help="time K1, K2, K3b and K4 at the main shapes "
+                    "instead")
+    ap.add_argument("--variants", nargs="?", const="", default=None,
+                    metavar="PREFIX",
+                    help="with --kernels: time the one-change variants too "
+                    "(those whose name starts with PREFIX)")
     ap.add_argument("--root", help="with --kernels: the checkout whose "
                     "port (and chip_smoke.py) to time")
+    ap.add_argument("--shapes", action="store_true",
+                    help="record input shapes; split index_add_'s device "
+                    "time by them")
     args = ap.parse_args()
     if args.kernels:
         if args.root:
@@ -356,7 +538,8 @@ def main() -> int:
         setattr(sched_mod.Scheduler, name, timed)
     try:
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     record_shapes=args.shapes) as prof:
             result, wall, log = run()
     finally:
         for name, real in wrapped.items():
@@ -385,6 +568,9 @@ def main() -> int:
         {"name": e.key[:80], "calls": e.count, "device_ms": dev_us(e) / 1e3}
         for e in top]}), flush=True)
     print(json.dumps({"host_phases": phases}), flush=True)
+    if args.shapes:
+        print(json.dumps({"index_add": index_add_split(prof, dev_us)}),
+              flush=True)
     prof.export_chrome_trace(os.path.join(
         "chiprun_out", "steady_trace.json" if args.steady
         else "round_trace.json"))

@@ -230,3 +230,125 @@ def test_topk_from_int32_keys_resolves_shared_tie_breaks():
         assert np.array_equal(got_col.numpy(), np.asarray(want_col))
     assert (int(key[0, a]) == int(key[0, b])) and a < b
     assert _TB_BITS == 15
+
+
+def _refresh_case(n: int, n_dirty: int, pad: int, seed: int,
+                  n_pods: int = 24):
+    """(JAX state before, JAX state after a usage refresh of ``n_dirty``
+    nodes, JAX pods, dirty rows, dirty valid) with half the pods at rot
+    ids whose tie-break wraps.  Where two nodes share pod 0's tie-break,
+    the first such pair is made identical and dirty (listed in reverse
+    node order), the second identical, clean and roomy, so both keys
+    occur twice."""
+    import jax.numpy as jnp
+
+    from koordinator_tpu.state.cluster_state import ClusterState, PodBatch
+
+    rng = np.random.default_rng(seed)
+    r = 10
+    alloc = np.zeros((n, r), np.int32)
+    alloc[:, 0] = rng.integers(8_000, 64_000, n)
+    alloc[:, 1] = rng.integers(16_384, 262_144, n)
+    usage = (alloc * rng.random((n, r)) * 0.5).astype(np.int32)
+    requested = (alloc * rng.random((n, r)) * 0.3).astype(np.int32)
+    node_class = rng.integers(0, 3, n).astype(np.int32)
+    rot = np.array([_danger_rot(n, (i * 977) % max(n - 1, 1)) if i % 2
+                    else int(rng.integers(0, 2**31 - 1))
+                    for i in range(n_pods)], np.int32)
+    rot[0] = _danger_rot(n, n // 2)
+    tb = _candidate_tb(torch.arange(n, dtype=torch.int32)[None, :],
+                       torch.tensor(rot[:1]), n)[0]
+    vals, counts = torch.unique(tb, return_counts=True)
+    pairs = [torch.nonzero(tb == v).flatten().tolist()
+             for v in vals[counts == 2][:2].tolist()]
+    forced = []
+    for i, (a, b) in enumerate(pairs):
+        alloc[b], usage[b], requested[b] = alloc[a], usage[a], requested[a]
+        node_class[b] = node_class[a]
+        if i == 0:
+            forced = [b, a]
+        else:
+            alloc[[a, b], 0], alloc[[a, b], 1] = 64_000, 262_144
+            usage[[a, b]], requested[[a, b]] = 0, 0
+    paired = {x for p in pairs for x in p}
+    others = [int(x) for x in rng.permutation(n) if int(x) not in paired]
+    rows = (forced + others)[:n_dirty]
+    # pods 2 and 3 fit only the few nodes of class 3: rows shorter than k
+    node_class[[x for x in others[::-1] if x not in rows][:5]] = 3
+    before = ClusterState.from_arrays(alloc, requested=requested,
+                                      usage=usage, capacity=n,
+                                      node_class=node_class)
+    usage2 = usage.copy()
+    usage2[rows] = (alloc[rows] * rng.random((len(rows), r)) * 0.5).astype(
+        np.int32)
+    after = ClusterState.from_arrays(alloc, requested=requested,
+                                     usage=usage2, capacity=n,
+                                     node_class=node_class)
+    req = np.zeros((n_pods, r), np.int32)
+    req[:, 0] = rng.integers(100, 4_000, n_pods)
+    req[:, 1] = rng.integers(128, 8_192, n_pods)
+    req[rng.random(n_pods) < 0.1, 0] = 0
+    sel = rng.random((n_pods, 8)) < 0.7
+    sel[:, 3:] = False
+    sel[:2, :3] = True
+    sel[2:4] = False
+    sel[2:4, 3] = True
+    pods = PodBatch.build(req, priority=np.full(n_pods, 5, np.int32),
+                          selector_mask=sel, class_capacity=8,
+                          node_capacity=n, capacity=n_pods, rot_id=rot)
+    drows = np.zeros(len(rows) + pad, np.int32)
+    drows[:len(rows)] = rows
+    dvalid = np.zeros(len(rows) + pad, bool)
+    dvalid[:len(rows)] = True
+    return before, after, pods, jnp.asarray(drows), jnp.asarray(dvalid), \
+        bool(pairs)
+
+
+@pytest.mark.parametrize("n,n_dirty,pad", [(7, 3, 2), (1_024, 33, 7),
+                                           (1_024, 1, 0), (10_240, 100, 28)])
+def test_int32_list_refresh_matches_jax(n, n_dirty, pad):
+    """K2's int32-list merge (refresh_from_int32_lists) against the JAX
+    package's refresh_candidates, row for row: keys, the recovered nodes
+    (tie-breaks shared by two dirty nodes or two cached ones where the
+    wrap allows it) and the -1 slots' cached nodes in slot order."""
+    import jax.numpy as jnp
+
+    from koordinator_tpu.ops import batch_assign as jba
+    from koordinator_tpu.ops.assignment import ScoringConfig
+
+    from koordinator_tpu_torch.kernels.refresh_candidates import (
+        refresh_candidates_plain,
+        refresh_from_int32_lists,
+    )
+    from tests.torch_parity import port
+
+    before, after, pods, drows, dvalid, shared = _refresh_case(
+        n, n_dirty, pad, seed=n + n_dirty)
+    cfg = ScoringConfig.default()
+    key, node, score = jba.select_candidates(before, pods, cfg, k=32,
+                                             spread_bits=(5, 15),
+                                             with_scores=True)
+    dirty = jnp.zeros(n, bool).at[drows].max(dvalid)
+    cache, _ = jba.align_candidate_cache(
+        jba.CandidateCache(key, node, score),
+        jnp.arange(pods.capacity, dtype=jnp.int32), pods.valid, dirty)
+    want_key, want = jba.refresh_candidates(after, pods, cfg, cache, drows,
+                                            dvalid, k=32,
+                                            spread_bits=(5, 15))
+    args = (port(after, "ClusterState"), port(pods, "PodBatch"),
+            port(cfg, "ScoringConfig"),
+            torch.from_numpy(np.array(cache.cand_node)),
+            torch.from_numpy(np.array(cache.cand_score)),
+            torch.from_numpy(np.array(drows)),
+            torch.from_numpy(np.array(dvalid)), 32, (5, 15))
+    for fn in (refresh_from_int32_lists, refresh_candidates_plain):
+        got_key, got_node, got_score = fn(*args)
+        assert np.array_equal(got_key.numpy(), np.asarray(want_key))
+        assert np.array_equal(got_node.numpy(), np.asarray(want.cand_node))
+        assert np.array_equal(got_score.numpy(), np.asarray(want.cand_score))
+    kk = np.asarray(want_key)
+    assert (kk < 0).any()                      # -1 slots are covered
+    if shared:
+        # some row keeps two equal stratum-0 keys (a shared tie-break)
+        dup = (kk[:, 1:] == kk[:, :-1]) & (kk[:, 1:] >= 0)
+        assert dup.any()
