@@ -11,8 +11,8 @@ first failure:
    (SMs x 64 a clock x the maximum SM clock), which the operations bounds
    use (the operations each kernel's inputs need, counted by pair_ops);
 2. build: compiles the kernels from ``koordinator_tpu_torch/kernels/csrc``;
-   then ``ptxas``: K1's, K2's, K3b's and K4's registers and spills from the
-   compiler's log (a spill fails the run);
+   then ``ptxas``: K1's, K2's, K3b's, K4's and K4r's registers and spills
+   from the compiler's log (a spill fails the run);
 3. kernels: K1 against its plain PyTorch version at 2,048 pods x 1,024 nodes
    under four configurations (instantaneous thresholds, aggregated
    thresholds, selector classes, dense feasibility), and K3a/K3b against
@@ -60,14 +60,32 @@ first failure:
 10. small rounds: on the filled cluster, with the pending queue withdrawn
    before each round (a quota-blocked backlog keeps every round above the
    batch threshold), three rounds of 500 arrivals (the greedy path, K4)
-   against the same rounds through the plain versions.
+   against the same rounds through the plain versions;
+11. reservations: the Reservation lifecycle through ``Scheduler`` on the
+   flagship cluster.  Round 1: the 50,000-pod backlog and 1,024
+   Reservation CRs (128 pinned to named nodes, 896 placed by reserve-pods
+   through the batch solve; 25% allocate-once, 25% Restricted, owners
+   app=svc-<i mod 64>).  Round 2: 3,000 owner pods; the pre-pass takes the
+   2,048 of highest priority on K4r, the cap sends the rest to the batch
+   solve.  Round 3: 500 bound owner pods removed, the 64 reservations with
+   a TTL expired, 1,000 more owner pods.  After each round: no node over
+   its allocatable, no reservation's allocated over its reserved, every
+   pre-pass bind on its reservation's node, and the node accounting equal
+   to the bound pods' and the reservations' charges.  K4r is held against
+   its plain version at round 2's pre-pass (2,048 pods x 10,240 nodes x
+   1,024 reservations); then ``reservation_edges``: every reservation on
+   one node, 4,096 records on one CTA (read in place from the wrapper's
+   array), mostly exhausted rows, the quota tree, and 32,768 nodes (the
+   node columns in the global scratch).
 
 The line before the last is ``nvidia-smi``'s name and power limit; the last
 is ``{"ok": true, "device": {...}}``.  Before them, one JSON line lists the
-five kernels: time, launches over the steady-state run of the forced-
-threshold scheduler (the slice's main path), bound, plain and library time;
+six kernels: time, launches over the steady-state run of the forced-
+threshold scheduler (the slice's main path; K4r's over the reservations
+phase's three rounds), bound, plain and library time;
 K4's numbers are those at the steady round's rescue, K3b's at the cold
-solve's first round behind the quota tree; K2 and K3b add ``device_ms``
+solve's first round behind the quota tree, K4r's at round 2's pre-pass;
+K2 and K3b add ``device_ms``
 (the bare launch) beside ``ms`` (the wrapper), K3b also ``sort_ms`` (its
 node-level grouping by torch.sort).  An earlier line (``earlier_design``)
 puts this run's K1, K4, K3b and K2 times beside those of their earlier
@@ -1676,7 +1694,9 @@ def phase_steady(device, n_nodes: int = 10_240, n_pods: int = 50_000,
     check(all(r["path"] == "incremental" for r in forced[1:]),
           "the forced scheduler refreshed every steady round")
     for kname, count in totals.items():
-        check(count > 0, f"{kname} launched on the steady-state path")
+        # K4r runs only where reservations exist (phase_reservations)
+        check(count > 0 or kname == "reservation_scan",
+              f"{kname} launched on the steady-state path")
     by_name = {p.name: p for p in pods}
     by_name.update(enqueued)
     for name, sched in scheds.items():
@@ -1747,6 +1767,445 @@ def phase_small(device, scheds: dict, rounds: int = 3,
     return out
 
 
+# -- reservations (K4r) -------------------------------------------------------
+
+#: the reservations phase: Reservation CRs on the flagship cluster, 128 of
+#: them pinned to named nodes, owner selectors over 64 apps, every 16th
+#: with a 60 s TTL (64 expire in round 3)
+N_RESERVATIONS = 1_024
+N_PINNED = 128
+N_APPS = 64
+
+#: int32 operations of K4r's test of one reservation row for one pod, as
+#: rsv_scan_ops counts them: the match bit on every row; on a matched row
+#: the remainder and its sign per dim, the Aligned and Restricted compares
+#: per requested dim, the policy's verdict and the node flag
+RSV_ROW_OPS = dict(match=1, dim=2, req_dim=4, verdict=2)
+
+
+def reservation_specs(rng, nodes, count: int, pinned: int):
+    """cpu 2,000-8,000 mcores and memory 4,096-16,384 MiB each; the first
+    ``pinned`` on distinct named nodes, the rest placed by reserve-pods;
+    25% allocate-once and 25% Restricted; owners app=svc-<i mod 64>."""
+    from koordinator_tpu_torch.scheduler.reservations import (
+        OwnerMatcher,
+        ReservationSpec,
+    )
+
+    pin = rng.choice(len(nodes), pinned, replace=False)
+    out = []
+    for i in range(count):
+        req = np.zeros(R, np.int32)
+        req[CPU] = rng.integers(2_000, 8_001)
+        req[MEM] = rng.integers(4_096, 16_385)
+        out.append(ReservationSpec(
+            name=f"rsv-{i}", requests=req,
+            owners=[OwnerMatcher(labels={"app": f"svc-{i % N_APPS}"})],
+            allocate_once=(i % 4 == 1), restricted=(i % 4 == 2),
+            node=nodes[pin[i]].name if i < pinned else None,
+            ttl_sec=60.0 if i % 16 == 3 else None))
+    return out
+
+
+def owner_pods(rng, start: int, count: int):
+    """Owner pods: cpu 250-2,000, memory 512-4,096, priorities
+    3,000-9,999, app=svc-<j mod 64>."""
+    from koordinator_tpu_torch.scheduler.snapshot import PodSpec
+
+    out = []
+    for j in range(start, start + count):
+        req = np.zeros(R, np.int32)
+        req[CPU] = rng.integers(250, 2_001)
+        req[MEM] = rng.integers(512, 4_097)
+        out.append(PodSpec(name=f"owner-{j}", requests=req,
+                           priority=int(rng.integers(3_000, 10_000)),
+                           labels={"app": f"svc-{j % N_APPS}"},
+                           creation=float(1_000_000 + j)))
+    return out
+
+
+@contextlib.contextmanager
+def prepass_probe(log: list, device):
+    """Keep the inputs and outputs of every reservation pre-pass scan the
+    scheduler runs, with its time (CUDA events on the card)."""
+    import torch
+
+    from koordinator_tpu_torch.scheduler import scheduler as sched_mod
+
+    real = sched_mod.reservation_greedy_assign
+    on_card = torch.device(device).type == "cuda"
+
+    def probe(state, pods, cfg, rsv, match, quota=None, boost=10_000):
+        if on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        out = real(state, pods, cfg, rsv, match, quota, boost)
+        if on_card:
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end)
+        else:
+            ms = (time.perf_counter() - t0) * 1e3
+        log.append(dict(state=state, pods=pods, cfg=cfg, rsv=rsv,
+                        match=match, quota=quota, out=out, ms=ms))
+        return out
+
+    sched_mod.reservation_greedy_assign = probe
+    try:
+        yield
+    finally:
+        sched_mod.reservation_greedy_assign = real
+
+
+def scan_rows(pods, quota, assignments) -> list[int]:
+    """The rows whose scan steps pass admission, in scan order."""
+    from koordinator_tpu_torch.ops.assignment import priority_order
+
+    if quota is not None:
+        return admitted_rows(pods, quota, assignments)
+    valid = pods.valid.cpu().numpy()
+    return [int(i) for i in priority_order(pods).cpu().numpy() if valid[i]]
+
+
+def rsv_scan_ops(state, pods, cfg, rsv, match, rows, assignments,
+                 rsv_choice) -> int:
+    """K4r's int32 operations: on each step that passes admission (the pod
+    ``rows``, in scan order), pair_ops over every node with the fit the
+    pod's reservations extend, and RSV_ROW_OPS over the placed reservation
+    rows, against the accounting and the remainders the steps before left
+    (replayed from the scan's outputs as greedy_scan_plain keeps them)."""
+    import torch
+
+    from koordinator_tpu_torch.kernels.select_candidates import _pod_rows
+    from koordinator_tpu_torch.ops.assignment import pod_estimates
+    from koordinator_tpu_torch.ops.reservation import (
+        allocate_from_reservation,
+        score_pods_with_reservations,
+    )
+
+    n = state.capacity
+    est = pod_estimates(pods, cfg)
+    requested = state.node_requested.clone()
+    added = torch.zeros_like(state.node_usage)
+    placed = rsv.valid & (rsv.node_idx >= 0) & (rsv.node_idx < n)
+    n_placed = int(placed.sum())
+    a = assignments.cpu().numpy()
+    rc = rsv_choice.cpu().numpy()
+    o = RSV_ROW_OPS
+    cur = rsv
+    ops = 0
+    for i in rows:
+        now = state.replace(node_requested=requested,
+                            node_usage=state.node_usage + added,
+                            node_agg_usage=state.node_agg_usage + added)
+        sub = _pod_rows(pods, i, i + 1)
+        m = match[i:i + 1]
+        _, feas, _ = score_pods_with_reservations(now, sub, cfg, cur, m)
+        ops += pair_ops(cfg, sub.requests, state.node_allocatable, feas)
+        matched = int((m[0] & placed).sum())
+        n_req = int((pods.requests[i] != 0).sum())
+        ops += n_placed * o["match"] + matched * (
+            R * o["dim"] + n_req * o["req_dim"] + o["verdict"])
+        if a[i] >= 0:
+            cur, spill = allocate_from_reservation(cur, int(rc[i]),
+                                                   pods.requests[i])
+            requested[a[i]] += spill
+            added[a[i]] += est[i]
+    return ops
+
+
+def rsv_case(device, state, pods, cfg, rsv, match, quota=None,
+             reps: int = 3, with_bound: bool = True) -> dict:
+    """K4r against its plain version on one problem: the assignments, the
+    reservation choices, the node accounting, the reservations' allocated
+    and the quota state equal.  Returns the case's numbers: its time, the
+    plain version's, where the launch kept its state, and its bound."""
+    from koordinator_tpu_torch.kernels import build
+    from koordinator_tpu_torch.kernels.greedy_scan import (
+        reservation_records,
+        reservation_scan_kernel,
+    )
+    from koordinator_tpu_torch.ops.assignment import greedy_scan_plain
+
+    a, rc, st, nr, q = reservation_scan_kernel(state, pods, cfg, rsv, match,
+                                               quota)
+    sync(device)
+    t0 = time.perf_counter()
+    pa, prc, pst, pnr, pq = greedy_scan_plain(state, pods, cfg, quota, rsv,
+                                              match)
+    sync(device)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    errs = dict(assignments=max_abs_err(a, pa),
+                rsv_choice=max_abs_err(rc, prc),
+                node_requested=max_abs_err(st.node_requested,
+                                           pst.node_requested),
+                allocated=max_abs_err(nr.allocated, pnr.allocated))
+    if quota is not None:
+        errs["headroom"] = max_abs_err(q.headroom, pq.headroom)
+        errs["min_headroom"] = max_abs_err(q.min_headroom, pq.min_headroom)
+    err = max(errs.values())
+    check(err == 0, f"K4r equals its plain version ({errs})")
+    ms = timed_ms(lambda: reservation_scan_kernel(state, pods, cfg, rsv,
+                                                  match, quota),
+                  device, reps=reps)
+    lib = build.lib()
+    n, p, v = state.capacity, pods.capacity, rsv.capacity
+    q_rows, depth = ((0, 0) if quota is None
+                     else (quota.capacity, quota.chain.shape[1]))
+    records, _, vmax = reservation_records(
+        rsv, n, lib.koord_reservation_scan_nodes_per_cta(n))
+    plan = lib.koord_reservation_scan_plan(n, q_rows, depth, vmax)
+    check(plan >= 0, "K4r's plan could be asked")
+    out = dict(pods=p, valid_pods=int(pods.valid.sum()), nodes=n,
+               reservations=v, placed=records.shape[0], most_on_a_cta=vmax,
+               nodes_in_smem=bool(plan & 1), records_staged=bool(plan & 2),
+               assigned=int((a >= 0).sum()),
+               through_reservation=int((rc >= 0).sum()),
+               max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    if with_bound:
+        rows = scan_rows(pods, quota, a)
+        c = 0 if pods.selector_mask is None else pods.selector_mask.shape[1]
+        dense = 0 if pods.feasible is None else len(rows) * n
+        vp = records.shape[0]
+        # the node tensors read and node_requested written once, the pod
+        # rows, the (P, V) match and the records read, allocated and the
+        # two per-pod outputs written, the quota state read and written
+        nbytes = (n * (4 * R * 4 + 1 + 4) + n * R * 4
+                  + p * (2 * R * 4 + 1 + 4 + 4 + 1 + c) + dense + p * v
+                  + vp * (2 * R * 4 + 3 * 4) + vp * R * 4 + 2 * p * 4
+                  + (0 if quota is None
+                     else 2 * quota.headroom.numel() * 4 * 2))
+        ops = rsv_scan_ops(state, pods, cfg, rsv, match, rows, a, rc)
+        bound_ms, by = bound(nbytes, ops)
+        out.update(admitted_steps=len(rows), bytes=nbytes, ops=ops,
+                   bound_ms=bound_ms, bound_by=by)
+    return out
+
+
+def reservation_ledger(sched) -> np.ndarray:
+    """(N, R) node accounting the host records imply: each bound pod's
+    request less what it drew from a reservation still Available as the
+    instance it drew from (else the larger of its request and its draw),
+    plus each Available reservation's reserved vector."""
+    from koordinator_tpu_torch.scheduler.reservations import ReservationPhase
+
+    snap = sched.snapshot
+    out = np.zeros(tuple(snap.state.node_requested.shape), np.int64)
+    for bp in sched.bound.values():
+        req = bp.requests.astype(np.int64)
+        if bp.reservation is not None and bp.rsv_drawn is not None:
+            spec = sched.reservations.get(bp.reservation)
+            drawn = bp.rsv_drawn.astype(np.int64)
+            if (spec is not None and spec.phase is ReservationPhase.AVAILABLE
+                    and spec.generation == bp.rsv_generation):
+                req = req - drawn
+            else:
+                req = np.maximum(req, drawn)
+        out[snap.node_index[bp.node]] += req
+    for spec in sched.reservations.available():
+        out[snap.node_index[spec.node]] += spec.requests.astype(np.int64)
+    return out
+
+
+def reservation_checks(sched, result, label: str) -> dict:
+    """No node over its allocatable, no reservation's allocated over its
+    reserved, every pre-pass bind of ``result`` on its reservation's node,
+    and the node accounting equal to what the host records imply."""
+    st = sched.snapshot.state
+    requested = st.node_requested.cpu().numpy().astype(np.int64)
+    alloc = st.node_allocatable.cpu().numpy().astype(np.int64)
+    check(bool((requested <= alloc).all()), f"{label}: no node overcommitted")
+    for spec in sched.reservations.specs():
+        if spec.allocated is not None:
+            check(bool((spec.allocated <= spec.requests).all()),
+                  f"{label}: {spec.name} allocated within reserved")
+    through = 0
+    for name in result.assignments:
+        bp = sched.bound.get(name)
+        if bp is None or bp.reservation is None:
+            continue
+        through += 1
+        spec = sched.reservations.get(bp.reservation)
+        check(spec is not None and spec.node == bp.node,
+              f"{label}: {name} bound on its reservation's node")
+    check(np.array_equal(reservation_ledger(sched), requested),
+          f"{label}: node accounting = bound pods + reservations")
+    return dict(through_reservation=through)
+
+
+def phase_reservations(device, n_nodes: int = 10_240, n_pods: int = 50_000,
+                       n_rsv: int = N_RESERVATIONS,
+                       n_pinned: int = N_PINNED, n_owners: int = 3_000,
+                       n_removed: int = 500, n_late: int = 1_000):
+    """The Reservation lifecycle through the port's Scheduler on the
+    flagship cluster.  Round 1: the 50,000-pod backlog and 1,024
+    Reservation CRs (128 pinned, 896 placed by reserve-pods through the
+    batch solve).  Round 2: 3,000 owner pods; the pre-pass takes the 2,048
+    of highest priority on K4r, the rest go to the batch solve.  Round 3:
+    500 bound owner pods removed, 64 reservations expired by TTL, 1,000
+    more owner pods.  K4r is held against its plain version at round 2's
+    pre-pass.  Returns (K4r's numbers there, its launches over the three
+    rounds)."""
+    from koordinator_tpu_torch.kernels import build
+    from koordinator_tpu_torch.scheduler.scheduler import Scheduler
+    from koordinator_tpu_torch.scheduler.snapshot import ClusterSnapshot
+
+    nodes, pods = main_path_specs(0, n_nodes, n_pods)
+    rng = np.random.default_rng(17)
+    snap = ClusterSnapshot(capacity=n_nodes, device=device)
+    for spec in nodes:
+        snap.upsert_node(spec)
+    now = [0.0]
+    sched = Scheduler(snap, device=device, clock=lambda: now[0])
+    for spec in reservation_specs(rng, nodes, n_rsv, n_pinned):
+        sched.add_reservation(spec)
+    sched.enqueue_many(pods)
+    launches = {kname: 0 for kname in build.LAUNCHES}
+    records = []
+    k4r = None
+    for rnd in (1, 2, 3):
+        if rnd == 2:
+            now[0] = 10.0
+            sched.enqueue_many(owner_pods(rng, 0, n_owners))
+        if rnd == 3:
+            now[0] = 120.0
+            owners = sorted(n for n, b in sched.bound.items()
+                            if n.startswith("owner-"))
+            for name in rng.choice(owners, n_removed, replace=False):
+                sched.delete_pod(str(name))
+            sched.enqueue_many(owner_pods(rng, n_owners, n_late))
+        before = len(sched.reservations)
+        log: list = []
+        build.reset_launch_counts()
+        with prepass_probe(log, device):
+            sync(device)
+            t0 = time.perf_counter()
+            res = sched.schedule_round()
+            sync(device)
+            wall = time.perf_counter() - t0
+        counts = dict(build.LAUNCHES)
+        for kname, count in counts.items():
+            launches[kname] += count
+        rec = dict(round=rnd, pods=res.round_pods, wall_s=wall,
+                   solver=sched.last_solver, path=sched.last_solve_path,
+                   binds=len(res.assignments), failed=len(res.failures),
+                   reservations_before=before,
+                   available=len(sched.reservations.available()),
+                   prepass_pods=[int(s["pods"].valid.sum()) for s in log],
+                   prepass_ms=[s["ms"] for s in log], k4r=counts[
+                       "reservation_scan"], k1=counts["select_candidates"],
+                   k4=counts["greedy_scan"])
+        rec.update(reservation_checks(sched, res, f"round {rnd}"))
+        records.append(rec)
+        emit("reservation_round", **rec)
+        if rnd == 1:
+            check(rec["available"] == n_rsv,
+                  "every reservation opened in round 1")
+            check(sum(1 for name in res.assignments
+                      if name.startswith("rsv::")) == n_rsv - n_pinned,
+                  "the reserve-pods placed through the solve")
+            check(sched.last_solver == "batch", "round 1 took the batch solve")
+        else:
+            check(len(log) == 1 and counts["reservation_scan"] >= 1,
+                  f"round {rnd}: the pre-pass ran on K4r")
+            check(rec["through_reservation"] > 0,
+                  f"round {rnd}: owner pods drew from reservations")
+        if rnd == 2:
+            check(rec["prepass_pods"] == [sched.rsv_prepass_cap],
+                  "the pre-pass took the cap of owner pods")
+            check(sched.last_solver == "batch",
+                  "the cap's overflow went to the batch solve")
+            s = log[0]
+            k4r = rsv_case(device, s["state"], s["pods"], s["cfg"], s["rsv"],
+                           s["match"], s["quota"])
+            k4r["in_round_ms"] = s["ms"]
+            emit("reservation_k4r", **k4r)
+    ttl = [f"rsv-{i}" for i in range(n_rsv) if i % 16 == 3]
+    check(all(sched.reservations.get(name) is None for name in ttl),
+          f"the {len(ttl)} reservations with a TTL expired in round 3")
+    emit("reservations", nodes=n_nodes, backlog=n_pods, reservations=n_rsv,
+         pinned=n_pinned, owners=n_owners,
+         removed=n_removed, late_owners=n_late, launches=launches)
+    return k4r, launches["reservation_scan"]
+
+
+def random_reservations(rng, state, n_rows: int, on_nodes=None,
+                        exhausted: float = 0.15):
+    """A seeded ReservationSet over ``state``'s nodes on its device:
+    aligned and Restricted rows, allocate-once rows, exhausted rows,
+    partly drawn rows, unplaced rows and zero dims."""
+    from koordinator_tpu_torch.ops.reservation import ReservationSet
+
+    n = state.capacity
+    reserved = np.zeros((n_rows, R), np.int32)
+    reserved[:, CPU] = rng.integers(500, 8_000, n_rows)
+    reserved[:, MEM] = rng.integers(256, 16_384, n_rows)
+    reserved[rng.random(n_rows) < 0.2, MEM] = 0
+    allocated = (reserved * rng.random((n_rows, R)) * 0.6).astype(np.int32)
+    drained = rng.random(n_rows) < exhausted
+    allocated[drained] = reserved[drained]
+    nodes = (rng.integers(0, n, n_rows) if on_nodes is None
+             else rng.choice(np.asarray(on_nodes), n_rows))
+    nodes[rng.random(n_rows) < 0.05] = -1
+    return ReservationSet.build(
+        reserved, nodes.astype(np.int32), allocated=allocated,
+        allocate_once=rng.random(n_rows) < 0.25,
+        restricted=rng.random(n_rows) < 0.3, device=state.device)
+
+
+#: K4r's edge cases: (label, nodes, pods, rows, mode, options)
+RSV_EDGES = (
+    ("every reservation on one node", 1_000, 300, 64, "classes",
+     dict(on_nodes=[7])),
+    ("records in the global array", 10_240, 200, 4_096, "classes",
+     dict(on_nodes=[0, 1, 2, 3])),
+    ("exhausted rows", 1_000, 300, 128, "dense", dict(exhausted=0.6)),
+    ("the quota tree", 10_240, 400, 512, "classes", dict(quota=True)),
+    ("node columns in the global scratch", 32_768, 200, 256, "classes", {}),
+)
+
+
+def phase_reservation_edges(device) -> None:
+    """K4r against its plain version at small sizes on the card: every
+    reservation on one node, records past the shared-memory budget (read
+    in place from the wrapper's array), mostly exhausted rows, the quota
+    tree with non-preemptible pods, and 32,768 nodes (the node columns in
+    the global scratch, the records staged)."""
+    import torch
+
+    cases = []
+    for k, (label, n_nodes, n_pods, n_rows, mode, opt) in enumerate(
+            RSV_EDGES):
+        rng = np.random.default_rng(300 + k)
+        state, pods = random_problem(300 + k, n_nodes, n_pods, device, mode)
+        # crowd the nodes so the reservations matter
+        state = state.replace(
+            node_requested=(state.node_allocatable.to(torch.float64)
+                            * 0.6).to(torch.int32))
+        rsv = random_reservations(rng, state, n_rows, opt.get("on_nodes"),
+                                  opt.get("exhausted", 0.15))
+        match = torch.from_numpy(
+            rng.random((pods.capacity, rsv.capacity)) < 0.3).to(device)
+        quota = None
+        if opt.get("quota"):
+            quota, pods = quota_setup(pods, device, 300 + k)
+        out = rsv_case(device, state, pods, scoring_config("default", device),
+                       rsv, match, quota, reps=2, with_bound=False)
+        check(out["through_reservation"] > 0,
+              f"{label}: pods drew from reservations")
+        cases.append(dict(case=label, **out))
+    by = {c["case"]: c for c in cases}
+    check(not by["records in the global array"]["records_staged"],
+          "the 4,096 records on one CTA stay in the global array")
+    check(by["every reservation on one node"]["records_staged"],
+          "64 records are staged in shared memory")
+    check(not by["node columns in the global scratch"]["nodes_in_smem"],
+          "32,768 nodes take the global scratch")
+    emit("reservation_edges", cases=cases)
+
+
 def ptxas_summary(path: str) -> list[dict]:
     """Registers, spills and shared memory of every kernel in the
     compiler's -Xptxas -v log (one entry per compiled entry function)."""
@@ -1775,16 +2234,17 @@ def ptxas_summary(path: str) -> list[dict]:
 
 
 #: the kernels' entry functions in the ptxas log, by kernel (K1 and K2
-#: come in one- and two-stratum instances)
+#: come in one- and two-stratum instances; K4 and K4r in four: the node
+#: columns in shared or global memory, without or with reservations)
 PTXAS_ENTRIES = {"select_candidates": ("select_candidates_kernel", 2),
                  "refresh_candidates": ("refresh_candidates_kernel", 2),
                  "segmented_prefix_accept": ("round_accept_kernel", 1),
-                 "greedy_scan": ("greedy_scan_kernel", 1)}
+                 "greedy_scan": ("greedy_scan_kernel", 4)}
 
 
 def phase_ptxas(path: str) -> None:
-    """K1's, K2's, K3b's and K4's registers and spills, from the build's
-    ptxas log: none of them may spill."""
+    """K1's, K2's, K3b's, K4's and K4r's registers and spills, from the
+    build's ptxas log: none of them may spill."""
     entries = ptxas_summary(path)
     picked = []
     for kernel, (name, count) in PTXAS_ENTRIES.items():
@@ -1858,6 +2318,8 @@ def main() -> int:
     scheds, totals, _, k4, k3b = phase_steady(device)
     phase_small(device, scheds)
     del scheds
+    k4r, k4r_launches = phase_reservations(device)
+    phase_reservation_edges(device)
     kernels[1:1] = [dict(
         name="refresh_candidates", route="cuda",
         source=CSRC + "refresh_candidates.cu",
@@ -1881,6 +2343,14 @@ def main() -> int:
     # cold round and five steady rounds
     for entry in kernels:
         entry["launches"] = totals[entry["name"]]
+    # K4r at round 2's pre-pass; its launches over the reservations
+    # phase's three rounds
+    kernels.append(dict(
+        name="reservation_scan", route="cuda", source=CSRC + "greedy_scan.cu",
+        replaces="koordinator_tpu/ops/reservation.py:252",
+        launches=k4r_launches, max_abs_err=k4r["max_abs_err"], ms=k4r["ms"],
+        plain_ms=k4r["plain_ms"], bound_ms=k4r["bound_ms"],
+        bound_by=k4r["bound_by"], library_ms=None))
     emit("earlier_design", note="the earlier designs' times as PERF.md "
          "records them, beside this run's, at the same shapes", kernels=[
              dict(name="select_candidates", ms=kernels[0]["ms"],

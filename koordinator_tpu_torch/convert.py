@@ -17,6 +17,7 @@ import torch
 from koordinator_tpu_torch.device import resolve_device
 from koordinator_tpu_torch.ops.assignment import ScoringConfig
 from koordinator_tpu_torch.ops.gang import GangInfo
+from koordinator_tpu_torch.ops.reservation import ReservationSet
 from koordinator_tpu_torch.quota.admission import QuotaDeviceState
 from koordinator_tpu_torch.state.cluster_state import ClusterState, PodBatch
 
@@ -26,6 +27,7 @@ _CLASSES = {
     "ScoringConfig": ScoringConfig,
     "QuotaDeviceState": QuotaDeviceState,
     "GangInfo": GangInfo,
+    "ReservationSet": ReservationSet,
 }
 
 #: field names per carried type (the same in both packages)
@@ -60,3 +62,10 @@ def from_numpy(kind: str, arrays: dict, device=None):
         kw[name] = (None if a is None
                     else torch.from_numpy(np.array(a, copy=True)).to(dev))
     return _CLASSES[kind](**kw)
+
+
+def reservation_set_from_numpy(arrays: dict, device=None) -> ReservationSet:
+    """The port's :class:`ReservationSet` from a dict of numpy arrays of a
+    reservation set's fields (``fields_of(rsv, "ReservationSet")`` of the
+    JAX package's set), on ``device``."""
+    return from_numpy("ReservationSet", arrays, device)

@@ -5,10 +5,11 @@
   over the dirty node columns;
 - ``round_fit_choose`` (K3a): a round's candidate fit and choice;
 - ``prefix_accept`` (K3b): segmented priority-order prefix acceptance;
-- ``greedy_scan`` (K4): the exact sequential greedy scan.
+- ``greedy_scan`` (K4): the exact sequential greedy scan, and K4r, the
+  same scan with reservations (the scheduler's reservation pre-pass).
 
 The Filter + Score of a (pod, node) pair and the candidate ranking are one
-CUDA definition (``csrc/koord_score.cuh``) that K1, K2 and K4 compile.
+CUDA definition (``csrc/koord_score.cuh``) that K1, K2, K4 and K4r compile.
 
 A wrapper handed CPU tensors computes its plain version; handed CUDA tensors
 it launches its kernel (built on first use by :mod:`.build`) or raises.

@@ -162,15 +162,33 @@ _SIGNATURES = {
         _P,                              # out assignments
         _P,                              # stream
     ],
+    "koord_reservation_scan": [
+        _P, _P, _P, _P, _P, _P,          # node alloc/requested (in/out)/usage/base/valid/class
+        _P,                              # node-column scratch
+        _P, _P, _P, _P,                  # pod requests/estimates/valid, order
+        _P, _I, _P,                      # selector mask (P, C) + C, dense mask (P, N)
+        _P, _I,                          # config int vector + its length
+        _P, _P,                          # quota headroom, min_headroom (in/out)
+        _P, _P, _P, _I, _I,              # quota checked, chain, valid, Q, depth
+        _P, _P,                          # pod quota_id, non_preemptible
+        _I, _I,                          # P, N
+        _P, _I, _I,                      # reservation records (in/out), V, most on a CTA
+        _P, _I,                          # (P, V) match in record order, boost
+        _P, _P,                          # out assignments, reservation choice
+        _P,                              # stream
+    ],
 }
 
 
 #: exported C functions that size a kernel's global scratch, in bytes (K3b's
-#: in int32 words)
+#: in int32 words), and K4r's nodes per CTA and launch plan
 _SCRATCH = {
     "koord_select_candidates_scratch_bytes": [_I],      # N
     "koord_refresh_candidates_scratch_bytes": [_I],     # D
     "koord_greedy_scan_scratch_bytes": [_I, _I, _I],    # N, Q, chain depth
+    "koord_reservation_scan_scratch_bytes": [_I, _I, _I],  # N, Q, chain depth
+    "koord_reservation_scan_nodes_per_cta": [_I],       # N
+    "koord_reservation_scan_plan": [_I, _I, _I, _I],    # N, Q, chain depth, most records a CTA
     "koord_segmented_prefix_accept_scratch_ints": [_L],  # entries
 }
 
@@ -208,7 +226,7 @@ def check(err: int, what: str) -> None:
 #: call on CPU tensors launches nothing)
 LAUNCHES = {"select_candidates": 0, "refresh_candidates": 0,
             "round_fit_choose": 0, "segmented_prefix_accept": 0,
-            "greedy_scan": 0}
+            "greedy_scan": 0, "reservation_scan": 0}
 
 
 def reset_launch_counts() -> None:

@@ -42,6 +42,35 @@
 //   takes the same maximum (jnp.argmax's lowest index on ties).  The CTA
 //   owning the node charges its columns; every CTA charges its quota
 //   replica.  Node accounting and quota state are written back at the end.
+//
+// K4r, the same scan with reservations (kRsv), replaces the reservation
+// branch of that scan,
+//   koordinator_tpu/ops/reservation.py:252 reservation_greedy_assign
+//   (reservation_fit :116, reservation_node_mask :150,
+//   nominate_reservation :163, allocate_from_reservation :182),
+// whose plain PyTorch version is greedy_scan_plain (ops/assignment.py).
+// The wrapper hands it the placed reservation rows sorted by node (stable,
+// so the rows of one node stay in ascending row order) as 23-int records
+// (reserved, allocated, node, row, flags), and the (P, V) owner match with
+// its columns in that order.  Each CTA owns the rows on its own nodes:
+// - per admitted pod, its threads test its rows (match, an unexhausted
+//   remainder, the Aligned or Restricted fit against the remainder and
+//   the node's free capacity) and set a shared-memory flag on each node a
+//   fitting row sits on; the node scan ORs the flag into the fit and adds
+//   the boost to the score; the flags are cleared before the next pod;
+// - on the chosen node, the owning CTA's warp 0 nominates the fitting row
+//   with the smallest total remainder (lowest row on ties), draws the
+//   request from it (an allocate-once row is consumed whole) and charges
+//   the node only the spill; the estimate and the quota are charged the
+//   whole pod as in K4.
+// A pod that quota rejects, or that no node takes, changes no reservation
+// either, so K4's admission skip holds.  The rows live in shared memory
+// beside the node columns when they fit there, else they stay in the
+// wrapper's global array (the same records, updated in place).  The
+// wrapper checks that every remainder is non-negative and sums below
+// 2^31 - 1 and that no request is negative: the remainders then only
+// shrink, and the nomination never meets the reference's INT32_MAX
+// sentinel.
 
 #include <cooperative_groups.h>
 
@@ -60,10 +89,28 @@ constexpr int kWin = 256;           // pods staged per window
 constexpr int kWinInts = 3 + kDims;  // ints per staged pod
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
+// K4r's reservation row record: reserved (R), allocated (R), node, row in
+// the reservation set, flags.  23 ints: an odd stride, so neighbouring
+// threads' records fall in different shared-memory banks.
+constexpr int kRsvInts = 2 * kDims + 3;
+constexpr int kRsvNode = 2 * kDims;
+constexpr int kRsvRow = 2 * kDims + 1;
+constexpr int kRsvFlags = 2 * kDims + 2;
+constexpr int kRsvOnce = 1;        // flags: allocate-once
+constexpr int kRsvRestricted = 2;  // flags: Restricted policy
+constexpr int kRsvFit = 4;         // flags: fits the current pod
+
 __device__ __forceinline__ long long warp_max(long long v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     v = max(v, __shfl_xor_sync(kFull, v, off));
+  return v;
+}
+
+__device__ __forceinline__ long long warp_min(long long v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = min(v, __shfl_xor_sync(kFull, v, off));
   return v;
 }
 
@@ -75,26 +122,36 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+__host__ __device__ __forceinline__ int nodes_per_cta(int N) {
+  return ((N + kCluster - 1) / kCluster + 3) / 4 * 4;
+}
+
 // Where each piece of a CTA's state lies: ints first, then bytes.
 struct Layout {
   int S;                 // nodes per CTA (a multiple of 4)
   long long quota_ints;  // headroom, min headroom (Q x R), chain (Q x QD)
   long long win_ints;    // window: pod row, flags, quota id, request (R)
   long long node_ints;   // 6 x (R x S) columns, class and flags (S)
+  long long row_ints;    // K4r: the CTA's reservation records, when staged
   long long quota_bytes; // checked (Q x R), valid (Q), padded to 4
   long long node_bytes;  // magic shifts (R x S)
+  long long boost_bytes; // K4r: a reservation flag per node (S)
 
-  __host__ __device__ Layout(int N, int Q, int QD) {
-    S = ((N + kCluster - 1) / kCluster + 3) / 4 * 4;
+  // ``rsv``: K4r's layout; ``rows``: reservation records staged per CTA
+  __host__ __device__ Layout(int N, int Q, int QD, bool rsv = false,
+                             int rows = 0) {
+    S = nodes_per_cta(N);
     quota_ints = 2ll * Q * kDims + static_cast<long long>(Q) * QD;
     win_ints = static_cast<long long>(kWin) * kWinInts;
     node_ints = (6ll * kDims + 2) * S;
+    row_ints = static_cast<long long>(rows) * kRsvInts;
     quota_bytes = (static_cast<long long>(Q) * (kDims + 1) + 3) / 4 * 4;
     node_bytes = static_cast<long long>(kDims) * S;
+    boost_bytes = rsv ? S : 0;
   }
   __host__ __device__ long long smem_bytes(bool nodes) const {
-    return 4 * (quota_ints + win_ints + (nodes ? node_ints : 0)) +
-           quota_bytes + (nodes ? node_bytes : 0);
+    return 4 * (quota_ints + win_ints + row_ints + (nodes ? node_ints : 0)) +
+           quota_bytes + (nodes ? node_bytes : 0) + boost_bytes;
   }
   __host__ __device__ long long scratch_bytes() const {
     return 4 * node_ints + (node_bytes + 3) / 4 * 4;
@@ -123,7 +180,21 @@ __device__ __forceinline__ bool quota_admits(
   return ok;
 }
 
-template <bool kNodesInSmem>
+// K4r's arguments (all null / 0 for K4): the placed reservation rows
+// sorted by node (V records, allocated updated in place), the records a
+// CTA stages in shared memory (0: every CTA reads its records in place),
+// the (P, V) match in record order, the score boost and the out
+// reservation choice per pod.
+struct RsvArgs {
+  int* rows;
+  int V;
+  int staged;
+  const uint8_t* match;
+  int boost;
+  int* out_rsv;
+};
+
+template <bool kNodesInSmem, bool kRsv>
 __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
     const int* __restrict__ alloc, int* reqd_g, const int* __restrict__ usage,
     const int* __restrict__ base, const uint8_t* __restrict__ nvalid,
@@ -136,7 +207,7 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
     const int* __restrict__ q_chain_g, const uint8_t* __restrict__ q_valid_g,
     int Q, int QD, const int* __restrict__ pquota,
     const uint8_t* __restrict__ pnp, int P, int N,
-    int* __restrict__ out_assign) {
+    int* __restrict__ out_assign, const __grid_constant__ RsvArgs ra) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ long long s_best[2];
   __shared__ long long s_warp[kWarps];
@@ -151,7 +222,7 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int wid = tid >> 5;
-  const Layout L(N, Q, QD);
+  const Layout L(N, Q, QD, kRsv, kRsv ? ra.staged : 0);
   const int S = L.S;
   const int lo = rank * S;
   const int cnt = max(0, min(N, lo + S) - lo);
@@ -164,15 +235,18 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
   int* w_flags = w_idx + kWin;
   int* w_qid = w_flags + kWin;
   int* w_req = w_qid + kWin;
+  int* row_s = w_req + kWin * kDims;  // K4r's staged records
   unsigned char* qbytes =
-      smem + 4 * (L.quota_ints + L.win_ints + (kNodesInSmem ? L.node_ints
-                                                             : 0));
+      smem + 4 * (L.quota_ints + L.win_ints + L.row_ints +
+                  (kNodesInSmem ? L.node_ints : 0));
   uint8_t* checked = qbytes;
   uint8_t* qvalid = qbytes + Q * kDims;
+  uint8_t* boost_at = qbytes + L.quota_bytes +
+                      (kNodesInSmem ? L.node_bytes : 0);
   int* node_i;
   unsigned char* node_b;
   if (kNodesInSmem) {
-    node_i = w_req + kWin * kDims;
+    node_i = row_s + L.row_ints;
     node_b = qbytes + L.quota_bytes;
   } else {
     node_i = reinterpret_cast<int*>(scratch + rank * L.scratch_bytes());
@@ -220,6 +294,35 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
     }
     for (int i = tid; i < Q * QD; i += kThreads) chain[i] = q_chain_g[i];
     for (int i = tid; i < Q; i += kThreads) qvalid[i] = q_valid_g[i];
+  }
+  // K4r: this CTA's records, [r_lo, r_hi) of the sorted rows (the rows on
+  // nodes [lo, lo + S)), staged in shared memory or read in place
+  int r_lo = 0, vc = 0;
+  int* rw = nullptr;
+  if constexpr (kRsv) {
+    if (tid < 2) {
+      const int key = lo + tid * S;
+      int a = 0, b = ra.V;
+      while (a < b) {
+        const int m = (a + b) >> 1;
+        if (ra.rows[static_cast<long long>(m) * kRsvInts + kRsvNode] < key)
+          a = m + 1;
+        else
+          b = m;
+      }
+      s_warp[tid] = a;  // free until the first pod's reduction
+    }
+    for (int i = tid; i < S; i += kThreads) boost_at[i] = 0;
+    __syncthreads();
+    r_lo = static_cast<int>(s_warp[0]);
+    vc = static_cast<int>(s_warp[1]) - r_lo;
+    int* src = ra.rows + static_cast<long long>(r_lo) * kRsvInts;
+    if (ra.staged > 0) {
+      for (int i = tid; i < vc * kRsvInts; i += kThreads) row_s[i] = src[i];
+      rw = row_s;
+    } else {
+      rw = src;
+    }
   }
   __syncthreads();
   cluster.sync();  // every CTA runs before any reads a peer's s_best
@@ -298,6 +401,37 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
     const int idx = s_pod;
     if (idx < 0) break;
 
+    if constexpr (kRsv) {
+      // reservation_fit over this CTA's rows, and the node flags
+      // (reservation_node_mask) of the rows that fit
+      const uint8_t* mrow =
+          ra.match + static_cast<long long>(idx) * ra.V + r_lo;
+      for (int j = tid; j < vc; j += kThreads) {
+        int* rec = rw + j * kRsvInts;
+        const int flags = rec[kRsvFlags];
+        bool ok = mrow[j] != 0;
+        const int i = rec[kRsvNode] - lo;
+        if (ok) {
+          bool any_rem = false, aligned = true, restricted = true;
+#pragma unroll
+          for (int r = 0; r < kDims; ++r) {
+            const int rem = wsub(rec[r], rec[kDims + r]);
+            any_rem = any_rem || rem > 0;
+            const int q = s_req[r];
+            if (q != 0) {
+              const int fr = n_free[r * S + i];
+              aligned = aligned && q <= wadd(rem, fr);
+              restricted = restricted && (rec[r] > 0 ? q <= rem : q <= fr);
+            }
+          }
+          ok = any_rem && ((flags & kRsvRestricted) ? restricted : aligned);
+        }
+        rec[kRsvFlags] = ok ? (flags | kRsvFit) : (flags & ~kRsvFit);
+        if (ok) boost_at[i] = 1;
+      }
+      __syncthreads();
+    }
+
     // this CTA's best (score, -node) rank over its nodes
     const unsigned long long mask = s_mask;
     const PodRef pod{s_req, s_est, 1, s_ps};
@@ -309,7 +443,14 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
                           n_flags[i]};
       const bool nv = (nr.flags & kValidFlag) != 0;
       bool ok;
-      const int score = pair_score(nr, pod, cfg, ok);
+      int score;
+      if constexpr (kRsv) {
+        const bool via = boost_at[i] != 0;
+        score = pair_score(nr, pod, cfg, ok, via);
+        if (via) score = wadd(score, ra.boost);
+      } else {
+        score = pair_score(nr, pod, cfg, ok);
+      }
       bool fe = ok && nv;
       if (sel != nullptr) {
         fe = fe && selector_ok(mask, n_cls[i], C);
@@ -325,6 +466,12 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
       best = warp_max(lane < kWarps ? s_warp[lane] : LLONG_MIN);
       if (lane == 0) s_best[parity] = best;
     }
+    if constexpr (kRsv) {
+      // every thread is past the node scan: clear the flags for the next
+      // pod (the fit bits stay for the nomination)
+      for (int j = tid; j < vc; j += kThreads)
+        boost_at[rw[j * kRsvInts + kRsvNode] - lo] = 0;
+    }
     // the cluster's maximum: every CTA reads the 16 ranks
     cluster_arrive();
     cluster_wait();
@@ -338,12 +485,45 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
             0x7FFFFFFF - static_cast<int>(best & 0xFFFFFFFFll);
         const int i = node - lo;
         if (i >= 0 && i < cnt) {
+          int charge = lane < kDims ? s_req[lane] : 0;
+          if constexpr (kRsv) {
+            // nominate_reservation: the fitting row on the node with the
+            // smallest total remainder, the lowest row on ties (the
+            // records of one node are in row order)
+            long long key = LLONG_MAX;
+            for (int j = lane; j < vc; j += 32) {
+              const int* rec = rw + j * kRsvInts;
+              if ((rec[kRsvFlags] & kRsvFit) && rec[kRsvNode] == node) {
+                int total = 0;
+#pragma unroll
+                for (int r = 0; r < kDims; ++r)
+                  total = wadd(total, wsub(rec[r], rec[kDims + r]));
+                key = min(key, (static_cast<long long>(total) << 32) |
+                                   static_cast<unsigned int>(j));
+              }
+            }
+            key = warp_min(key);
+            // allocate_from_reservation: draw min(request, remainder) per
+            // dim, charge the node the spill
+            if (key != LLONG_MAX) {
+              int* rec = rw + static_cast<int>(key & 0xFFFFFFFFll) * kRsvInts;
+              if (lane < kDims) {
+                const int rem = wsub(rec[lane], rec[kDims + lane]);
+                const int take = min(charge, rem);
+                rec[kDims + lane] = (rec[kRsvFlags] & kRsvOnce)
+                                        ? rec[lane]
+                                        : wadd(rec[kDims + lane], take);
+                charge = wsub(charge, take);
+              }
+              if (lane == 0) ra.out_rsv[idx] = rec[kRsvRow];
+            }
+          }
           if (lane < kDims) {
-            // requested += req, the in-flight estimate += est: the free
-            // capacity falls by req, the usage and the threshold's
-            // left side rise by est and 100 * est
+            // requested += the charge, the in-flight estimate += est: the
+            // free capacity falls by the charge, the usage and the
+            // threshold's left side rise by est and 100 * est
             const int o = lane * S + i;
-            n_free[o] = wsub(n_free[o], s_req[lane]);
+            n_free[o] = wsub(n_free[o], charge);
             n_use[o] = wadd(n_use[o], s_est[lane]);
             n_thx[o] = wadd(n_thx[o], wmul(kMaxScore, s_est[lane]));
           }
@@ -381,10 +561,18 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
       q_min_g[i] = min_head[i];
     }
   }
+  if constexpr (kRsv) {
+    if (ra.staged > 0) {
+      int* dst = ra.rows + static_cast<long long>(r_lo) * kRsvInts;
+      for (int j = tid; j < vc; j += kThreads)
+        for (int r = 0; r < kDims; ++r)
+          dst[j * kRsvInts + kDims + r] = row_s[j * kRsvInts + kDims + r];
+    }
+  }
   cluster.sync();  // no CTA leaves while a peer may still read its s_best
 }
 
-template <bool kNodesInSmem>
+template <bool kNodesInSmem, bool kRsv>
 cudaError_t launch(long long smem, cudaStream_t st, const int* alloc,
                    int* reqd, const int* usage, const int* base,
                    const uint8_t* nvalid, const int* nclass,
@@ -394,8 +582,9 @@ cudaError_t launch(long long smem, cudaStream_t st, const int* alloc,
                    const ScoreCfg& cfg, int* q_head, int* q_min,
                    const uint8_t* q_checked, const int* q_chain,
                    const uint8_t* q_valid, int Q, int QD, const int* pquota,
-                   const uint8_t* pnp, int P, int N, int* out_assign) {
-  auto kernel = greedy_scan_kernel<kNodesInSmem>;
+                   const uint8_t* pnp, int P, int N, int* out_assign,
+                   const RsvArgs& ra) {
+  auto kernel = greedy_scan_kernel<kNodesInSmem, kRsv>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
@@ -418,11 +607,13 @@ cudaError_t launch(long long smem, cudaStream_t st, const int* alloc,
   return cudaLaunchKernelEx(&lc, kernel, alloc, reqd, usage, base, nvalid,
                             nclass, scratch, preq, pest, pvalid, order, sel,
                             C, feas, cfg, q_head, q_min, q_checked, q_chain,
-                            q_valid, Q, QD, pquota, pnp, P, N, out_assign);
+                            q_valid, Q, QD, pquota, pnp, P, N, out_assign,
+                            ra);
 }
 
-// The dynamic shared memory a K4 CTA may take: the card's opt-in limit
-// less the kernel's static shared memory.
+// The dynamic shared memory a CTA may take: the card's opt-in limit less
+// the kernel's static shared memory.
+template <bool kRsv>
 cudaError_t smem_room(long long* room) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -431,10 +622,88 @@ cudaError_t smem_room(long long* room) {
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   cudaFuncAttributes fa;
   if (err == cudaSuccess)
-    err = cudaFuncGetAttributes(&fa, greedy_scan_kernel<true>);
+    err = cudaFuncGetAttributes(&fa, greedy_scan_kernel<true, kRsv>);
   if (err == cudaSuccess)
     *room = optin - static_cast<long long>(fa.sharedSizeBytes);
   return err;
+}
+
+// Where a scan's state lies: the node columns in shared memory or in the
+// global scratch; K4r's records staged in shared memory (``staged`` slots
+// a CTA) or read in place.
+struct Plan {
+  bool nodes_in_smem;
+  int staged;
+  long long smem;
+};
+
+template <bool kRsv>
+cudaError_t plan_for(int N, int Q, int QD, int vmax, Plan* plan) {
+  long long room = 0;
+  cudaError_t err = smem_room<kRsv>(&room);
+  if (err != cudaSuccess) return err;
+  plan->nodes_in_smem = Layout(N, Q, QD, kRsv).smem_bytes(true) <= room;
+  plan->staged = 0;
+  if (kRsv && vmax > 0 &&
+      Layout(N, Q, QD, true, vmax).smem_bytes(plan->nodes_in_smem) <= room)
+    plan->staged = vmax;
+  plan->smem =
+      Layout(N, Q, QD, kRsv, plan->staged).smem_bytes(plan->nodes_in_smem);
+  return cudaSuccess;
+}
+
+template <bool kRsv>
+int scan(const int* alloc, int* reqd, const int* usage, const int* base,
+         const uint8_t* nvalid, const int* nclass, unsigned char* scratch,
+         const int* preq, const int* pest, const uint8_t* pvalid,
+         const int* order, const uint8_t* sel, int C, const uint8_t* feas,
+         const int* cfg, int cfg_len, int* q_head, int* q_min,
+         const uint8_t* q_checked, const int* q_chain, const uint8_t* q_valid,
+         int Q, int QD, const int* pquota, const uint8_t* pnp, int P, int N,
+         int* out_assign, const RsvArgs& ra, int vmax, void* stream) {
+  if (cfg_len != kCfgLen || cfg == nullptr || C > 64 || N < 1 ||
+      (sel == nullptr) == (feas == nullptr) ||
+      (q_head != nullptr && (Q < 1 || QD < 1)) ||
+      (kRsv && (ra.V < 0 || vmax < 0 || vmax > ra.V || ra.out_rsv == nullptr ||
+                (ra.V > 0 && (ra.rows == nullptr || ra.match == nullptr))))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (q_head == nullptr) Q = QD = 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  ScoreCfg sc;
+  load_score_cfg(sc, cfg);
+  Plan plan;
+  cudaError_t err = plan_for<kRsv>(N, Q, QD, vmax, &plan);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  RsvArgs args = ra;
+  args.staged = plan.staged;
+  if (plan.nodes_in_smem) {
+    err = launch<true, kRsv>(plan.smem, st, alloc, reqd, usage, base, nvalid,
+                             nclass, scratch, preq, pest, pvalid, order, sel,
+                             C, feas, sc, q_head, q_min, q_checked, q_chain,
+                             q_valid, Q, QD, pquota, pnp, P, N, out_assign,
+                             args);
+  } else if (scratch == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    // the quota replica and the window must fit; the node columns stream
+    // from the global scratch
+    err = launch<false, kRsv>(plan.smem, st, alloc, reqd, usage, base,
+                              nvalid, nclass, scratch, preq, pest, pvalid,
+                              order, sel, C, feas, sc, q_head, q_min,
+                              q_checked, q_chain, q_valid, Q, QD, pquota, pnp,
+                              P, N, out_assign, args);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kRsv>
+long long scratch_bytes(int N, int Q, int QD) {
+  Plan plan;
+  if (plan_for<kRsv>(N, Q, QD, 0, &plan) != cudaSuccess) return -1;
+  return plan.nodes_in_smem ? 0
+                            : kCluster * Layout(N, Q, QD).scratch_bytes();
 }
 
 }  // namespace
@@ -444,10 +713,7 @@ cudaError_t smem_room(long long* room) {
 // replica, else 0 (the scratch may then be null).  -1 when the card cannot
 // be asked.
 extern "C" long long koord_greedy_scan_scratch_bytes(int N, int Q, int QD) {
-  long long room = 0;
-  if (smem_room(&room) != cudaSuccess) return -1;
-  const Layout L(N, Q, QD);
-  return L.smem_bytes(true) <= room ? 0 : kCluster * L.scratch_bytes();
+  return scratch_bytes<false>(N, Q, QD);
 }
 
 extern "C" int koord_greedy_scan(
@@ -459,34 +725,53 @@ extern "C" int koord_greedy_scan(
     const uint8_t* q_checked, const int* q_chain, const uint8_t* q_valid,
     int Q, int QD, const int* pquota, const uint8_t* pnp, int P, int N,
     int* out_assign, void* stream) {
-  if (cfg_len != kCfgLen || cfg == nullptr || C > 64 || N < 1 ||
-      (sel == nullptr) == (feas == nullptr) ||
-      (q_head != nullptr && (Q < 1 || QD < 1))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (q_head == nullptr) Q = QD = 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  ScoreCfg sc;
-  load_score_cfg(sc, cfg);
-  long long room = 0;
-  cudaError_t err = smem_room(&room);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Layout L(N, Q, QD);
-  if (L.smem_bytes(true) <= room) {
-    err = launch<true>(L.smem_bytes(true), st, alloc, reqd, usage, base,
-                       nvalid, nclass, scratch, preq, pest, pvalid, order,
-                       sel, C, feas, sc, q_head, q_min, q_checked, q_chain,
-                       q_valid, Q, QD, pquota, pnp, P, N, out_assign);
-  } else if (scratch == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    // the quota replica and the window must fit; the node columns stream
-    // from the global scratch
-    err = launch<false>(L.smem_bytes(false), st, alloc, reqd, usage, base,
-                        nvalid, nclass, scratch, preq, pest, pvalid, order,
-                        sel, C, feas, sc, q_head, q_min, q_checked, q_chain,
-                        q_valid, Q, QD, pquota, pnp, P, N, out_assign);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  const RsvArgs none = {nullptr, 0, 0, nullptr, 0, nullptr};
+  return scan<false>(alloc, reqd, usage, base, nvalid, nclass, scratch, preq,
+                     pest, pvalid, order, sel, C, feas, cfg, cfg_len, q_head,
+                     q_min, q_checked, q_chain, q_valid, Q, QD, pquota, pnp,
+                     P, N, out_assign, none, 0, stream);
+}
+
+// K4r's nodes per CTA (its records are grouped by the CTA owning their
+// node: node // this) and its global scratch, as for K4.
+extern "C" long long koord_reservation_scan_nodes_per_cta(int N) {
+  return nodes_per_cta(N);
+}
+
+extern "C" long long koord_reservation_scan_scratch_bytes(int N, int Q,
+                                                          int QD) {
+  return scratch_bytes<true>(N, Q, QD);
+}
+
+// Where a K4r launch keeps its state: bit 0 set when the node columns are
+// in shared memory, bit 1 when the records are staged there (``vmax``
+// records a CTA); -1 when the card cannot be asked.
+extern "C" long long koord_reservation_scan_plan(int N, int Q, int QD,
+                                                 int vmax) {
+  Plan plan;
+  if (plan_for<true>(N, Q, QD, vmax, &plan) != cudaSuccess) return -1;
+  return (plan.nodes_in_smem ? 1 : 0) | (plan.staged > 0 ? 2 : 0);
+}
+
+// K4r: the scan of koord_greedy_scan with reservations.  ``rows`` holds the
+// V placed reservation records sorted by node (kRsvInts ints each; the
+// allocated columns are updated in place), ``vmax`` the most records on
+// one CTA's nodes, ``match`` the (P, V) owner match in record order;
+// ``out_rsv`` (P,) gets each placed pod's reservation row (it holds -1 on
+// entry).
+extern "C" int koord_reservation_scan(
+    const int* alloc, int* reqd, const int* usage, const int* base,
+    const uint8_t* nvalid, const int* nclass, unsigned char* scratch,
+    const int* preq, const int* pest, const uint8_t* pvalid,
+    const int* order, const uint8_t* sel, int C, const uint8_t* feas,
+    const int* cfg, int cfg_len, int* q_head, int* q_min,
+    const uint8_t* q_checked, const int* q_chain, const uint8_t* q_valid,
+    int Q, int QD, const int* pquota, const uint8_t* pnp, int P, int N,
+    int* rows, int V, int vmax, const uint8_t* match, int boost,
+    int* out_assign, int* out_rsv, void* stream) {
+  const RsvArgs ra = {rows, V, 0, match, boost, out_rsv};
+  return scan<true>(alloc, reqd, usage, base, nvalid, nclass, scratch, preq,
+                    pest, pvalid, order, sel, C, feas, cfg, cfg_len, q_head,
+                    q_min, q_checked, q_chain, q_valid, Q, QD, pquota, pnp, P,
+                    N, out_assign, ra, vmax, stream);
 }

@@ -1,6 +1,6 @@
 // One definition of the Filter + Score of a (pod, node) pair and of the
 // candidate ranking, shared by K1 (select_candidates.cu), K2
-// (refresh_candidates.cu) and K4 (greedy_scan.cu), so the three kernels
+// (refresh_candidates.cu) and K4/K4r (greedy_scan.cu), so the kernels
 // compile the same arithmetic and rank on one scale.
 //
 // The JAX reference of each helper:
@@ -213,16 +213,22 @@ struct PodRef {
 // apos() (bit r: a > 0).  Each term walks only its own dimensions, as bit
 // masks: the pod's nonzero requests (fit), the configured thresholds on
 // allocatable dims, the LoadAware weights, the FitPlus weights on
-// requested dims.
+// requested dims.  ``via`` (K4r: the node holds a reservation the pod fits
+// through) passes the fit whatever the free capacity; the usage threshold
+// still applies.
 template <class Row>
 __device__ __forceinline__ int pair_score(const Row& n, const PodRef& t,
-                                          const ScoreCfg& c, bool& ok) {
+                                          const ScoreCfg& c, bool& ok,
+                                          bool via = false) {
   const uint32_t apos = n.apos();
   // NodeResourcesFit against the request-free capacity (0 when invalid)
-  bool fit = true;
-  for (uint32_t m = t.s.qnz; m != 0; m &= m - 1) {
-    const int r = __ffs(m) - 1;
-    fit = fit & (t.q(r) <= n.fr(r));
+  bool fit = via;
+  if (!via) {
+    fit = true;
+    for (uint32_t m = t.s.qnz; m != 0; m &= m - 1) {
+      const int r = __ffs(m) - 1;
+      fit = fit & (t.q(r) <= n.fr(r));
+    }
   }
   // usage threshold, cross-multiplied round-half-up (filtering.py:62-72)
   bool thr_ok = true;

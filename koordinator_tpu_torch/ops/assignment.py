@@ -8,7 +8,10 @@
   in priority order (the reference's scheduleOne loop over a whole queue).
   On CUDA tensors it runs the K4 kernel (``kernels/greedy_scan.py``); its
   plain version :func:`greedy_assign_plain` is a Python loop over pods.  The
-  rescue pass and rounds under the batch-solver threshold run it.
+  rescue pass and rounds under the batch-solver threshold run it.  The loop
+  itself, :func:`greedy_scan_plain`, also takes reservations: the plain
+  version of K4r, which ``ops/reservation.py`` ``reservation_greedy_assign``
+  runs for the scheduler's reservation pre-pass.
 
 The scoring pipeline composes the scheduler profile's score plugins:
   final = la_w * LoadAware + fp_w * NodeResourcesFitPlus + sc_w * ScarceResourceAvoidance
@@ -169,17 +172,46 @@ def greedy_assign(state: ClusterState, pods: PodBatch, cfg: ScoringConfig,
 def greedy_assign_plain(state: ClusterState, pods: PodBatch,
                         cfg: ScoringConfig, quota=None):
     """Assign a whole pending batch sequentially in priority order (the JAX
-    package's ``greedy_assign``/``_greedy_scan`` without the reservation
-    branch): one pod per step, each filtered and scored against the
-    accounting its predecessors left, ties to the lowest node index.
+    package's ``greedy_assign``): :func:`greedy_scan_plain` without
+    reservations.
 
     Returns (assignments, new_state, new_quota): assignments is (P,) int32
     node row per pod (batch order), -1 = unschedulable; new_state carries
     the updated node_requested; new_quota is None unless a
     :class:`QuotaDeviceState` is given, which then also admits and is
-    charged per pod.  Invalid rows are skipped: in the JAX scan they assign
-    -1 and add zero, so skipping them gives the same bits.
+    charged per pod.
     """
+    assignments, _, new_state, _, new_quota = greedy_scan_plain(
+        state, pods, cfg, quota)
+    return assignments, new_state, new_quota
+
+
+def greedy_scan_plain(state: ClusterState, pods: PodBatch,
+                      cfg: ScoringConfig, quota=None, rsv=None, match=None,
+                      rsv_boost: int = 10_000):
+    """The JAX package's ``_greedy_scan`` as a Python loop over pods: one
+    pod per step, each filtered and scored against the accounting its
+    predecessors left, ties to the lowest node index.
+
+    With a :class:`~koordinator_tpu_torch.ops.reservation.ReservationSet`
+    ``rsv`` and its (P, V) owner ``match``, each step also extends the fit
+    with the pod's fitting matched reservations, adds ``rsv_boost`` to
+    their nodes' scores, nominates a reservation on the chosen node and
+    charges the node only the part of the request that reservation does
+    not cover.
+
+    Returns (assignments, rsv_choice, new_state, new_rsv, new_quota); the
+    reservation outputs are None when ``rsv`` is None.  Invalid rows are
+    skipped: in the JAX scan they assign -1 and add zero, so skipping them
+    gives the same bits, and so is a pod no node takes.
+    """
+    from koordinator_tpu_torch.ops.reservation import (
+        allocate_from_reservation,
+        nominate_reservation,
+        reservation_fit,
+        reservation_node_mask,
+    )
+
     dev = state.device
     order = priority_order(pods).tolist()
     valid = pods.valid.tolist()
@@ -189,6 +221,9 @@ def greedy_assign_plain(state: ClusterState, pods: PodBatch,
     est_added = torch.zeros_like(state.node_usage)
     assignments = torch.full((pods.capacity,), -1, dtype=torch.int32,
                              device=dev)
+    rsv_choice = (None if rsv is None else
+                  torch.full((pods.capacity,), -1, dtype=torch.int32,
+                             device=dev))
     alloc = state.node_allocatable
     node_valid = state.node_valid
     for idx in order:
@@ -198,6 +233,11 @@ def greedy_assign_plain(state: ClusterState, pods: PodBatch,
         pod_est = pod_est_all[idx]
         free = torch.where(node_valid[:, None], alloc - requested, 0)
         fits = torch.all((req[None, :] <= free) | (req[None, :] == 0), dim=-1)
+        if rsv is not None:
+            fits_v = reservation_fit(rsv, free, req[None, :],
+                                     match[idx:idx + 1])
+            via_rsv = reservation_node_mask(fits_v, rsv, state.capacity)[0]
+            fits = fits | via_rsv
         feasible = (
             fits
             & _threshold_mask(cfg, state.node_usage + est_added,
@@ -214,14 +254,24 @@ def greedy_assign_plain(state: ClusterState, pods: PodBatch,
         scores = _composite_score(
             cfg, alloc, requested, state.node_usage + est_added,
             req[None, :], pod_est[None, :])[0]
+        if rsv is not None:
+            scores = scores + torch.where(via_rsv, rsv_boost, 0).to(
+                scores.dtype)
         masked = torch.where(feasible, scores, -1)
         best = int(torch.argmax(masked))
         if int(masked[best]) < 0:
             continue
-        requested[best] += req
+        add = req
+        if rsv is not None:
+            node = torch.tensor([best], dtype=torch.int32, device=dev)
+            r_idx = int(nominate_reservation(fits_v, rsv, node)[0])
+            rsv, add = allocate_from_reservation(rsv, r_idx, req)
+            rsv_choice[idx] = r_idx
+        requested[best] += add
         est_added[best] += pod_est
         assignments[idx] = best
         if quota is not None:
             quota = charge_quota(quota, req, pods.quota_id[idx],
                                  non_preemptible=pods.non_preemptible[idx])
-    return assignments, state.replace(node_requested=requested), quota
+    return (assignments, rsv_choice, state.replace(node_requested=requested),
+            rsv, quota)

@@ -1,0 +1,353 @@
+"""Host-side reservation lifecycle: phases, owner matching, expiration (port
+of ``koordinator_tpu/scheduler/reservations.py``).
+
+Mirrors koordinator's reservation cache and controller
+(pkg/scheduler/plugins/reservation/cache.go, controller/, and the phase
+machine of apis/scheduling/v1alpha1/reservation_types.go: Pending ->
+Available -> Succeeded | Failed/Expired).  The lifecycle stays on the host;
+only the Available set is shipped to the device as a
+:class:`~koordinator_tpu_torch.ops.reservation.ReservationSet`.
+
+Owner matching (OwnerMatchers: label selector and/or controller reference)
+is evaluated on the host into a dense (pods x reservations) boolean matrix
+consumed by the scan.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+import numpy as np
+
+from koordinator_tpu_torch.ops.reservation import ReservationSet
+from koordinator_tpu_torch.scheduler.snapshot import ClusterSnapshot, PodSpec
+
+
+class ReservationPhase(enum.Enum):
+    PENDING = "Pending"        # created, not yet placed on a node
+    AVAILABLE = "Available"    # placed; owners may allocate
+    SUCCEEDED = "Succeeded"    # allocate-once consumed / all owners bound
+    FAILED = "Failed"
+    EXPIRED = "Expired"
+
+
+@dataclasses.dataclass
+class OwnerMatcher:
+    """One OwnerMatchers entry: pod matches if all selector kv-pairs match
+    its labels AND (if set) its controller key equals ``controller``."""
+
+    labels: dict[str, str] = dataclasses.field(default_factory=dict)
+    controller: str | None = None
+
+    def matches(self, pod: PodSpec) -> bool:
+        pod_labels = getattr(pod, "labels", {}) or {}
+        if any(pod_labels.get(k) != v for k, v in self.labels.items()):
+            return False
+        if self.controller is not None:
+            if getattr(pod, "owner", None) != self.controller:
+                return False
+        return True
+
+
+@dataclasses.dataclass
+class ReservationSpec:
+    name: str
+    requests: np.ndarray                    # (R,) reserved vector
+    owners: list[OwnerMatcher] = dataclasses.field(default_factory=list)
+    allocate_once: bool = False
+    restricted: bool = False                # AllocatePolicy Restricted vs Aligned
+    ttl_sec: float | None = None            # spec.ttl; None = never expires
+    node: str | None = None                 # pre-pinned node (spec.template nodeName)
+    #: reserve-pod template placement constraints (spec.template
+    #: nodeSelector / tolerations) — honored by the placement solve
+    node_selector: dict[str, str] = dataclasses.field(default_factory=dict)
+    tolerations: dict[str, str] = dataclasses.field(default_factory=dict)
+
+    # status
+    phase: ReservationPhase = ReservationPhase.PENDING
+    allocated: np.ndarray | None = None     # (R,)
+    owner_pods: list[str] = dataclasses.field(default_factory=list)
+    available_at: float = 0.0
+    created_at: float = 0.0                 # for Pending-phase TTL expiry
+    #: instance identity: a same-named re-created reservation gets a new
+    #: generation, so stale bind records can't credit the wrong instance
+    generation: int = 0
+    #: snapshot.node_generation at placement: the node INSTANCE the
+    #: reserved vector was charged to — the remainder must not release
+    #: against a re-added same-name node that started clean
+    node_generation: int = 0
+
+
+class ReservationCache:
+    """Name-keyed reservation store; builds the device tensors."""
+
+    def __init__(self) -> None:
+        self._specs: dict[str, ReservationSpec] = {}
+        self._next_generation = 1
+
+    def __len__(self) -> int:
+        return len(self._specs)
+
+    def get(self, name: str) -> ReservationSpec | None:
+        return self._specs.get(name)
+
+    def upsert(self, spec: ReservationSpec) -> None:
+        spec.generation = self._next_generation
+        self._next_generation += 1
+        self._specs[spec.name] = spec
+
+    def gc(self) -> list[str]:
+        """Drop terminal specs (EXPIRED / SUCCEEDED): their accounting is
+        settled — an Expired reservation returned its remainder, a Succeeded
+        one frees with its consuming pod (return_allocation rejects both by
+        phase, so bind records of dead instances free their full vector)."""
+        dead = [
+            n for n, s in self._specs.items()
+            if s.phase in (ReservationPhase.EXPIRED,
+                           ReservationPhase.SUCCEEDED,
+                           ReservationPhase.FAILED)
+        ]
+        for n in dead:
+            del self._specs[n]
+        return dead
+
+    def remove(self, name: str, snapshot: ClusterSnapshot | None = None) -> None:
+        spec = self._specs.pop(name, None)
+        if spec is None:
+            return
+        if snapshot is not None and spec.phase is ReservationPhase.AVAILABLE:
+            self._return_remainder(spec, snapshot)
+
+    def make_available(
+        self, name: str, node: str, snapshot: ClusterSnapshot,
+        now: float = 0.0, charge: bool = True,
+    ) -> None:
+        """The reserve-pod got 'bound': charge the full reserved vector to the
+        node (so ordinary pods can't see it) and open the reservation.
+        ``charge=False`` is the solve path (_commit_reserve_pod), where
+        the batch solve already charged the vector to node_requested —
+        the ONE transition implementation serves both paths so a new
+        field (as node_generation was) cannot be stamped in only one."""
+        spec = self._specs[name]
+        spec.node = node
+        spec.node_generation = snapshot.node_generation.get(node, 0)
+        spec.phase = ReservationPhase.AVAILABLE
+        spec.available_at = now
+        spec.allocated = np.zeros_like(spec.requests)
+        if charge:
+            snapshot.reserve(node, spec.requests)
+
+    def fail_stale_instances(self, snapshot: ClusterSnapshot) -> list[str]:
+        """Fail Available reservations whose NODE INSTANCE is gone — the
+        node was removed (or removed and re-added under the same name;
+        the fresh instance started clean and was never charged).  Their
+        accounting died with the instance, so no remainder returns, and
+        the FAILED phase makes return_allocation reject stale bind
+        records (their pods then free their full vector).  Without this
+        sweep a stale Available spec would project its reserved vector
+        onto a fresh same-name node build_set resolves by NAME —
+        oversubscribing it — and a deleted owner pod would leak its
+        drawn amount into spec.allocated forever."""
+        failed = []
+        for spec in self._specs.values():
+            if spec.phase is not ReservationPhase.AVAILABLE:
+                continue
+            if spec.node is None:
+                continue
+            if (spec.node not in snapshot.node_index
+                    or snapshot.node_generation.get(spec.node, 0)
+                    != spec.node_generation):
+                spec.phase = ReservationPhase.FAILED
+                failed.append(spec.name)
+        return failed
+
+    def expire_tick(self, now: float, snapshot: ClusterSnapshot) -> list[str]:
+        """Expire reservations past their TTL: an Available one returns its
+        unallocated remainder to node free capacity (controller/ expiration);
+        a still-Pending one (reserve-pod never placed) simply expires —
+        nothing was ever charged."""
+        expired = []
+        for spec in self._specs.values():
+            if spec.ttl_sec is None:
+                continue
+            if (
+                spec.phase is ReservationPhase.AVAILABLE
+                and now - spec.available_at >= spec.ttl_sec
+            ):
+                spec.phase = ReservationPhase.EXPIRED
+                self._return_remainder(spec, snapshot)
+                expired.append(spec.name)
+            elif (
+                spec.phase is ReservationPhase.PENDING
+                and now - spec.created_at >= spec.ttl_sec
+            ):
+                spec.phase = ReservationPhase.EXPIRED
+                expired.append(spec.name)
+        return expired
+
+    def specs(self) -> list[ReservationSpec]:
+        return list(self._specs.values())
+
+    def pending(self) -> list[ReservationSpec]:
+        return [
+            s for s in self._specs.values()
+            if s.phase is ReservationPhase.PENDING
+        ]
+
+    def return_allocation(self, name: str, drawn: np.ndarray,
+                          generation: int = 0) -> bool:
+        """An owner pod freed: give its drawn vector back to the reservation
+        remainder.  Returns True when the SAME reservation instance still
+        holds the node charge (caller then unreserves only the pod's spill);
+        False when it is gone/consumed/re-created (caller frees the pod's
+        full backing)."""
+        spec = self._specs.get(name)
+        if (
+            spec is None
+            or spec.allocated is None
+            or spec.phase is not ReservationPhase.AVAILABLE
+            or (generation and spec.generation != generation)
+        ):
+            return False
+        spec.allocated = np.maximum(
+            spec.allocated - drawn.astype(spec.allocated.dtype), 0
+        )
+        return True
+
+    def _return_remainder(self, spec: ReservationSpec, snapshot: ClusterSnapshot) -> None:
+        remainder = spec.requests - (
+            spec.allocated if spec.allocated is not None else 0
+        )
+        # The node may have been deleted since the reservation became
+        # Available (its accounting died with the row) or re-added under
+        # the same name (the fresh instance started clean) — the
+        # instance-checked release covers both.
+        if spec.node is not None:
+            snapshot.unreserve_instance(
+                spec.node, np.maximum(remainder, 0), spec.node_generation)
+
+    # -- device tensors ---------------------------------------------------------
+
+    def available(self) -> list[ReservationSpec]:
+        return [
+            s for s in self._specs.values() if s.phase is ReservationPhase.AVAILABLE
+        ]
+
+    def build_set(
+        self, snapshot: ClusterSnapshot, capacity: int | None = None
+    ) -> tuple[ReservationSet, list[str]]:
+        """(device set, row->name map) over Available reservations."""
+        avail = self.available()
+        names = [s.name for s in avail]
+        if not avail:
+            return (ReservationSet.zeros(capacity or 16,
+                                         device=snapshot.device), names)
+        reserved = np.stack([s.requests for s in avail]).astype(np.int32)
+        allocated = np.stack(
+            [s.allocated if s.allocated is not None else np.zeros_like(s.requests)
+             for s in avail]
+        ).astype(np.int32)
+        node_idx = np.array(
+            # resolve by INSTANCE, not just name: a re-added same-name
+            # node was never charged for this reservation (the
+            # fail_stale_instances sweep normally catches these first;
+            # this guards exotic call orders)
+            [snapshot.node_index.get(s.node, -1)
+             if s.node and snapshot.node_generation.get(s.node, 0)
+             == s.node_generation else -1
+             for s in avail],
+            np.int32,
+        )
+        return (
+            ReservationSet.build(
+                reserved,
+                node_idx,
+                allocated=allocated,
+                allocate_once=np.array([s.allocate_once for s in avail]),
+                restricted=np.array([s.restricted for s in avail]),
+                capacity=capacity,
+                device=snapshot.device,
+            ),
+            names,
+        )
+
+    def match_matrix(self, pods: list[PodSpec], pod_capacity: int,
+                     rsv_capacity: int) -> np.ndarray:
+        """(P, V) bool owner-match matrix for the Available set.
+
+        A match depends only on the pod's labels and owner and on the
+        reservation's matchers: each distinct (labels, owner) pair is
+        tested once against each distinct matcher list, and the table is
+        gathered out to the (P, V) matrix."""
+        avail = self.available()[:rsv_capacity]
+        pods = pods[:pod_capacity]
+        out = np.zeros((pod_capacity, rsv_capacity), bool)
+        if not avail or not pods:
+            return out
+        pod_keys: dict[tuple, int] = {}
+        pod_rep: list[PodSpec] = []
+        pod_col = np.empty(len(pods), np.int64)
+        for i, pod in enumerate(pods):
+            key = (tuple(sorted((getattr(pod, "labels", {}) or {}).items())),
+                   getattr(pod, "owner", None))
+            k = pod_keys.get(key)
+            if k is None:
+                k = pod_keys[key] = len(pod_rep)
+                pod_rep.append(pod)
+            pod_col[i] = k
+        owner_keys: dict[tuple, int] = {}
+        owner_rep: list[list[OwnerMatcher]] = []
+        owner_col = np.empty(len(avail), np.int64)
+        for j, spec in enumerate(avail):
+            key = tuple((tuple(sorted(m.labels.items())), m.controller)
+                        for m in spec.owners)
+            k = owner_keys.get(key)
+            if k is None:
+                k = owner_keys[key] = len(owner_rep)
+                owner_rep.append(spec.owners)
+            owner_col[j] = k
+        table = np.array([[any(m.matches(pod) for m in owners)
+                           for owners in owner_rep] for pod in pod_rep],
+                         bool).reshape(len(pod_rep), len(owner_rep))
+        out[: len(pods), : len(avail)] = table[pod_col[:, None],
+                                               owner_col[None, :]]
+        return out
+
+    def commit_allocations(
+        self,
+        names: list[str],
+        pods: list[PodSpec],
+        assignments: np.ndarray,     # (P,) node rows
+        rsv_choice: np.ndarray,      # (P,) reservation rows, -1 = none
+    ) -> list[np.ndarray | None]:
+        """Mirror the device-side allocation back into host specs (Reserve).
+
+        Returns the per-pod vector drawn from its reservation (None for pods
+        that didn't allocate through one) so bind records can return it when
+        the pod is later freed."""
+        drawn: list[np.ndarray | None] = [None] * len(pods)
+        for i, pod in enumerate(pods):
+            r = int(rsv_choice[i])
+            if r < 0 or r >= len(names) or int(assignments[i]) < 0:
+                continue
+            spec = self._specs.get(names[r])
+            if (
+                spec is None
+                or spec.allocated is None
+                or spec.phase is not ReservationPhase.AVAILABLE
+                or not np.any(spec.requests > spec.allocated)
+            ):
+                continue
+            remainder = np.maximum(spec.requests - spec.allocated, 0)
+            take = np.minimum(pod.requests.astype(np.int64), remainder)
+            spec.allocated = spec.allocated + take.astype(spec.allocated.dtype)
+            spec.owner_pods.append(pod.name)
+            drawn[i] = take
+            if spec.allocate_once:
+                # the whole remainder is consumed on the pod's behalf; it
+                # must free with the pod, not leak when the pod dies
+                drawn[i] = remainder
+                spec.allocated = spec.requests.copy()
+                spec.phase = ReservationPhase.SUCCEEDED
+        return drawn

@@ -3,13 +3,23 @@
 
 One round, as the JAX ``Scheduler`` runs it with its defaults:
 
-1. flush the snapshot's dirty node rows into the device state;
+1. flush the snapshot's dirty node rows into the device state; when any
+   Reservation exists, run its tick: expire by TTL, fail those whose node
+   instance is gone, open a pinned one whose node has room (charging it),
+   and queue a synthetic reserve-pod ``rsv::<name>`` (priority 9000) for
+   every other Pending one;
 2. take the pending queue in (priority desc, creation, name) order and build
    the pod batch, with a stable per-pod-name rotation id (31-bit wrap).  An
    unchanged queue reuses the last batch whole; a changed one re-fills only
    the rows of new or re-specced pods (``_batch_cache``/``_batch_host``);
 3. refresh the quota tree's requests and flatten it to device state;
-4. solve.  Rounds under ``batch_solver_threshold`` pods take the exact
+   with an Available reservation that has something left, the
+   reservation pre-pass: up to ``rsv_prepass_cap`` owner-matched pods
+   (highest priority first) take the reservation-first exact scan (K4r,
+   ``ops/reservation.py`` ``reservation_greedy_assign``), draw from their
+   reservations and bind; their rows leave the batch;
+4. solve.  Rounds under ``batch_solver_threshold`` pods (counted before
+   the pre-pass) take the exact
    greedy scan (K4).  Batch rounds with ``incremental_solve`` take the
    candidate cache: the first round selects over the whole (P, N) problem
    and warms it (``full_cold``), later rounds refresh it over the dirty
@@ -21,8 +31,15 @@ One round, as the JAX ``Scheduler`` runs it with its defaults:
 5. rescue the batch solver's leftovers with the exact greedy scan over a
    compacted batch;
 6. adopt the solved state (marking the assigned rows dirty for the cache),
-   then bind: record the assignment, charge the quota tree's ``used``, call
+   then bind: a placed reserve-pod makes its reservation Available (the
+   solve already charged its vector); every other pod is recorded in the
+   ``bound`` registry, charges the quota tree's ``used`` and goes to
    ``bind_fn``.
+
+Removing a bound pod (:meth:`Scheduler.delete_pod`,
+:meth:`Scheduler.remove_bound_pod`) returns what it drew from a
+reservation to that reservation and frees only the rest of its request;
+removing or expiring a reservation returns its remainder to the node.
 
 ``last_solve_path`` names the path of the last round: the JAX scheduler's
 names for batch rounds, and ``greedy`` for a round under the threshold
@@ -32,14 +49,15 @@ labels its latency metric ``greedy``).
 Left out of this reduced shell, and kept by the JAX scheduler: gang
 registration and the WaitTime machine (every batch carries an empty
 ``GangInfo``, as the JAX round does when no gang is registered), hints and
-their dense masks, reservations, preemption, forecast and quality modes,
-degraded mode, tenancy, the solve mesh, and the journey, timeline and
-metrics hooks.
+their dense masks, preemption and nominations, the fine-grained CPU and
+device allocators, forecast and quality modes, degraded mode, tenancy, the
+solve mesh, and the journey, timeline and metrics hooks.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -47,13 +65,57 @@ import torch
 from koordinator_tpu_torch.ops import batch_assign as ba
 from koordinator_tpu_torch.ops.assignment import ScoringConfig
 from koordinator_tpu_torch.ops.gang import GangInfo, gang_assign
+from koordinator_tpu_torch.ops.reservation import reservation_greedy_assign
 from koordinator_tpu_torch.quota.admission import (
     QuotaDeviceState,
     quota_admission_mask,
 )
 from koordinator_tpu_torch.quota.tree import QuotaTree
+from koordinator_tpu_torch.scheduler.reservations import (
+    ReservationCache,
+    ReservationPhase,
+)
 from koordinator_tpu_torch.scheduler.snapshot import ClusterSnapshot, PodSpec
 from koordinator_tpu_torch.state.cluster_state import PodBatch, _bucket
+
+#: pending-queue key prefix for synthetic reserve-pods (koordinator models a
+#: Reservation as a pod the scheduler places; reservation_types.go)
+RSV_POD_PREFIX = "rsv::"
+
+
+@dataclasses.dataclass(slots=True)
+class BoundPod:
+    """Host record of a bound pod: its spec and where it went (one is made
+    per bind, so it holds the spec instead of copying its fields)."""
+
+    pod: PodSpec
+    node: str
+    #: snapshot.node_generation at bind time: the node INSTANCE this pod
+    #: was charged to (a release after the node was removed and re-added
+    #: under the same name must not decrement the fresh instance)
+    node_generation: int = 0
+    #: reservation this pod allocated from, and how much it drew: freeing
+    #: the pod returns the drawn part to the reservation remainder (the
+    #: node keeps the reservation's charge) and frees only the spill
+    reservation: str | None = None
+    rsv_drawn: np.ndarray | None = None
+    rsv_generation: int = 0
+
+    @property
+    def name(self) -> str:
+        return self.pod.name
+
+    @property
+    def requests(self) -> np.ndarray:
+        return self.pod.requests
+
+    @property
+    def quota(self) -> str | None:
+        return self.pod.quota
+
+    @property
+    def non_preemptible(self) -> bool:
+        return self.pod.non_preemptible
 
 
 @dataclasses.dataclass
@@ -74,7 +136,8 @@ class Scheduler:
                  quota_tree: QuotaTree | None = None,
                  bind_fn=None, gang_passes: int = 2,
                  batch_solver_threshold: int = 1024,
-                 incremental_solve: bool = True, device=None):
+                 incremental_solve: bool = True, device=None,
+                 clock=time.monotonic):
         if device is not None and torch.device(device) != snapshot.device:
             raise ValueError(f"device {device} differs from the snapshot's "
                              f"{snapshot.device}")
@@ -86,7 +149,17 @@ class Scheduler:
         self.bind_fn = bind_fn
         self.gang_passes = gang_passes
         self.batch_solver_threshold = batch_solver_threshold
+        self.clock = clock
         self.pending: dict[str, PodSpec] = {}
+        #: bound pods by name (what remove_bound_pod releases)
+        self.bound: dict[str, BoundPod] = {}
+        #: the Reservation lifecycle: reserve-pods place through the normal
+        #: rounds, Available reservations get the pre-pass
+        self.reservations = ReservationCache()
+        #: owner-matched pods the pre-pass takes a round at most, highest
+        #: priority first (the rest solve normally and may draw next round)
+        self.rsv_prepass_cap = 2048
+        self._rsv_match_cache: tuple[tuple, np.ndarray] | None = None
         #: which solve engine the last round used ("greedy"/"batch")
         self.last_solver = "greedy"
         #: stable per-pod-name rotation ids (PodBatch.rot_id): a pod keeps
@@ -129,6 +202,216 @@ class Scheduler:
     def dequeue(self, pod_name: str) -> None:
         if self.pending.pop(pod_name, None) is not None:
             self._pending_rev += 1
+
+    # -- bound pods -------------------------------------------------------------
+
+    def delete_pod(self, name: str) -> None:
+        """Informer pod delete, whatever state the pod is in: a pending pod
+        is dequeued; a bound pod releases its node charge and its quota
+        charge."""
+        if name in self.pending:
+            self.dequeue(name)
+        bound = self.bound.get(name)
+        if bound is not None:
+            self.remove_bound_pod(name)
+            self._charge_quota_used(bound, sign=-1)
+
+    def remove_bound_pod(self, name: str) -> None:
+        """Release a bound pod's node charge iff still tracked (its quota
+        charge stays with the caller).  A pod that allocated through a
+        reservation gives its drawn vector back to the reservation's
+        remainder (the reserved capacity stays charged to the node, hidden
+        from non-owners) and frees only its spill; once the reservation is
+        gone or consumed, the drawn part frees with the pod."""
+        pod = self.bound.pop(name, None)
+        if pod is not None:
+            self._release_bound_capacity(pod)
+
+    def _release_bound_capacity(self, bp: BoundPod) -> None:
+        if bp.node not in self.snapshot.node_index:
+            return
+        if (self.snapshot.node_generation.get(bp.node, 0)
+                != bp.node_generation):
+            # the node this pod was charged to is gone; the same name now
+            # labels a fresh instance that started clean
+            return
+        free_vec = bp.requests
+        if bp.reservation is not None and bp.rsv_drawn is not None:
+            drawn = bp.rsv_drawn.astype(np.int64)
+            if self.reservations.return_allocation(
+                    bp.reservation, drawn, bp.rsv_generation):
+                free_vec = np.maximum(bp.requests.astype(np.int64) - drawn,
+                                      0)
+            else:
+                free_vec = np.maximum(bp.requests.astype(np.int64), drawn)
+        self.snapshot.unreserve(bp.node, free_vec.astype(np.int32))
+
+    def _charge_quota_used(self, pod, sign: int) -> None:
+        if (pod.quota and self.quota_tree is not None
+                and pod.quota in self.quota_tree.nodes):
+            q = self.quota_tree.nodes[pod.quota]
+            q.used = q.used + sign * pod.requests.astype(np.int64)
+            if pod.non_preemptible:
+                q.non_preemptible_used = (
+                    q.non_preemptible_used
+                    + sign * pod.requests.astype(np.int64))
+
+    # -- reservations -------------------------------------------------------------
+
+    def add_reservation(self, spec) -> None:
+        """Accept a Reservation CR: placement happens next round (a pinned
+        node goes Available directly; otherwise a reserve-pod schedules
+        through the normal solve).
+
+        Re-applying an existing name is an update: if the placed charge is
+        unchanged (same requests, same pin) only the mutable spec fields
+        move; otherwise the old reservation is removed first (returning its
+        remainder) so the new one cannot double-charge the node."""
+        spec.created_at = self.clock()
+        old = self.reservations.get(spec.name)
+        if old is not None and old.phase in (ReservationPhase.AVAILABLE,
+                                             ReservationPhase.SUCCEEDED):
+            if (np.array_equal(old.requests, spec.requests)
+                    and spec.node in (None, old.node)):
+                old.owners = spec.owners
+                old.ttl_sec = spec.ttl_sec
+                old.restricted = spec.restricted
+                # owner edits change who matches
+                self._rsv_match_cache = None
+                return
+            self.remove_reservation(spec.name)
+        self.reservations.upsert(spec)
+        # a still-queued reserve-pod carries the OLD requests: drop it so
+        # the next tick queues the updated one
+        if self.pending.pop(RSV_POD_PREFIX + spec.name, None) is not None:
+            self._pending_rev += 1
+
+    def remove_reservation(self, name: str) -> None:
+        """Reservation CR deleted: return the unallocated remainder and
+        drop any queued reserve-pod."""
+        self.reservations.remove(name, self.snapshot)
+        if self.pending.pop(RSV_POD_PREFIX + name, None) is not None:
+            self._pending_rev += 1
+
+    def _reservation_tick(self, now: float) -> None:
+        """Expire reservations; move Pending ones toward Available (pinned
+        node: directly, after a fit check; else queue a reserve-pod)."""
+        self.reservations.fail_stale_instances(self.snapshot)
+        for name in self.reservations.expire_tick(now, self.snapshot):
+            # a Pending reservation that expired drops its reserve-pod too
+            if self.pending.pop(RSV_POD_PREFIX + name, None) is not None:
+                self._pending_rev += 1
+        # terminal specs are settled: purge them
+        self.reservations.gc()
+        for spec in self.reservations.pending():
+            if spec.node is not None:
+                # pinned: Available only if it fits (make_available charges
+                # the node; the un-pinned path gets its fit check from the
+                # reserve-pod's solve)
+                row = self.snapshot.node_index.get(spec.node)
+                if row is None:
+                    continue
+                state = self.snapshot.state
+                free = (state.node_allocatable[row].cpu().numpy()
+                        - state.node_requested[row].cpu().numpy())
+                if np.all(spec.requests <= free):
+                    self.reservations.make_available(
+                        spec.name, spec.node, self.snapshot, now)
+                continue
+            key = RSV_POD_PREFIX + spec.name
+            if key not in self.pending:
+                self.pending[key] = PodSpec(
+                    name=key, requests=spec.requests.astype(np.int32),
+                    priority=9000, node_selector=dict(spec.node_selector),
+                    tolerations=dict(spec.tolerations))
+                self._pending_rev += 1
+
+    def _reservation_prepass(self, pods: list[PodSpec], batch: PodBatch,
+                             quota, result: SchedulingResult):
+        """Reservation-first exact solve over owner-matched pods: they
+        allocate from their reservations' remainders before the general
+        solve sees them.  Returns the batch with their rows made invalid,
+        and the quota they were charged to."""
+        avail = self.reservations.available()
+        if not avail:
+            return batch, quota
+        # fully consumed reservations have nothing to lend
+        if not any(np.any(s.requests > s.allocated) for s in avail
+                   if s.allocated is not None):
+            return batch, quota
+        rsv_set, names = self.reservations.build_set(self.snapshot)
+        # the owner matching is cached between rounds over an unchanged
+        # queue (its row order too) and reservation set (owner edits clear
+        # the cache in add_reservation)
+        mkey = (self._pending_rev, tuple(p.name for p in pods),
+                tuple(s.generation for s in avail))
+        cached = self._rsv_match_cache
+        if cached is not None and cached[0] == mkey:
+            match = cached[1]
+        else:
+            match = self.reservations.match_matrix(
+                pods, batch.capacity, rsv_set.capacity)
+            # reserve-pods cannot consume reservations; gang members keep
+            # all-or-nothing semantics in the main solve
+            for i, pod in enumerate(pods):
+                if pod.name.startswith(RSV_POD_PREFIX) or pod.gang:
+                    match[i] = False
+            self._rsv_match_cache = (mkey, match)
+        matched = batch.valid.cpu().numpy() & match.any(axis=1)
+        if not matched.any():
+            return batch, quota
+        if int(matched.sum()) > self.rsv_prepass_cap:
+            prio = batch.priority.cpu().numpy()
+            rows = np.flatnonzero(matched)
+            keep = rows[np.argsort(-prio[rows], kind="stable")
+                        [: self.rsv_prepass_cap]]
+            matched = np.zeros_like(matched)
+            matched[keep] = True
+        small, idx = batch.compact(matched)
+        m_small = np.zeros((small.capacity, rsv_set.capacity), bool)
+        m_small[: len(idx)] = match[idx]
+        a_r, rc, new_state, _, new_quota = reservation_greedy_assign(
+            self.snapshot.state, small, self.config, rsv_set,
+            torch.from_numpy(m_small).to(self.device), quota)
+        a_r, rc = a_r.cpu().numpy(), rc.cpu().numpy()
+        self.snapshot.adopt_state(new_state,
+                                  changed_rows=np.unique(a_r[a_r >= 0]))
+        sub_pods = [pods[i] for i in idx]
+        drawn = self.reservations.commit_allocations(names, sub_pods, a_r, rc)
+        binds, records, bound_rows = [], [], []
+        for j, pod in enumerate(sub_pods):
+            if int(a_r[j]) < 0:
+                continue
+            r = int(rc[j])
+            rname = (names[r] if 0 <= r < len(names) and drawn[j] is not None
+                     else None)
+            rspec = self.reservations.get(rname) if rname is not None else None
+            binds.append((pod, self.snapshot.node_name(int(a_r[j]))))
+            records.append((rname, drawn[j],
+                            rspec.generation if rspec else 0))
+            bound_rows.append(int(idx[j]))
+        self._commit_binds(binds, result, records)
+        if bound_rows:
+            mask = np.zeros(batch.capacity, bool)
+            mask[bound_rows] = True
+            batch = batch.replace(
+                valid=batch.valid & ~torch.from_numpy(mask).to(self.device))
+        return batch, (new_quota if new_quota is not None else quota)
+
+    def _commit_reserve_pod(self, pod: PodSpec, node: str,
+                            result: SchedulingResult, now: float) -> None:
+        """A placed reserve-pod: its Reservation becomes Available.  The
+        solve already charged the reserved vector to ``node_requested``."""
+        rname = pod.name[len(RSV_POD_PREFIX):]
+        if self.pending.pop(pod.name, None) is not None:
+            self._pending_rev += 1
+        if self.reservations.get(rname) is None:
+            # the CR was deleted since the tick: release the solve's charge
+            self.snapshot.unreserve(node, pod.requests)
+            return
+        self.reservations.make_available(rname, node, self.snapshot, now=now,
+                                         charge=False)
+        result.assignments[pod.name] = node
 
     def _active_pods(self) -> list[PodSpec]:
         return sorted(self.pending.values(),
@@ -280,11 +563,20 @@ class Scheduler:
         self.last_dirty_node_frac = 0.0
         self.last_dirty_pod_frac = 0.0
         self.snapshot.flush()
+        now = self.clock()
+        if len(self.reservations):
+            # the pinned fit check reads the flushed device rows
+            self._reservation_tick(now)
         pods = self._active_pods()
         if not pods:
             return result
         quota, quota_index = self._build_quota()
         batch = self._build_batch(pods, quota_index)
+        if len(self.reservations):
+            # the batch cache keeps the whole batch; the solve gets the one
+            # without the pre-pass's binds
+            batch, quota = self._reservation_prepass(pods, batch, quota,
+                                                     result)
         gangs = GangInfo.build(np.zeros(0, np.int32), device=self.device)
         solver = ("batch" if len(pods) >= self.batch_solver_threshold
                   else "greedy")
@@ -322,10 +614,17 @@ class Scheduler:
         binds = []
         for i, pod in enumerate(pods):
             if int(a[i]) >= 0:
-                binds.append((pod, self.snapshot.node_name(int(a[i]))))
+                node = self.snapshot.node_name(int(a[i]))
+                if pod.name.startswith(RSV_POD_PREFIX):
+                    self._commit_reserve_pod(pod, node, result, now)
+                else:
+                    binds.append((pod, node))
         self._commit_binds(binds, result)
 
-        fail_rows = [i for i, _ in enumerate(pods) if int(a[i]) < 0]
+        # a pod in assignments was bound by the reservation pre-pass (its
+        # row left the batch before the solve)
+        fail_rows = [i for i, pod in enumerate(pods)
+                     if int(a[i]) < 0 and pod.name not in result.assignments]
         if fail_rows:
             admitted = None
             if new_quota is not None:
@@ -470,13 +769,23 @@ class Scheduler:
             raise
         return torch.from_numpy(a_np).to(self.device), state, quota
 
-    def _commit_binds(self, binds, result: SchedulingResult) -> None:
-        """Record the binds, charge each quota's ``used`` once per
-        (quota, non-preemptible) group, then call ``bind_fn`` per pod."""
-        for pod, node in binds:
+    def _commit_binds(self, binds, result: SchedulingResult,
+                      reservations=None) -> None:
+        """Record the binds in the result and the ``bound`` registry, charge
+        each quota's ``used`` once per (quota, non-preemptible) group, then
+        call ``bind_fn`` per pod.  ``reservations`` gives each bind's
+        (reservation, drawn vector, reservation generation) when the
+        pre-pass made it."""
+        gen = self.snapshot.node_generation
+        for k, (pod, node) in enumerate(binds):
             result.assignments[pod.name] = node
             if self.pending.pop(pod.name, None) is not None:
                 self._pending_rev += 1
+            if reservations is None:
+                self.bound[pod.name] = BoundPod(pod, node, gen.get(node, 0))
+            else:
+                self.bound[pod.name] = BoundPod(pod, node, gen.get(node, 0),
+                                                *reservations[k])
         if self.quota_tree is not None:
             groups: dict[tuple[str, bool], list[np.ndarray]] = {}
             for pod, _node in binds:

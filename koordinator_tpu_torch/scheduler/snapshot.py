@@ -1,6 +1,5 @@
 """Incremental cluster snapshot: informer deltas -> device tensors (port of
-``koordinator_tpu/scheduler/snapshot.py`` without solver sharding and
-reservations).
+``koordinator_tpu/scheduler/snapshot.py`` without solver sharding).
 
 The host keeps name -> row maps and a dirty-row set; :meth:`flush` ships only
 changed rows, written IN PLACE into the device tensors (``index_copy_``).
@@ -56,6 +55,8 @@ class PodSpec:
     tolerations: dict[str, str] = dataclasses.field(default_factory=dict)
     creation: float = 0.0
     labels: dict[str, str] = dataclasses.field(default_factory=dict)
+    #: controller key for reservation owner matching
+    owner: str | None = None
 
 
 class ClusterSnapshot:
@@ -80,6 +81,11 @@ class ClusterSnapshot:
         # remove_node; a reused row must not inherit the dead node's
         # accounting)
         self._reset_requested: set[int] = set()
+        #: per-name INSTANCE counter, bumped each time a name (re)appears
+        #: with a fresh row: a pod or reservation charged to the previous
+        #: instance of a removed-then-readded node must not decrement the
+        #: new one (a re-added node starts clean)
+        self.node_generation: dict[str, int] = {}
         # label/taint equivalence classes: signature -> class id (never
         # recycled); the (P, C) selector masks index them via node_class
         self._class_index: dict[tuple, int] = {}
@@ -136,10 +142,14 @@ class ClusterSnapshot:
             if row in self._reset_requested:
                 # a freed row reused before the pending flush: zero the dead
                 # node's accounting now, before anything charges the new one
+                # (a pinned reservation opening before the flush, whose
+                # later release must balance to zero)
                 self._reset_requested.discard(row)
                 self.state.node_requested[row] = 0
             self.node_index[spec.name] = row
             self._row_to_name[row] = spec.name
+            self.node_generation[spec.name] = (
+                self.node_generation.get(spec.name, -1) + 1)
         self.node_specs[spec.name] = spec
         self._class_of(spec)
         self._dirty.add(row)
@@ -226,6 +236,44 @@ class ClusterSnapshot:
         return k
 
     # -- accounting ---------------------------------------------------------
+
+    def reserve(self, node: str, requests: np.ndarray) -> None:
+        """Account a binding onto a node (Reserve), in place."""
+        row = self.node_index[node]
+        self._cand_dirty.add(row)
+        self.state.node_requested[row] += torch.from_numpy(
+            np.asarray(requests).astype(np.int32)).to(self.device)
+
+    def reserve_batch(self, requests_by_node) -> None:
+        """Account many bindings in one device op; the same bits as
+        sequential :meth:`reserve` (integer adds commute)."""
+        if not requests_by_node:
+            return
+        add = np.zeros(tuple(self.state.node_requested.shape), np.int32)
+        for node, requests in requests_by_node.items():
+            row = self.node_index[node]
+            self._cand_dirty.add(row)
+            add[row] += requests.astype(np.int32)
+        self.state.node_requested += torch.from_numpy(add).to(self.device)
+
+    def unreserve(self, node: str, requests: np.ndarray) -> None:
+        row = self.node_index[node]
+        self._cand_dirty.add(row)
+        self.state.node_requested[row] -= torch.from_numpy(
+            np.asarray(requests).astype(np.int32)).to(self.device)
+
+    def unreserve_instance(self, node: str, requests: np.ndarray,
+                           generation: int) -> None:
+        """Release a charge made against a SPECIFIC node instance: a no-op
+        when the node is gone or the name now labels a fresh instance (a
+        re-added node starts clean).  Every release whose record can
+        outlive the node (bound pods, reservation remainders) comes through
+        here."""
+        if node not in self.node_index:
+            return
+        if self.node_generation.get(node, 0) != generation:
+            return
+        self.unreserve(node, requests)
 
     def adopt_state(self, state: ClusterState, changed_rows=None) -> None:
         """Adopt solver-updated accounting (post gang/greedy assign).

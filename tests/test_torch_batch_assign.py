@@ -306,13 +306,23 @@ def test_cpu_wrappers_launch_nothing_and_other_devices_raise():
     )
     from koordinator_tpu_torch.ops import batch_assign as tba
 
+    from koordinator_tpu_torch.ops.reservation import (
+        ReservationSet,
+        reservation_greedy_assign,
+    )
+
     build.reset_launch_counts()
     js, jp = problem(2, "factored")
-    tba.batch_assign(port(js, "ClusterState"), port(jp, "PodBatch"),
-                     port(config(), "ScoringConfig"))
+    ts, tp = port(js, "ClusterState"), port(jp, "PodBatch")
+    tba.batch_assign(ts, tp, port(config(), "ScoringConfig"))
+    rsv = ReservationSet.zeros(16, device="cpu")
+    reservation_greedy_assign(
+        ts, tp, port(config(), "ScoringConfig"), rsv,
+        torch.zeros((tp.capacity, rsv.capacity), dtype=torch.bool))
     assert build.LAUNCHES == {"select_candidates": 0,
                               "refresh_candidates": 0, "round_fit_choose": 0,
-                              "segmented_prefix_accept": 0, "greedy_scan": 0}
+                              "segmented_prefix_accept": 0, "greedy_scan": 0,
+                              "reservation_scan": 0}
     meta = dict(device="meta")
     key = torch.empty((4, 8), dtype=torch.int32, **meta)
     with pytest.raises(ValueError, match="no kernel for device"):

@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither JAX nor anything of the JAX
 package, not at import time and not after scheduling rounds down every path
-(a cold batch round, an incremental round over the candidate cache, and a
-greedy round)."""
+(a cold batch round, an incremental round over the candidate cache, a
+greedy round, and reservation rounds: reserve-pods and a pinned
+reservation opening, then owner pods through the reservation pre-pass)."""
 
 import os
 import re
@@ -58,6 +59,25 @@ for j in range(200, 230):
     sched.enqueue(PodSpec(name=f"p{j}", requests=q, priority=int(j % 7)))
 sched.schedule_round()
 assert sched.last_solve_path == "greedy"
+from koordinator_tpu_torch.ops import reservation
+from koordinator_tpu_torch.scheduler.reservations import OwnerMatcher, ReservationSpec
+for v in range(4):
+    r = np.zeros(10, np.int32)
+    r[0], r[1] = 4000, 4096
+    sched.add_reservation(ReservationSpec(
+        name=f"r{v}", requests=r, owners=[OwnerMatcher(labels={"app": "web"})],
+        node=f"n{v}" if v % 2 else None, allocate_once=(v == 2)))
+sched.schedule_round()
+assert len(sched.reservations.available()) == 4
+for j in range(230, 250):
+    q = np.zeros(10, np.int32)
+    q[0], q[1] = rng.integers(100, 2000), rng.integers(128, 2048)
+    sched.enqueue(PodSpec(name=f"p{j}", requests=q, priority=int(j % 7),
+                          labels={"app": "web"}))
+res = sched.schedule_round()
+assert any(sched.bound[n].reservation for n in res.assignments)
+sched.delete_pod(sorted(res.assignments)[0])
+sched.remove_reservation("r0")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "koordinator_tpu"))
 print("LOADED", bad)
