@@ -76,22 +76,47 @@ first failure:
    1,024 reservations); then ``reservation_edges``: every reservation on
    one node, 4,096 records on one CTA (read in place from the wrapper's
    array), mostly exhausted rows, the quota tree, and 32,768 nodes (the
-   node columns in the global scratch).
+   node columns in the global scratch);
+   then ``wide_edges``: K1, K2 and K3a (with K3b) at 32,768 nodes (the
+   packed key regime's last capacity), 40,960 and 65,536 (the wide
+   regime), rows with fewer feasible nodes than k, wrapping rot ids and a
+   pod whose only feasible nodes share a tie-break; ``class_edges``: K1,
+   K2, K4 and K4r at 65, 128 and 1,024 node classes (2, 2 and 16 selector
+   words a pod);
+12. a GKE-scale cluster (``phase_gke``): the Scheduler on 65,000 nodes at
+   capacity 65,536 (the wide key regime), labelled with 16 zones x 16
+   instance types and 1/8 tainted dedicated=batch (512 classes, 8 words
+   a pod), the flagship's 50,000-pod backlog behind phase 9's quota tree
+   with zone, instance-type and toleration selectors; a cold round, two
+   steady rounds under the forced threshold (a usage refresh of 1% of the
+   nodes and 500 arrivals each), then 256 pinned reservations and 1,000
+   owner pods (K4r's pre-pass).  The launch counts are set to 0 before
+   each round and read after it; phase 11's and phase 9's accounting
+   checks hold after every round; every kernel equals its plain version
+   at the phase's shapes (K1 and K2 over all rows in 1,024-row chunks, K4
+   on a whole steady round's rescue with its quota state, and on its
+   first 1,024 rows without it), and each kernel's time, plain time and
+   bound there go on a ``gke_kernel`` line.  ``k2_long_list``: K2 on a
+   dirty list of 2^20 + 32 columns at 2^26 node rows (8 pods).
 
 The line before the last is ``nvidia-smi``'s name and power limit; the last
 is ``{"ok": true, "device": {...}}``.  Before them, one JSON line lists the
 six kernels: time, launches over the steady-state run of the forced-
 threshold scheduler (the slice's main path; K4r's over the reservations
-phase's three rounds), bound, plain and library time;
+phase's three rounds), bound, plain and library time, and under
+``phase12`` the same at phase 12's shapes with its launches over phase
+12's four rounds;
 K4's numbers are those at the steady round's rescue, K3b's at the cold
 solve's first round behind the quota tree, K4r's at round 2's pre-pass;
 K2 and K3b add ``device_ms``
 (the bare launch) beside ``ms`` (the wrapper), K3b also ``sort_ms`` (its
 node-level grouping by torch.sort).  An earlier line (``earlier_design``)
-puts this run's K1, K4, K3b and K2 times beside those of their earlier
-designs (K1 and K4: commit e9fcd1c; K3b and K2: commit bf2978c), which
-are constants recorded in PERF.md, not measured here
-(``profile_torch_round.py --kernels --root`` measures both designs in one
+puts this run's K1, K4, K3b and K2 times beside earlier ones at the same
+shapes, each labelled with its commit: the earlier designs (K1 and K4:
+commit e9fcd1c; K3b and K2: commit bf2978c) and the flagship phases'
+K1, K2 and K4 before the wide key regime (commit 30c463b).  They are
+constants recorded in PERF.md, not measured here
+(``profile_torch_round.py --kernels --root`` measures two designs in one
 run).
 Every comparison is exact equality (all outputs are int32 or bool).  Nothing
 here imports JAX or the JAX package.  Without a CUDA device it exits
@@ -226,20 +251,22 @@ def pair_ops(cfg, requests, alloc, feasible) -> int:
     return ops + int((feasible.sum(1) * per).sum())
 
 
-def batch_ops(state, pods, cfg, columns=None) -> int:
+def batch_ops(state, pods, cfg, columns=None, chunk: int | None = None
+              ) -> int:
     """pair_ops over a batch's valid pods and every node (or the node rows
     ``columns``), the feasible pairs found by the plain Filter in chunks
-    of the batch solve's width."""
+    of ``chunk`` pods (the batch solve's width when None)."""
     from koordinator_tpu_torch.kernels.select_candidates import _pod_rows
     from koordinator_tpu_torch.ops.assignment import score_pods
     from koordinator_tpu_torch.ops.batch_assign import CANDIDATE_CHUNK
 
+    chunk = chunk or CANDIDATE_CHUNK
     alloc = state.node_allocatable
     if columns is not None:
         alloc = alloc[columns]
     ops = 0
-    for i in range(0, pods.capacity, CANDIDATE_CHUNK):
-        sub = _pod_rows(pods, i, min(i + CANDIDATE_CHUNK, pods.capacity))
+    for i in range(0, pods.capacity, chunk):
+        sub = _pod_rows(pods, i, min(i + chunk, pods.capacity))
         feas = score_pods(state, sub, cfg)[1][sub.valid]
         if columns is not None:
             feas = feas[:, columns]
@@ -897,16 +924,18 @@ def phase_table(device, launches: dict, log: list, reps: int = 3):
                        state.node_allocatable - state.node_requested, 0)
     active = pods.valid & torch.any(cand_key >= 0, dim=1)
     choice, has = round_fit_choose(cand_key, cand_node, free, pods.requests,
-                                   active)
+                                   active, pods.rot_id)
     pchoice, phas = round_fit_choose_plain(cand_key, cand_node, free,
-                                           pods.requests, active)
+                                           pods.requests, active, pods.rot_id)
     k3a_err = max(max_abs_err(choice, pchoice), max_abs_err(has, phas))
     check(k3a_err == 0, "K3a equals its plain version at the main shape")
     k3a_ms = timed_ms(lambda: round_fit_choose(cand_key, cand_node, free,
-                                               pods.requests, active),
+                                               pods.requests, active,
+                                               pods.rot_id),
                       device, reps=10)
     k3a_plain_ms = timed_ms(lambda: round_fit_choose_plain(
-        cand_key, cand_node, free, pods.requests, active), device, reps=3)
+        cand_key, cand_node, free, pods.requests, active, pods.rot_id),
+        device, reps=3)
     n_active = int(active.sum())
     k3a_bytes = (n_active * (k * (4 + 4 + R * 4) + R * 4)
                  + p * (1 + 4 + 1))
@@ -1331,7 +1360,8 @@ def phase_rescue(device, solve: dict, reps: int = 3):
                 bound_by=by)
 
 
-def phase_quota_rounds(device, solve: dict, reps: int = 5) -> dict:
+def phase_quota_rounds(device, solve: dict, reps: int = 5,
+                       label: str = "quota_rounds") -> dict:
     """K3b on every propose/accept round of a cold round's first solve at
     full size behind the quota tree (the steady phase's round 0): each
     round's whole acceptance (the node level, the chain's 8 columns, the
@@ -1368,14 +1398,15 @@ def phase_quota_rounds(device, solve: dict, reps: int = 5) -> dict:
     free = torch.where(state.node_valid[:, None],
                        state.node_allocatable - state.node_requested, 0)
     active = pods.valid & torch.any(key >= 0, dim=1)
-    choice, has = round_fit_choose(key, node, free, pods.requests, active)
+    choice, has = round_fit_choose(key, node, free, pods.requests, active,
+                                   pods.rot_id)
     act = active & has & quota_admission_mask(
         quota, pods.requests, pods.quota_id, pods.non_preemptible)
     plan = accept_plan(priority_order(pods), pods.requests, pods.quota_id,
                        pods.non_preemptible, quota.chain, quota.checked)
     first = k3b_round_numbers(device, plan, choice, act, free,
                               quota.headroom, quota.min_headroom, reps)
-    emit("quota_rounds", pods=pods.capacity, nodes=state.capacity,
+    emit(label, pods=pods.capacity, nodes=state.capacity,
          quotas=quota.capacity, chain_columns=quota.chain.shape[1],
          rounds=stats["k3b_rounds"], k3b_launches=k3b, first_round=first)
     return first
@@ -2206,6 +2237,789 @@ def phase_reservation_edges(device) -> None:
     emit("reservation_edges", cases=cases)
 
 
+# -- the wide key regime and many node classes --------------------------------
+
+#: node counts of the wide-regime edges: the packed regime's last capacity,
+#: a wide one that 2**32 is not a multiple of (two nodes can share a
+#: tie-break there), and the wide regime's power of two
+WIDE_EDGE_NODES = (32_768, 40_960, 65_536)
+#: selector widths of the class edges: a word and a bit, two words, sixteen
+CLASS_EDGE_COUNTS = (65, 128, 1_024)
+
+
+def to_dev(a, device):
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def short_row_problem(seed: int, n_nodes: int, n_pods: int, device):
+    """random_problem's selector classes at ``n_nodes`` (0, 3 and 4 on most
+    nodes): class 1 on five nodes and class 2 on twelve, and pods that
+    select only class 1 (rows
+    of at most five feasible nodes), only class 2, no class, or a random
+    mix; half the pods at rot ids whose tie-break wraps."""
+    state, pods = random_problem(seed, n_nodes, n_pods, device, "classes")
+    rng = np.random.default_rng(seed)
+    cls = rng.choice(np.array([0, 3, 4], np.int32), n_nodes)
+    cls[rng.choice(n_nodes, 5, replace=False)] = 1
+    cls[rng.choice(np.flatnonzero(cls != 1), 12, replace=False)] = 2
+    p = pods.capacity
+    sel = np.zeros((p, 8), bool)
+    which = rng.integers(0, 4, p)
+    sel[which == 0, 1] = True
+    sel[which == 1, 2] = True
+    sel[which == 3] = rng.random((int((which == 3).sum()), 8)) < 0.5
+    rot = pods.rot_id.cpu().numpy().copy()
+    rot[::2] = danger_rot_ids(rng, (p + 1) // 2, n_nodes)
+    return (state.replace(node_class=to_dev(cls, device)),
+            pods.replace(selector_mask=to_dev(sel, device),
+                         rot_id=to_dev(rot, device)))
+
+
+def shared_tie_break(n: int):
+    """(rot id, a, b): a rot id whose tie-break difference wraps so that
+    nodes a < b share one tie-break; None where 2**32 is a multiple of N
+    (the tie-break is then a permutation)."""
+    import torch
+
+    from koordinator_tpu_torch.kernels.select_candidates import (
+        _candidate_tb,
+    )
+
+    inv = pow(7919, -1, 2**32)
+    rot = ((2**31 + n // 2) * inv) % 2**32
+    rot = rot - 2**32 if rot >= 2**31 else rot
+    tb = _candidate_tb(torch.arange(n, dtype=torch.int32)[None, :],
+                       torch.tensor([rot], dtype=torch.int32), n)[0]
+    dup = torch.nonzero(torch.bincount(tb.long(), minlength=n) == 2)
+    if dup.numel() == 0:
+        return None
+    a, b = torch.nonzero(tb == int(dup[0])).flatten().tolist()
+    return rot, a, b
+
+
+def with_shared_pair(state, pods, pair, device):
+    """(state, pods, pod row, a, b): ``pair`` (shared_tie_break's rot id
+    and nodes a < b) given to the last valid pod, which admits only a
+    class that a and b alone hold (class 5); a and b made identical,
+    empty and as large as the largest node, so they tie on (key, tb) in
+    both strata."""
+    rot_id, a, b = pair
+    i0 = int(pods.valid.nonzero()[-1])
+    rot = pods.rot_id.clone()
+    rot[i0] = rot_id
+    sel = pods.selector_mask.clone()
+    sel[i0] = False
+    sel[i0, 5] = True
+    fields = {f: getattr(state, f).clone() for f in (
+        "node_allocatable", "node_requested", "node_usage", "node_agg_usage",
+        "node_class")}
+    for f in ("node_requested", "node_usage", "node_agg_usage"):
+        fields[f][[a, b]] = 0
+    fields["node_allocatable"][[a, b]] = fields["node_allocatable"].max(
+        dim=0).values
+    fields["node_class"][[a, b]] = 5
+    return (state.replace(**fields),
+            pods.replace(rot_id=rot, selector_mask=sel), i0, a, b)
+
+
+def refresh_case(device, state, pods, cfg, cand, n_dirty: int, d: int,
+                 seed: int, extra_rows=()) -> dict:
+    """K2 against its plain version on one dirty list: ``n_dirty`` nodes
+    (``extra_rows`` among them) with fresh usage, padded to ``d`` entries
+    on row 0, over the cache ``cand`` (K1's (key, node, score))."""
+    import torch
+
+    from koordinator_tpu_torch.kernels.refresh_candidates import (
+        refresh_candidates_kernel,
+        refresh_candidates_plain,
+    )
+    from koordinator_tpu_torch.ops import batch_assign as ba
+
+    n, p = state.capacity, pods.capacity
+    rng = np.random.default_rng(seed)
+    rows = [int(r) for r in extra_rows]
+    rows += [int(r) for r in rng.choice(n, n_dirty, replace=False)
+             if int(r) not in rows]
+    rows = np.array(rows[:n_dirty], np.int32)
+    usage = state.node_usage.cpu().numpy().copy()
+    alloc = state.node_allocatable.cpu().numpy()
+    usage[rows] = (alloc[rows] * rng.random((n_dirty, R)) * 0.5).astype(
+        np.int32)
+    st = state.replace(node_usage=to_dev(usage, device))
+    drows = np.zeros(d, np.int32)
+    drows[:n_dirty] = rows
+    dvalid = np.arange(d) < n_dirty
+    dirty = np.zeros(n, bool)
+    dirty[rows] = True
+    aligned, touch = ba.align_candidate_cache(
+        ba.CandidateCache(*cand),
+        torch.arange(p, dtype=torch.int32, device=device), pods.valid,
+        to_dev(dirty, device))
+    args = (st, pods, cfg, aligned.cand_node, aligned.cand_score,
+            to_dev(drows, device), to_dev(dvalid, device), 32, (5, 15))
+    got = refresh_candidates_kernel(*args)
+    want = refresh_candidates_plain(*args)
+    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    check(err == 0, f"K2 equals its plain version ({n} nodes, D = {d})")
+    # -1 slots that hold a dirty column (the wide merge ranks -1 entries
+    # by tie-break, so fresh infeasible columns can win them)
+    node, key = got[1], got[0]
+    fresh_minus_one = int(((key < 0) & to_dev(dirty, device)[node.long()])
+                          .sum())
+    return dict(dirty_nodes=n_dirty, dirty_columns=d, max_abs_err=err,
+                touched_pods=int(touch.sum()),
+                minus_one_slots=int((key < 0).sum()),
+                minus_one_on_dirty_nodes=fresh_minus_one)
+
+
+def shared_rank_rows(key, node, rot_id, n: int, valid) -> int:
+    """Rows of valid pods where two valid slots of one stratum hold one
+    (key, tie-break) pair: two nodes that share a wrapped tie-break."""
+    import torch
+
+    from koordinator_tpu_torch.kernels.select_candidates import (
+        _candidate_tb,
+        wide_rank,
+    )
+
+    tb = _candidate_tb(node, rot_id, n)
+    rank = torch.where(key >= 0, wide_rank(key, tb),
+                       -1 - torch.arange(key.shape[1], device=key.device))
+    hit = torch.zeros_like(valid)
+    for lo, hi in ((0, 16), (16, 32)):
+        srt = torch.sort(rank[:, lo:hi], dim=1).values
+        hit |= ((srt.diff(dim=1) == 0) & (srt[:, 1:] >= 0)).any(dim=1)
+    return int((hit & valid).sum())
+
+
+def phase_wide_edges(device, n_pods: int = 2_048) -> None:
+    """K1, K2 and K3a (with K3b) against their plain versions at 32,768
+    nodes (the packed regime's last capacity), 40,960 and 65,536 (the wide
+    regime), on short_row_problem: rows with 0 to 5 and 12 feasible nodes
+    (so the -1 slots' order shows: lowest infeasible column first when
+    packed, tie-break descending when wide) and wrapping rot ids (at
+    40,960 two nodes can share a tie-break).  K3a and K3b on every round
+    of a solve behind the quota tree; K2 over 5 dirty nodes of D = 8
+    (shorter than a stratum's 16) and 100 of D = 128, padded on row 0,
+    one of them a node the cache holds."""
+    from koordinator_tpu_torch.kernels.select_candidates import (
+        _packed_regime,
+        select_candidates_kernel,
+        select_candidates_plain,
+    )
+    from koordinator_tpu_torch.ops import batch_assign as ba
+
+    cfg = scoring_config("default", device)
+    cases = []
+    for i, n in enumerate(WIDE_EDGE_NODES):
+        state, pods = short_row_problem(500 + i, n, n_pods, device)
+        pair = shared_tie_break(n)
+        if pair is not None:
+            # one pod whose rotation makes nodes a < b share a tie-break
+            # and that only they admit: the kernel must put b first
+            state, pods, i0, a_, b_ = with_shared_pair(state, pods, pair,
+                                                       device)
+        got = select_candidates_kernel(state, pods, cfg, 32)
+        want = select_candidates_plain(state, pods, cfg, 32, chunk=512)
+        err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        check(err == 0, f"K1 equals its plain version ({n} nodes)")
+        key, node = got[0], got[1]
+        short = int((((key >= 0).sum(dim=1) < 32) & pods.valid).sum())
+        shared = shared_rank_rows(key, node, pods.rot_id, n, pods.valid)
+        quota, qpods = quota_setup(pods, device, 500 + i)
+        stats = {"k3a_calls": 0, "k3b_calls": 0, "k3b_accepted": 0}
+        with checked_rounds(stats):
+            a, _, _ = ba.batch_assign(state, qpods, cfg, quota)
+        check(stats["k3a_calls"] > 0 and int((a >= 0).sum()) > 0,
+              f"the solve ran its rounds ({n} nodes)")
+        holder = int(node[int(pods.valid.nonzero()[-1]), 0])
+        k2 = [refresh_case(device, state, pods, cfg, got, nd, d, 510 + i,
+                           (holder,)) for nd, d in ((5, 8), (100, 128))]
+        if pair is not None:
+            check([int(x) for x in node[i0, 0:2]] == [b_, a_]
+                  and [int(x) for x in node[i0, 16:18]] == [b_, a_],
+                  f"a shared (key, tie-break) higher column first "
+                  f"({n} nodes)")
+        cases.append(dict(
+            nodes=n, regime="packed" if _packed_regime(n) else "wide",
+            pods=pods.capacity, k1_max_abs_err=err, rows_short_of_k=short,
+            rows_with_shared_pairs=shared,
+            shared_pair=None if pair is None else [a_, b_],
+            k3a_rounds=stats["k3a_calls"],
+            k3b_rounds=stats["k3b_calls"], assigned=int((a >= 0).sum()),
+            k2=k2))
+    for c in cases:
+        check(c["rows_short_of_k"] > 0,
+              f"rows shorter than k at {c['nodes']} nodes")
+    check(cases[1]["shared_pair"] is not None
+          and cases[1]["rows_with_shared_pairs"] > 0,
+          "rows where two nodes share a (key, tie-break) at 40,960 nodes")
+    emit("wide_edges", cases=cases)
+
+
+def class_problem(seed: int, n_nodes: int, n_pods: int, c: int, device):
+    """random_problem's nodes and pods with ``c`` selector classes: node
+    classes uniform over c and an eighth more past the mask's width
+    (infeasible for every pod), each class admitted with probability 1/2,
+    every fourth pod admitting only classes 64 and up (its words past the
+    first)."""
+    state, pods = random_problem(seed, n_nodes, n_pods, device, "plain")
+    rng = np.random.default_rng(seed)
+    cls = rng.integers(0, c + c // 8, n_nodes).astype(np.int32)
+    sel = rng.random((pods.capacity, c)) < 0.5
+    sel[::4, :64] = False
+    return (state.replace(node_class=to_dev(cls, device)),
+            pods.replace(selector_mask=to_dev(sel, device)))
+
+
+def phase_class_edges(device, n_nodes: int = 4_096, n_pods: int = 2_048,
+                      scan_pods: int = 300) -> None:
+    """K1, K2, K4 and K4r against their plain versions at 65, 128 and
+    1,024 node classes (2, 2 and 16 selector words a pod): K1 and K2 at
+    2,048 pods x 4,096 nodes, K4 behind the quota tree and K4r over 128
+    reservations at 300 of the pods."""
+    import torch
+
+    from koordinator_tpu_torch.kernels.greedy_scan import greedy_scan_kernel
+    from koordinator_tpu_torch.kernels.select_candidates import (
+        _pod_rows,
+        select_candidates_kernel,
+        select_candidates_plain,
+    )
+    from koordinator_tpu_torch.ops.assignment import greedy_assign_plain
+
+    cfg = scoring_config("default", device)
+    cases = []
+    for i, c in enumerate(CLASS_EDGE_COUNTS):
+        state, pods = class_problem(600 + i, n_nodes, n_pods, c, device)
+        got = select_candidates_kernel(state, pods, cfg, 32)
+        want = select_candidates_plain(state, pods, cfg, 32)
+        k1_err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        check(k1_err == 0, f"K1 equals its plain version (C = {c})")
+        k2 = refresh_case(device, state, pods, cfg, got, 100, 128, 610 + i)
+        small = _pod_rows(pods, 0, scan_pods)
+        quota, qsmall = quota_setup(small, device, 620 + i)
+        a, st, q = greedy_scan_kernel(state, qsmall, cfg, quota)
+        pa, pst, pq = greedy_assign_plain(state, qsmall, cfg, quota)
+        k4_err = max(max_abs_err(a, pa),
+                     max_abs_err(st.node_requested, pst.node_requested),
+                     max_abs_err(q.headroom, pq.headroom),
+                     max_abs_err(q.min_headroom, pq.min_headroom))
+        check(k4_err == 0, f"K4 equals its plain version (C = {c})")
+        check(int((a >= 0).sum()) > 0, f"K4 placed pods (C = {c})")
+        rng = np.random.default_rng(630 + i)
+        crowded = state.replace(node_requested=(
+            state.node_allocatable.to(torch.float64) * 0.6).to(torch.int32))
+        rsv = random_reservations(rng, crowded, 128)
+        match = to_dev(rng.random((small.capacity, rsv.capacity)) < 0.3,
+                       device)
+        k4r = rsv_case(device, crowded, small, cfg, rsv, match, reps=1,
+                       with_bound=False)
+        check(k4r["through_reservation"] > 0,
+              f"K4r: pods drew from reservations (C = {c})")
+        cases.append(dict(classes=c, words=(c + 63) // 64,
+                          k1_max_abs_err=k1_err,
+                          k1_valid_slots=int((got[0] >= 0).sum()), k2=k2,
+                          k4_max_abs_err=k4_err,
+                          k4_assigned=int((a >= 0).sum()),
+                          k4r_max_abs_err=k4r["max_abs_err"],
+                          k4r_through_reservation=k4r["through_reservation"]))
+    emit("class_edges", nodes=n_nodes, pods=n_pods, scan_pods=scan_pods,
+         cases=cases)
+
+
+# -- phase 12: a GKE-scale cluster ---------------------------------------------
+
+#: phase 12's cluster: GKE's documented ceiling of 65,000 nodes (Google
+#: Cloud, "GKE 65,000-node clusters", 2024), the snapshot's capacity the
+#: next power of two (65,536: the wide key regime)
+GKE_NODES = 65_000
+GKE_ZONES, GKE_TYPES = 16, 16
+ZONE_LABEL = "topology.kubernetes.io/zone"
+TYPE_LABEL = "node.kubernetes.io/instance-type"
+GKE_TAINT = {"dedicated": "batch"}
+GKE_RESERVATIONS, GKE_OWNERS = 256, 1_000
+#: phase 12's comparisons of K1 and K2 with their plain versions, and its
+#: operation counts, run over every row in chunks of this many pods (the
+#: plain Filter + Score holds a few (chunk, N, R) tensors: 2.7 GB each at
+#: N = 65,536)
+GKE_PLAIN_CHUNK = 1_024
+#: phase 12's K4 edge without the quota state: the first rows of a rescue
+#: batch, every one scanned over the 65,536 nodes
+GKE_K4_ROWS = 1_024
+#: the K2 edge past the earlier wide design's 46-bit list value: 2^26 node
+#: rows (a 26-bit tie-break) and 2^20 + 32 dirty columns (21 bits)
+K2_LONG_NODES = 2**26
+K2_LONG_DIRTY = 2**20 + 32
+
+
+def gke_pod(rng, spec):
+    """``spec`` with the phase's selectors: a zone for 25% of the pods, an
+    instance type for 10%, the dedicated=batch toleration for 10%."""
+    import dataclasses
+
+    sel = {}
+    if rng.random() < 0.25:
+        sel[ZONE_LABEL] = f"zone-{rng.integers(0, GKE_ZONES)}"
+    if rng.random() < 0.10:
+        sel[TYPE_LABEL] = f"type-{rng.integers(0, GKE_TYPES)}"
+    tol = dict(GKE_TAINT) if rng.random() < 0.10 else {}
+    return dataclasses.replace(spec, node_selector=sel, tolerations=tol)
+
+
+def gke_specs(seed: int = 4, n_nodes: int = GKE_NODES, n_pods: int = 50_000):
+    """The flagship's node widths and usage and its 50,000-pod backlog
+    behind phase 9's 16-leaf quota tree (steady_specs), the nodes labelled
+    with 16 zones x 16 instance types and 1/8 of them tainted
+    dedicated=batch (up to 512 classes), the pods with gke_pod's
+    selectors."""
+    import dataclasses
+
+    nodes, pods, leaf_max = steady_specs(seed, n_nodes, n_pods)
+    rng = np.random.default_rng(seed + 200)
+    zone = rng.integers(0, GKE_ZONES, n_nodes)
+    kind = rng.integers(0, GKE_TYPES, n_nodes)
+    tainted = rng.random(n_nodes) < 1 / 8
+    nodes = [dataclasses.replace(
+        spec, labels={ZONE_LABEL: f"zone-{zone[i]}",
+                      TYPE_LABEL: f"type-{kind[i]}"},
+        taints=dict(GKE_TAINT) if tainted[i] else {})
+        for i, spec in enumerate(nodes)]
+    return nodes, [gke_pod(rng, p) for p in pods], leaf_max
+
+
+@contextlib.contextmanager
+def refresh_probe(log: list):
+    """Keep the arguments of every K2 call the scheduler makes."""
+    from koordinator_tpu_torch.ops import batch_assign as ba
+
+    real = ba.refresh_candidates_kernel
+
+    def probe(*args):
+        log.append(args)
+        return real(*args)
+
+    ba.refresh_candidates_kernel = probe
+    try:
+        yield
+    finally:
+        ba.refresh_candidates_kernel = real
+
+
+def gke_k1(device, solve: dict, reps: int = 3) -> dict:
+    """K1 at phase 12's cold solve: kernel against plain version over every
+    row, GKE_PLAIN_CHUNK rows at a time; times, bound (batch_ops), and
+    torch.topk over the wide composite key (key << 30 | tb) of each
+    GKE_PLAIN_CHUNK-row chunk, summed over the batch (a (P, N) int64 key
+    would take 34 GB)."""
+    import torch
+
+    from koordinator_tpu_torch.kernels.select_candidates import (
+        _pod_rows,
+        _rank_parts,
+        select_candidates_kernel,
+        select_candidates_plain,
+        wide_rank,
+    )
+    from koordinator_tpu_torch.ops.assignment import score_pods
+
+    state, pods, cfg = solve["state"], solve["batch"], solve["cfg"]
+    p, n, k = pods.capacity, state.capacity, 32
+    got = select_candidates_kernel(state, pods, cfg, k)
+    err = 0
+    sync(device)
+    t0 = time.perf_counter()
+    for i in range(0, p, GKE_PLAIN_CHUNK):
+        sub = _pod_rows(pods, i, min(i + GKE_PLAIN_CHUNK, p))
+        want = select_candidates_plain(state, sub, cfg, k)
+        err = max([err] + [max_abs_err(g[i:i + GKE_PLAIN_CHUNK], w)
+                           for g, w in zip(got, want)])
+        del want
+    sync(device)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(err == 0, "K1 equals its plain version at phase 12's shape")
+    ms = timed_ms(lambda: select_candidates_kernel(state, pods, cfg, k),
+                  device, reps=reps)
+    topk_ms = 0.0
+    for i in range(0, p, GKE_PLAIN_CHUNK):
+        sub = _pod_rows(pods, i, min(i + GKE_PLAIN_CHUNK, p))
+        scores, feas = score_pods(state, sub, cfg)
+        key, tb = _rank_parts(scores, feas, 5, sub.rot_id, n_total=n)
+        rank = wide_rank(key, tb)
+        del scores, feas, key, tb
+        topk_ms += timed_ms(lambda: torch.topk(rank, k // 2, dim=1), device,
+                            reps=reps)
+        del rank
+    c = pods.selector_mask.shape[1]
+    nbytes = (n * (4 * R * 4 + 1 + 4) + p * (2 * R * 4 + 1 + 4)
+              + p * ((c + 63) // 64) * 8 + 3 * p * k * 4)
+    ops = batch_ops(state, pods, cfg, chunk=GKE_PLAIN_CHUNK)
+    bound_ms, by = bound(nbytes, ops)
+    return dict(pods=p, valid_pods=int(pods.valid.sum()), nodes=n,
+                classes=c, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=topk_ms, bytes=nbytes, ops=ops, bound_ms=bound_ms,
+                bound_by=by, valid_slots=int((got[0] >= 0).sum()))
+
+
+def gke_k3a(device, solve: dict, reps: int = 10) -> dict:
+    """K3a on the first round of phase 12's cold solve (the wide regime's
+    two-stage choice), against its plain version, timed, its bound the
+    bytes it reads."""
+    import torch
+
+    from koordinator_tpu_torch.kernels.round_fit_choose import (
+        round_fit_choose,
+        round_fit_choose_plain,
+    )
+    from koordinator_tpu_torch.kernels.select_candidates import (
+        select_candidates_kernel,
+    )
+
+    state, pods, cfg = solve["state"], solve["batch"], solve["cfg"]
+    key, node, _ = select_candidates_kernel(state, pods, cfg, 32)
+    free = torch.where(state.node_valid[:, None],
+                       state.node_allocatable - state.node_requested, 0)
+    active = pods.valid & torch.any(key >= 0, dim=1)
+    args = (key, node, free, pods.requests, active, pods.rot_id)
+    got = round_fit_choose(*args)
+    want = round_fit_choose_plain(*args)
+    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    check(err == 0, "K3a equals its plain version at phase 12's shape")
+    p, k = key.shape
+    n_active = int(active.sum())
+    nbytes = n_active * (k * (4 + 4 + R * 4) + R * 4 + 4) + p * (1 + 4 + 1)
+    return dict(pods=p, active=n_active, max_abs_err=err,
+                ms=timed_ms(lambda: round_fit_choose(*args), device,
+                            reps=reps),
+                plain_ms=timed_ms(lambda: round_fit_choose_plain(*args),
+                                  device, reps=3),
+                bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes")
+
+
+def gke_k2(device, args: tuple, reps: int = 10) -> dict:
+    """K2 on the arguments of phase 12's first steady refresh: kernel
+    against plain version (the plain merge over every row, the (P, D)
+    scores in GKE_PLAIN_CHUNK-row chunks), wrapper and bare launch timed,
+    the bound over the real dirty columns."""
+    import torch
+
+    from koordinator_tpu_torch.kernels.refresh_candidates import (
+        prepare_refresh,
+        refresh_candidates_kernel,
+        refresh_candidates_plain,
+    )
+    from koordinator_tpu_torch.kernels.select_candidates import _pod_rows
+
+    state, pods, cfg, cand_node, cand_score, drows, dvalid, k, strata = args
+    got = refresh_candidates_kernel(*args)
+    p, n = pods.capacity, state.capacity
+    err = 0
+    sync(device)
+    t0 = time.perf_counter()
+    for i in range(0, p, GKE_PLAIN_CHUNK):
+        j = min(i + GKE_PLAIN_CHUNK, p)
+        want = refresh_candidates_plain(
+            state, _pod_rows(pods, i, j), cfg, cand_node[i:j],
+            cand_score[i:j], drows, dvalid, k, strata)
+        err = max([err] + [max_abs_err(g[i:j], w)
+                           for g, w in zip(got, want)])
+    sync(device)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(err == 0, "K2 equals its plain version at phase 12's shape")
+    launch, outs = prepare_refresh(*args)
+    launch()
+    check(max(max_abs_err(g, w) for g, w in zip(outs, got)) == 0,
+          "K2's bare launch equals the wrapper's")
+    n_dirty = int(dvalid.sum())
+    real = drows[dvalid].long()
+    c = pods.selector_mask.shape[1]
+    nbytes = (p * k * (2 * 4 + 3 * 4) + p * (2 * R * 4 + 1 + 4)
+              + p * ((c + 63) // 64) * 8
+              + n_dirty * (4 * R * 4 + 1 + 4 + 4 + 1) + n)
+    ops = batch_ops(state, pods, cfg, real, chunk=GKE_PLAIN_CHUNK)
+    bound_ms, by = bound(nbytes, ops)
+    return dict(pods=p, valid_pods=int(pods.valid.sum()), nodes=n,
+                dirty_nodes=n_dirty, dirty_columns=int(drows.shape[0]),
+                max_abs_err=err,
+                ms=timed_ms(lambda: refresh_candidates_kernel(*args), device,
+                            reps=reps),
+                device_ms=timed_ms(launch, device, reps=reps),
+                plain_ms=plain_ms, bytes=nbytes, ops=ops, bound_ms=bound_ms,
+                bound_by=by, library_ms=None)
+
+
+def gke_k4(device, solve: dict, reps: int = 3) -> dict:
+    """K4 on a phase 12 rescue batch against its plain version, with its
+    bound: the whole batch with its quota state, as the steady round gave
+    it (65,536 nodes, 8 selector words a pod; quota rejects most of these
+    pods); and, as an edge, its first GKE_K4_ROWS rows without the quota
+    state (``unquoted``: every pod scanned over the 65,536 nodes)."""
+    from koordinator_tpu_torch.kernels.greedy_scan import greedy_scan_kernel
+    from koordinator_tpu_torch.kernels.select_candidates import _pod_rows
+    from koordinator_tpu_torch.ops.assignment import greedy_assign_plain
+
+    state, cfg = solve["state"], solve["cfg"]
+    out = {}
+    for label, pods, quota in (
+            ("rescue", solve["batch"], solve["quota"]),
+            ("unquoted", _pod_rows(solve["batch"], 0, GKE_K4_ROWS), None)):
+        a, st, q = greedy_scan_kernel(state, pods, cfg, quota)
+        sync(device)
+        t0 = time.perf_counter()
+        pa, pst, pq = greedy_assign_plain(state, pods, cfg, quota)
+        sync(device)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        errs = [max_abs_err(a, pa),
+                max_abs_err(st.node_requested, pst.node_requested)]
+        if quota is not None:
+            errs += [max_abs_err(getattr(q, f), getattr(pq, f))
+                     for f in ("headroom", "min_headroom", "checked",
+                               "chain", "valid")]
+        err = max(errs)
+        check(err == 0, f"K4 equals its plain version at phase 12's shape "
+              f"({label})")
+        n, p = state.capacity, pods.capacity
+        rows = scan_rows(pods, quota, a)
+        c = pods.selector_mask.shape[1]
+        nbytes = (n * (4 * R * 4 + 1 + 4) + n * R * 4
+                  + p * (2 * R * 4 + 1 + 4 + 4 + 1 + ((c + 63) // 64) * 8)
+                  + (0 if quota is None
+                     else 2 * quota.headroom.numel() * 4 * 2))
+        ops = scan_ops(state, pods, cfg, rows, a)
+        bound_ms, by = bound(nbytes, ops)
+        out[label] = dict(
+            pods=p, valid_pods=int(pods.valid.sum()), nodes=n,
+            admitted_steps=len(rows), assigned=int((a >= 0).sum()),
+            max_abs_err=err,
+            ms=timed_ms(lambda: greedy_scan_kernel(state, pods, cfg, quota),
+                        device, reps=reps),
+            plain_ms=plain_ms, bytes=nbytes, ops=ops, bound_ms=bound_ms,
+            bound_by=by, library_ms=None)
+    check(out["unquoted"]["assigned"] > 0, "K4 placed pods at 65,536 nodes")
+    return dict(out["rescue"], unquoted=out["unquoted"])
+
+
+def phase_k2_long_list(device, n: int = K2_LONG_NODES,
+                       d: int = K2_LONG_DIRTY, p: int = 8) -> None:
+    """K2 against its plain version on a dirty list that the earlier wide
+    design refused: its 64-bit list value held the tie-break (26 bits at
+    2^26 node rows) and the dirty column (21 bits at 2^20 + 32 columns)
+    in 46 bits.  2^20 distinct dirty nodes, 16 of them listed twice and
+    16 padded entries on row 0; a cache of random nodes (a quarter of the
+    slots on dirty nodes, a fifth invalid) for ``p`` pods, one of them at
+    a rot id whose tie-break difference wraps.  The node table is made
+    on the card."""
+    import torch
+
+    from koordinator_tpu_torch.kernels.refresh_candidates import (
+        refresh_candidates_kernel,
+        refresh_candidates_plain,
+    )
+    from koordinator_tpu_torch.state.cluster_state import (
+        ClusterState,
+        PodBatch,
+    )
+
+    g = torch.Generator(device=device)
+    g.manual_seed(77)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=device,
+                             dtype=torch.int32)
+
+    def part(f):
+        return (alloc * (torch.rand((n, R), generator=g, device=device)
+                         * f)).to(torch.int32)
+
+    alloc = torch.zeros((n, R), dtype=torch.int32, device=device)
+    alloc[:, CPU] = ints(8_000, 64_000, (n,))
+    alloc[:, MEM] = ints(16_384, 262_144, (n,))
+    state = ClusterState(
+        node_allocatable=alloc, node_requested=part(0.4),
+        node_usage=part(0.6), node_agg_usage=part(0.7),
+        node_prod_usage=torch.zeros_like(alloc),
+        node_valid=torch.rand(n, generator=g, device=device) < 0.98,
+        node_class=ints(0, 8, (n,)))
+    rng = np.random.default_rng(77)
+    req = np.zeros((p, R), np.int32)
+    req[:, CPU] = rng.integers(100, 4_000, p)
+    req[:, MEM] = rng.integers(128, 8_192, p)
+    rot = rng.integers(0, 2**31 - 1, p).astype(np.int32)
+    rot[0] = danger_rot_ids(rng, 1, n)[0]
+    pods = PodBatch.build(req, priority=np.full(p, 5_000, np.int32),
+                          rot_id=rot, node_capacity=n, capacity=p,
+                          device=device,
+                          selector_mask=rng.random((p, 8)) < 0.7,
+                          class_capacity=8)
+    n_dirty = d - 32
+    listed = torch.randperm(n, generator=g, device=device)[:n_dirty].to(
+        torch.int32)
+    zeros = torch.zeros(16, dtype=torch.int32, device=device)
+    drows = torch.cat([listed, listed[:16], zeros])
+    dvalid = torch.arange(d, device=device) < d - 16
+    shape = (pods.capacity, 32)
+    cand_node = ints(0, n, shape)
+    stale = torch.rand(shape, generator=g, device=device) < 0.25
+    cand_node = torch.where(stale, listed[ints(0, n_dirty, shape).long()],
+                            cand_node)
+    cand_score = torch.where(
+        torch.rand(shape, generator=g, device=device) < 0.2, -1,
+        ints(0, 300, shape))
+    cfg = scoring_config("default", device)
+    args = (state, pods, cfg, cand_node, cand_score, drows, dvalid, 32,
+            (5, 15))
+    got = refresh_candidates_kernel(*args)
+    sync(device)
+    t0 = time.perf_counter()
+    want = refresh_candidates_plain(*args)
+    sync(device)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(max_abs_err(x, y) for x, y in zip(got, want))
+    check(err == 0, f"K2 equals its plain version ({n} nodes, D = {d})")
+    fresh = int((torch.isin(got[1], listed) & (got[0] >= 0)
+                 & pods.valid[:, None]).sum())
+    check(fresh > 0, "fresh dirty columns won slots on the long list")
+    emit("k2_long_list", nodes=n, dirty_columns=d, pods=p,
+         tie_break_bits=(n - 1).bit_length(),
+         column_bits=(d - 1).bit_length(), max_abs_err=err,
+         fresh_slots=fresh, minus_one_slots=int((got[0] < 0).sum()),
+         ms=timed_ms(lambda: refresh_candidates_kernel(*args), device,
+                     reps=2),
+         plain_ms=plain_ms)
+
+
+def phase_gke(device, n_nodes: int = GKE_NODES, n_pods: int = 50_000,
+              steady_rounds: int = 2, n_arrivals: int = 500,
+              n_rsv: int = GKE_RESERVATIONS, n_owners: int = GKE_OWNERS):
+    """Phase 12: the port's Scheduler on a GKE-scale cluster (GKE_NODES
+    nodes at capacity 65,536, the wide key regime; up to 512 label/taint
+    classes, 8 selector words a pod) with the flagship's backlog behind
+    phase 9's quota tree.  A cold round, ``steady_rounds`` rounds under
+    the forced threshold each after a usage refresh of 1% of the nodes and
+    ``n_arrivals`` arrivals (K2, K1, K3a, K3b and the K4 rescue), then
+    ``n_rsv`` reservations pinned to named nodes and ``n_owners`` owner
+    pods (K4r's pre-pass).  The launch counts are set to 0 before each
+    round and read after it.  After every round: phase 11's accounting
+    checks (no overcommit, allocated within reserved, pre-pass binds on
+    their reservation's node, the node accounting equal to the bound pods
+    and reservations) and phase 9's (each leaf's cpu used within its max).
+    Every kernel is held against its plain version at the phase's shapes
+    (gke_k1, gke_k3a, phase_quota_rounds, gke_k2, gke_k4, rsv_case).
+    Returns the kernels' numbers by name and the launches by round."""
+    from koordinator_tpu_torch.kernels import build
+    from koordinator_tpu_torch.scheduler.scheduler import Scheduler
+    from koordinator_tpu_torch.scheduler.snapshot import ClusterSnapshot
+    from koordinator_tpu_torch.state.cluster_state import _bucket
+
+    t_start = time.perf_counter()
+    nodes, pods, leaf_max = gke_specs(4, n_nodes, n_pods)
+    snap = ClusterSnapshot(capacity=_bucket(n_nodes), device=device)
+    for spec in nodes:
+        snap.upsert_node(spec)
+    now = [0.0]
+    sched = Scheduler(snap, quota_tree=steady_tree(nodes, leaf_max),
+                      device=device, clock=lambda: now[0])
+    sched.incremental_dirty_threshold = 1.0
+    sched.enqueue_many(pods)
+    setup_s = time.perf_counter() - t_start
+    rng = np.random.default_rng(41)
+    numbers, records, solves, refreshes = {}, [], {}, []
+    for rnd in range(2 + steady_rounds):
+        if 0 < rnd <= steady_rounds:
+            refreshed, new = steady_delta(rng, nodes, rnd, n_arrivals)
+            for spec in refreshed:
+                sched.snapshot.upsert_node(spec)
+            sched.enqueue_many([gke_pod(rng, p) for p in new])
+        if rnd == steady_rounds + 1:
+            now[0] = 10.0
+            for spec in reservation_specs(rng, nodes, n_rsv, n_rsv):
+                sched.add_reservation(spec)
+            sched.enqueue_many(owner_pods(rng, 0, n_owners))
+        log, rlog, plog = [], [], []
+        build.reset_launch_counts()
+        with solve_probe(log, device), refresh_probe(rlog), \
+                prepass_probe(plog, device):
+            sync(device)
+            t0 = time.perf_counter()
+            res = sched.schedule_round()
+            sync(device)
+            wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        solves[rnd] = log
+        refreshes += rlog
+        rec = dict(round=rnd, path=sched.last_solve_path,
+                   solver=sched.last_solver, pods=res.round_pods,
+                   binds=len(res.assignments), failed=len(res.failures),
+                   assigned_fraction=len(res.assignments)
+                   / max(res.round_pods, 1), wall_s=wall,
+                   solve_ms=[s["ms"] for s in log if s["solver"] == "batch"],
+                   rescue_ms=[s["ms"] for s in log if s["solver"] == "greedy"],
+                   prepass_ms=[s["ms"] for s in plog],
+                   launches=launches)
+        rec.update(reservation_checks(sched, res, f"phase 12 round {rnd}"))
+        for qname, q in sched.quota_tree.nodes.items():
+            if not sched.quota_tree.children[qname]:
+                check(bool(q.used[CPU] <= q.max[CPU]),
+                      f"phase 12 round {rnd}: {qname} within its max")
+        records.append(rec)
+        emit("gke_round", **rec)
+        check(len(res.assignments) > 0, f"phase 12 round {rnd} bound pods")
+        if rnd == 0:
+            check(rec["path"] == "full_cold", "phase 12 starts cold")
+            for kname in ("select_candidates", "round_fit_choose",
+                          "segmented_prefix_accept"):
+                check(launches[kname] > 0,
+                      f"{kname} launched on phase 12's cold round")
+        elif rnd <= steady_rounds:
+            check(rec["path"] == "incremental",
+                  f"phase 12 round {rnd} took the incremental path")
+            for kname in ("refresh_candidates", "select_candidates",
+                          "round_fit_choose", "segmented_prefix_accept",
+                          "greedy_scan"):
+                check(launches[kname] > 0,
+                      f"{kname} launched on phase 12 round {rnd}")
+        else:
+            check(launches["reservation_scan"] > 0 and len(plog) == 1,
+                  "the pre-pass ran on K4r in phase 12")
+            check(rec["through_reservation"] > 0,
+                  "owner pods drew from reservations in phase 12")
+    check(snap.capacity == _bucket(n_nodes), "phase 12's capacity")
+    check(n_nodes != GKE_NODES or (snap.capacity == 65_536
+                                   and snap.class_capacity == 512),
+          "phase 12 ran at capacity 65,536 with 512 selector classes")
+    cold = next(s for s in solves[0] if s["solver"] == "batch")
+    numbers["select_candidates"] = gke_k1(device, cold)
+    numbers["round_fit_choose"] = gke_k3a(device, cold)
+    numbers["segmented_prefix_accept"] = phase_quota_rounds(
+        device, cold, label="gke_quota_rounds")
+    check(len(refreshes) > 0, "phase 12 refreshed the cache")
+    numbers["refresh_candidates"] = gke_k2(device, refreshes[0])
+    rescues = [s for r in range(1, steady_rounds + 1) for s in solves[r]
+               if s["solver"] == "greedy"]
+    check(len(rescues) > 0, "phase 12's steady rounds rescued")
+    numbers["greedy_scan"] = gke_k4(device, rescues[-1])
+    s = plog[0]
+    k4r = rsv_case(device, s["state"], s["pods"], s["cfg"], s["rsv"],
+                   s["match"], s["quota"])
+    k4r["in_round_ms"] = s["ms"]
+    numbers["reservation_scan"] = k4r
+    for name, out in numbers.items():
+        emit("gke_kernel", name=name, **{
+            key: val for key, val in out.items()
+            if not isinstance(val, list)})
+    emit("gke", nodes=n_nodes, capacity=snap.capacity,
+         classes=snap.class_count, class_capacity=snap.class_capacity,
+         backlog=n_pods, setup_s=setup_s,
+         seconds=time.perf_counter() - t_start,
+         rounds=[{key: r[key] for key in (
+             "round", "path", "pods", "binds", "assigned_fraction", "wall_s",
+             "solve_ms", "rescue_ms", "prepass_ms")} for r in records])
+    return numbers, [r["launches"] for r in records]
+
+
 def ptxas_summary(path: str) -> list[dict]:
     """Registers, spills and shared memory of every kernel in the
     compiler's -Xptxas -v log (one entry per compiled entry function)."""
@@ -2234,12 +3048,14 @@ def ptxas_summary(path: str) -> list[dict]:
 
 
 #: the kernels' entry functions in the ptxas log, by kernel (K1 and K2
-#: come in one- and two-stratum instances; K4 and K4r in four: the node
-#: columns in shared or global memory, without or with reservations)
-PTXAS_ENTRIES = {"select_candidates": ("select_candidates_kernel", 2),
-                 "refresh_candidates": ("refresh_candidates_kernel", 2),
+#: come in eight instances: one or two strata, the packed or the wide key
+#: regime, one selector word or many; K4 and K4r in eight: the node
+#: columns in shared or global memory, without or with reservations, one
+#: selector word or many)
+PTXAS_ENTRIES = {"select_candidates": ("select_candidates_kernel", 8),
+                 "refresh_candidates": ("refresh_candidates_kernel", 8),
                  "segmented_prefix_accept": ("round_accept_kernel", 1),
-                 "greedy_scan": ("greedy_scan_kernel", 4)}
+                 "greedy_scan": ("greedy_scan_kernel", 8)}
 
 
 def phase_ptxas(path: str) -> None:
@@ -2261,20 +3077,29 @@ def phase_ptxas(path: str) -> None:
         smem=e.get("smem")) for e in picked])
 
 
-#: earlier designs, as recorded in PERF.md (chip runs on an NVIDIA H100
-#: 80GB HBM3 at 700 W), ms at the same shapes: K1's and K4's of commit
-#: e9fcd1c a launch; K3b's of commit bf2978c (one launch a level, one
-#: thread walking each run) a launch at the flagship's first round; K2's
-#: of bf2978c (one thread a pod, int64 lists), the wrapper and the device
-EARLIER_DESIGN_MS = {
-    "select_candidates": [25.41, 25.56, 25.51],
-    "greedy_scan (rescue)": [24.32],
-    "greedy_scan (1,000 pods)": [67.78, 68.41, 67.51, 68.80],
-    "segmented_prefix_accept (a launch, node level, first round)": [5.65,
-                                                                    5.77],
-    "refresh_candidates (wrapper)": [0.863, 1.082],
-    "refresh_candidates (device)": [0.31],
-}
+#: earlier times as PERF.md records them (chip runs on an NVIDIA H100 80GB
+#: HBM3 at 700 W), ms at this run's shapes, as (name, label, ms).  The
+#: labels: ``e9fcd1c`` K1's and K4's earlier design, a launch;
+#: ``bf2978c`` K3b's (one launch a level, one thread walking each run) a
+#: launch at the flagship's first round, and K2's (one thread a pod,
+#: int64 lists), the wrapper and the device; ``30c463b`` the flagship
+#: phases' K1, K2 and K4 before the wide key regime and the selector
+#: words (K1 and K2, phases 6 and 7, measured at commit 956bf4b; K4,
+#: phase 8's 1,000 pods at f9c866f and phase 9's rescue at 956bf4b)
+EARLIER_MS = [
+    ("select_candidates", "e9fcd1c", [25.41, 25.56, 25.51]),
+    ("select_candidates", "30c463b", [8.84]),
+    ("greedy_scan (rescue)", "e9fcd1c", [24.32]),
+    ("greedy_scan (rescue)", "30c463b", [1.16]),
+    ("greedy_scan (1,000 pods)", "e9fcd1c", [67.78, 68.41, 67.51, 68.80]),
+    ("greedy_scan (1,000 pods)", "30c463b", [5.092, 5.221]),
+    ("segmented_prefix_accept (a launch, node level, first round)",
+     "bf2978c", [5.65, 5.77]),
+    ("refresh_candidates (wrapper)", "bf2978c", [0.863, 1.082]),
+    ("refresh_candidates (wrapper)", "30c463b", [0.497]),
+    ("refresh_candidates (device)", "bf2978c", [0.31]),
+    ("refresh_candidates (device)", "30c463b", [0.268]),
+]
 
 
 def main() -> int:
@@ -2320,6 +3145,10 @@ def main() -> int:
     del scheds
     k4r, k4r_launches = phase_reservations(device)
     phase_reservation_edges(device)
+    phase_wide_edges(device)
+    phase_k2_long_list(device)
+    phase_class_edges(device)
+    gke, gke_launches = phase_gke(device)
     kernels[1:1] = [dict(
         name="refresh_candidates", route="cuda",
         source=CSRC + "refresh_candidates.cu",
@@ -2351,26 +3180,30 @@ def main() -> int:
         launches=k4r_launches, max_abs_err=k4r["max_abs_err"], ms=k4r["ms"],
         plain_ms=k4r["plain_ms"], bound_ms=k4r["bound_ms"],
         bound_by=k4r["bound_by"], library_ms=None))
-    emit("earlier_design", note="the earlier designs' times as PERF.md "
-         "records them, beside this run's, at the same shapes", kernels=[
-             dict(name="select_candidates", ms=kernels[0]["ms"],
-                  earlier_ms=EARLIER_DESIGN_MS["select_candidates"]),
-             dict(name="greedy_scan (rescue)", ms=k4["ms"],
-                  earlier_ms=EARLIER_DESIGN_MS["greedy_scan (rescue)"]),
-             dict(name="greedy_scan (1,000 pods)", ms=k4_1000["ms"],
-                  earlier_ms=EARLIER_DESIGN_MS["greedy_scan (1,000 pods)"]),
-             dict(name="segmented_prefix_accept (a launch, node level, "
-                  "first round)", ms=table_k3b["device_ms"],
-                  wrapper_ms=table_k3b["ms"],
-                  earlier_ms=EARLIER_DESIGN_MS[
-                      "segmented_prefix_accept (a launch, node level, "
-                      "first round)"]),
-             dict(name="refresh_candidates (wrapper)", ms=k2["ms"],
-                  earlier_ms=EARLIER_DESIGN_MS[
-                      "refresh_candidates (wrapper)"]),
-             dict(name="refresh_candidates (device)", ms=k2["device_ms"],
-                  earlier_ms=EARLIER_DESIGN_MS[
-                      "refresh_candidates (device)"])])
+    this_run = {
+        "select_candidates": dict(ms=kernels[0]["ms"]),
+        "greedy_scan (rescue)": dict(ms=k4["ms"]),
+        "greedy_scan (1,000 pods)": dict(ms=k4_1000["ms"]),
+        "segmented_prefix_accept (a launch, node level, first round)": dict(
+            ms=table_k3b["device_ms"], wrapper_ms=table_k3b["ms"]),
+        "refresh_candidates (wrapper)": dict(ms=k2["ms"]),
+        "refresh_candidates (device)": dict(ms=k2["device_ms"])}
+    emit("earlier_design", note="earlier times as PERF.md records them, "
+         "each labelled with its commit, beside this run's at the same "
+         "shapes", kernels=[
+             dict(name=name, label=label, earlier_ms=ms, **this_run[name])
+             for name, label, ms in EARLIER_MS])
+    # phase 12's numbers beside each kernel's: its time, plain time and
+    # bound at the GKE-scale shapes, and its launches over phase 12's rounds
+    for entry in kernels:
+        g = gke[entry["name"]]
+        entry["phase12"] = dict(
+            launches=sum(r[entry["name"]] for r in gke_launches),
+            max_abs_err=g["max_abs_err"], ms=g["ms"],
+            plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
+            bound_by=g["bound_by"], library_ms=g.get("library_ms"))
+        if "device_ms" in g:
+            entry["phase12"]["device_ms"] = g["device_ms"]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -112,7 +112,7 @@ _SIGNATURES = {
     "koord_select_candidates": [
         _P, _P, _P, _P, _P, _P,          # node alloc/requested/usage/base/valid/class
         _P, _P, _P, _P,                  # pod requests/estimates/valid/rot_id
-        _P, _I, _P,                      # selector mask (P, C) + C, dense mask (N, P)
+        _P, _I, _P, _P,                  # selector mask (P, C) + C, its words' scratch (P, W), dense mask (N, P)
         _P, _I,                          # config int vector + its length
         _I, _I, _I,                      # P, N, strata count
         _I, _I, _I, _I,                  # strata shifts, per-stratum k
@@ -122,6 +122,7 @@ _SIGNATURES = {
     ],
     "koord_round_fit_choose": [
         _P, _P, _P, _P, _P,              # cand_key, cand_node, free, requests, active
+        _P,                              # rot_id (wide regime), else null
         _I, _I, _I,                      # P, k, N
         _P, _P,                          # out choice, has
         _P,                              # stream
@@ -139,7 +140,7 @@ _SIGNATURES = {
     "koord_refresh_candidates": [
         _P, _P, _P, _P, _P, _P,          # node alloc/requested/usage/base/valid/class
         _P, _P, _P, _P,                  # pod requests/estimates/valid/rot_id
-        _P, _I,                          # selector mask (P, C) + C
+        _P, _I, _P,                      # selector mask (P, C) + C, its words' scratch (P, W)
         _P, _I,                          # config int vector + its length
         _P, _P,                          # cached cand_node, cand_score (P, k)
         _P, _P, _I,                      # dirty rows, valid flags, D
@@ -153,7 +154,7 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P,          # node alloc/requested (in/out)/usage/base/valid/class
         _P,                              # node-column scratch
         _P, _P, _P, _P,                  # pod requests/estimates/valid, order
-        _P, _I, _P,                      # selector mask (P, C) + C, dense mask (P, N)
+        _P, _I, _P, _P,                  # selector mask (P, C) + C, its words' scratch (P, W), dense mask (P, N)
         _P, _I,                          # config int vector + its length
         _P, _P,                          # quota headroom, min_headroom (in/out)
         _P, _P, _P, _I, _I,              # quota checked, chain, valid, Q, depth
@@ -166,7 +167,7 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P,          # node alloc/requested (in/out)/usage/base/valid/class
         _P,                              # node-column scratch
         _P, _P, _P, _P,                  # pod requests/estimates/valid, order
-        _P, _I, _P,                      # selector mask (P, C) + C, dense mask (P, N)
+        _P, _I, _P, _P,                  # selector mask (P, C) + C, its words' scratch (P, W), dense mask (P, N)
         _P, _I,                          # config int vector + its length
         _P, _P,                          # quota headroom, min_headroom (in/out)
         _P, _P, _P, _I, _I,              # quota checked, chain, valid, Q, depth

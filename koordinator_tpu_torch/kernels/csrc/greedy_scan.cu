@@ -34,8 +34,10 @@
 //   (assignment.py:254-265 add nothing unless assigned), so it is skipped
 //   with no barrier.  The pod order, quota ids, flags and requests are
 //   staged in a shared-memory window of 256 pods as the scan reaches them;
-//   an admitted pod's estimate and selector bits are loaded then, one
-//   value a lane.
+//   an admitted pod's estimate and word 0 of its selector row are loaded
+//   then, one value a lane (the launch packs each row into W = ceil(C/64)
+//   words, pack_selector_words in koord_score.cuh; the many-word instances
+//   read a wider row's other words through L1 in the node scan).
 // - An admitted pod is scored by every CTA over its own nodes; each CTA
 //   reduces its best (score, -node) rank, the 16 ranks meet through
 //   distributed shared memory after one cluster barrier, and every CTA
@@ -73,6 +75,8 @@
 // sentinel.
 
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "koord_score.cuh"
 
@@ -194,14 +198,14 @@ struct RsvArgs {
   int* out_rsv;
 };
 
-template <bool kNodesInSmem, bool kRsv>
+template <bool kNodesInSmem, bool kRsv, bool kMulti>
 __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
     const int* __restrict__ alloc, int* reqd_g, const int* __restrict__ usage,
     const int* __restrict__ base, const uint8_t* __restrict__ nvalid,
     const int* __restrict__ nclass, unsigned char* scratch,
     const int* __restrict__ preq_g, const int* __restrict__ pest_g,
     const uint8_t* __restrict__ pvalid_g, const int* __restrict__ order,
-    const uint8_t* __restrict__ sel, int C,
+    const unsigned long long* __restrict__ sel, int C, int W,
     const uint8_t* __restrict__ feas, const __grid_constant__ ScoreCfg cfg,
     int* q_head_g, int* q_min_g, const uint8_t* __restrict__ q_checked_g,
     const int* __restrict__ q_chain_g, const uint8_t* __restrict__ q_valid_g,
@@ -214,7 +218,7 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
   __shared__ int s_req[kDims];
   __shared__ int s_est[kDims];
   __shared__ PodScalars s_ps;
-  __shared__ unsigned long long s_mask;
+  __shared__ SelRow s_sel;
   __shared__ int s_pod, s_qid, s_np;
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -370,26 +374,18 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
       if (found >= 0) {
         const int i = found - win_lo;
         const int idx = w_idx[i];
-        // the admitted pod's estimate and selector bits, one load per lane
+        // the admitted pod's estimate and selector word 0, one load a lane
         if (lane < kDims) {
           s_req[lane] = w_req[i * kDims + lane];
           s_est[lane] = pest_g[static_cast<long long>(idx) * kDims + lane];
         }
-        unsigned long long mask = 0;
-        if (sel != nullptr) {
-          const long long row = static_cast<long long>(idx) * C;
-          const unsigned lo_bits =
-              __ballot_sync(kFull, lane < C && sel[row + lane]);
-          const unsigned hi_bits =
-              __ballot_sync(kFull, lane + 32 < C && sel[row + lane + 32]);
-          mask = lo_bits | (static_cast<unsigned long long>(hi_bits) << 32);
-        }
+        if (lane == kDims && sel != nullptr)
+          s_sel = SelRow::of(sel, idx, W, true);
         __syncwarp();
         if (lane == 0) {
           s_pod = idx;
           s_qid = w_qid[i];
           s_np = (w_flags[i] >> 1) & 1;
-          s_mask = mask;
           s_ps = pod_scalars(s_req, cfg);
         }
         cursor = found + 1;
@@ -433,7 +429,7 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
     }
 
     // this CTA's best (score, -node) rank over its nodes
-    const unsigned long long mask = s_mask;
+    const SelRow sr = s_sel;
     const PodRef pod{s_req, s_est, 1, s_ps};
     long long best = LLONG_MIN;
     for (int i = tid; i < cnt; i += kThreads) {
@@ -453,7 +449,7 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
       }
       bool fe = ok && nv;
       if (sel != nullptr) {
-        fe = fe && selector_ok(mask, n_cls[i], C);
+        fe = fe && sr.template ok<kMulti>(n_cls[i], C);
       } else {
         fe = fe && feas[static_cast<long long>(idx) * N + n];
       }
@@ -572,19 +568,20 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
   cluster.sync();  // no CTA leaves while a peer may still read its s_best
 }
 
-template <bool kNodesInSmem, bool kRsv>
+template <bool kNodesInSmem, bool kRsv, bool kMulti>
 cudaError_t launch(long long smem, cudaStream_t st, const int* alloc,
                    int* reqd, const int* usage, const int* base,
                    const uint8_t* nvalid, const int* nclass,
                    unsigned char* scratch, const int* preq, const int* pest,
                    const uint8_t* pvalid, const int* order,
-                   const uint8_t* sel, int C, const uint8_t* feas,
+                   const unsigned long long* sel, int C, int W,
+                   const uint8_t* feas,
                    const ScoreCfg& cfg, int* q_head, int* q_min,
                    const uint8_t* q_checked, const int* q_chain,
                    const uint8_t* q_valid, int Q, int QD, const int* pquota,
                    const uint8_t* pnp, int P, int N, int* out_assign,
                    const RsvArgs& ra) {
-  auto kernel = greedy_scan_kernel<kNodesInSmem, kRsv>;
+  auto kernel = greedy_scan_kernel<kNodesInSmem, kRsv, kMulti>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
@@ -606,7 +603,7 @@ cudaError_t launch(long long smem, cudaStream_t st, const int* alloc,
   lc.numAttrs = 1;
   return cudaLaunchKernelEx(&lc, kernel, alloc, reqd, usage, base, nvalid,
                             nclass, scratch, preq, pest, pvalid, order, sel,
-                            C, feas, cfg, q_head, q_min, q_checked, q_chain,
+                            C, W, feas, cfg, q_head, q_min, q_checked, q_chain,
                             q_valid, Q, QD, pquota, pnp, P, N, out_assign,
                             ra);
 }
@@ -622,7 +619,7 @@ cudaError_t smem_room(long long* room) {
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   cudaFuncAttributes fa;
   if (err == cudaSuccess)
-    err = cudaFuncGetAttributes(&fa, greedy_scan_kernel<true, kRsv>);
+    err = cudaFuncGetAttributes(&fa, greedy_scan_kernel<true, kRsv, false>);
   if (err == cudaSuccess)
     *room = optin - static_cast<long long>(fa.sharedSizeBytes);
   return err;
@@ -656,13 +653,15 @@ template <bool kRsv>
 int scan(const int* alloc, int* reqd, const int* usage, const int* base,
          const uint8_t* nvalid, const int* nclass, unsigned char* scratch,
          const int* preq, const int* pest, const uint8_t* pvalid,
-         const int* order, const uint8_t* sel, int C, const uint8_t* feas,
-         const int* cfg, int cfg_len, int* q_head, int* q_min,
+         const int* order, const uint8_t* sel_mask, int C,
+         unsigned long long* sel, const uint8_t* feas, const int* cfg,
+         int cfg_len, int* q_head, int* q_min,
          const uint8_t* q_checked, const int* q_chain, const uint8_t* q_valid,
          int Q, int QD, const int* pquota, const uint8_t* pnp, int P, int N,
          int* out_assign, const RsvArgs& ra, int vmax, void* stream) {
-  if (cfg_len != kCfgLen || cfg == nullptr || C > 64 || N < 1 ||
-      (sel == nullptr) == (feas == nullptr) ||
+  if (cfg_len != kCfgLen || cfg == nullptr || N < 1 ||
+      (sel_mask == nullptr) == (feas == nullptr) ||
+      (sel_mask != nullptr && (C < 1 || sel == nullptr)) ||
       (q_head != nullptr && (Q < 1 || QD < 1)) ||
       (kRsv && (ra.V < 0 || vmax < 0 || vmax > ra.V || ra.out_rsv == nullptr ||
                 (ra.V > 0 && (ra.rows == nullptr || ra.match == nullptr))))) {
@@ -677,22 +676,33 @@ int scan(const int* alloc, int* reqd, const int* usage, const int* base,
   if (err != cudaSuccess) return static_cast<int>(err);
   RsvArgs args = ra;
   args.staged = plan.staged;
+  const int W = sel_mask != nullptr ? (C + 63) / 64 : 1;
+  if (sel_mask != nullptr) {
+    err = pack_selector(sel_mask, P, C, sel, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else {
+    sel = nullptr;
+  }
+  // the instance: node columns in shared memory or not, selector words
+  auto go = [&](auto in_smem, auto km) {
+    return launch<decltype(in_smem)::value, kRsv, decltype(km)::value>(
+        plan.smem, st, alloc, reqd, usage, base, nvalid, nclass, scratch,
+        preq, pest, pvalid, order, sel, C, W, feas, sc, q_head, q_min,
+        q_checked, q_chain, q_valid, Q, QD, pquota, pnp, P, N, out_assign,
+        args);
+  };
+  auto by_words = [&](auto in_smem) {
+    return W > 1 ? go(in_smem, std::true_type{})
+                 : go(in_smem, std::false_type{});
+  };
   if (plan.nodes_in_smem) {
-    err = launch<true, kRsv>(plan.smem, st, alloc, reqd, usage, base, nvalid,
-                             nclass, scratch, preq, pest, pvalid, order, sel,
-                             C, feas, sc, q_head, q_min, q_checked, q_chain,
-                             q_valid, Q, QD, pquota, pnp, P, N, out_assign,
-                             args);
+    err = by_words(std::true_type{});
   } else if (scratch == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
     // the quota replica and the window must fit; the node columns stream
     // from the global scratch
-    err = launch<false, kRsv>(plan.smem, st, alloc, reqd, usage, base,
-                              nvalid, nclass, scratch, preq, pest, pvalid,
-                              order, sel, C, feas, sc, q_head, q_min,
-                              q_checked, q_chain, q_valid, Q, QD, pquota, pnp,
-                              P, N, out_assign, args);
+    err = by_words(std::false_type{});
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -720,16 +730,17 @@ extern "C" int koord_greedy_scan(
     const int* alloc, int* reqd, const int* usage, const int* base,
     const uint8_t* nvalid, const int* nclass, unsigned char* scratch,
     const int* preq, const int* pest, const uint8_t* pvalid,
-    const int* order, const uint8_t* sel, int C, const uint8_t* feas,
+    const int* order, const uint8_t* sel, int C, unsigned long long* words,
+    const uint8_t* feas,
     const int* cfg, int cfg_len, int* q_head, int* q_min,
     const uint8_t* q_checked, const int* q_chain, const uint8_t* q_valid,
     int Q, int QD, const int* pquota, const uint8_t* pnp, int P, int N,
     int* out_assign, void* stream) {
   const RsvArgs none = {nullptr, 0, 0, nullptr, 0, nullptr};
   return scan<false>(alloc, reqd, usage, base, nvalid, nclass, scratch, preq,
-                     pest, pvalid, order, sel, C, feas, cfg, cfg_len, q_head,
-                     q_min, q_checked, q_chain, q_valid, Q, QD, pquota, pnp,
-                     P, N, out_assign, none, 0, stream);
+                     pest, pvalid, order, sel, C, words, feas, cfg, cfg_len,
+                     q_head, q_min, q_checked, q_chain, q_valid, Q, QD,
+                     pquota, pnp, P, N, out_assign, none, 0, stream);
 }
 
 // K4r's nodes per CTA (its records are grouped by the CTA owning their
@@ -763,7 +774,8 @@ extern "C" int koord_reservation_scan(
     const int* alloc, int* reqd, const int* usage, const int* base,
     const uint8_t* nvalid, const int* nclass, unsigned char* scratch,
     const int* preq, const int* pest, const uint8_t* pvalid,
-    const int* order, const uint8_t* sel, int C, const uint8_t* feas,
+    const int* order, const uint8_t* sel, int C, unsigned long long* words,
+    const uint8_t* feas,
     const int* cfg, int cfg_len, int* q_head, int* q_min,
     const uint8_t* q_checked, const int* q_chain, const uint8_t* q_valid,
     int Q, int QD, const int* pquota, const uint8_t* pnp, int P, int N,
@@ -771,7 +783,7 @@ extern "C" int koord_reservation_scan(
     int* out_assign, int* out_rsv, void* stream) {
   const RsvArgs ra = {rows, V, 0, match, boost, out_rsv};
   return scan<true>(alloc, reqd, usage, base, nvalid, nclass, scratch, preq,
-                    pest, pvalid, order, sel, C, feas, cfg, cfg_len, q_head,
-                    q_min, q_checked, q_chain, q_valid, Q, QD, pquota, pnp, P,
-                    N, out_assign, ra, vmax, stream);
+                    pest, pvalid, order, sel, C, words, feas, cfg, cfg_len,
+                    q_head, q_min, q_checked, q_chain, q_valid, Q, QD, pquota,
+                    pnp, P, N, out_assign, ra, vmax, stream);
 }

@@ -36,4 +36,17 @@ __device__ __forceinline__ int fmod_floor(int a, int n) {
   return m < 0 ? m + n : m;
 }
 
+// The ranking key's regimes (kernels/select_candidates.py): up to 2^15 node
+// rows one packed int32 key (quantized score << 15 | tie-break); past it,
+// the wide regime, (quantized score, tie-break), up to 2^30 node rows.
+constexpr int kTbBits = 15;
+constexpr int kPackedNodeCapacity = 1 << kTbBits;
+constexpr int kWideTbBits = 30;
+
+// Rotated tie-break of _rank_parts: (N-1) - ((n - rot*7919) mod N), with the
+// product and difference wrapping in int32 and the mod floored.
+__device__ __forceinline__ int tie_break(int n, int rot7919, int N) {
+  return (N - 1) - fmod_floor(wsub(n, rot7919), N);
+}
+
 }  // namespace koord

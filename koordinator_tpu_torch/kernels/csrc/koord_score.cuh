@@ -8,7 +8,9 @@
 //                 (_composite_score + _threshold_mask + fit)
 //   tie_break     koordinator_tpu/ops/batch_assign.py _rank_parts /
 //                 _candidate_tb
+//   wide_rank     the (key, tb) order of _topk_by_rank's wide regime
 //   rank_of       the (key desc, column asc) order of lax.top_k
+//   SelRow        PodBatch.feasible_rows' selector gather
 //
 // Every floor division of a score divides by a value that does not change
 // along one axis: a node's allocatable (per node), the LoadAware weight sum
@@ -28,7 +30,6 @@
 namespace koord {
 
 constexpr int kMaxPerStratum = 16;
-constexpr int kTbBits = 15;
 constexpr int kScoreClip = (1 << kTbBits) - 1;
 constexpr int kMaxScore = 100;
 
@@ -303,12 +304,6 @@ constexpr uint32_t kValidFlag = 1u << kDims;
 
 // ---- ranking ---------------------------------------------------------------
 
-// Rotated tie-break of _rank_parts: (N-1) - ((n - rot*7919) mod N), with the
-// product and difference wrapping in int32 and the mod floored.
-__device__ __forceinline__ int tie_break(int n, int rot7919, int N) {
-  return (N - 1) - fmod_floor(wsub(n, rot7919), N);
-}
-
 __device__ __forceinline__ int clip_score(int s) {
   return min(max(s, 0), kScoreClip);
 }
@@ -321,6 +316,15 @@ __device__ __forceinline__ long long rank_of(int key, int n) {
       static_cast<unsigned long long>(static_cast<long long>(key)) << 32;
   return static_cast<long long>(
       hi | static_cast<unsigned int>(0x7FFFFFFF - n));
+}
+
+// The wide regime's 64-bit composite rank key * 2^30 + tb: for key >= -1
+// and 0 <= tb < 2^30 its order is the lexicographic (key, tb) order.
+__device__ __forceinline__ long long wide_rank(int key, int tb) {
+  return static_cast<long long>(
+      (static_cast<unsigned long long>(static_cast<long long>(key))
+       << kWideTbBits) |
+      static_cast<unsigned int>(tb));
 }
 
 // Insert v into the descending list a[0..K-1] (drop the smallest).  A value
@@ -336,21 +340,67 @@ __device__ __forceinline__ void insert_sorted(T (&a)[kMaxPerStratum], T v) {
   a[0] = max(a[0], v);
 }
 
-// A pod's (P, C) selector row packed into a bit mask (C <= 64).
-__device__ __forceinline__ unsigned long long selector_bits(
-    const uint8_t* sel, long long p, int C) {
-  unsigned long long mask = 0;
-  for (int c = 0; c < C; ++c)
-    if (sel[p * C + c]) mask |= 1ull << c;
-  return mask;
+// A pod's (P, C) selector row as W = ceil(C / 64) words, packed before
+// each kernel by pack_selector_words (below; selector_words in
+// kernels/select_candidates.py is its PyTorch mirror): bit c & 63 of word
+// c >> 6 is class c.  Word 0 sits in a register.  The kernels come in
+// a one-word instance (C <= 64: the register's bit test alone) and a
+// many-word one (kMulti), which reads the word of a class past 63 through
+// L1, where the rows of the pods in flight stay.
+struct SelRow {
+  const unsigned long long* w;  // the pod's W words
+  unsigned long long w0;        // word 0 (0 for an invalid pod)
+
+  __device__ __forceinline__ static SelRow of(const unsigned long long* words,
+                                              long long p, int W, bool valid) {
+    const unsigned long long* row = words + p * W;
+    return {row, valid ? row[0] : 0ull};
+  }
+  // selector_mask[:, min(class, C-1)] & (class < C)  (PodBatch.feasible_rows;
+  // a negative class indexes from the end)
+  template <bool kMulti>
+  __device__ __forceinline__ bool ok(int cls, int C) const {
+    if (cls >= C) return false;
+    const int c = cls < 0 ? cls + C : cls;
+    if constexpr (!kMulti) {
+      return (w0 >> c) & 1ull;
+    } else {
+      // (the kernels test valid pods only: an invalid pod's row may lie
+      // past the words' end)
+      const unsigned long long word = c < 64 ? w0 : __ldg(w + (c >> 6));
+      return (word >> (c & 63)) & 1ull;
+    }
+  }
+};
+
+// Pack the (P, C) bool selector mask into the (P, W) words SelRow reads,
+// one thread a word.  Static, like pack_node_rows.
+static __global__ void pack_selector_words(const uint8_t* __restrict__ sel,
+                                           int P, int C, int W,
+                                           unsigned long long* __restrict__
+                                               words) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<long long>(P) * W) return;
+  const long long p = i / W;
+  const int lo = static_cast<int>(i - p * W) * 64;
+  const uint8_t* row = sel + p * C;
+  unsigned long long word = 0;
+  for (int c = lo; c < min(C, lo + 64); ++c)
+    word |= static_cast<unsigned long long>(row[c] != 0) << (c - lo);
+  words[i] = word;
 }
 
-__device__ __forceinline__ bool selector_ok(unsigned long long mask, int cls,
-                                            int C) {
-  // selector_mask[:, min(class, C-1)] & (class < C)  (PodBatch.feasible_rows)
-  if (cls >= C) return false;
-  int c = cls < 0 ? cls + C : cls;
-  return (mask >> c) & 1ull;
+// Launch pack_selector_words on ``st``: the words of a (P, C) mask into
+// ``words`` ((P, ceil(C / 64)), the wrapper's scratch).
+static inline cudaError_t pack_selector(const uint8_t* sel, int P, int C,
+                                        unsigned long long* words,
+                                        cudaStream_t st) {
+  const long long n = static_cast<long long>(P) * ((C + 63) / 64);
+  if (n == 0) return cudaSuccess;
+  pack_selector_words<<<static_cast<unsigned int>((n + 255) / 256), 256, 0,
+                        st>>>(sel, P, C, (C + 63) / 64, words);
+  return cudaGetLastError();
 }
 
 // ---- packed node rows (K1 and K2) ------------------------------------------

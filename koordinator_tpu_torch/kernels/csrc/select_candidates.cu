@@ -5,7 +5,7 @@
 //   koordinator_tpu/ops/assignment.py:139-166   score_pods (Filter + Score)
 //   koordinator_tpu/ops/batch_assign.py:126-154 _rank_parts (ranking key)
 //   koordinator_tpu/ops/batch_assign.py:451-525 _reduce_candidates
-//   koordinator_tpu/ops/batch_assign.py:182-197 _topk_by_rank (packed regime)
+//   koordinator_tpu/ops/batch_assign.py:182-197 _topk_by_rank (both regimes)
 // Its plain PyTorch version is select_candidates_plain in
 // kernels/select_candidates.py.
 //
@@ -40,18 +40,38 @@
 //   division goes through a magic multiplier: per node from the packed
 //   rows, per call for the LoadAware weight sum, per pod for the FitPlus
 //   weight sum.
-// - The per-stratum lists hold int32 keys ((clipped >> sb) << 15 | tb),
-//   not int64 (key, node) ranks: 32 registers instead of 64.  The node of
-//   a key is recovered from its tie-break (its preimages, re-scored when
-//   the rotation's difference wraps and two nodes share a tie-break), and
-//   the -1 slots of rows with fewer feasible nodes than a stratum's k are
-//   filled with the row's lowest infeasible columns, lax.top_k's order.
-//   kernels/select_candidates.py mirrors both rules (tie_break_preimages,
-//   topk_from_int32_keys), tested against the JAX package on the CPU.
+// - Packed regime (N <= 2^15): the per-stratum lists hold int32 keys
+//   ((clipped >> sb) << 15 | tb), not int64 (key, node) ranks: 32
+//   registers instead of 64.  The node of a key is recovered from its
+//   tie-break (its preimages, re-scored when the rotation's difference
+//   wraps and two nodes share a tie-break), and the -1 slots of rows with
+//   fewer feasible nodes than a stratum's k are filled with the row's
+//   lowest infeasible columns, lax.top_k's order.
+// - Wide regime (N > 2^15, the kWide instances): the lists hold the 64-bit
+//   composite wide_rank(clipped >> sb, tb) = key * 2^30 + tb, whose order
+//   is the lexicographic (key, tb) of the JAX package's wide top-k, and
+//   the node comes back from the tie-break the same way.  Among equal
+//   (key, tb) the wide order puts the HIGHER column first, so of two
+//   preimages carrying one rank the first copy takes the higher; the -1
+//   slots take the row's infeasible columns in tie-break order,
+//   descending, the higher column first between two that share one (a
+//   walk over the tie-break values from N-1 down).  The 64 registers of
+//   two int64 lists take a lower occupancy (4 CTAs an SM, not 6); the
+//   decoding reads the lists from shared memory.
+//   kernels/select_candidates.py mirrors the rules of both regimes
+//   (tie_break_preimages, topk_from_int32_keys, topk_from_wide_keys),
+//   tested against the JAX package on the CPU.
+// - Selector classes: the launch packs each pod's row of C classes into
+//   W = ceil(C/64) words (pack_selector_words, koord_score.cuh); word 0
+//   stays in a register, and the many-word instances (C > 64) read the
+//   word of a node's class through L1.  The one-word instances compile the
+//   register's bit test alone.
 // - An epilogue, stratum s on the pod's thread s, re-scores each chosen
 //   node to emit the stratum-0 key and the clipped score of every slot.
 
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "koord_score.cuh"
 
@@ -73,15 +93,16 @@ static_assert(kSliceBytes % 16 == 0, "bulk copies move 16-byte multiples");
 
 // Filter + Score of the pod against one packed node row; sets feas to the
 // full feasibility verdict.
+template <bool kMulti>
 __device__ __forceinline__ int score_row(
     const int* row, int n, int p, int P, const PodRef& pt,
-    const ScoreCfg& c, const uint8_t* feas_t,
-    unsigned long long mask, bool has_sel, int C, bool& feas) {
+    const ScoreCfg& c, const uint8_t* feas_t, const SelRow& sr, bool has_sel,
+    int C, bool& feas) {
   const PackedRow nr(row);
   bool ok;
   const int score = pair_score(nr, pt, c, ok);
   feas = ok && nr.valid() &&
-         (has_sel ? selector_ok(mask, nr.cls(), C)
+         (has_sel ? sr.template ok<kMulti>(nr.cls(), C)
                   : feas_t[static_cast<long long>(n) * P + p] != 0);
   // (a padding row past N is invalid, so feas_t is read only below N)
   return score;
@@ -140,19 +161,27 @@ __device__ __forceinline__ void bulk_multicast(void* dst, const void* src,
       : "memory");
 }
 
-template <int NS>
-__global__ void __launch_bounds__(kThreads, 6) select_candidates_kernel(
+template <int NS, bool kWide, bool kMulti>
+__global__ void __launch_bounds__(kThreads, kWide ? 4 : 6)
+    select_candidates_kernel(
     const int* __restrict__ rows, int n_tiles,
     const int* __restrict__ preq_g, const int* __restrict__ pest_g,
     const uint8_t* __restrict__ pvalid_g, const int* __restrict__ rot_g,
-    const uint8_t* __restrict__ sel, int C, const uint8_t* __restrict__ feas_t,
+    const unsigned long long* __restrict__ sel, int C, int W,
+    const uint8_t* __restrict__ feas_t,
     const __grid_constant__ ScoreCfg cfg, int P, int N, int sb0, int sb1,
     int k0,
     int k1, int group_stride, int* __restrict__ out_key,
     int* __restrict__ out_node, int* __restrict__ out_score) {
+  // the list entries: packed int32 keys, or wide 64-bit ranks
+  using Key = std::conditional_t<kWide, long long, int>;
+  constexpr Key kEmpty = kWide ? LLONG_MIN : INT_MIN;
   extern __shared__ __align__(128) int4 s_tiles[];
   __shared__ __align__(8) uint64_t s_full[kStages];
   __shared__ int s_any;
+  // the wide lists' values for the decoding (a runtime index)
+  __shared__ long long s_vals[kWide ? kPods : 1][kWide ? NS : 1]
+                             [kMaxPerStratum];
 
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned int rank = cluster.block_rank();
@@ -205,14 +234,14 @@ __global__ void __launch_bounds__(kThreads, 6) select_candidates_kernel(
   __syncthreads();
   const int rot7919 = in_range ? wmul(rot_g[p], 7919) : 0;
   const bool has_sel = sel != nullptr;
-  const unsigned long long mask =
-      (pvalid && has_sel) ? selector_bits(sel, p, C) : 0ull;
+  const SelRow sr = has_sel ? SelRow::of(sel, p, W, pvalid)
+                            : SelRow{nullptr, 0ull};
 
-  int lists[NS][kMaxPerStratum];
+  Key lists[NS][kMaxPerStratum];
 #pragma unroll
   for (int s = 0; s < NS; ++s)
 #pragma unroll
-    for (int j = 0; j < kMaxPerStratum; ++j) lists[s][j] = INT_MIN;
+    for (int j = 0; j < kMaxPerStratum; ++j) lists[s][j] = kEmpty;
   int n_feas = 0;
 
   if (any) {
@@ -240,16 +269,21 @@ __global__ void __launch_bounds__(kThreads, 6) select_candidates_kernel(
         for (int i = lane; i < kTile; i += kLanes) {
           const int n = n0 + i;
           bool feas;
-          const int score = score_row(tile + i * kRowInts, n, p, P, pt, cfg,
-                                      feas_t, mask, has_sel, C, feas);
+          const int score =
+              score_row<kMulti>(tile + i * kRowInts, n, p, P, pt, cfg,
+                                feas_t, sr, has_sel, C, feas);
           if (!(feas && n < N)) continue;
           ++n_feas;
           const int tb = tie_break(n, rot7919, N);
           const int clipped = clip_score(score);
 #pragma unroll
-          for (int s = 0; s < NS; ++s)
-            insert_sorted(lists[s],
-                          ((clipped >> (s == 0 ? sb0 : sb1)) << kTbBits) | tb);
+          for (int s = 0; s < NS; ++s) {
+            const int key = clipped >> (s == 0 ? sb0 : sb1);
+            if constexpr (kWide)
+              insert_sorted(lists[s], wide_rank(key, tb));
+            else
+              insert_sorted(lists[s], (key << kTbBits) | tb);
+          }
         }
       }
       if (t >= 1) {
@@ -275,7 +309,7 @@ __global__ void __launch_bounds__(kThreads, 6) select_candidates_kernel(
   for (int off = 1; off < kLanes; off <<= 1) {
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
-      int other[kMaxPerStratum];
+      Key other[kMaxPerStratum];
 #pragma unroll
       for (int j = 0; j < kMaxPerStratum; ++j)
         other[j] = __shfl_xor_sync(0xFFFFFFFFu, lists[s][j], off);
@@ -288,8 +322,8 @@ __global__ void __launch_bounds__(kThreads, 6) select_candidates_kernel(
   if (!in_range) return;
 
   // epilogue, lane s of the pod for stratum s.  Pass 1: the lists' keys
-  // into the key output (the lists are register arrays, so this loop is
-  // unrolled and indexes them statically)
+  // into the key output (packed) or shared memory (wide): the lists are
+  // register arrays, so this loop is unrolled and indexes them statically
   const int k_total = k0 + (NS > 1 ? k1 : 0);
   const long long row0 = static_cast<long long>(p) * k_total;
 #pragma unroll
@@ -297,8 +331,11 @@ __global__ void __launch_bounds__(kThreads, 6) select_candidates_kernel(
     if (s % kLanes != lane) continue;
 #pragma unroll
     for (int j = 0; j < kMaxPerStratum; ++j) {
-      if (j < (s == 0 ? k0 : k1)) out_key[row0 + (s == 0 ? 0 : k0) + j] =
-          lists[s][j];
+      if (j >= (s == 0 ? k0 : k1)) continue;
+      if constexpr (kWide)
+        s_vals[slot][s][j] = lists[s][j];
+      else
+        out_key[row0 + (s == 0 ? 0 : k0) + j] = lists[s][j];
     }
   }
 
@@ -317,6 +354,75 @@ __global__ void __launch_bounds__(kThreads, 6) select_candidates_kernel(
     const int sb = s == 0 ? sb0 : sb1;
     const long long base_o = row0 + (s == 0 ? 0 : k0);
     const int f = min(n_feas, ks_s);
+    if constexpr (kWide) {
+      // the rank's node: the preimage of its tie-break that carries it, the
+      // higher one (n2, at or above the wrap boundary) for the first copy
+      long long prev = LLONG_MIN;
+      int t = 0, half = 0;  // the -1 slots' walk: tie-break N-1-t
+      for (int j = 0; j < ks_s; ++j) {
+        const long long o = base_o + j;
+        int n, cscore = -1;
+        if (j < f) {
+          const long long v = s_vals[slot][s][j];
+          int n1 = (N - 1) -
+                   static_cast<int>(v & ((1ll << kWideTbBits) - 1)) + rot_mod;
+          if (n1 >= N) n1 -= N;
+          n = n1;
+          if (wraps && prev != v) {
+            int n2 = n1 + two32_mod;
+            if (n2 >= N) n2 -= N;
+            if (n2 >= wrap_from) {
+              bool feas;
+              const int sc = score_row<kMulti>(
+                  rows + static_cast<long long>(n2) * kRowInts, n2, p, P, pt,
+                  cfg, feas_t, sr, has_sel, C, feas);
+              if (feas && wide_rank(clip_score(sc) >> sb,
+                                    tie_break(n2, rot7919, N)) == v)
+                n = n2;
+            }
+          }
+          prev = v;
+          bool feas;
+          cscore = clip_score(score_row<kMulti>(
+              rows + static_cast<long long>(n) * kRowInts, n, p, P, pt, cfg,
+              feas_t, sr, has_sel, C, feas));
+        } else {
+          // the row's infeasible columns by tie-break, descending: for
+          // each value the node at or above the wrap boundary first
+          for (;;) {
+            int n1 = t + rot_mod;
+            if (n1 >= N) n1 -= N;
+            int cand = n1;
+            bool exists;
+            if (half == 0) {
+              cand = n1 + two32_mod;
+              if (cand >= N) cand -= N;
+              exists = cand >= wrap_from;
+              half = 1;
+            } else {
+              exists = n1 < wrap_from;
+              half = 0;
+              ++t;
+            }
+            if (!exists) continue;
+            bool feas = false;
+            if (pvalid) {
+              score_row<kMulti>(
+                  rows + static_cast<long long>(cand) * kRowInts, cand, p, P,
+                  pt, cfg, feas_t, sr, has_sel, C, feas);
+            }
+            if (!feas) {
+              n = cand;
+              break;
+            }
+          }
+        }
+        out_key[o] = cscore >= 0 ? cscore >> sb0 : -1;
+        out_node[o] = n;
+        out_score[o] = cscore;
+      }
+      continue;
+    }
     int prev = INT_MIN;
     int fill = 0;  // next column to test for the -1 slots
     for (int j = 0; j < ks_s; ++j) {
@@ -328,9 +434,9 @@ __global__ void __launch_bounds__(kThreads, 6) select_candidates_kernel(
         if (n1 >= N) n1 -= N;
         n = n1;
         bool feas;
-        int score = score_row(rows + static_cast<long long>(n1) * kRowInts,
-                              n1, p, P, pt, cfg, feas_t, mask,
-                              has_sel, C, feas);
+        int score = score_row<kMulti>(
+            rows + static_cast<long long>(n1) * kRowInts, n1, p, P, pt, cfg,
+            feas_t, sr, has_sel, C, feas);
         if (wraps) {
           // the first copy of v takes the lower matching preimage, a
           // second copy the higher one (lax.top_k's column order)
@@ -341,9 +447,9 @@ __global__ void __launch_bounds__(kThreads, 6) select_candidates_kernel(
           if (!ok1 || prev == v) {
             n = n1 + two32_mod;
             if (n >= N) n -= N;
-            score = score_row(rows + static_cast<long long>(n) * kRowInts,
-                              n, p, P, pt, cfg, feas_t, mask,
-                              has_sel, C, feas);
+            score = score_row<kMulti>(
+                rows + static_cast<long long>(n) * kRowInts, n, p, P, pt,
+                cfg, feas_t, sr, has_sel, C, feas);
           }
         }
         prev = v;
@@ -354,8 +460,9 @@ __global__ void __launch_bounds__(kThreads, 6) select_candidates_kernel(
         for (;; ++fill) {
           bool feas = false;
           if (pvalid) {
-            score_row(rows + static_cast<long long>(fill) * kRowInts, fill,
-                      p, P, pt, cfg, feas_t, mask, has_sel, C, feas);
+            score_row<kMulti>(rows + static_cast<long long>(fill) * kRowInts,
+                              fill, p, P, pt, cfg, feas_t, sr, has_sel, C,
+                              feas);
           }
           if (!feas) break;
         }
@@ -368,15 +475,16 @@ __global__ void __launch_bounds__(kThreads, 6) select_candidates_kernel(
   }
 }
 
-template <int NS>
+template <int NS, bool kWide, bool kMulti>
 cudaError_t launch(const int* rows, int n_tiles, const int* preq,
                    const int* pest, const uint8_t* pvalid, const int* rot_id,
-                   const uint8_t* sel, int C, const uint8_t* feas_t,
+                   const unsigned long long* sel, int C, int W,
+                   const uint8_t* feas_t,
                    const ScoreCfg& cfg, int P, int N, int sb0, int sb1,
                    int k0,
                    int k1, int* out_key, int* out_node, int* out_score,
                    cudaStream_t st) {
-  auto kernel = select_candidates_kernel<NS>;
+  auto kernel = select_candidates_kernel<NS, kWide, kMulti>;
   const int smem = kStages * kTileBytes + 2 * kDims * kPods * 4;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -408,8 +516,8 @@ cudaError_t launch(const int* rows, int n_tiles, const int* preq,
   lc.attrs = attr;
   lc.numAttrs = 1;
   return cudaLaunchKernelEx(&lc, kernel, rows, n_tiles, preq, pest, pvalid,
-                            rot_id, sel, C, feas_t, cfg, P, N, sb0, sb1, k0,
-                            k1, stride, out_key, out_node, out_score);
+                            rot_id, sel, C, W, feas_t, cfg, P, N, sb0, sb1,
+                            k0, k1, stride, out_key, out_node, out_score);
 }
 
 }  // namespace
@@ -424,16 +532,19 @@ extern "C" int koord_select_candidates(
     const int* alloc, const int* reqd, const int* usage, const int* base,
     const uint8_t* nvalid, const int* nclass, const int* preq,
     const int* pest, const uint8_t* pvalid, const int* rot_id,
-    const uint8_t* sel, int C, const uint8_t* feas_t, const int* cfg,
-    int cfg_len, int P, int N, int n_strata, int sb0, int sb1, int k0,
-    int k1, int* rows, int* out_key, int* out_node, int* out_score,
-    void* stream) {
+    const uint8_t* sel, int C, unsigned long long* words,
+    const uint8_t* feas_t, const int* cfg, int cfg_len, int P, int N,
+    int n_strata, int sb0, int sb1, int k0, int k1, int* rows, int* out_key,
+    int* out_node, int* out_score, void* stream) {
   if (cfg_len != kCfgLen || cfg == nullptr || n_strata < 1 ||
       n_strata > 2 ||
-      k0 > kMaxPerStratum || k1 > kMaxPerStratum || C > 64 || N < 1 ||
+      k0 > kMaxPerStratum || k1 > kMaxPerStratum || N < 1 ||
+      N > (1 << kWideTbBits) ||
+      (sel != nullptr && (C < 1 || words == nullptr)) ||
       (reinterpret_cast<uintptr_t>(rows) & 15) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int W = sel != nullptr ? (C + 63) / 64 : 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   ScoreCfg sc;
   load_score_cfg(sc, cfg);
@@ -443,14 +554,28 @@ extern "C" int koord_select_candidates(
       alloc, reqd, usage, base, nvalid, nclass, sc, N, nullptr, nullptr, N,
       n_pad, rows, nullptr);
   cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess && sel != nullptr)
+    err = pack_selector(sel, P, C, words, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = n_strata == 1
-            ? launch<1>(rows, n_tiles, preq, pest, pvalid, rot_id, sel, C,
-                        feas_t, sc, P, N, sb0, sb1, k0, 0, out_key,
-                        out_node, out_score, st)
-            : launch<2>(rows, n_tiles, preq, pest, pvalid, rot_id, sel, C,
-                        feas_t, sc, P, N, sb0, sb1, k0, k1, out_key,
-                        out_node, out_score, st);
+  // the instance: strata, key regime, selector words
+  auto go = [&](auto ns, auto kw, auto km) {
+    return launch<decltype(ns)::value, decltype(kw)::value,
+                  decltype(km)::value>(
+        rows, n_tiles, preq, pest, pvalid, rot_id,
+        sel != nullptr ? words : nullptr, C, W, feas_t, sc, P,
+        N, sb0, sb1, k0, decltype(ns)::value > 1 ? k1 : 0, out_key, out_node,
+        out_score, st);
+  };
+  auto by_words = [&](auto ns, auto kw) {
+    return W > 1 ? go(ns, kw, std::true_type{})
+                 : go(ns, kw, std::false_type{});
+  };
+  auto by_regime = [&](auto ns) {
+    return N > kPackedNodeCapacity ? by_words(ns, std::true_type{})
+                                   : by_words(ns, std::false_type{});
+  };
+  err = n_strata == 1 ? by_regime(std::integral_constant<int, 1>{})
+                      : by_regime(std::integral_constant<int, 2>{});
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -51,12 +51,10 @@ def _scan_args(state: ClusterState, pods: PodBatch, cfg: ScoringConfig,
     build.expect(pods.quota_id, "quota_id", torch.int32, (p,))
     build.expect(pods.non_preemptible, "non_preemptible", torch.bool, (p,))
     if pods.selector_mask is not None:
+        build.expect(pods.selector_mask, "selector_mask", torch.bool,
+                     (p, None))
+        c = pods.selector_mask.shape[1]
         sel, feas = pods.selector_mask, None
-        build.expect(sel, "selector_mask", torch.bool, (p, None))
-        c = sel.shape[1]
-        if c > 64:
-            raise ValueError(f"the kernel takes at most 64 node classes, "
-                             f"got {c}")
     else:
         sel, feas, c = None, pods.feasible, 1
         build.expect(feas, "feasible", torch.bool, (p, n))
@@ -91,16 +89,20 @@ def _scan_args(state: ClusterState, pods: PodBatch, cfg: ScoringConfig,
                            "be queried")
     scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
                if nbytes else None)
+    # the selector rows as words, packed by the launch
+    words = (None if sel is None else
+             torch.empty((p, -(-c // 64)), dtype=torch.int64, device=dev))
     args = [build.ptr(state.node_allocatable), build.ptr(requested),
             build.ptr(state.node_usage), build.ptr(base),
             build.ptr(state.node_valid), build.ptr(state.node_class),
             build.ptr(scratch), build.ptr(pods.requests), build.ptr(est),
             build.ptr(pods.valid), build.ptr(order), build.ptr(sel), c,
+            build.ptr(words),
             build.ptr(feas), build.ptr(cfgv), cfgv.numel(),
             *(build.ptr(t) if torch.is_tensor(t) else t for t in q_args),
             build.ptr(pods.quota_id), build.ptr(pods.non_preemptible), p, n]
     # the temporaries must outlive the launch's enqueue
-    keep = (est, cfgv, order, scratch)
+    keep = (est, cfgv, order, scratch, words)
     return (args, keep), assignments, new_state, new_quota
 
 

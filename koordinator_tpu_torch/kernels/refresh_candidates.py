@@ -7,13 +7,16 @@
 sub-problem, invalidate cached slots on dirty nodes, recompute each
 stratum's keys from the cached raw scores, and keep per stratum the best
 k_i of cached and fresh, position-stable over ``[cached, fresh]``.
-:func:`refresh_from_int32_lists` is the kernel's way to the same rows (int32
-value lists, nodes recovered afterwards), which the CPU tests hold against
-the JAX package.
+:func:`refresh_from_int32_lists` (packed regime: int32 value lists, nodes
+recovered afterwards) and :func:`refresh_from_wide_lists` (wide regime:
+(64-bit rank, 32-bit word) pairs, the word naming each entry) are the
+kernel's ways to
+the same rows, which the CPU tests hold against the JAX package.
 
-Only the packed key regime and the factored (selector-class) feasibility
-form are taken: the scheduler runs the refresh only on such batches, and
-the JAX version cannot gather a dense (P, N) mask to the dirty columns.
+Both key regimes are taken; only the factored (selector-class)
+feasibility form is: the scheduler runs the refresh only on such
+batches, and the JAX version cannot gather a dense (P, N) mask to the
+dirty columns.
 """
 
 from __future__ import annotations
@@ -26,8 +29,10 @@ from koordinator_tpu_torch.kernels.select_candidates import (
     _SCORE_CLIP,
     _TB_BITS,
     KERNEL_MAX_PER_STRATUM,
+    WIDE_TB_BITS,
     _candidate_tb,
     _config_vector,
+    _packed_regime,
     _rank_parts,
     _stratum_splits,
     _topk_by_rank,
@@ -41,9 +46,14 @@ from koordinator_tpu_torch.ops.assignment import (
 )
 from koordinator_tpu_torch.state.cluster_state import ClusterState, PodBatch
 
-#: the longest dirty list the kernel takes (a refresh lists a few percent
-#: of the nodes; longer lists have not been held against the plain version)
+#: the longest dirty list the kernel takes in the packed regime (at most
+#: 2**15 node rows, so the scheduler's padded lists stay far below it;
+#: longer lists have not been held against the plain version)
 MAX_DIRTY_COLUMNS = 0xFFFF - KERNEL_MAX_PER_STRATUM
+
+#: the wide regime's list word: a fresh entry's bit over its dirty column
+_FRESH = 1 << 31
+_COL_MAX = _FRESH - 1
 
 
 def _candidate_keys(score: torch.Tensor, node: torch.Tensor,
@@ -51,10 +61,12 @@ def _candidate_keys(score: torch.Tensor, node: torch.Tensor,
                     n_total: int) -> torch.Tensor:
     """Ranking key recomputed from a cached candidate's raw clipped score
     and node row: bit-identical to the key ``_rank_parts`` gives the same
-    (pod, node) pair.  ``score < 0`` marks an invalid slot."""
-    key = ((score >> spread_bits) << _TB_BITS) | _candidate_tb(
-        node, rot_id, n_total)
-    return torch.where(score >= 0, key, -1)
+    (pod, node) pair in either regime.  ``score < 0`` marks an invalid
+    slot."""
+    q = score >> spread_bits
+    if _packed_regime(n_total):
+        q = (q << _TB_BITS) | _candidate_tb(node, rot_id, n_total)
+    return torch.where(score >= 0, q, -1)
 
 
 def dirty_node_mask(dirty_rows: torch.Tensor, dirty_valid: torch.Tensor,
@@ -212,6 +224,109 @@ def refresh_from_int32_lists(state: ClusterState, pods: PodBatch,
     return _candidate_keys(score, node, rot, strata[0], n), node, score
 
 
+def refresh_from_wide_lists(state: ClusterState, pods: PodBatch,
+                            cfg: ScoringConfig, cand_node: torch.Tensor,
+                            cand_score: torch.Tensor,
+                            dirty_rows: torch.Tensor,
+                            dirty_valid: torch.Tensor, k: int = 32,
+                            strata=(5, 15)):
+    """:func:`refresh_candidates_plain`'s rows in the wide regime, formed
+    as the kernel forms them.  Every entry is a pair (``wide_rank(key,
+    tb)``, word) of an int64 and a uint32, ordered lexicographically, so
+    the pair order is the JAX merge's whole order and the word names the
+    entry:
+
+    - stage 1, the fresh top-k_i of the dirty columns: word = the
+      column, so equal (key, tb) keep the higher column first, as JAX's
+      dirty top-k does (infeasible and padded columns enter with key -1);
+    - stage 2, the merge of the k_i cached slots (word = the slot) with
+      the fresh entries (word = a fresh bit over the column, the column
+      inverted when the dirty list is longer than k_i): among equal
+      (key, tb) JAX keeps the higher merge position first, which is every
+      fresh entry before a cached one, the higher cached slot first, and
+      among fresh ones the reverse of stage 1's order when stage 1 cut
+      the list (positions k_i + rank), else the higher column first
+      (positions k_i + column);
+    - decoding reads the word: a cached slot keeps its node (and its
+      score when the key is valid), a fresh entry takes its dirty
+      column's node and clipped score.
+
+    The word is not packed into the rank, so no node capacity or dirty
+    list length runs out of bits."""
+    _check_factored(pods)
+    n = state.capacity
+    check_node_capacity(n)
+    k = min(k, n)
+    d = dirty_rows.shape[0]
+    rot = pods.rot_id
+    sub = state.gather_rows(dirty_rows, dirty_valid)
+    scores, feasible = score_pods(sub, pods, cfg)            # (P, D)
+    clipped = torch.clamp(scores, 0, _SCORE_CLIP).tolist()
+    dirty = dirty_node_mask(dirty_rows, dirty_valid, n)
+    in_nodes = (cand_node >= 0) & (cand_node < n)
+    stale = in_nodes & dirty[cand_node.long().clamp(0, n - 1)]
+    rows = dirty_rows.tolist()
+    d_tb = _candidate_tb(dirty_rows[None, :].expand(rot.shape[0], d), rot,
+                         n).tolist()
+
+    def rank(key, tb):
+        return (key << WIDE_TB_BITS) | tb
+
+    nodes_out, scores_out = [], []
+    off = 0
+    for sb, k_i in zip(strata, _stratum_splits(k, len(strata))):
+        if k_i == 0:
+            continue
+        c_node = cand_node[:, off:off + k_i]
+        c_score = torch.where(stale[:, off:off + k_i], -1,
+                              cand_score[:, off:off + k_i])
+        off += k_i
+        c_key = _candidate_keys(c_score, c_node, rot, sb, n).tolist()
+        c_tb = _candidate_tb(c_node, rot, n).tolist()
+        d_key = _rank_parts(scores, feasible, sb, rot, node_ids=dirty_rows,
+                            n_total=n)[0].tolist()
+        node = torch.empty((rot.shape[0], k_i), dtype=torch.int32)
+        score = torch.empty_like(node)
+        for i in range(rot.shape[0]):
+            stage1 = sorted(((rank(d_key[i][c], d_tb[i][c]), c)
+                             for c in range(d)), reverse=True)[:k_i]
+            fresh = [(v, _FRESH | (_COL_MAX - c if d > k_i else c))
+                     for v, c in stage1]
+            cached = [(rank(c_key[i][j], c_tb[i][j]), j) for j in range(k_i)]
+            merged = sorted(cached + fresh, reverse=True)[:k_i]
+            for j, (v, w) in enumerate(merged):
+                valid = v >= 0
+                if w & _FRESH:
+                    col = w & _COL_MAX
+                    col = _COL_MAX - col if d > k_i else col
+                    node[i, j] = rows[col]
+                    score[i, j] = clipped[i][col] if valid else -1
+                else:
+                    node[i, j] = c_node[i, w]
+                    score[i, j] = c_score[i, w] if valid else -1
+        nodes_out.append(node)
+        scores_out.append(score)
+    node = torch.cat(nodes_out, dim=1)
+    score = torch.cat(scores_out, dim=1)
+    return _candidate_keys(score, node, rot, strata[0], n), node, score
+
+
+def merge_pair_lists(a: list, b: list) -> list:
+    """The kernel's butterfly step on two descending lists of K (rank,
+    word) pairs (``merge_pairs`` in ``csrc/refresh_candidates.cu``):
+    ``c[i] = max(a[i], b[K-1-i])`` is bitonic and holds the top K of the
+    union, which a bitonic merger sorts descending."""
+    k = len(a)
+    c = [max(x, y) for x, y in zip(a, reversed(b))]
+    half = k // 2
+    while half:
+        for i in range(k):
+            if not i & half and c[i + half] > c[i]:
+                c[i], c[i + half] = c[i + half], c[i]
+        half //= 2
+    return c
+
+
 def refresh_candidates_kernel(state: ClusterState, pods: PodBatch,
                               cfg: ScoringConfig, cand_node: torch.Tensor,
                               cand_score: torch.Tensor,
@@ -250,9 +365,9 @@ def prepare_refresh(state: ClusterState, pods: PodBatch, cfg: ScoringConfig,
             f"the kernel takes at most 2 strata of at most "
             f"{KERNEL_MAX_PER_STRATUM} candidates each (got strata={strata}, "
             f"k={k})")
-    if d > MAX_DIRTY_COLUMNS:
+    if _packed_regime(n) and d > MAX_DIRTY_COLUMNS:
         raise ValueError(f"the kernel takes at most {MAX_DIRTY_COLUMNS} "
-                         f"dirty columns, got {d}")
+                         f"dirty columns at {n} node rows, got {d}")
     for name in ("node_allocatable", "node_requested", "node_usage",
                  "node_agg_usage"):
         build.expect(getattr(state, name), name, torch.int32, (n, r))
@@ -267,8 +382,6 @@ def prepare_refresh(state: ClusterState, pods: PodBatch, cfg: ScoringConfig,
     build.expect(dirty_rows, "dirty_rows", torch.int32, (d,))
     build.expect(dirty_valid, "dirty_valid", torch.bool, (d,))
     c = pods.selector_mask.shape[1]
-    if c > 64:
-        raise ValueError(f"the kernel takes at most 64 node classes, got {c}")
     est = pod_estimates(pods, cfg).contiguous()
     cfgv, agg_enabled = _config_vector(cfg)
     base = state.node_agg_usage if agg_enabled else state.node_usage
@@ -287,19 +400,22 @@ def prepare_refresh(state: ClusterState, pods: PodBatch, cfg: ScoringConfig,
     rows = torch.empty(lib.koord_refresh_candidates_scratch_bytes(d),
                        dtype=torch.uint8, device=dev)
     col_of = torch.empty(n, dtype=torch.int32, device=dev)
+    # the selector rows as words, packed by the launch
+    words = torch.empty((p, -(-c // 64)), dtype=torch.int64, device=dev)
     args = (
         build.ptr(state.node_allocatable), build.ptr(state.node_requested),
         build.ptr(state.node_usage), build.ptr(base),
         build.ptr(state.node_valid), build.ptr(state.node_class),
         build.ptr(pods.requests), build.ptr(est), build.ptr(pods.valid),
         build.ptr(pods.rot_id), build.ptr(pods.selector_mask), c,
+        build.ptr(words),
         build.ptr(cfgv), cfgv.numel(), build.ptr(cand_node),
         build.ptr(cand_score), build.ptr(dirty_rows),
         build.ptr(dirty_valid), d, p, n, len(strata),
         sb[0], sb[1], ks[0], ks[1], build.ptr(rows), build.ptr(col_of),
         build.ptr(key), build.ptr(node), build.ptr(score),
         build.stream_of(key))
-    keep = (est, base, cfgv, rows, col_of)   # alive while launch() is
+    keep = (est, base, cfgv, rows, col_of, words)  # alive while launch() is
 
     def launch():
         _ = keep

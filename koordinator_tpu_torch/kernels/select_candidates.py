@@ -7,9 +7,12 @@ candidate stage in PyTorch (``ops/batch_assign.py`` ``score_pods`` ->
 ``_rank_parts`` -> ``_topk_by_rank``), scored one pod chunk at a time.
 
 The ranking helpers live here, beside the plain version that uses them, and
-``ops/batch_assign.py`` re-exports them.  Only the PACKED key regime is
-ported: node capacities up to 2**15, where one int32 carries the quantized
-score over a rotated node tie-break.  A wider capacity raises ``ValueError``.
+``ops/batch_assign.py`` re-exports them.  Both key regimes of the JAX
+package are ported: up to ``PACKED_NODE_CAPACITY`` (2**15) node rows one
+int32 carries the quantized score over a rotated node tie-break (the
+PACKED regime); past it the key is the quantized score alone and the
+tie-break ranks second (the WIDE regime), up to the 2**30 ceiling of
+``check_node_capacity``.
 """
 
 from __future__ import annotations
@@ -42,30 +45,38 @@ MAX_NODE_CAPACITY = 1 << 30
 KERNEL_MAX_PER_STRATUM = 16
 
 
+#: bits of the rotated tie-break in the wide regime's 64-bit composite
+#: rank ``key << 30 | tb`` (the kernels' lists; tb < N <= 2**30)
+WIDE_TB_BITS = 30
+
+
 def check_node_capacity(n: int) -> None:
-    """Raise if a node capacity exceeds the ranking key's ceiling, or needs
-    the wide key regime, which the port does not implement."""
+    """Raise if a node capacity exceeds the ranking key's ceiling: node
+    rows index as nonnegative int32 and the rotated tie-break arithmetic
+    must stay inside int32."""
     if n > MAX_NODE_CAPACITY:
         raise ValueError(
             f"node capacity {n} exceeds the batched solver's ranking-key "
             f"ceiling of {MAX_NODE_CAPACITY} (= 2**30)")
-    if n > PACKED_NODE_CAPACITY:
-        raise ValueError(
-            f"node capacity {n} needs the wide key regime (capacity > "
-            f"2**{_TB_BITS}, a two-key ranking), which is not ported: the "
-            "port ranks only in the packed single-int32 regime")
+
+
+def _packed_regime(n_total: int) -> bool:
+    """True when ``n_total`` node rows fit the packed int32 key."""
+    return n_total <= PACKED_NODE_CAPACITY
 
 
 def _rank_parts(scores: torch.Tensor, feasible: torch.Tensor,
                 spread_bits: int = 0, rot_id: torch.Tensor | None = None,
                 node_ids: torch.Tensor | None = None,
                 n_total: int | None = None):
-    """(key, tb): the packed ranking key ``(clip(score) >> sb) << 15 | tb``
-    (-1 where infeasible) and the per-pod rotated tie-break
-    ``(N-1) - ((node - rot_id*7919) mod N)``.  ``rot_id * 7919`` and the
-    difference wrap in int32 as in JAX; ``%`` floors.  ``node_ids`` /
-    ``n_total`` rank a gathered column subset (the incremental refresh's
-    dirty columns) by their global node ids."""
+    """(key, tb): the ranking key (-1 where infeasible) and the per-pod
+    rotated tie-break ``(N-1) - ((node - rot_id*7919) mod N)``.  The key
+    is ``(clip(score) >> sb) << 15 | tb`` in the packed regime and
+    ``clip(score) >> sb`` alone in the wide one, where callers rank by
+    (key, tb).  ``rot_id * 7919`` and the difference wrap in int32 as in
+    JAX; ``%`` floors.  ``node_ids`` / ``n_total`` rank a gathered column
+    subset (the incremental refresh's dirty columns) by their global node
+    ids."""
     p, n = scores.shape
     n_total = n if n_total is None else n_total
     check_node_capacity(n_total)
@@ -76,7 +87,7 @@ def _rank_parts(scores: torch.Tensor, feasible: torch.Tensor,
            if node_ids is None else node_ids.to(torch.int32))[None, :]
     tb = (n_total - 1) - ((ids - rot) % n_total)
     q = torch.clamp(scores, 0, _SCORE_CLIP) >> spread_bits
-    key = (q << _TB_BITS) | tb
+    key = (q << _TB_BITS) | tb if _packed_regime(n_total) else q
     return torch.where(feasible, key, -1), tb
 
 
@@ -90,12 +101,24 @@ def _candidate_tb(node: torch.Tensor, rot_id: torch.Tensor,
 
 def _topk_by_rank(key: torch.Tensor, tb: torch.Tensor, k: int,
                   n_total: int):
-    """Per-row top-k columns by key, descending, lowest column first among
-    equal keys (``lax.top_k``'s order; ``torch.topk`` promises none, so a
-    stable descending sort stands in).  Returns (key_sel, col_idx int32)."""
+    """Per-row top-k columns by (key, tb) rank, descending.  Returns
+    (key_sel, col_idx int32).
+
+    Packed regime: by key, lowest column first among equal keys
+    (``lax.top_k``'s order; ``torch.topk`` promises none, so a stable
+    descending sort stands in).  Wide regime: lexicographically by
+    (key, tb), and among equal pairs the HIGHER column first: JAX sorts
+    (key, tb, column) ascending and flips the tail, so a stable
+    descending sort of the reversed row stands in."""
     check_node_capacity(n_total)
-    vals, idx = torch.sort(key, dim=1, descending=True, stable=True)
-    return vals[:, :k], idx[:, :k].to(torch.int32)
+    if _packed_regime(n_total):
+        vals, idx = torch.sort(key, dim=1, descending=True, stable=True)
+        return vals[:, :k], idx[:, :k].to(torch.int32)
+    n = key.shape[1]
+    idx = torch.sort(wide_rank(key, tb).flip(1), dim=1, descending=True,
+                     stable=True).indices[:, :k]
+    idx = (n - 1) - idx
+    return torch.gather(key, 1, idx), idx.to(torch.int32)
 
 
 def _stratum_splits(k: int, n: int) -> list[int]:
@@ -130,11 +153,12 @@ def _reduce_candidates(scores, feasible, strata, k: int, rot_id=None):
 
 # -- what the kernel computes instead of the plain version's steps ----------
 #
-# The functions below mirror, in PyTorch, three pieces of arithmetic the CUDA
-# kernels (csrc/koord_score.cuh, csrc/select_candidates.cu) do differently
-# from the plain version, so the CPU tests can hold each against the JAX
-# package: floor division by an invariant divisor without a divide, the node
-# recovered from an int32 ranking key, and lax.top_k's -1 slots.
+# The functions below mirror, in PyTorch, the arithmetic the CUDA kernels
+# (csrc/koord_score.cuh, csrc/select_candidates.cu) do differently from the
+# plain version, so the CPU tests can hold each against the JAX package:
+# floor division by an invariant divisor without a divide, the node
+# recovered from an int32 (packed) or 64-bit (wide) ranking key, the -1
+# slots of either regime, and the selector rows as 64-bit words.
 
 
 def _bit_length(x: torch.Tensor) -> torch.Tensor:
@@ -242,6 +266,96 @@ def topk_from_int32_keys(key: torch.Tensor, k: int, rot_id: torch.Tensor,
     fill = torch.gather(infeasible_first, 1, (j - f).clamp(min=0))
     cols = torch.where(j < f, node, fill.to(torch.int32))
     return torch.where(j < f, vals, -1), cols.to(torch.int32)
+
+
+def wide_rank(key: torch.Tensor, tb: torch.Tensor) -> torch.Tensor:
+    """The wide regime's 64-bit composite rank ``key << 30 | tb`` (the
+    kernels' ``wide_rank``): for key >= -1 and 0 <= tb < 2**30 it is
+    key * 2**30 + tb, whose int64 order is the (key, tb) order."""
+    return (key.to(torch.int64) << WIDE_TB_BITS) | tb.to(torch.int64)
+
+
+def wide_fill_order(rot_id: int, n_total: int):
+    """The columns of one row in the wide regime's order of its -1 slots:
+    tie-break descending, the higher column first between the two nodes
+    that share a wrapped tie-break (:func:`tie_break_preimages`).  Yields
+    every column once, as the kernels' fill walk visits them."""
+    rot = torch.tensor([rot_id], dtype=torch.int32)
+    for t in range(n_total):
+        first, second = tie_break_preimages(
+            torch.tensor([n_total - 1 - t], dtype=torch.int32), rot, n_total)
+        for n in (int(second), int(first)):
+            if n >= 0:
+                yield n
+
+
+def topk_from_wide_keys(key: torch.Tensor, tb: torch.Tensor, k: int,
+                        rot_id: torch.Tensor, n_total: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row top-k (key_sel, col_idx) as the kernel forms it in the wide
+    regime: it keeps only the best k composite ranks (:func:`wide_rank`)
+    of the row's feasible columns and their count f, and recovers the
+    columns afterwards.
+
+    - Slot j < f holds a rank v; its column is the preimage of v's
+      tie-break whose own rank is v.  When both preimages carry v, the
+      first copy takes the HIGHER column and a second copy the lower: the
+      wide order among equal (key, tb).
+    - Slot j >= f is a -1 slot: the row's infeasible columns in
+      :func:`wide_fill_order`.
+    Equals ``_topk_by_rank`` in the wide regime for ``tb`` from
+    ``_rank_parts``."""
+    p, n = key.shape
+    k = min(k, n)
+    rank = wide_rank(key, tb)
+    keys_out = torch.full((p, k), -1, dtype=torch.int32)
+    cols_out = torch.empty((p, k), dtype=torch.int32)
+    mask = (1 << WIDE_TB_BITS) - 1
+    for i in range(p):
+        row = rank[i].tolist()
+        feas = [v for v, kk in zip(row, key[i].tolist()) if kk >= 0]
+        vals = sorted(feas, reverse=True)[:k]
+        prev = None
+        for j, v in enumerate(vals):
+            t = torch.tensor([v & mask], dtype=torch.int32)
+            first, second = (int(x) for x in tie_break_preimages(
+                t, rot_id[i:i + 1], n_total))
+            take_second = (second >= 0 and row[second] == v
+                           and prev != v)
+            cols_out[i, j] = second if take_second else first
+            keys_out[i, j] = v >> WIDE_TB_BITS
+            prev = v
+        fill = (c for c in wide_fill_order(int(rot_id[i]), n_total)
+                if key[i, c] < 0)
+        for j in range(len(vals), k):
+            cols_out[i, j] = next(fill)
+    return keys_out, cols_out
+
+
+def selector_words(sel: torch.Tensor) -> torch.Tensor:
+    """A (P, C) selector mask as (P, W) int64 words, W = ceil(C / 64): bit
+    c % 64 of word c // 64 is column c (the layout the kernels' launches
+    pack, csrc/koord_score.cuh pack_selector_words)."""
+    p, c = sel.shape
+    w = max(1, -(-c // 64))
+    bits = torch.zeros((p, w * 64), dtype=torch.uint8, device=sel.device)
+    bits[:, :c] = sel
+    shift = torch.arange(8, dtype=torch.uint8, device=sel.device)
+    packed = (bits.view(p, w * 8, 8) << shift).sum(-1, dtype=torch.uint8)
+    return packed.contiguous().view(torch.int64)
+
+
+def selector_bit(words: torch.Tensor, cls: torch.Tensor,
+                 c: int) -> torch.Tensor:
+    """(P, N) bool: the kernels' selector test of every pod against every
+    node class, ``selector_mask[:, min(class, C-1)] & (class < C)`` read
+    from the words (a negative class indexes from the end, as the plain
+    gather does)."""
+    ok = cls < c
+    col = torch.where(cls < 0, cls + c, cls).long().clamp(0, c - 1)
+    word = torch.gather(words, 1, (col >> 6)[None, :]
+                        .expand(words.shape[0], -1))
+    return ok[None, :] & (((word >> (col & 63)[None, :]) & 1) == 1)
 
 
 def _pod_rows(pods: PodBatch, start: int, stop: int) -> PodBatch:
@@ -356,9 +470,6 @@ def select_candidates_kernel(state: ClusterState, pods: PodBatch,
         sel = pods.selector_mask
         build.expect(sel, "selector_mask", torch.bool, (p, None))
         c = sel.shape[1]
-        if c > 64:
-            raise ValueError(f"the kernel takes at most 64 node classes, "
-                             f"got {c}")
         feas_t = None
     else:
         build.expect(pods.feasible, "feasible", torch.bool, (p, n))
@@ -379,12 +490,16 @@ def select_candidates_kernel(state: ClusterState, pods: PodBatch,
     lib = build.lib()
     rows = torch.empty(lib.koord_select_candidates_scratch_bytes(n),
                        dtype=torch.uint8, device=dev)
+    # the selector rows as words, packed by the kernel's launch
+    words = (None if sel is None else
+             torch.empty((p, -(-c // 64)), dtype=torch.int64, device=dev))
     err = lib.koord_select_candidates(
         build.ptr(state.node_allocatable), build.ptr(state.node_requested),
         build.ptr(state.node_usage), build.ptr(base),
         build.ptr(state.node_valid), build.ptr(state.node_class),
         build.ptr(pods.requests), build.ptr(est), build.ptr(pods.valid),
-        build.ptr(pods.rot_id), build.ptr(sel), c, build.ptr(feas_t),
+        build.ptr(pods.rot_id), build.ptr(sel), c, build.ptr(words),
+        build.ptr(feas_t),
         build.ptr(cfgv), cfgv.numel(), p, n, len(strata),
         sb[0], sb[1], ks[0], ks[1], build.ptr(rows),
         build.ptr(key), build.ptr(node), build.ptr(score),

@@ -12,9 +12,10 @@ candidate cache).
        per quota-ancestor level, all levels in one call a round (K3b,
        ``kernels/prefix_accept.py``).
 
-Ported scope: the packed key regime (node capacity <= 2**15) and the
-candidate methods ``exact``, ``chunked_exact`` and ``auto`` (which is
-``exact`` here, as in JAX off the TPU).  The wide regime and the ``approx``
+Ported scope: both key regimes (the packed single-int32 key up to 2**15
+node rows, the wide (key, tie-break) ranking past it, up to the 2**30
+ceiling) and the candidate methods ``exact``, ``chunked_exact`` and
+``auto`` (which is ``exact`` here, as in JAX off the TPU).  The ``approx``
 and ``chunked`` methods raise ``ValueError``.
 
 PyTorch idiom in place of the JAX control flow: ``lexsort`` is one stable
@@ -54,6 +55,7 @@ from koordinator_tpu_torch.kernels.select_candidates import (  # noqa: F401
     MAX_NODE_CAPACITY,
     PACKED_NODE_CAPACITY,
     _candidate_tb,
+    _packed_regime,
     _rank_parts,
     _reduce_candidates,
     _stratum_splits,
@@ -142,7 +144,7 @@ def _assign_rounds(state: ClusterState, pods: PodBatch, quota, cand_key,
             break
         free = torch.where(node_valid[:, None], alloc - requested, 0)
         choice, has = round_fit_choose(cand_key, cand_node, free,
-                                       pods.requests, active)
+                                       pods.requests, active, pods.rot_id)
         act = active & has
         if quota is not None:
             act = act & quota_admission_mask(quota, pods.requests,

@@ -286,7 +286,8 @@ def first_round_accept(state, pods, cfg, quota):
     free = torch.where(state.node_valid[:, None],
                        state.node_allocatable - state.node_requested, 0)
     active = pods.valid & torch.any(key >= 0, dim=1)
-    choice, has = round_fit_choose(key, node, free, pods.requests, active)
+    choice, has = round_fit_choose(key, node, free, pods.requests, active,
+                                   pods.rot_id)
     act = active & has
     if quota is not None:
         act = act & quota_admission_mask(quota, pods.requests,
@@ -351,11 +352,17 @@ def refresh_case(state, pods, cfg, n_dirty: int = 102):
 
 
 #: kernels whose device time --kernels reads from the profiler, by case
-#: (names as the compiler emits them; both designs' names)
+#: (names as the compiler emits them; both designs' names; a launch's
+#: packing kernels count with it)
 DEVICE_KERNELS = {
+    "k1_ms": ("select_candidates_kernel", "pack_node_rows",
+              "pack_selector_words"),
+    "k4_ms": ("greedy_scan_kernel", "pack_selector_words"),
+    "k4_rescue_ms": ("greedy_scan_kernel", "pack_selector_words"),
     "k3b_round_ms": ("prefix_accept_kernel", "round_accept_kernel"),
     "k3b_quota_round_ms": ("prefix_accept_kernel", "round_accept_kernel"),
-    "k2_ms": ("refresh_candidates_kernel", "pack_node_rows"),
+    "k2_ms": ("refresh_candidates_kernel", "pack_node_rows",
+              "pack_selector_words"),
 }
 
 

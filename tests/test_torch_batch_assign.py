@@ -254,33 +254,11 @@ def test_round_fit_choose_matches_jax_round_body(seed):
 
     t = torch.from_numpy
     g_choice, g_has = round_fit_choose(t(cand_key), t(cand_node), t(free),
-                                       t(req), t(active))
+                                       t(req), t(active),
+                                       torch.arange(p, dtype=torch.int32))
     assert np.array_equal(g_has.numpy(), has & active)
     assert np.array_equal(g_choice.numpy()[active], choice[active])
     assert np.array_equal(g_choice.numpy()[~active], cand_node[~active, 0])
-
-
-def test_wide_key_regime_raises():
-    from koordinator_tpu_torch.ops import batch_assign as tba
-    from koordinator_tpu_torch.ops.assignment import ScoringConfig
-    from koordinator_tpu_torch.state.cluster_state import (
-        ClusterState,
-        PodBatch,
-    )
-
-    n = tba.PACKED_NODE_CAPACITY + 1
-    alloc = np.zeros((n, 10), np.int32)
-    alloc[:, 0] = 1_000
-    state = ClusterState.from_arrays(alloc, capacity=n, device="cpu")
-    pods = PodBatch.build(np.ones((4, 10), np.int32), node_capacity=n,
-                          device="cpu")
-    cfg = ScoringConfig.default(device="cpu")
-    with pytest.raises(ValueError, match="wide key regime"):
-        tba.select_candidates(state, pods, cfg)
-    with pytest.raises(ValueError, match="wide key regime"):
-        tba.batch_assign(state, pods, cfg)
-    with pytest.raises(ValueError, match="ceiling"):
-        tba.check_node_capacity(2**30 + 1)
 
 
 @pytest.mark.parametrize("method", ["approx", "chunked", "fused"])
@@ -329,7 +307,8 @@ def test_cpu_wrappers_launch_nothing_and_other_devices_raise():
         round_fit_choose(key, key, torch.empty((3, 10), dtype=torch.int32,
                                                **meta),
                          torch.empty((4, 10), dtype=torch.int32, **meta),
-                         torch.empty(4, dtype=torch.bool, **meta))
+                         torch.empty(4, dtype=torch.bool, **meta),
+                         torch.empty(4, dtype=torch.int32, **meta))
     with pytest.raises(ValueError, match="several devices"):
         segmented_prefix_accept(
             torch.zeros(4, dtype=torch.int32), torch.zeros((4, 10),

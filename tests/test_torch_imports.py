@@ -2,7 +2,9 @@
 package, not at import time and not after scheduling rounds down every path
 (a cold batch round, an incremental round over the candidate cache, a
 greedy round, and reservation rounds: reserve-pods and a pinned
-reservation opening, then owner pods through the reservation pre-pass)."""
+reservation opening, then owner pods through the reservation pre-pass;
+then a cold and an incremental round in the wide key regime, at a capacity
+of 40,960 with 70 node classes)."""
 
 import os
 import re
@@ -78,6 +80,25 @@ res = sched.schedule_round()
 assert any(sched.bound[n].reservation for n in res.assignments)
 sched.delete_pod(sorted(res.assignments)[0])
 sched.remove_reservation("r0")
+# the wide key regime (capacity past 2**15) with 70 label classes (two
+# selector words a pod): a cold and an incremental round
+wide = ClusterSnapshot(capacity=40_960, device="cpu")
+for i in range(70):
+    a = np.zeros(10, np.int32)
+    a[0], a[1] = rng.integers(8000, 64000), rng.integers(16384, 262144)
+    wide.upsert_node(NodeSpec(name=f"w{i}", allocatable=a,
+                              labels={"rack": f"r{i}"}))
+ws = Scheduler(wide, batch_solver_threshold=16, device="cpu")
+ws.incremental_dirty_threshold = 1.0
+for rnd in range(2):
+    for j in range(40):
+        q = np.zeros(10, np.int32)
+        q[0], q[1] = rng.integers(100, 4000), rng.integers(128, 8192)
+        ws.enqueue(PodSpec(name=f"w{rnd}-{j}", requests=q,
+                           node_selector={"rack": f"r{j}"} if j % 2 else {}))
+    res = ws.schedule_round()
+    assert res.assignments and wide.class_capacity == 128
+assert ws.last_solve_path == "incremental"
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "koordinator_tpu"))
 print("LOADED", bad)

@@ -12,7 +12,20 @@ holds them against their plain versions there):
   (``tie_break_preimages``), against ``_candidate_tb`` for every node;
 - (c) the top-k formed from int32 keys alone, with the -1 slots filled
   from the row's lowest infeasible columns (``topk_from_int32_keys``),
-  against the JAX package's ``_topk_by_rank``.
+  against the JAX package's ``_topk_by_rank``;
+- (d) the wide regime's 64-bit composite rank ``key << 30 | tb``
+  (``wide_rank``): its order, its decoding back to (key, tb), and the top-k
+  formed from it with the node recovered from the tie-break and the -1
+  slots in tie-break order (``topk_from_wide_keys``), against
+  ``_topk_by_rank``;
+- (e) K2's list merge of the wide regime (``refresh_from_wide_lists``:
+  (64-bit rank, 32-bit word) pairs, the word naming each entry's slot or
+  dirty column), against the JAX package's ``refresh_candidates``, and
+  the butterfly step that merges two lanes' pair lists
+  (``merge_pair_lists``), against a sorted union;
+- (f) the selector rows packed into 64-bit words and the kernels' bit test
+  (``selector_words``, ``selector_bit``), against the JAX package's
+  selector gather.
 
 Tolerance 0 everywhere: every value is an integer.
 """
@@ -26,12 +39,17 @@ from hypothesis import strategies as st
 from koordinator_tpu_torch.kernels.select_candidates import (
     _TB_BITS,
     SCARCE_RECIP,
+    WIDE_TB_BITS,
     _candidate_tb,
     magic_divisor,
     magic_floordiv,
     scarce_floordiv,
+    selector_bit,
+    selector_words,
     tie_break_preimages,
     topk_from_int32_keys,
+    topk_from_wide_keys,
+    wide_rank,
 )
 from tests.torch_parity import set_torch_threads
 
@@ -159,7 +177,8 @@ def test_tie_break_collides_only_when_the_difference_wraps():
 
 def _keys(rng, p: int, n: int, feasible_counts, rot: np.ndarray,
           spread_bits: int):
-    """A (P, N) packed key with exactly feasible_counts[i] feasible
+    """A (P, N) ranking key (packed or wide, by N) with exactly
+    feasible_counts[i] feasible
     columns in row i (random columns, random scores), via _rank_parts."""
     from koordinator_tpu_torch.kernels.select_candidates import _rank_parts
 
@@ -237,9 +256,10 @@ def _refresh_case(n: int, n_dirty: int, pad: int, seed: int,
     """(JAX state before, JAX state after a usage refresh of ``n_dirty``
     nodes, JAX pods, dirty rows, dirty valid) with half the pods at rot
     ids whose tie-break wraps.  Where two nodes share pod 0's tie-break,
-    the first such pair is made identical and dirty (listed in reverse
-    node order), the second identical, clean and roomy, so both keys
-    occur twice."""
+    the first two such pairs are made identical, empty and roomy, the
+    first dirty (listed in reverse node order, its fresh usage 0) and the
+    second clean, so both keys occur twice, among the fresh entries and
+    among the cached ones."""
     import jax.numpy as jnp
 
     from koordinator_tpu.state.cluster_state import ClusterState, PodBatch
@@ -267,9 +287,8 @@ def _refresh_case(n: int, n_dirty: int, pad: int, seed: int,
         node_class[b] = node_class[a]
         if i == 0:
             forced = [b, a]
-        else:
-            alloc[[a, b], 0], alloc[[a, b], 1] = 64_000, 262_144
-            usage[[a, b]], requested[[a, b]] = 0, 0
+        alloc[[a, b], 0], alloc[[a, b], 1] = 64_000, 262_144
+        usage[[a, b]], requested[[a, b]] = 0, 0
     paired = {x for p in pairs for x in p}
     others = [int(x) for x in rng.permutation(n) if int(x) not in paired]
     rows = (forced + others)[:n_dirty]
@@ -281,6 +300,7 @@ def _refresh_case(n: int, n_dirty: int, pad: int, seed: int,
     usage2 = usage.copy()
     usage2[rows] = (alloc[rows] * rng.random((len(rows), r)) * 0.5).astype(
         np.int32)
+    usage2[forced] = 0
     after = ClusterState.from_arrays(alloc, requested=requested,
                                      usage=usage2, capacity=n,
                                      node_class=node_class)
@@ -352,3 +372,192 @@ def test_int32_list_refresh_matches_jax(n, n_dirty, pad):
         # some row keeps two equal stratum-0 keys (a shared tie-break)
         dup = (kk[:, 1:] == kk[:, :-1]) & (kk[:, 1:] >= 0)
         assert dup.any()
+
+
+# -- the wide regime (node capacity past 2**15) ------------------------------
+
+
+@settings(max_examples=200, deadline=None)
+@given(pairs=st.lists(st.tuples(st.integers(-1, 2**15 - 1),
+                                st.integers(0, 2**30 - 1)),
+                      min_size=1, max_size=60))
+def test_wide_rank_orders_by_key_then_tie_break(pairs):
+    """(d) key * 2**30 + tb orders exactly as (key, tb), and the key and
+    the tie-break come back from it (an arithmetic shift, the low 30
+    bits)."""
+    key = torch.tensor([k for k, _ in pairs], dtype=torch.int32)
+    tb = torch.tensor([t for _, t in pairs], dtype=torch.int32)
+    rank = wide_rank(key, tb)
+    order = sorted(range(len(pairs)), key=lambda i: (pairs[i], i))
+    assert torch.sort(rank, stable=True).indices.tolist() == order
+    assert torch.equal((rank >> WIDE_TB_BITS).to(torch.int32), key)
+    assert torch.equal((rank & ((1 << WIDE_TB_BITS) - 1)).to(torch.int32),
+                       tb)
+
+
+@settings(max_examples=12, deadline=None)
+@given(n=st.sampled_from([32_769, 40_960, 65_536]),
+       k=st.sampled_from([1, 5, 16]), spread_bits=st.sampled_from([0, 5, 15]),
+       seed=st.integers(0, 2**16))
+def test_topk_from_wide_keys_matches_jax_topk(n, k, spread_bits, seed):
+    """(d) Rows with 0, 1, k-1, k and many feasible columns over the whole
+    node axis, half at rot ids whose tie-break wraps (two nodes share one
+    where 2**32 is not a multiple of N), against the JAX package's
+    _topk_by_rank in the wide regime: keys and columns, the -1 slots
+    included."""
+    import jax.numpy as jnp
+
+    from koordinator_tpu.ops.batch_assign import _topk_by_rank
+
+    rng = np.random.default_rng(seed)
+    counts = [0, 1, k - 1, k, k + 1, n // 3, 3]
+    rot = np.array([_danger_rot(n, int(rng.integers(0, n - 1))) if i % 2
+                    else int(rng.integers(0, 2**31 - 1))
+                    for i in range(len(counts))], np.int32)
+    key, tb = _keys(rng, len(counts), n, counts, rot, spread_bits)
+    want_key, want_col = _topk_by_rank(jnp.asarray(key.numpy()),
+                                       jnp.asarray(tb.numpy()), k, n)
+    got_key, got_col = topk_from_wide_keys(key, tb, k, torch.from_numpy(rot),
+                                           n)
+    assert np.array_equal(got_key.numpy(), np.asarray(want_key))
+    assert np.array_equal(got_col.numpy(), np.asarray(want_col))
+
+
+def test_topk_from_wide_keys_puts_the_higher_of_a_shared_pair_first():
+    """(d) Two feasible nodes a < b with one (key, tb) (a wrapped
+    tie-break, the same quantized score): the wide order puts b first,
+    whether both or only one of them fit in k, and the -1 slots follow
+    the tie-break descending."""
+    import jax.numpy as jnp
+
+    from koordinator_tpu.ops.batch_assign import _topk_by_rank
+    from koordinator_tpu_torch.kernels.select_candidates import _rank_parts
+
+    n = 40_960
+    rot = torch.tensor([_danger_rot(n, n // 2)] * 3, dtype=torch.int32)
+    tb_row = _candidate_tb(torch.arange(n, dtype=torch.int32)[None, :],
+                           rot[:1], n)[0]
+    vals, counts = torch.unique(tb_row, return_counts=True)
+    shared = int(vals[counts == 2][0])
+    a, b = torch.nonzero(tb_row == shared).flatten().tolist()
+    scores = torch.full((3, n), 50, dtype=torch.int32)
+    feas = torch.zeros((3, n), dtype=torch.bool)
+    feas[:, [a, b]] = True
+    feas[1, :8] = True
+    scores[1, :8] = 10
+    feas[2, 100] = True
+    scores[2, 100] = 90
+    key, tb = _rank_parts(scores, feas, 0, rot, n_total=n)
+    for k in (1, 2, 3, 16):
+        want_key, want_col = _topk_by_rank(jnp.asarray(key.numpy()),
+                                           jnp.asarray(tb.numpy()), k, n)
+        got_key, got_col = topk_from_wide_keys(key, tb, k, rot, n)
+        assert np.array_equal(got_key.numpy(), np.asarray(want_key))
+        assert np.array_equal(got_col.numpy(), np.asarray(want_col))
+    assert got_col[0, :2].tolist() == [b, a]
+
+
+@pytest.mark.parametrize("n,n_dirty,pad", [(32_769, 1, 0), (40_960, 5, 3),
+                                           (40_960, 33, 7),
+                                           (65_536, 100, 28),
+                                           (40_960, 40, 70_000)])
+def test_wide_list_refresh_matches_jax(n, n_dirty, pad):
+    """(e) K2's pair-list merge (refresh_from_wide_lists) against the
+    JAX package's refresh_candidates in the wide regime, row for row: a
+    dirty list shorter than a stratum's k (JAX's merge positions k + the
+    column) and longer (k + the dirty top-k's rank), padding on row 0
+    (70,000 padded columns: words past 16 bits, and tens of thousands of
+    entries that tie on (key, tb)),
+    tie-breaks shared by two dirty or two cached nodes, rows shorter than
+    k whose -1 slots take infeasible dirty columns by tie-break."""
+    import jax.numpy as jnp
+
+    from koordinator_tpu.ops import batch_assign as jba
+    from koordinator_tpu.ops.assignment import ScoringConfig
+
+    from koordinator_tpu_torch.kernels.refresh_candidates import (
+        refresh_candidates_plain,
+        refresh_from_wide_lists,
+    )
+    from tests.torch_parity import port
+
+    before, after, pods, drows, dvalid, _ = _refresh_case(
+        n, n_dirty, pad, seed=n + n_dirty)
+    cfg = ScoringConfig.default()
+    key, node, score = jba.select_candidates(before, pods, cfg, k=32,
+                                             spread_bits=(5, 15),
+                                             with_scores=True)
+    dirty = jnp.zeros(n, bool).at[drows].max(dvalid)
+    cache, _ = jba.align_candidate_cache(
+        jba.CandidateCache(key, node, score),
+        jnp.arange(pods.capacity, dtype=jnp.int32), pods.valid, dirty)
+    want_key, want = jba.refresh_candidates(after, pods, cfg, cache, drows,
+                                            dvalid, k=32,
+                                            spread_bits=(5, 15))
+    args = (port(after, "ClusterState"), port(pods, "PodBatch"),
+            port(cfg, "ScoringConfig"),
+            torch.from_numpy(np.array(cache.cand_node)),
+            torch.from_numpy(np.array(cache.cand_score)),
+            torch.from_numpy(np.array(drows)),
+            torch.from_numpy(np.array(dvalid)), 32, (5, 15))
+    for fn in (refresh_from_wide_lists, refresh_candidates_plain):
+        got_key, got_node, got_score = fn(*args)
+        assert np.array_equal(got_key.numpy(), np.asarray(want_key))
+        assert np.array_equal(got_node.numpy(), np.asarray(want.cand_node))
+        assert np.array_equal(got_score.numpy(), np.asarray(want.cand_score))
+    assert (np.asarray(want_key) < 0).any()     # -1 slots are covered
+
+
+@settings(max_examples=200, deadline=None)
+@given(n_a=st.integers(0, 16), n_b=st.integers(0, 16),
+       spread=st.integers(1, 2**31), seed=st.integers(0, 2**16))
+def test_pair_list_butterfly_keeps_the_top_k(n_a, n_b, spread, seed):
+    """(e) K2's butterfly step on (rank, word) pair lists
+    (``merge_pair_lists``, the kernel's bitonic ``merge_pairs``) equals
+    the sorted union's top 16: lists of 0 to 16 pairs padded with the
+    empty pair, ranks from -2**30 over ``spread`` values (narrow spreads
+    tie many ranks), words distinct as the dirty columns are."""
+    from koordinator_tpu_torch.kernels.refresh_candidates import (
+        merge_pair_lists,
+    )
+
+    rng = np.random.default_rng(seed)
+    k, empty = 16, (-(2**63), 0)
+    words = rng.choice(2**32, n_a + n_b, replace=False).tolist()
+    ranks = (rng.integers(0, spread, n_a + n_b) - 2**30).tolist()
+    pairs = list(zip(ranks, words))
+
+    def listed(part):
+        return sorted(part, reverse=True) + [empty] * (k - len(part))
+
+    a, b = listed(pairs[:n_a]), listed(pairs[n_a:])
+    assert merge_pair_lists(a, b) == sorted(a + b, reverse=True)[:k]
+
+
+@settings(max_examples=60, deadline=None)
+@given(c=st.integers(1, 300), seed=st.integers(0, 2**16),
+       density=st.floats(0.0, 1.0))
+def test_selector_words_pack_and_test_like_jax(c, seed, density):
+    """(f) Bit c % 64 of word c // 64 is column c, and the kernels' test
+    of a node class against the words equals the JAX package's selector
+    gather (``PodBatch.feasible_rows``: column min(class, C-1), false
+    from class C on)."""
+    from koordinator_tpu.state.cluster_state import ClusterState, PodBatch
+
+    rng = np.random.default_rng(seed)
+    p, n = 5, 40
+    sel = rng.random((p, c)) < density
+    cls = rng.integers(0, c + 70, n).astype(np.int32)
+    words = selector_words(torch.from_numpy(sel))
+    assert words.shape == (p, -(-c // 64)) and words.dtype == torch.int64
+    w = words.numpy().view(np.uint64)
+    for col in range(c):
+        bit = (w[:, col // 64] >> np.uint64(col % 64)) & np.uint64(1)
+        assert np.array_equal(bit.astype(bool), sel[:, col])
+    state = ClusterState.from_arrays(np.ones((n, 10), np.int32),
+                                     capacity=n, node_class=cls)
+    pods = PodBatch.build(np.ones((p, 10), np.int32), selector_mask=sel,
+                          class_capacity=c, node_capacity=n, capacity=p)
+    want = np.asarray(pods.feasible_rows(state))
+    got = selector_bit(words, torch.from_numpy(cls), c)
+    assert want.shape == (p, n) and np.array_equal(got.numpy(), want)
