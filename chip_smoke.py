@@ -11,8 +11,8 @@ first failure:
    (SMs x 64 a clock x the maximum SM clock), which the operations bounds
    use (the operations each kernel's inputs need, counted by pair_ops);
 2. build: compiles the kernels from ``koordinator_tpu_torch/kernels/csrc``;
-   then ``ptxas``: K1's, K2's, K3b's, K4's and K4r's registers and spills
-   from the compiler's log (a spill fails the run);
+   then ``ptxas``: K1's and K1a's, K2's, K3b's, K4's and K4r's registers
+   and spills from the compiler's log (a spill fails the run);
 3. kernels: K1 against its plain PyTorch version at 2,048 pods x 1,024 nodes
    under four configurations (instantaneous thresholds, aggregated
    thresholds, selector classes, dense feasibility), and K3a/K3b against
@@ -97,17 +97,46 @@ first failure:
    on a whole steady round's rescue with its quota state, and on its
    first 1,024 rows without it), and each kernel's time, plain time and
    bound there go on a ``gke_kernel`` line.  ``k2_long_list``: K2 on a
-   dirty list of 2^20 + 32 columns at 2^26 node rows (8 pods).
+   dirty list of 2^20 + 32 columns at 2^26 node rows (8 pods);
+13. gangs (``phase_gangs``): Coscheduling through the Scheduler on the
+   flagship cluster and backlog behind phase 9's quota tree, 10,000 of
+   the 50,000 pods in 512 PodGroups of 8-32 members (min_member the
+   size for 3/4 of them, size - 2 for 1/4; 64 in gang groups of 2-4; 16
+   declaring more members than they have).  Three rounds on a fake
+   clock: t = 0; t = 300 s with 500 gangless arrivals and 32 new
+   PodGroups; t = 601 s, when the 16 incomplete gangs pass their 600 s
+   WaitTime, are rejected, and PreEnqueue holds their pods out of the
+   batch.  Every round takes the full gang path; after each, every gang
+   and gang group is all-or-nothing, no node is over its allocatable and
+   the node accounting equals the bound pods.  K1, K3a, K3b and K4 (the
+   whole rescue, with its quota state) are held against their plain
+   versions on round 1's inputs, PreEnqueue's mask applied as gang_assign
+   applies it;
+14. approx (``phase_approx``): phase 9's forced-threshold scheduler with
+   ``cand_method="approx"``, a cold round and two steady rounds, every
+   selection on K1a and none on K1; a second scheduler's cold round
+   under ``"chunked"`` launches K1a alone and binds exactly as the approx
+   one (on the card the two methods make the same launch: a check of the
+   routing only).  K1a is held
+   against its plain version at the cold round's shape (K1 timed beside
+   it, ``torch.topk`` over the (P, N) float key the library yardstick),
+   at 65,536 nodes over 4,096 rows in 1,024-row chunks, and on a
+   full-capacity wrap case at 10,240 nodes (at k = 32, and at k = 2 and 3,
+   strata of one candidate), each with the count of rows whose nodes
+   differ from K1's.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the last
 is ``{"ok": true, "device": {...}}``.  Before them, one JSON line lists the
-six kernels: time, launches over the steady-state run of the forced-
+seven kernels: time, launches over the steady-state run of the forced-
 threshold scheduler (the slice's main path; K4r's over the reservations
-phase's three rounds), bound, plain and library time, and under
-``phase12`` the same at phase 12's shapes with its launches over phase
-12's four rounds;
+phase's three rounds; K1a's over phase 14's three rounds), bound, plain
+and library time, under ``phase12`` the same at phase 12's shapes with
+its launches over phase 12's four rounds, and under ``phase13`` the
+launches over phase 13's three rounds, with K1's, K3b's and K4's numbers
+at its round 1;
 K4's numbers are those at the steady round's rescue, K3b's at the cold
-solve's first round behind the quota tree, K4r's at round 2's pre-pass;
+solve's first round behind the quota tree, K4r's at round 2's pre-pass,
+K1a's at phase 14's cold round;
 K2 and K3b add ``device_ms``
 (the bare launch) beside ``ms`` (the wrapper), K3b also ``sort_ms`` (its
 node-level grouping by torch.sort).  An earlier line (``earlier_design``)
@@ -530,6 +559,61 @@ def checked_rounds(stats: dict):
         ba.round_fit_choose, ba.round_prefix_accept = saved
 
 
+def held_k1(device, state, pods, cfg, method: str, reps: int = 3,
+            chunk: int | None = None, k: int = 32, where: str = "") -> dict:
+    """K1 (method "exact") or K1a ("approx") against its plain version over
+    every row, ``chunk`` rows at a time (all at once when None), and
+    timed: returns the kernel's (cand_key, cand_node, cand_score) as
+    ``out``, ``max_abs_err``, ``ms`` and ``plain_ms``.  The plain version
+    scores CANDIDATE_CHUNK rows at a time: for "approx" that is the
+    "chunked" method's plain path, which is bit-identical to approx's."""
+    from koordinator_tpu_torch.kernels.select_candidates import (
+        _pod_rows,
+        select_candidates_kernel,
+        select_candidates_plain,
+    )
+    from koordinator_tpu_torch.ops.batch_assign import CANDIDATE_CHUNK
+
+    p = pods.capacity
+    got = select_candidates_kernel(state, pods, cfg, k, method=method)
+    step = chunk or p
+    err = 0
+    sync(device)
+    t0 = time.perf_counter()
+    for i in range(0, p, step):
+        want = select_candidates_plain(
+            state, _pod_rows(pods, i, min(i + step, p)), cfg, k,
+            chunk=CANDIDATE_CHUNK, method=method)
+        err = max([err] + [max_abs_err(g[i:i + step], w)
+                           for g, w in zip(got, want)])
+        del want
+    sync(device)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    name = "K1a" if method == "approx" else "K1"
+    check(err == 0, f"{name} equals its plain version {where}".rstrip())
+    ms = timed_ms(lambda: select_candidates_kernel(state, pods, cfg, k,
+                                                   method=method),
+                  device, reps=reps)
+    return dict(out=got, max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def k1_bound(state, pods, cfg, k: int = 32, chunk: int | None = None
+             ) -> dict:
+    """K1's and K1a's bound at a batch: the bytes they must move (the node
+    tensors: 4 x (N, R) int32, valid, class; the pod rows: requests and
+    estimates, valid, rot_id; the selector mask, or the feasible matrix
+    without one; three (P, k) outputs) and the operations of the valid
+    pods' pairs with every node (batch_ops, over ``chunk``-row chunks)."""
+    n, p = state.capacity, pods.capacity
+    sel = (pods.feasible if pods.selector_mask is None
+           else pods.selector_mask).numel()
+    nbytes = (n * (4 * R * 4 + 1 + 4) + p * (2 * R * 4 + 1 + 4) + sel
+              + 3 * p * k * 4)
+    ops = batch_ops(state, pods, cfg, chunk=chunk)
+    bound_ms, by = bound(nbytes, ops)
+    return dict(bytes=nbytes, ops=ops, bound_ms=bound_ms, bound_by=by)
+
+
 # -- phases ------------------------------------------------------------------
 
 
@@ -769,7 +853,7 @@ def solve_probe(log: list, device):
     def probe(state, batch, cfg, gangs, quota=None, **kw):
         return timed(lambda: real(state, batch, cfg, gangs, quota, **kw),
                      solver=kw.get("solver"), state=state, batch=batch,
-                     cfg=cfg, quota=quota)
+                     cfg=cfg, quota=quota, gangs=gangs)
 
     def probe_inc(self, pods, batch, quota):
         return timed(lambda: real_inc(self, pods, batch, quota),
@@ -783,6 +867,17 @@ def solve_probe(log: list, device):
     finally:
         sched_mod.gang_assign = real
         sched_mod.Scheduler._solve_batch_incremental = real_inc
+
+
+def gang_solve(solve: dict) -> dict:
+    """A logged gang_assign solve as its first pass launches the kernels:
+    the batch with PreEnqueue's mask applied (the pods of a gang short of
+    min_member leave it), as gang_assign applies it before it solves."""
+    from koordinator_tpu_torch.ops.gang import pre_enqueue_mask
+
+    batch = solve["batch"]
+    return dict(solve, batch=batch.replace(
+        valid=batch.valid & pre_enqueue_mask(batch, solve["gangs"])))
 
 
 def run_round(device, n_nodes: int, n_pods: int, seed: int = 0):
@@ -875,8 +970,6 @@ def phase_table(device, launches: dict, log: list, reps: int = 3):
     from koordinator_tpu_torch.kernels.select_candidates import (
         _pod_rows,
         _rank_parts,
-        select_candidates_kernel,
-        select_candidates_plain,
     )
     from koordinator_tpu_torch.ops.assignment import priority_order, score_pods
     from koordinator_tpu_torch.ops.batch_assign import CANDIDATE_CHUNK
@@ -888,16 +981,9 @@ def phase_table(device, launches: dict, log: list, reps: int = 3):
     k = 32
 
     # K1
-    got = select_candidates_kernel(state, pods, cfg, k)
-    want = select_candidates_plain(state, pods, cfg, k, chunk=CANDIDATE_CHUNK)
-    k1_err = max(max_abs_err(g, w) for g, w in zip(got, want))
-    check(k1_err == 0, "K1 equals its plain version at the main path's shape")
-    k1_ms = timed_ms(lambda: select_candidates_kernel(state, pods, cfg, k),
-                     device, reps=reps)
-    k1_plain_ms = timed_ms(
-        lambda: select_candidates_plain(state, pods, cfg, k,
-                                        chunk=CANDIDATE_CHUNK),
-        device, reps=1, warmup=0)
+    k1 = held_k1(device, state, pods, cfg, "exact", reps=reps,
+                 where="at the main path's shape")
+    got = k1["out"]
     key = torch.empty((p, n), dtype=torch.int32, device=state.device)
     for i in range(0, p, CANDIDATE_CHUNK):
         sub = _pod_rows(pods, i, min(i + CANDIDATE_CHUNK, p))
@@ -908,15 +994,7 @@ def phase_table(device, launches: dict, log: list, reps: int = 3):
     topk_ms = timed_ms(lambda: torch.topk(key, k // 2, dim=1), device,
                        reps=reps)
     del key
-    # bytes: node tensors (4 x (N, R) int32 + valid + class), pod requests
-    # and estimates, valid, rot_id, selector row, three (P, k) outputs
-    sel_bytes = (0 if pods.selector_mask is None
-                 else pods.selector_mask.numel())
-    k1_bytes = (n * (4 * R * 4 + 1 + 4) + p * (2 * R * 4 + 1 + 4)
-                + sel_bytes + 3 * p * k * 4)
-    # operations: the valid pods' pairs with every node (pair_ops)
-    k1_ops = batch_ops(state, pods, cfg)
-    k1_bound, k1_by = bound(k1_bytes, k1_ops)
+    k1_b = k1_bound(state, pods, cfg, k)
 
     # K3a on the first round's inputs
     cand_key, cand_node = got[0], got[1]
@@ -951,9 +1029,10 @@ def phase_table(device, launches: dict, log: list, reps: int = 3):
         dict(name="select_candidates", route="cuda",
              source=base + "select_candidates.cu",
              replaces="koordinator_tpu/ops/batch_assign.py:404",
-             launches=launches["select_candidates"], max_abs_err=k1_err,
-             ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound,
-             bound_by=k1_by, library_ms=topk_ms),
+             launches=launches["select_candidates"],
+             max_abs_err=k1["max_abs_err"], ms=k1["ms"],
+             plain_ms=k1["plain_ms"], bound_ms=k1_b["bound_ms"],
+             bound_by=k1_b["bound_by"], library_ms=topk_ms),
         dict(name="round_fit_choose", route="cuda",
              source=base + "round_fit_choose.cu",
              replaces="koordinator_tpu/ops/batch_assign.py:606",
@@ -962,7 +1041,7 @@ def phase_table(device, launches: dict, log: list, reps: int = 3):
              bound_by="bytes", library_ms=None),
     ]
     emit("table", pods=p, valid_pods=p_valid, nodes=n, k=k,
-         k1_ops=k1_ops, k1_bytes=k1_bytes, k3a_active=n_active,
+         k1_ops=k1_b["ops"], k1_bytes=k1_b["bytes"], k3a_active=n_active,
          k3a_bytes=k3a_bytes, k3b_first_round=k3b)
     return kernels, k3b
 
@@ -1311,11 +1390,12 @@ def admitted_rows(pods, quota, assignments) -> list[int]:
     return rows
 
 
-def phase_rescue(device, solve: dict, reps: int = 3):
-    """K4 at the main path's shape: the greedy rescue's input of a steady
-    round (the compacted quota-blocked leftovers over 10,240 nodes behind
-    the 16-leaf tree), kernel against plain version: assignments, node
-    accounting and every quota field equal."""
+def phase_rescue(device, solve: dict, reps: int = 3, label: str = "rescue",
+                 what: str = "a steady round's rescue"):
+    """K4 at the main path's shape: the greedy rescue's whole input (a
+    steady round's: the compacted quota-blocked leftovers over 10,240
+    nodes behind the 16-leaf tree), kernel against plain version:
+    assignments, node accounting and every quota field equal."""
     from koordinator_tpu_torch.kernels.greedy_scan import greedy_scan_kernel
     from koordinator_tpu_torch.ops.assignment import greedy_assign_plain
 
@@ -1334,7 +1414,7 @@ def phase_rescue(device, solve: dict, reps: int = 3):
              for f in ("headroom", "min_headroom", "checked", "chain",
                        "valid")]
     err = max(errs)
-    check(err == 0, "K4 equals its plain version on a steady round's rescue")
+    check(err == 0, f"K4 equals its plain version on {what}")
     ms = timed_ms(lambda: greedy_scan_kernel(state, pods, cfg, quota),
                   device, reps=reps)
     n, p = state.capacity, pods.capacity
@@ -1350,14 +1430,14 @@ def phase_rescue(device, solve: dict, reps: int = 3):
               + 2 * quota.headroom.numel() * 4 * 2)
     ops = scan_ops(state, pods, cfg, rows, a)
     bound_ms, by = bound(nbytes, ops)
-    emit("rescue", pods=p, valid_pods=p_valid, nodes=n,
+    emit(label, pods=p, valid_pods=p_valid, nodes=n,
          quotas=quota.capacity, admitted_steps=scans,
          assigned=int((a >= 0).sum()), max_abs_err=err, ms=ms,
          plain_ms=plain_ms, bytes=nbytes, ops=ops, bound_ms=bound_ms,
          bound_by=by, bound_note="the chain of dependent steps, not "
          "bytes or operations, sets this kernel's floor")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=by)
+                bound_by=by, admitted_steps=scans)
 
 
 def phase_quota_rounds(device, solve: dict, reps: int = 5,
@@ -1725,8 +1805,10 @@ def phase_steady(device, n_nodes: int = 10_240, n_pods: int = 50_000,
     check(all(r["path"] == "incremental" for r in forced[1:]),
           "the forced scheduler refreshed every steady round")
     for kname, count in totals.items():
-        # K4r runs only where reservations exist (phase_reservations)
-        check(count > 0 or kname == "reservation_scan",
+        # K4r runs only where reservations exist (phase_reservations), K1a
+        # only under an approx candidate method (phase_approx)
+        check(count > 0 or kname in ("reservation_scan",
+                                     "select_candidates_approx"),
               f"{kname} launched on the steady-state path")
     by_name = {p.name: p for p in pods}
     by_name.update(enqueued)
@@ -2619,29 +2701,14 @@ def gke_k1(device, solve: dict, reps: int = 3) -> dict:
     from koordinator_tpu_torch.kernels.select_candidates import (
         _pod_rows,
         _rank_parts,
-        select_candidates_kernel,
-        select_candidates_plain,
         wide_rank,
     )
     from koordinator_tpu_torch.ops.assignment import score_pods
 
     state, pods, cfg = solve["state"], solve["batch"], solve["cfg"]
     p, n, k = pods.capacity, state.capacity, 32
-    got = select_candidates_kernel(state, pods, cfg, k)
-    err = 0
-    sync(device)
-    t0 = time.perf_counter()
-    for i in range(0, p, GKE_PLAIN_CHUNK):
-        sub = _pod_rows(pods, i, min(i + GKE_PLAIN_CHUNK, p))
-        want = select_candidates_plain(state, sub, cfg, k)
-        err = max([err] + [max_abs_err(g[i:i + GKE_PLAIN_CHUNK], w)
-                           for g, w in zip(got, want)])
-        del want
-    sync(device)
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    check(err == 0, "K1 equals its plain version at phase 12's shape")
-    ms = timed_ms(lambda: select_candidates_kernel(state, pods, cfg, k),
-                  device, reps=reps)
+    k1 = held_k1(device, state, pods, cfg, "exact", reps=reps,
+                 chunk=GKE_PLAIN_CHUNK, where="at phase 12's shape")
     topk_ms = 0.0
     for i in range(0, p, GKE_PLAIN_CHUNK):
         sub = _pod_rows(pods, i, min(i + GKE_PLAIN_CHUNK, p))
@@ -2652,15 +2719,12 @@ def gke_k1(device, solve: dict, reps: int = 3) -> dict:
         topk_ms += timed_ms(lambda: torch.topk(rank, k // 2, dim=1), device,
                             reps=reps)
         del rank
-    c = pods.selector_mask.shape[1]
-    nbytes = (n * (4 * R * 4 + 1 + 4) + p * (2 * R * 4 + 1 + 4)
-              + p * ((c + 63) // 64) * 8 + 3 * p * k * 4)
-    ops = batch_ops(state, pods, cfg, chunk=GKE_PLAIN_CHUNK)
-    bound_ms, by = bound(nbytes, ops)
     return dict(pods=p, valid_pods=int(pods.valid.sum()), nodes=n,
-                classes=c, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=topk_ms, bytes=nbytes, ops=ops, bound_ms=bound_ms,
-                bound_by=by, valid_slots=int((got[0] >= 0).sum()))
+                classes=pods.selector_mask.shape[1],
+                max_abs_err=k1["max_abs_err"], ms=k1["ms"],
+                plain_ms=k1["plain_ms"], library_ms=topk_ms,
+                **k1_bound(state, pods, cfg, k, chunk=GKE_PLAIN_CHUNK),
+                valid_slots=int((k1["out"][0] >= 0).sum()))
 
 
 def gke_k3a(device, solve: dict, reps: int = 10) -> dict:
@@ -3020,6 +3084,472 @@ def phase_gke(device, n_nodes: int = GKE_NODES, n_pods: int = 50_000,
     return numbers, [r["launches"] for r in records]
 
 
+# -- phase 13: gangs ---------------------------------------------------------
+
+#: BASELINE.json's "Gang/Coscheduling all-or-nothing assignment ... 10k
+#: pods": 512 PodGroups of 8-32 members holding 10,000 of the backlog's pods
+N_GANG_PODS = 10_000
+N_GANGS = 512
+N_GROUPED = 64           # gangs in gang groups of 2-4
+N_INCOMPLETE = 16        # PodGroups whose min_member exceeds their members
+N_NEW_GANGS = 32         # PodGroups arriving at t = 300 s
+GANG_TIMES = (0.0, 300.0, 601.0)
+
+
+def gang_sizes(rng, count: int, total: int) -> np.ndarray:
+    """``count`` gang sizes in 8..32 summing to ``total``."""
+    sizes = rng.integers(8, 33, count)
+    while sizes.sum() != total:
+        i = int(rng.integers(0, count))
+        if sizes.sum() > total and sizes[i] > 8:
+            sizes[i] -= 1
+        elif sizes.sum() < total and sizes[i] < 32:
+            sizes[i] += 1
+    return sizes
+
+
+def gang_specs(seed: int = 6, n_nodes: int = 10_240, n_pods: int = 50_000,
+               n_gang_pods: int = N_GANG_PODS, n_gangs: int = N_GANGS):
+    """Phase 9's nodes, backlog and quota tree with ``n_gang_pods`` of the
+    pods in ``n_gangs`` PodGroups of 8-32 members (a group's members take
+    its first member's priority).  min_member is the group's size for 3/4
+    of them and size - 2 for 1/4; N_INCOMPLETE declare more than their
+    members (a job not yet fully submitted); N_GROUPED complete ones sit
+    in gang groups of 2-4.  Returns (nodes, pods, leaf max, gangs as
+    (name, min_member, group) tuples, each gang's member names)."""
+    import dataclasses
+
+    nodes, pods, leaf_max = steady_specs(3, n_nodes, n_pods)
+    rng = np.random.default_rng(seed)
+    sizes = gang_sizes(rng, n_gangs, n_gang_pods)
+    members = rng.permutation(n_pods)[:n_gang_pods]
+    incomplete = set(rng.choice(n_gangs, N_INCOMPLETE, replace=False)
+                     .tolist())
+    complete = [g for g in range(n_gangs) if g not in incomplete]
+    grouped = rng.choice(complete, N_GROUPED, replace=False).tolist()
+    group_of, at, gid = {}, 0, 0
+    while at < len(grouped):
+        size = min(int(rng.integers(2, 5)), len(grouped) - at)
+        if len(grouped) - at - size == 1:   # no group of one is left
+            size += -1 if size > 2 else 1
+        for g in grouped[at:at + size]:
+            group_of[g] = f"grp-{gid}"
+        at, gid = at + size, gid + 1
+    gangs, member_names, start = [], {}, 0
+    for g, size in enumerate(sizes):
+        name = f"pg-{g}"
+        rows = members[start:start + size]
+        start += size
+        prio = pods[rows[0]].priority
+        for j in rows:
+            pods[j] = dataclasses.replace(pods[j], gang=name, priority=prio)
+        if g in incomplete:
+            mm = int(size) + int(rng.integers(1, 5))
+        elif rng.random() < 0.25:
+            mm = int(size) - 2
+        else:
+            mm = int(size)
+        gangs.append((name, mm, group_of.get(g)))
+        member_names[name] = [pods[j].name for j in rows]
+    return nodes, pods, leaf_max, gangs, member_names, incomplete
+
+
+def new_gang_pods(rng, count: int):
+    """``count`` PodGroups arriving later, 8-32 members each, min_member
+    their size; returns (gangs, pods)."""
+    from koordinator_tpu_torch.scheduler.snapshot import PodSpec
+
+    gangs, out = [], []
+    for g in range(count):
+        size = int(rng.integers(8, 33))
+        name = f"pg-new-{g}"
+        prio = int(rng.integers(3000, 9999))
+        q = (None if rng.random() < 0.2
+             else f"leaf-{rng.integers(0, N_LEAVES)}")
+        for j in range(size):
+            req = np.zeros(R, np.int32)
+            req[CPU] = rng.integers(100, 4_000)
+            req[MEM] = rng.integers(128, 8_192)
+            out.append(PodSpec(name=f"{name}-{j}", requests=req,
+                               priority=prio, quota=q, gang=name,
+                               creation=1e6 + len(out)))
+        gangs.append((name, size, None))
+    return gangs, out
+
+
+def gang_checks(sched, label: str) -> dict:
+    """Every gang and every gang group all-or-nothing over the pods bound
+    so far (a gang has no member bound or at least min_member), no node
+    over its allocatable, the node accounting equal to the bound pods'
+    requests, and each leaf's cpu used within its max."""
+    st = sched.snapshot.state
+    requested = st.node_requested.cpu().numpy().astype(np.int64)
+    alloc = st.node_allocatable.cpu().numpy().astype(np.int64)
+    check(bool((requested <= alloc).all()), f"{label}: no overcommit")
+    expect = np.zeros_like(requested)
+    bound: dict[str, int] = {}
+    for bp in sched.bound.values():
+        expect[sched.snapshot.node_index[bp.node]] += bp.requests
+        if bp.pod.gang is not None:
+            bound[bp.pod.gang] = bound.get(bp.pod.gang, 0) + 1
+    check(np.array_equal(expect, requested),
+          f"{label}: accounting = sum of bound pods")
+    groups: dict[str, list[str]] = {}
+    for name, rec in sched.gangs.items():
+        got = bound.get(name, 0)
+        check(got == 0 or got >= rec.min_member,
+              f"{label}: gang {name} all-or-nothing ({got} of "
+              f"{rec.min_member})")
+        if rec.group:
+            groups.setdefault(rec.group, []).append(name)
+    for group, names in groups.items():
+        if any(bound.get(g, 0) for g in names):
+            check(all(bound.get(g, 0) >= sched.gangs[g].min_member
+                      for g in names),
+                  f"{label}: gang group {group} all-or-nothing")
+    for qname, q in sched.quota_tree.nodes.items():
+        if not sched.quota_tree.children[qname]:
+            check(bool(q.used[CPU] <= q.max[CPU]),
+                  f"{label}: {qname} within its max")
+    return dict(gangs_placed=sum(1 for g in sched.gangs
+                                 if bound.get(g, 0) > 0),
+                gang_pods_bound=sum(bound.values()),
+                groups_placed=sum(1 for names in groups.values()
+                                  if bound.get(names[0], 0) > 0))
+
+
+def phase_gangs(device, n_nodes: int = 10_240, n_pods: int = 50_000,
+                n_arrivals: int = 500, n_gang_pods: int = N_GANG_PODS,
+                n_gangs: int = N_GANGS):
+    """Phase 13: Coscheduling gangs through the Scheduler.  The flagship
+    cluster and backlog behind phase 9's quota tree with 10,000 pods in
+    512 PodGroups (gang_specs), three rounds on a fake clock: t = 0; t =
+    300 s with 500 gangless arrivals and 32 new PodGroups; t = 601 s,
+    past the 600 s WaitTime of the 16 incomplete gangs, which are
+    rejected then and whose pods PreEnqueue holds out of the next batch.
+    Every round takes the full gang path (gang_assign's batch solver, the
+    rescue on K4).  After every round gang_checks.  K1, K3a and K3b (every
+    propose/accept round of round 1's solve) and K4 (round 1's whole
+    rescue, with its quota state) are held against their plain versions
+    on the inputs round 1's first passes launch them on: each batch with
+    PreEnqueue's mask applied (gang_solve).  Returns (the round records,
+    the held kernels' numbers by kernel name)."""
+    from koordinator_tpu_torch.kernels import build
+    from koordinator_tpu_torch.scheduler.scheduler import (
+        GangRecord,
+        Scheduler,
+    )
+    from koordinator_tpu_torch.scheduler.snapshot import ClusterSnapshot
+
+    t_start = time.perf_counter()
+    nodes, pods, leaf_max, gangs, members, incomplete = gang_specs(
+        6, n_nodes, n_pods, n_gang_pods, n_gangs)
+    snap = ClusterSnapshot(capacity=n_nodes, device=device)
+    for spec in nodes:
+        snap.upsert_node(spec)
+    now = [0.0]
+    sched = Scheduler(snap, quota_tree=steady_tree(nodes, leaf_max),
+                      device=device, clock=lambda: now[0])
+    for name, mm, group in gangs:
+        sched.register_gang(GangRecord(name=name, min_member=mm, group=group))
+    sched.enqueue_many(pods)
+    rng = np.random.default_rng(61)
+    records, solves = [], {}
+    for rnd, t in enumerate(GANG_TIMES):
+        now[0] = t
+        if rnd == 1:
+            sched.enqueue_many(arrivals(rng, 100_000, n_arrivals))
+            new, new_pods = new_gang_pods(rng, N_NEW_GANGS)
+            for name, mm, group in new:
+                sched.register_gang(GangRecord(name=name, min_member=mm,
+                                               group=group))
+            sched.enqueue_many(new_pods)
+        log: list = []
+        build.reset_launch_counts()
+        with solve_probe(log, device):
+            sync(device)
+            t0 = time.perf_counter()
+            res = sched.schedule_round()
+            sync(device)
+            wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        solves[rnd] = log
+        rec = dict(round=rnd, t=t, path=sched.last_solve_path,
+                   pods=res.round_pods, binds=len(res.assignments),
+                   failed=len(res.failures), rescued=res.rescued,
+                   wall_s=wall,
+                   solve_ms=[s["ms"] for s in log if s["solver"] == "batch"],
+                   rescue_ms=[s["ms"] for s in log
+                              if s["solver"] == "greedy"],
+                   rejected=sum(1 for g in sched.gangs.values()
+                                if g.rejected),
+                   held_out=len(sched._last_gang_rejected_names),
+                   launches=launches)
+        rec.update(gang_checks(sched, f"phase 13 round {rnd}"))
+        records.append(rec)
+        emit("gang_round", **rec)
+        check(rec["path"] == "full_gang", f"phase 13 round {rnd} took the "
+              "gang path")
+        if rnd < 2:   # the last round brings no arrivals
+            check(len(res.assignments) > 0,
+                  f"phase 13 round {rnd} bound pods")
+        for kname in ("select_candidates", "round_fit_choose",
+                      "segmented_prefix_accept", "greedy_scan"):
+            check(launches[kname] > 0,
+                  f"{kname} launched on phase 13 round {rnd}")
+    check(records[0]["gangs_placed"] > 0, "phase 13 placed gangs")
+    check(records[0]["groups_placed"] > 0, "phase 13 placed a gang group")
+    rejected = {f"pg-{g}" for g in incomplete}
+    check(all(sched.gangs[g].rejected for g in rejected),
+          "the incomplete gangs were rejected by t = 601 s")
+    active = {p.name for p in sched._active_pods()}
+    held = {n for g in rejected for n in members[g]}
+    check(not (active & held), "the rejected gangs' pods left the batch")
+    check(held <= set(sched._last_gang_rejected_names),
+          "PreEnqueue held the rejected gangs' pods back")
+    # the kernels on round 1's first-pass inputs
+    first = next(s for s in solves[0] if s["solver"] == "batch")
+    cold = gang_solve(first)
+    held_out = int(first["batch"].valid.sum() - cold["batch"].valid.sum())
+    check(held_out > 0, "PreEnqueue held gang pods out of round 1's solve")
+    k1 = held_k1(device, cold["state"], cold["batch"], cold["cfg"], "exact",
+                 chunk=4_096, where="at phase 13's round 1")
+    k1 = dict(max_abs_err=k1["max_abs_err"], ms=k1["ms"],
+              plain_ms=k1["plain_ms"],
+              **k1_bound(cold["state"], cold["batch"], cold["cfg"]))
+    k3b = phase_quota_rounds(device, cold, label="gang_quota_rounds")
+    rescue = gang_solve(next(s for s in solves[0]
+                             if s["solver"] == "greedy"))
+    k4 = phase_rescue(device, rescue, label="gang_rescue",
+                      what="phase 13's round 1 rescue")
+    emit("gangs", nodes=n_nodes, backlog=n_pods, gang_pods=n_gang_pods,
+         gangs=len(gangs), grouped=N_GROUPED, incomplete=N_INCOMPLETE,
+         pre_enqueue_held_out=held_out, k1=k1, k3b_first_round=k3b, k4=k4,
+         seconds=time.perf_counter() - t_start,
+         rounds=[{key: r[key] for key in (
+             "round", "t", "pods", "binds", "rescued", "wall_s", "solve_ms",
+             "rescue_ms", "gangs_placed", "rejected", "held_out")}
+             for r in records])
+    k3b = {key: k3b[key] for key in ("max_abs_err", "ms", "device_ms",
+                                     "plain_ms", "bound_ms", "bound_by")}
+    return records, {"select_candidates": k1,
+                     "segmented_prefix_accept": k3b, "greedy_scan": k4}
+
+
+# -- phase 14: the approx candidate method (K1a) -----------------------------
+
+APPROX_WIDE_NODES = 65_536
+APPROX_WIDE_ROWS = 4_096
+APPROX_CHUNK = 1_024
+
+
+def wrap_case(seed: int, n_nodes: int, n_pods: int, device, ends: int = 4):
+    """random_problem at ``n_nodes`` (the node count equals the capacity,
+    so column N - 1 is a real node) with the first and last ``ends``
+    nodes identical and the most attractive (the largest capacity,
+    nothing used), so every row's top run spans the wrap from column
+    N - 1 to column 0; half the pods at rot ids whose tie-break wraps, and
+    every 97th pod admitting no node (a row with no feasible column)."""
+    state, pods = random_problem(seed, n_nodes, n_pods, device)
+    rng = np.random.default_rng(seed + 1)
+    edge = np.r_[0:ends, n_nodes - ends:n_nodes]
+    alloc = state.node_allocatable.cpu().numpy().copy()
+    alloc[edge, CPU], alloc[edge, MEM], alloc[edge, 3] = 64_000, 262_144, 8_000
+    cls = state.node_class.cpu().numpy().copy()
+    cls[edge] = 0                     # the one class every pod admits
+    zero = np.ones((n_nodes, 1), np.int32)
+    zero[edge] = 0
+    rot = pods.rot_id.cpu().numpy().copy()
+    rot[::2] = danger_rot_ids(rng, (pods.capacity + 1) // 2, n_nodes)
+    sel = pods.selector_mask.cpu().numpy().copy()
+    sel[::97] = False
+    zero_t = to_dev(zero, device)
+    return (state.replace(
+        node_allocatable=to_dev(alloc, device),
+        node_class=to_dev(cls, device),
+        node_requested=state.node_requested * zero_t,
+        node_usage=state.node_usage * zero_t,
+        node_agg_usage=state.node_agg_usage * zero_t),
+            pods.replace(rot_id=to_dev(rot, device),
+                         selector_mask=to_dev(sel, device)))
+
+
+def rows_apart(a, b) -> int:
+    """Rows whose candidate nodes differ between two selections."""
+    return int((a != b).any(dim=1).sum())
+
+
+def approx_edge(device, label: str, state, pods, cfg, chunk=None,
+                k: int = 32) -> dict:
+    """K1a against its plain version on a problem, and the rows where its
+    nodes differ from K1's (which must exist: approx is not exact on
+    these problems)."""
+    from koordinator_tpu_torch.kernels.select_candidates import (
+        select_candidates_kernel,
+    )
+
+    got = held_k1(device, state, pods, cfg, "approx", reps=1, chunk=chunk,
+                  k=k)
+    exact = select_candidates_kernel(state, pods, cfg, k)
+    apart = rows_apart(got["out"][1], exact[1])
+    out = dict(case=label, nodes=state.capacity, pods=pods.capacity, k=k,
+               max_abs_err=got["max_abs_err"], rows_apart_from_k1=apart,
+               ms=got["ms"], plain_ms=got["plain_ms"])
+    emit("approx_edge", **out)
+    return out
+
+
+def phase_approx(device, n_nodes: int = 10_240, n_pods: int = 50_000,
+                 steady_rounds: int = 2, n_arrivals: int = 500, reps: int = 3):
+    """Phase 14: phase 9's steady configuration (the forced-threshold
+    scheduler behind the 16-leaf quota tree) with cand_method="approx":
+    a cold round and ``steady_rounds`` rounds after a usage refresh of 1%
+    of the nodes and 500 arrivals, the launch counts set to 0 before each
+    round and read after it (K1a on every selection, K1 never).  A second
+    scheduler's cold round under "chunked" must launch K1a alone and bind
+    exactly as the approx one's.  On the card both methods make the same
+    K1a launch, so that round confirms the scheduler's routing of
+    "chunked" and nothing more; chunked's own plain path (approx over
+    CANDIDATE_CHUNK-row chunks) is what held_k1 holds K1a against.  K1a
+    is held against it at the cold round's shape (65,536 rows, 50,000
+    valid, over 10,240 nodes; K1 timed beside it on the same inputs, and
+    torch.topk over the (P, N) float key as the library yardstick), at
+    65,536 nodes over the first 4,096
+    rows in 1,024-row chunks and on a full-capacity wrap case at 10,240
+    nodes (wrap_case, both), there also at k = 2 and 3.  Returns (K1a's
+    kernels-line entry, the round records)."""
+    import torch
+
+    from koordinator_tpu_torch.kernels import build
+    from koordinator_tpu_torch.kernels.select_candidates import (
+        _pod_rows,
+        _rank_parts,
+        approx_keys,
+    )
+    from koordinator_tpu_torch.ops.assignment import score_pods
+    from koordinator_tpu_torch.ops.batch_assign import CANDIDATE_CHUNK
+
+    t_start = time.perf_counter()
+    nodes, pods, leaf_max = steady_specs(3, n_nodes, n_pods)
+    sched = steady_scheduler(device, nodes, pods, leaf_max, threshold=1.0)
+    sched.cand_method = "approx"
+    rng = np.random.default_rng(5)
+    records, solves, totals = [], {}, {}
+    for rnd in range(1 + steady_rounds):
+        if rnd > 0:
+            refreshed, new = steady_delta(rng, nodes, rnd, n_arrivals)
+            for spec in refreshed:
+                sched.snapshot.upsert_node(spec)
+            sched.enqueue_many(new)
+        log: list = []
+        build.reset_launch_counts()
+        with solve_probe(log, device):
+            sync(device)
+            t0 = time.perf_counter()
+            res = sched.schedule_round()
+            sync(device)
+            wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        for kname, count in launches.items():
+            totals[kname] = totals.get(kname, 0) + count
+        solves[rnd] = (log, res)
+        rec = dict(round=rnd, path=sched.last_solve_path,
+                   pods=res.round_pods, binds=len(res.assignments),
+                   failed=len(res.failures), rescued=res.rescued,
+                   wall_s=wall,
+                   solve_ms=[s["ms"] for s in log if s["solver"] == "batch"],
+                   rescue_ms=[s["ms"] for s in log
+                              if s["solver"] == "greedy"],
+                   launches=launches)
+        records.append(rec)
+        emit("approx_round", **rec)
+        check(len(res.assignments) > 0, f"phase 14 round {rnd} bound pods")
+        check(launches["select_candidates_approx"] > 0
+              and launches["select_candidates"] == 0,
+              f"phase 14 round {rnd} selected on K1a alone")
+        check(launches["round_fit_choose"] > 0
+              and launches["segmented_prefix_accept"]
+              == launches["round_fit_choose"],
+              f"phase 14 round {rnd}: one K3b launch a propose/accept round")
+        check(rec["path"] == ("full_cold" if rnd == 0 else "incremental"),
+              f"phase 14 round {rnd}'s path")
+        if rnd > 0:
+            check(launches["refresh_candidates"] > 0,
+                  f"phase 14 round {rnd} refreshed on K2")
+        st = sched.snapshot.state
+        check(bool((st.node_requested <= st.node_allocatable).all()),
+              f"phase 14 round {rnd}: no overcommit")
+        expect = np.zeros((st.capacity, R), np.int64)
+        for bp in sched.bound.values():
+            expect[sched.snapshot.node_index[bp.node]] += bp.requests
+        check(np.array_equal(expect, st.node_requested.cpu().numpy()),
+              f"phase 14 round {rnd}: accounting = sum of bound pods")
+    # the scheduler routes the chunked method to K1a (the same launch as
+    # approx's on the card), so it binds as approx does
+    nodes2, pods2, _ = steady_specs(3, n_nodes, n_pods)
+    chunked = steady_scheduler(device, nodes2, pods2, leaf_max, threshold=1.0)
+    chunked.cand_method = "chunked"
+    build.reset_launch_counts()
+    res_c = chunked.schedule_round()
+    check(build.LAUNCHES["select_candidates_approx"] > 0
+          and build.LAUNCHES["select_candidates"] == 0,
+          "the chunked cold round selected on K1a alone")
+    res_a = solves[0][1]
+    check(res_c.assignments == res_a.assignments
+          and set(res_c.failures) == set(res_a.failures),
+          "the chunked cold round binds as the approx one")
+    del chunked
+    # K1a at the cold round's shape, K1 beside it on the same inputs
+    cold = next(s for s in solves[0][0] if s["solver"] == "batch")
+    state, batch, cfg = cold["state"], cold["batch"], cold["cfg"]
+    p, n, k = batch.capacity, state.capacity, 32
+    k1a = held_k1(device, state, batch, cfg, "approx", reps=reps,
+                  chunk=CANDIDATE_CHUNK)
+    k1 = held_k1(device, state, batch, cfg, "exact", reps=reps,
+                 chunk=CANDIDATE_CHUNK)
+    apart = rows_apart(k1a["out"][1], k1["out"][1])
+    fkey = torch.empty((p, n), dtype=torch.float32, device=state.device)
+    for i in range(0, p, CANDIDATE_CHUNK):
+        sub = _pod_rows(batch, i, min(i + CANDIDATE_CHUNK, p))
+        scores, feas = score_pods(state, sub, cfg)
+        key, tb = _rank_parts(scores, feas, 5, sub.rot_id, n_total=n)
+        fkey[i:i + CANDIDATE_CHUNK] = approx_keys(key, tb, 5, n).float()
+        del scores, feas, key, tb
+    topk_ms = timed_ms(lambda: torch.topk(fkey, k // 2, dim=1), device,
+                       reps=reps)
+    del fkey
+    k1a_b = k1_bound(state, batch, cfg, k)
+    cfg0 = scoring_config("default", device)
+    wide = approx_edge(device, f"wide_{APPROX_WIDE_NODES}", *wrap_case(
+        71, APPROX_WIDE_NODES, APPROX_WIDE_ROWS, device), cfg0,
+        chunk=APPROX_CHUNK)
+    wrap_args = wrap_case(72, n_nodes, 4_096, device)
+    wrap = approx_edge(device, f"wrap_{n_nodes}", *wrap_args, cfg0)
+    # strata of one candidate (k = 2: one each; k = 3: the second),
+    # where approx_max_k takes the row's last maximum
+    ones = [approx_edge(device, f"wrap_{n_nodes}_k{k1}", *wrap_args, cfg0,
+                        k=k1) for k1 in (2, 3)]
+    check(all(e["rows_apart_from_k1"] > 0 for e in [wide, wrap] + ones),
+          "approx differs from exact on the wrap cases")
+    entry = dict(
+        name="select_candidates_approx", route="cuda",
+        source=CSRC + "select_candidates.cu",
+        replaces="koordinator_tpu/ops/batch_assign.py:469",
+        launches=totals["select_candidates_approx"],
+        max_abs_err=k1a["max_abs_err"], ms=k1a["ms"],
+        plain_ms=k1a["plain_ms"], bound_ms=k1a_b["bound_ms"],
+        bound_by=k1a_b["bound_by"], library_ms=topk_ms)
+    emit("approx", nodes=n_nodes, backlog=n_pods, pods=p,
+         valid_pods=int(batch.valid.sum()), k=k, ops=k1a_b["ops"],
+         bytes=k1a_b["bytes"],
+         k1a_ms=k1a["ms"], k1_ms=k1["ms"], k1a_plain_ms=k1a["plain_ms"],
+         rows_apart_from_k1=apart, launches_by_round=[
+             r["launches"]["select_candidates_approx"] for r in records],
+         chunked_binds=len(res_c.assignments), edges=[wide, wrap] + ones,
+         seconds=time.perf_counter() - t_start)
+    return entry, records
+
+
 def ptxas_summary(path: str) -> list[dict]:
     """Registers, spills and shared memory of every kernel in the
     compiler's -Xptxas -v log (one entry per compiled entry function)."""
@@ -3047,20 +3577,21 @@ def ptxas_summary(path: str) -> list[dict]:
     return out
 
 
-#: the kernels' entry functions in the ptxas log, by kernel (K1 and K2
-#: come in eight instances: one or two strata, the packed or the wide key
-#: regime, one selector word or many; K4 and K4r in eight: the node
-#: columns in shared or global memory, without or with reservations, one
-#: selector word or many)
-PTXAS_ENTRIES = {"select_candidates": ("select_candidates_kernel", 8),
+#: the kernels' entry functions in the ptxas log, by kernel (K1 and K1a
+#: come in sixteen instances: one or two strata, the packed or the wide
+#: key regime, one selector word or many, the exact or the approx rank; K2
+#: in eight: all but the last; K4 and K4r in eight: the node columns in
+#: shared or global memory, without or with reservations, one selector
+#: word or many)
+PTXAS_ENTRIES = {"select_candidates": ("select_candidates_kernel", 16),
                  "refresh_candidates": ("refresh_candidates_kernel", 8),
                  "segmented_prefix_accept": ("round_accept_kernel", 1),
                  "greedy_scan": ("greedy_scan_kernel", 8)}
 
 
 def phase_ptxas(path: str) -> None:
-    """K1's, K2's, K3b's, K4's and K4r's registers and spills, from the
-    build's ptxas log: none of them may spill."""
+    """K1's and K1a's, K2's, K3b's, K4's and K4r's registers and spills,
+    from the build's ptxas log: none of them may spill."""
     entries = ptxas_summary(path)
     picked = []
     for kernel, (name, count) in PTXAS_ENTRIES.items():
@@ -3149,6 +3680,8 @@ def main() -> int:
     phase_k2_long_list(device)
     phase_class_edges(device)
     gke, gke_launches = phase_gke(device)
+    gang_rounds, gang_held = phase_gangs(device)
+    k1a, _ = phase_approx(device)
     kernels[1:1] = [dict(
         name="refresh_candidates", route="cuda",
         source=CSRC + "refresh_candidates.cu",
@@ -3204,6 +3737,15 @@ def main() -> int:
             bound_by=g["bound_by"], library_ms=g.get("library_ms"))
         if "device_ms" in g:
             entry["phase12"]["device_ms"] = g["device_ms"]
+    # the gang path adds no kernel: its rounds' launches beside the ones
+    # that ran there, and the numbers of those held at round 1's inputs
+    for entry in kernels:
+        n13 = sum(r["launches"][entry["name"]] for r in gang_rounds)
+        if n13:
+            entry["phase13"] = dict(launches=n13,
+                                    **gang_held.get(entry["name"], {}))
+    # K1a at phase 14's cold round, its launches over phase 14's rounds
+    kernels.append(k1a)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

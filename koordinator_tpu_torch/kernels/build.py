@@ -116,6 +116,7 @@ _SIGNATURES = {
         _P, _I,                          # config int vector + its length
         _I, _I, _I,                      # P, N, strata count
         _I, _I, _I, _I,                  # strata shifts, per-stratum k
+        _I, _I, _I, _I, _I,              # approx (K1a)?, its (shift, d) per stratum
         _P,                              # packed node rows scratch
         _P, _P, _P,                      # out cand_key, cand_node, cand_score
         _P,                              # stream
@@ -225,7 +226,8 @@ def check(err: int, what: str) -> None:
 #: launches per kernel since the last reset_launch_counts(): each wrapper
 #: adds one where it launches its kernel, and nowhere else (a plain-version
 #: call on CPU tensors launches nothing)
-LAUNCHES = {"select_candidates": 0, "refresh_candidates": 0,
+LAUNCHES = {"select_candidates": 0, "select_candidates_approx": 0,
+            "refresh_candidates": 0,
             "round_fit_choose": 0, "segmented_prefix_accept": 0,
             "greedy_scan": 0, "reservation_scan": 0}
 

@@ -6,7 +6,12 @@
 //   koordinator_tpu/ops/batch_assign.py:126-154 _rank_parts (ranking key)
 //   koordinator_tpu/ops/batch_assign.py:451-525 _reduce_candidates
 //   koordinator_tpu/ops/batch_assign.py:182-197 _topk_by_rank (both regimes)
-// Its plain PyTorch version is select_candidates_plain in
+// K1a, the kApprox instances, replaces the approx branch of the same
+// reduction for method="approx" (and "chunked", whose rows are the same):
+//   koordinator_tpu/ops/batch_assign.py:469-504 approx_max_k over a 24-bit
+//                                               float key
+//   koordinator_tpu/ops/batch_assign.py:528     _chunked_candidates
+// Their plain PyTorch version is select_candidates_plain in
 // kernels/select_candidates.py.
 //
 // What bounds it on the H100: the work is P*N pairs, each an R=10 loop of
@@ -68,6 +73,22 @@
 //   register's bit test alone.
 // - An epilogue, stratum s on the pod's thread s, re-scores each chosen
 //   node to emit the stratum-0 key and the clipped score of every slot.
+// - K1a (kApprox): everything above but the rank.  The JAX package picks
+//   the top k_i of a float32 key a = (q << shift) | (tb >> d) (the
+//   quantized score over the tie-break's high bits, an integer below
+//   2^24), and approx_max_k's CPU lowering breaks its ties lowest column
+//   first.  The lists hold the 64-bit a << 31 | (2^31 - 1 - column):
+//   the exact order, and the node read back from the low bits, with no
+//   preimage to resolve.  A stratum of one candidate stores the column
+//   itself, the higher first: at k = 1 approx_max_k's CPU lowering
+//   reduces to the row's last maximum.  (Replacing only the tie-break's low d bits by
+//   the column's place in its run of 2^d would keep int32 lists in the
+//   packed regime, but the run's columns are not one cyclic interval on
+//   rows whose rotated difference wraps int32, where a tie-break has two
+//   preimages.)  The cost is K1's wide occupancy, 4 CTAs an SM, at every
+//   N.  A stratum whose share is every column (k_i >= N, packed only)
+//   ranks exactly, as in the JAX package: (shift, d) = (15, 0) makes a
+//   the exact key.  The -1 slots take the lowest infeasible columns.
 
 #include <cooperative_groups.h>
 
@@ -161,8 +182,28 @@ __device__ __forceinline__ void bulk_multicast(void* dst, const void* src,
       : "memory");
 }
 
-template <int NS, bool kWide, bool kMulti>
-__global__ void __launch_bounds__(kThreads, kWide ? 4 : 6)
+// K1a's list entry: the approx key a = (q << shift) | (tb >> d) (the
+// JAX package's float32 key, an integer below 2^30) over the column's
+// complement, so the int64 order is (a descending, column ascending):
+// approx_max_k's order, ties to the lowest column.
+constexpr int kApproxColBits = 31;
+constexpr long long kApproxColMask = (1ll << kApproxColBits) - 1;
+
+// A stratum of one candidate (last) ranks the higher column first:
+// approx_max_k's CPU lowering at k = 1 reduces to the row's last maximum.
+__device__ __forceinline__ long long approx_rank(int q, int tb, int shift,
+                                                 int d, int n, bool last) {
+  const long long a = (static_cast<long long>(q) << shift) | (tb >> d);
+  return (a << kApproxColBits) | (last ? n : kApproxColMask - n);
+}
+
+__device__ __forceinline__ int approx_col(long long v, bool last) {
+  const long long low = v & kApproxColMask;
+  return static_cast<int>(last ? low : kApproxColMask - low);
+}
+
+template <int NS, bool kWide, bool kMulti, bool kApprox>
+__global__ void __launch_bounds__(kThreads, kWide || kApprox ? 4 : 6)
     select_candidates_kernel(
     const int* __restrict__ rows, int n_tiles,
     const int* __restrict__ preq_g, const int* __restrict__ pest_g,
@@ -171,16 +212,18 @@ __global__ void __launch_bounds__(kThreads, kWide ? 4 : 6)
     const uint8_t* __restrict__ feas_t,
     const __grid_constant__ ScoreCfg cfg, int P, int N, int sb0, int sb1,
     int k0,
-    int k1, int group_stride, int* __restrict__ out_key,
-    int* __restrict__ out_node, int* __restrict__ out_score) {
-  // the list entries: packed int32 keys, or wide 64-bit ranks
-  using Key = std::conditional_t<kWide, long long, int>;
-  constexpr Key kEmpty = kWide ? LLONG_MIN : INT_MIN;
+    int k1, int ash0, int ad0, int ash1, int ad1, int group_stride,
+    int* __restrict__ out_key, int* __restrict__ out_node,
+    int* __restrict__ out_score) {
+  // the list entries: packed int32 keys, or 64-bit ranks (wide, approx)
+  constexpr bool k64 = kWide || kApprox;
+  using Key = std::conditional_t<k64, long long, int>;
+  constexpr Key kEmpty = k64 ? LLONG_MIN : INT_MIN;
   extern __shared__ __align__(128) int4 s_tiles[];
   __shared__ __align__(8) uint64_t s_full[kStages];
   __shared__ int s_any;
-  // the wide lists' values for the decoding (a runtime index)
-  __shared__ long long s_vals[kWide ? kPods : 1][kWide ? NS : 1]
+  // the 64-bit lists' values for the decoding (a runtime index)
+  __shared__ long long s_vals[k64 ? kPods : 1][k64 ? NS : 1]
                              [kMaxPerStratum];
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -279,7 +322,12 @@ __global__ void __launch_bounds__(kThreads, kWide ? 4 : 6)
 #pragma unroll
           for (int s = 0; s < NS; ++s) {
             const int key = clipped >> (s == 0 ? sb0 : sb1);
-            if constexpr (kWide)
+            if constexpr (kApprox)
+              insert_sorted(lists[s],
+                            approx_rank(key, tb, s == 0 ? ash0 : ash1,
+                                        s == 0 ? ad0 : ad1, n,
+                                        (s == 0 ? k0 : k1) == 1));
+            else if constexpr (kWide)
               insert_sorted(lists[s], wide_rank(key, tb));
             else
               insert_sorted(lists[s], (key << kTbBits) | tb);
@@ -332,7 +380,7 @@ __global__ void __launch_bounds__(kThreads, kWide ? 4 : 6)
 #pragma unroll
     for (int j = 0; j < kMaxPerStratum; ++j) {
       if (j >= (s == 0 ? k0 : k1)) continue;
-      if constexpr (kWide)
+      if constexpr (k64)
         s_vals[slot][s][j] = lists[s][j];
       else
         out_key[row0 + (s == 0 ? 0 : k0) + j] = lists[s][j];
@@ -354,6 +402,44 @@ __global__ void __launch_bounds__(kThreads, kWide ? 4 : 6)
     const int sb = s == 0 ? sb0 : sb1;
     const long long base_o = row0 + (s == 0 ? 0 : k0);
     const int f = min(n_feas, ks_s);
+    if constexpr (kApprox) {
+      // the entry's node is in its low bits; the -1 slots take the row's
+      // infeasible columns, ascending (approx_max_k's order of its -1.0
+      // keys), or at k = 1 its last column
+      const bool last = ks_s == 1;
+      int fill = 0;
+      for (int j = 0; j < ks_s; ++j) {
+        const long long o = base_o + j;
+        int n, key = -1, cscore = -1;
+        if (j < f) {
+          n = approx_col(s_vals[slot][s][j], last);
+          bool feas;
+          cscore = clip_score(score_row<kMulti>(
+              rows + static_cast<long long>(n) * kRowInts, n, p, P, pt, cfg,
+              feas_t, sr, has_sel, C, feas));
+          key = kWide ? cscore >> sb0
+                      : ((cscore >> sb0) << kTbBits) |
+                            tie_break(n, rot7919, N);
+        } else if (last) {
+          n = N - 1;   // f = 0: every column is infeasible
+        } else {
+          for (;; ++fill) {
+            bool feas = false;
+            if (pvalid) {
+              score_row<kMulti>(
+                  rows + static_cast<long long>(fill) * kRowInts, fill, p, P,
+                  pt, cfg, feas_t, sr, has_sel, C, feas);
+            }
+            if (!feas) break;
+          }
+          n = fill++;
+        }
+        out_key[o] = key;
+        out_node[o] = n;
+        out_score[o] = cscore;
+      }
+      continue;
+    }
     if constexpr (kWide) {
       // the rank's node: the preimage of its tie-break that carries it, the
       // higher one (n2, at or above the wrap boundary) for the first copy
@@ -475,16 +561,15 @@ __global__ void __launch_bounds__(kThreads, kWide ? 4 : 6)
   }
 }
 
-template <int NS, bool kWide, bool kMulti>
+template <int NS, bool kWide, bool kMulti, bool kApprox>
 cudaError_t launch(const int* rows, int n_tiles, const int* preq,
                    const int* pest, const uint8_t* pvalid, const int* rot_id,
                    const unsigned long long* sel, int C, int W,
                    const uint8_t* feas_t,
                    const ScoreCfg& cfg, int P, int N, int sb0, int sb1,
-                   int k0,
-                   int k1, int* out_key, int* out_node, int* out_score,
-                   cudaStream_t st) {
-  auto kernel = select_candidates_kernel<NS, kWide, kMulti>;
+                   int k0, int k1, const int (&ash)[4], int* out_key,
+                   int* out_node, int* out_score, cudaStream_t st) {
+  auto kernel = select_candidates_kernel<NS, kWide, kMulti, kApprox>;
   const int smem = kStages * kTileBytes + 2 * kDims * kPods * 4;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -517,7 +602,8 @@ cudaError_t launch(const int* rows, int n_tiles, const int* preq,
   lc.numAttrs = 1;
   return cudaLaunchKernelEx(&lc, kernel, rows, n_tiles, preq, pest, pvalid,
                             rot_id, sel, C, W, feas_t, cfg, P, N, sb0, sb1,
-                            k0, k1, stride, out_key, out_node, out_score);
+                            k0, k1, ash[0], ash[1], ash[2], ash[3], stride,
+                            out_key, out_node, out_score);
 }
 
 }  // namespace
@@ -534,10 +620,14 @@ extern "C" int koord_select_candidates(
     const int* pest, const uint8_t* pvalid, const int* rot_id,
     const uint8_t* sel, int C, unsigned long long* words,
     const uint8_t* feas_t, const int* cfg, int cfg_len, int P, int N,
-    int n_strata, int sb0, int sb1, int k0, int k1, int* rows, int* out_key,
-    int* out_node, int* out_score, void* stream) {
+    int n_strata, int sb0, int sb1, int k0, int k1, int approx, int ash0,
+    int ad0, int ash1, int ad1, int* rows, int* out_key, int* out_node,
+    int* out_score, void* stream) {
+  const int ash[4] = {ash0, ad0, ash1, ad1};
+  bool ash_ok = approx == 0 || approx == 1;
+  for (int v : ash) ash_ok = ash_ok && v >= 0 && v <= 30;
   if (cfg_len != kCfgLen || cfg == nullptr || n_strata < 1 ||
-      n_strata > 2 ||
+      n_strata > 2 || !ash_ok ||
       k0 > kMaxPerStratum || k1 > kMaxPerStratum || N < 1 ||
       N > (1 << kWideTbBits) ||
       (sel != nullptr && (C < 1 || words == nullptr)) ||
@@ -557,18 +647,22 @@ extern "C" int koord_select_candidates(
   if (err == cudaSuccess && sel != nullptr)
     err = pack_selector(sel, P, C, words, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // the instance: strata, key regime, selector words
-  auto go = [&](auto ns, auto kw, auto km) {
+  // the instance: strata, key regime, selector words, reduction (K1a)
+  auto go = [&](auto ns, auto kw, auto km, auto ka) {
     return launch<decltype(ns)::value, decltype(kw)::value,
-                  decltype(km)::value>(
+                  decltype(km)::value, decltype(ka)::value>(
         rows, n_tiles, preq, pest, pvalid, rot_id,
         sel != nullptr ? words : nullptr, C, W, feas_t, sc, P,
-        N, sb0, sb1, k0, decltype(ns)::value > 1 ? k1 : 0, out_key, out_node,
-        out_score, st);
+        N, sb0, sb1, k0, decltype(ns)::value > 1 ? k1 : 0, ash, out_key,
+        out_node, out_score, st);
+  };
+  auto by_approx = [&](auto ns, auto kw, auto km) {
+    return approx ? go(ns, kw, km, std::true_type{})
+                  : go(ns, kw, km, std::false_type{});
   };
   auto by_words = [&](auto ns, auto kw) {
-    return W > 1 ? go(ns, kw, std::true_type{})
-                 : go(ns, kw, std::false_type{});
+    return W > 1 ? by_approx(ns, kw, std::true_type{})
+                 : by_approx(ns, kw, std::false_type{});
   };
   auto by_regime = [&](auto ns) {
     return N > kPackedNodeCapacity ? by_words(ns, std::true_type{})

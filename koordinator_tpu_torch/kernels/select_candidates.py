@@ -1,10 +1,12 @@
-"""K1: fused Filter + Score + stratified top-k candidate selection.
+"""K1 and K1a: fused Filter + Score + stratified top-k candidate selection.
 
 :func:`select_candidates_kernel` is the wrapper: CPU tensors take
 :func:`select_candidates_plain`, CUDA tensors launch
-``csrc/select_candidates.cu``.  The plain version is the JAX package's exact
-candidate stage in PyTorch (``ops/batch_assign.py`` ``score_pods`` ->
-``_rank_parts`` -> ``_topk_by_rank``), scored one pod chunk at a time.
+``csrc/select_candidates.cu`` (K1 for the exact reduction, K1a for the
+approx one).  The plain version is the JAX package's candidate stage in
+PyTorch (``ops/batch_assign.py`` ``score_pods`` -> ``_rank_parts`` ->
+``_topk_by_rank``, or the approx branch of ``_reduce_candidates``), scored
+one pod chunk at a time.
 
 The ranking helpers live here, beside the plain version that uses them, and
 ``ops/batch_assign.py`` re-exports them.  Both key regimes of the JAX
@@ -128,11 +130,60 @@ def _stratum_splits(k: int, n: int) -> list[int]:
     return [base + (1 if i < rem else 0) for i in range(n)]
 
 
-def _reduce_candidates(scores, feasible, strata, k: int, rot_id=None):
+def approx_shifts(sb: int, n_total: int) -> tuple[int, int]:
+    """(shift, d) of the approx methods' key for spread bits ``sb``: the
+    quantized score rides bits ``shift`` and up, and the tie-break
+    contributes its bits from ``d`` up (its low ``d`` bits are dropped),
+    so the key ``(q << shift) | (tb >> d)`` stays within float32's 24-bit
+    mantissa.  The packed regime takes the high bits of the 15-bit
+    tie-break field, the wide one of the tie-break's bits(N - 1)."""
+    score_bits = (30 - _TB_BITS) - sb
+    if _packed_regime(n_total):
+        shift = min(_TB_BITS, max(24 - score_bits, 0))
+        return shift, _TB_BITS - shift
+    tb_bits = max((n_total - 1).bit_length(), 1)
+    shift = max(24 - score_bits, 0)
+    return shift, max(tb_bits - shift, 0)
+
+
+def approx_keys(key: torch.Tensor, tb: torch.Tensor, sb: int,
+                n_total: int) -> torch.Tensor:
+    """(P, N) int64: the integer value of the JAX package's float32 key of
+    the approx methods (exact in float32: it has at most 24 bits), -1
+    where infeasible.  ``key``/``tb`` are :func:`_rank_parts`' at ``sb``;
+    the quantized score is ``key >> 15`` packed and ``key`` wide."""
+    shift, d = approx_shifts(sb, n_total)
+    key = key.to(torch.int64)
+    q = key >> _TB_BITS if _packed_regime(n_total) else key
+    return torch.where(key >= 0, (q << shift) | (tb.to(torch.int64) >> d),
+                       -1)
+
+
+def _topk_approx(key: torch.Tensor, tb: torch.Tensor, sb: int, k: int,
+                 n_total: int) -> torch.Tensor:
+    """The approx methods' per-row top-k columns (int32): by the
+    :func:`approx_keys` key descending, the lowest column first among
+    equal keys (``approx_max_k``'s order on the CPU; infeasible columns
+    are -1 and come last, lowest first).  At k = 1 the CPU lowering
+    reduces to the row's LAST maximum instead: the highest column among
+    equal keys (column N - 1 on a row with no feasible column)."""
+    a = approx_keys(key, tb, sb, n_total)
+    if k == 1:
+        n = a.shape[1]
+        return ((n - 1) - torch.argmax(a.flip(1), dim=1, keepdim=True)
+                ).to(torch.int32)
+    idx = torch.sort(a, dim=1, descending=True, stable=True).indices
+    return idx[:, :k].to(torch.int32)
+
+
+def _reduce_candidates(scores, feasible, strata, k: int, rot_id=None,
+                       method: str = "exact"):
     """(scores, feasible) -> (cand_key, cand_node, cand_score): each
     stratum picks its share of k by its own quantized key; the first
     stratum's key orders every candidate (gathered, so infeasible slots of
-    short lists read -1)."""
+    short lists read -1).  ``method="approx"`` ranks a stratum by the
+    approx key (:func:`_topk_approx`) where its share is below the column
+    count, and exactly otherwise, as the JAX package does."""
     n_total = scores.shape[1]
     order_key, order_tb = _rank_parts(scores, feasible, strata[0], rot_id,
                                       n_total=n_total)
@@ -143,7 +194,10 @@ def _reduce_candidates(scores, feasible, strata, k: int, rot_id=None):
         key, tb = ((order_key, order_tb) if sb == strata[0]
                    else _rank_parts(scores, feasible, sb, rot_id,
                                     n_total=n_total))
-        cols.append(_topk_by_rank(key, tb, k_i, n_total)[1])
+        if method == "approx" and k_i < n_total:
+            cols.append(_topk_approx(key, tb, sb, k_i, n_total))
+        else:
+            cols.append(_topk_by_rank(key, tb, k_i, n_total)[1])
     cand_cols = torch.cat(cols, dim=1) if len(cols) > 1 else cols[0]
     cols_l = cand_cols.long()
     cand_key = torch.gather(order_key, 1, cols_l)
@@ -332,6 +386,48 @@ def topk_from_wide_keys(key: torch.Tensor, tb: torch.Tensor, k: int,
     return keys_out, cols_out
 
 
+#: bits of the column in K1a's 64-bit rank ``a << 31 | (2**31-1 - col)``
+APPROX_COL_BITS = 31
+
+
+def approx_rank(a: torch.Tensor, col: torch.Tensor,
+                last: bool = False) -> torch.Tensor:
+    """K1a's 64-bit list entry for an approx key ``a`` (0 <= a < 2**30) at
+    column ``col``: ``a << 31 | (2**31 - 1 - col)``, whose int64 order is
+    (a descending, column ascending) read from the top; with ``last``
+    (a stratum of one candidate) ``a << 31 | col``, the higher column
+    first."""
+    mask = (1 << APPROX_COL_BITS) - 1
+    col = col.to(torch.int64)
+    return (a.to(torch.int64) << APPROX_COL_BITS) | (col if last
+                                                     else mask - col)
+
+
+def topk_from_approx_ranks(a: torch.Tensor, k: int) -> torch.Tensor:
+    """Per-row top-k columns (int32) as K1a forms them from the
+    :func:`approx_keys` key ``a``: it keeps the best k :func:`approx_rank`
+    entries of the row's feasible columns and their count f, reads slot
+    j < f's column from the entry's low 31 bits, and fills slot j >= f
+    with the row's (j - f)-th infeasible column, ascending (at k = 1,
+    ranks with ``last`` and a row with no feasible column takes column
+    N - 1).  Equals :func:`_topk_approx`."""
+    p, n = a.shape
+    k = min(k, n)
+    last = k == 1
+    cols = torch.arange(n, dtype=torch.int64)[None, :].expand(p, n)
+    rank = torch.where(a >= 0, approx_rank(a.clamp(min=0), cols, last), -1)
+    vals = torch.sort(rank, dim=1, descending=True).values[:, :k]
+    mask = (1 << APPROX_COL_BITS) - 1
+    node = (vals & mask) if last else mask - (vals & mask)
+    f = (a >= 0).sum(dim=1, keepdim=True)
+    j = torch.arange(k)[None, :]
+    infeasible_first = torch.sort((a >= 0).to(torch.int8), dim=1,
+                                  stable=True).indices[:, :k]
+    fill = (torch.full_like(infeasible_first, n - 1) if last else
+            torch.gather(infeasible_first, 1, (j - f).clamp(min=0)))
+    return torch.where(j < f, node, fill).to(torch.int32)
+
+
 def selector_words(sel: torch.Tensor) -> torch.Tensor:
     """A (P, C) selector mask as (P, W) int64 words, W = ceil(C / 64): bit
     c % 64 of word c // 64 is column c (the layout the kernels' launches
@@ -373,11 +469,14 @@ def _pod_rows(pods: PodBatch, start: int, stop: int) -> PodBatch:
 
 def select_candidates_plain(state: ClusterState, pods: PodBatch,
                             cfg: ScoringConfig, k: int = 32,
-                            strata=(5, 15), chunk: int | None = None):
+                            strata=(5, 15), chunk: int | None = None,
+                            method: str = "exact"):
     """The plain version: score_pods over pod chunks of ``chunk`` rows
     (all rows when None), each reduced to (chunk, k) before the next chunk
     is scored.  Rows are independent, so every chunking gives the same
-    bits.  Returns (cand_key, cand_node, cand_score), each (P, k) int32."""
+    bits.  ``method`` is the reduction, "exact" or "approx".  Returns
+    (cand_key, cand_node, cand_score), each (P, k) int32."""
+    _check_method(method)
     k = min(k, state.capacity)
     p = pods.capacity
     step = p if chunk is None else max(1, min(chunk, p))
@@ -386,7 +485,7 @@ def select_candidates_plain(state: ClusterState, pods: PodBatch,
         sub = _pod_rows(pods, start, min(start + step, p))
         scores, feasible = score_pods(state, sub, cfg)
         outs.append(_reduce_candidates(scores, feasible, tuple(strata), k,
-                                       sub.rot_id))
+                                       sub.rot_id, method))
     return tuple(torch.cat(parts, dim=0) for parts in zip(*outs))
 
 
@@ -434,20 +533,35 @@ def _pack_config(cfg: ScoringConfig) -> tuple[torch.Tensor, bool]:
     return vec.contiguous(), agg_enabled
 
 
+#: the reductions of the kernel: K1 ranks exactly, K1a by the approx key
+KERNEL_METHODS = ("exact", "approx")
+
+
+def _check_method(method: str) -> None:
+    if method not in KERNEL_METHODS:
+        raise ValueError(f"unknown reduction {method!r}; one of "
+                         f"{KERNEL_METHODS}")
+
+
 def select_candidates_kernel(state: ClusterState, pods: PodBatch,
                              cfg: ScoringConfig, k: int = 32,
-                             strata=(5, 15), chunk: int | None = None):
+                             strata=(5, 15), chunk: int | None = None,
+                             method: str = "exact"):
     """K1's wrapper: (cand_key, cand_node, cand_score), each (P, k) int32.
+    ``method="approx"`` launches K1a, the instance whose lists rank by
+    the approx key (:func:`approx_rank`).
 
     CPU tensors take :func:`select_candidates_plain` (``chunk`` sets its
     pod-chunk width).  CUDA tensors launch the kernel, which streams the
     node axis and never writes a (P, N) tensor, so ``chunk`` does not
     apply to it."""
     strata = tuple(strata)
+    _check_method(method)
     check_node_capacity(state.capacity)
     if build.on_cpu(state.node_allocatable, pods.requests,
                     cfg.usage_thresholds):
-        return select_candidates_plain(state, pods, cfg, k, strata, chunk)
+        return select_candidates_plain(state, pods, cfg, k, strata, chunk,
+                                       method)
 
     n, r = state.capacity, NUM_RESOURCE_DIMS
     p = pods.capacity
@@ -487,6 +601,16 @@ def select_candidates_kernel(state: ClusterState, pods: PodBatch,
         return key, node, score
     sb = list(strata) + [0] * (2 - len(strata))
     ks = splits + [0] * (2 - len(splits))
+    # K1a's key per stratum; a share of every column ranks exactly, as
+    # (shift, d) = (15, 0) makes the packed approx key the exact one
+    shifts = []
+    for sb_i, k_i in zip(sb, ks):
+        if method == "exact":
+            shifts += [0, 0]
+        elif k_i < n:
+            shifts += list(approx_shifts(sb_i, n))
+        else:
+            shifts += [_TB_BITS, 0]   # k_i >= n only in the packed regime
     lib = build.lib()
     rows = torch.empty(lib.koord_select_candidates_scratch_bytes(n),
                        dtype=torch.uint8, device=dev)
@@ -501,9 +625,10 @@ def select_candidates_kernel(state: ClusterState, pods: PodBatch,
         build.ptr(pods.rot_id), build.ptr(sel), c, build.ptr(words),
         build.ptr(feas_t),
         build.ptr(cfgv), cfgv.numel(), p, n, len(strata),
-        sb[0], sb[1], ks[0], ks[1], build.ptr(rows),
-        build.ptr(key), build.ptr(node), build.ptr(score),
+        sb[0], sb[1], ks[0], ks[1], int(method == "approx"), *shifts,
+        build.ptr(rows), build.ptr(key), build.ptr(node), build.ptr(score),
         build.stream_of(key))
-    build.check(err, "select_candidates")
-    build.LAUNCHES["select_candidates"] += 1
+    name = "select_candidates" + ("_approx" if method == "approx" else "")
+    build.check(err, name)
+    build.LAUNCHES[name] += 1
     return key, node, score

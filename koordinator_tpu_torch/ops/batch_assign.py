@@ -14,9 +14,11 @@ candidate cache).
 
 Ported scope: both key regimes (the packed single-int32 key up to 2**15
 node rows, the wide (key, tie-break) ranking past it, up to the 2**30
-ceiling) and the candidate methods ``exact``, ``chunked_exact`` and
-``auto`` (which is ``exact`` here, as in JAX off the TPU).  The ``approx``
-and ``chunked`` methods raise ``ValueError``.
+ceiling) and every candidate method of the JAX package: ``exact`` and
+``chunked_exact`` (K1), ``approx`` and ``chunked`` (K1a: the approx
+reduction, whose float32 key keeps the tie-break's high bits and breaks
+its ties lowest column first), and ``auto``, which is ``exact`` here as in
+JAX off the TPU.
 
 PyTorch idiom in place of the JAX control flow: ``lexsort`` is one stable
 sort, ``segment_sum`` is ``index_add_``, and the ``while_loop`` is a Python
@@ -75,14 +77,21 @@ from koordinator_tpu_torch.quota.admission import (
 )
 from koordinator_tpu_torch.state.cluster_state import ClusterState, PodBatch
 
-#: the JAX package's candidate-selection strategies
+#: the JAX package's candidate-selection strategies, all ported ("auto" is
+#: "exact" here, as in JAX off the TPU)
 CANDIDATE_METHODS = ("auto", "exact", "approx", "chunked", "chunked_exact")
-#: the ones this port implements ("auto" is "exact")
-PORTED_METHODS = ("auto", "exact", "chunked_exact")
-
-#: pod-chunk width of method="chunked_exact"'s plain version: peak score
+#: pod-chunk width of the chunked methods' plain version: peak score
 #: memory is (CANDIDATE_CHUNK, N) instead of (P, N)
 CANDIDATE_CHUNK = 4096
+
+
+def kernel_method(method: str) -> str:
+    """The reduction a candidate method runs: "exact" (K1) or "approx"
+    (K1a).  The chunked methods give their unchunked twin's rows."""
+    if method not in CANDIDATE_METHODS:
+        raise ValueError(f"unknown candidate method {method!r}; "
+                         f"one of {CANDIDATE_METHODS}")
+    return "approx" if method in ("approx", "chunked") else "exact"
 
 #: the selection defaults every solve path shares (the JAX scheduler's
 #: ``cand_k``, ``cand_spread`` and ``solve_rounds``): the scheduler's
@@ -108,19 +117,17 @@ def select_candidates(
     ``spread_bits`` may be an int or a tuple (STRATIFIED selection: k splits
     evenly over the strata, each picks its share by its own quantized key,
     and the first stratum's key orders all candidates in the rounds).
-    ``exact`` and ``chunked_exact`` give the same rows; on the GPU both run
-    the streaming kernel, which never writes a (P, N) tensor."""
-    if method not in CANDIDATE_METHODS:
-        raise ValueError(f"unknown candidate method {method!r}; "
-                         f"one of {CANDIDATE_METHODS}")
-    if method not in PORTED_METHODS:
-        raise ValueError(f"candidate method {method!r} is not ported; "
-                         f"the port implements {PORTED_METHODS}")
+    ``exact`` and ``chunked_exact`` give the same rows, as do ``approx``
+    and ``chunked``; on the GPU each pair runs one streaming kernel (K1,
+    K1a), which never writes a (P, N) tensor."""
+    reduction = kernel_method(method)
     strata = (tuple(spread_bits) if isinstance(spread_bits, (tuple, list))
               else (spread_bits,))
-    chunk = CANDIDATE_CHUNK if method == "chunked_exact" else None
+    chunk = (CANDIDATE_CHUNK if method in ("chunked", "chunked_exact")
+             else None)
     key, node, score = select_candidates_kernel(state, pods, cfg, k, strata,
-                                                chunk=chunk)
+                                                chunk=chunk,
+                                                method=reduction)
     return (key, node, score) if with_scores else (key, node)
 
 

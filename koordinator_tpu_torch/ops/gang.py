@@ -22,7 +22,7 @@ from koordinator_tpu_torch.ops.assignment import (
     greedy_assign,
     pod_estimates,
 )
-from koordinator_tpu_torch.ops.batch_assign import CANDIDATE_METHODS, batch_assign
+from koordinator_tpu_torch.ops.batch_assign import batch_assign
 from koordinator_tpu_torch.quota.admission import charge_quota_batch
 from koordinator_tpu_torch.state.cluster_state import ClusterState, PodBatch
 
@@ -121,9 +121,6 @@ def gang_assign(state: ClusterState, pods: PodBatch, cfg: ScoringConfig,
     rollback so freed capacity is reclaimed within the batch."""
     if solver not in ("greedy", "batch"):
         raise ValueError(f"unknown solver {solver!r}")
-    if method not in CANDIDATE_METHODS:
-        raise ValueError(f"unknown candidate method {method!r}; "
-                         f"one of {CANDIDATE_METHODS}")
     if solver == "greedy" and method != "auto":
         # the sequential scan has no candidate stage
         raise ValueError('method applies only to solver="batch"')

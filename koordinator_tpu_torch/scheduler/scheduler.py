@@ -8,10 +8,13 @@ One round, as the JAX ``Scheduler`` runs it with its defaults:
    instance is gone, open a pinned one whose node has room (charging it),
    and queue a synthetic reserve-pod ``rsv::<name>`` (priority 9000) for
    every other Pending one;
-2. take the pending queue in (priority desc, creation, name) order and build
-   the pod batch, with a stable per-pod-name rotation id (31-bit wrap).  An
-   unchanged queue reuses the last batch whole; a changed one re-fills only
-   the rows of new or re-specced pods (``_batch_cache``/``_batch_host``);
+2. PreEnqueue: skip the pods of rejected gangs; take the rest in
+   (priority desc, creation, name) order, index the round's gangs (sorted
+   names, ``min_member`` 0 for a name no PodGroup registered, gang
+   groups) and build the pod batch, with a gang id a pod and a stable
+   per-pod-name rotation id (31-bit wrap).  An unchanged queue reuses the
+   last batch whole; a changed one re-fills only the rows of new or
+   re-specced pods (``_batch_cache``/``_batch_host``);
 3. refresh the quota tree's requests and flatten it to device state;
    with an Available reservation that has something left, the
    reservation pre-pass: up to ``rsv_prepass_cap`` owner-matched pods
@@ -20,21 +23,34 @@ One round, as the JAX ``Scheduler`` runs it with its defaults:
    reservations and bind; their rows leave the batch;
 4. solve.  Rounds under ``batch_solver_threshold`` pods (counted before
    the pre-pass) take the exact
-   greedy scan (K4).  Batch rounds with ``incremental_solve`` take the
+   greedy scan (K4).  A batch round with any gang calls ``gang_assign``
+   (``full_gang``: all-or-nothing per gang and gang group, rolled back
+   and re-solved over ``gang_passes`` passes).  Gangless batch rounds
+   with ``incremental_solve`` take the
    candidate cache: the first round selects over the whole (P, N) problem
    and warms it (``full_cold``), later rounds refresh it over the dirty
    nodes and pods (``incremental``, K2 plus K1 on the compacted dirty
    pods) unless the dirty fraction crosses
    ``incremental_dirty_threshold`` (``full_fallback``); the propose/accept
    passes after it equal ``gang_assign``'s bit for bit.  Without
-   ``incremental_solve`` a batch round calls ``gang_assign`` (``disabled``);
+   ``incremental_solve`` a batch round calls ``gang_assign`` (``disabled``).
+   ``cand_method`` picks the candidate method of the incremental path's
+   selections and its second pass only (``approx`` and ``chunked`` run
+   K1a); the full paths and the rescue select with ``auto`` (``exact``),
+   as the JAX scheduler's do;
 5. rescue the batch solver's leftovers with the exact greedy scan over a
-   compacted batch;
+   compacted batch, with the round's gangs: members of gangs rolled back
+   come back whole, and the surplus members of a gang already satisfied
+   this round rescue as gangless pods;
 6. adopt the solved state (marking the assigned rows dirty for the cache),
    then bind: a placed reserve-pod makes its reservation Available (the
    solve already charged its vector); every other pod is recorded in the
    ``bound`` registry, charges the quota tree's ``used`` and goes to
-   ``bind_fn``.
+   ``bind_fn``;
+7. the gang WaitTime machine (Permit's timeout): a gang with a failed
+   member and none placed this round starts its wait at its first such
+   round and is rejected once ``wait_time_sec`` has passed since; a gang
+   with a member placed clears its wait.
 
 Removing a bound pod (:meth:`Scheduler.delete_pod`,
 :meth:`Scheduler.remove_bound_pod`) returns what it drew from a
@@ -46,12 +62,14 @@ names for batch rounds, and ``greedy`` for a round under the threshold
 (the JAX scheduler leaves the attribute as it was on such a round and
 labels its latency metric ``greedy``).
 
-Left out of this reduced shell, and kept by the JAX scheduler: gang
-registration and the WaitTime machine (every batch carries an empty
-``GangInfo``, as the JAX round does when no gang is registered), hints and
-their dense masks, preemption and nominations, the fine-grained CPU and
-device allocators, forecast and quality modes, degraded mode, tenancy, the
-solve mesh, and the journey, timeline and metrics hooks.
+Left out of this reduced shell, and kept by the JAX scheduler: gangs with
+network-topology requirements (``register_gang`` refuses them: the
+topology planner waits for ``ops/network_topology.py``), explanations, the
+auditor's per-workload attempts and Diagnose's per-reason counts (failures
+carry a short reason), hints and their dense masks, preemption and
+nominations, the fine-grained CPU and device allocators, forecast and
+quality modes, degraded mode, tenancy, the solve mesh, and the journey,
+timeline and metrics hooks.
 """
 
 from __future__ import annotations
@@ -119,6 +137,23 @@ class BoundPod:
 
 
 @dataclasses.dataclass
+class GangRecord:
+    """Host-side gang state (PodGroup + gang annotations)."""
+
+    name: str
+    min_member: int
+    group: str | None = None
+    #: None = inherit the scheduler's default (CoschedulingArgs
+    #: DefaultTimeout; 600 s like the reference)
+    wait_time_sec: float | None = None
+    first_failure: float | None = None
+    rejected: bool = False
+    #: network-topology gather requirements (not ported: register_gang
+    #: refuses a record that sets them)
+    topology: object | None = None
+
+
+@dataclasses.dataclass
 class SchedulingResult:
     assignments: dict[str, str]   # pod -> node
     failures: dict[str, str]      # pod -> short reason
@@ -135,6 +170,7 @@ class Scheduler:
                  config: ScoringConfig | None = None,
                  quota_tree: QuotaTree | None = None,
                  bind_fn=None, gang_passes: int = 2,
+                 gang_default_timeout_sec: float = 600.0,
                  batch_solver_threshold: int = 1024,
                  incremental_solve: bool = True, device=None,
                  clock=time.monotonic):
@@ -148,6 +184,13 @@ class Scheduler:
         self.quota_tree = quota_tree
         self.bind_fn = bind_fn
         self.gang_passes = gang_passes
+        #: CoschedulingArgs.DefaultTimeout: WaitTime for gangs that don't
+        #: set their own
+        self.gang_default_timeout_sec = gang_default_timeout_sec
+        #: registered gangs by name
+        self.gangs: dict[str, GangRecord] = {}
+        #: the pods PreEnqueue held back last round (their gang rejected)
+        self._last_gang_rejected_names: list[str] = []
         self.batch_solver_threshold = batch_solver_threshold
         self.clock = clock
         self.pending: dict[str, PodSpec] = {}
@@ -178,9 +221,11 @@ class Scheduler:
         # -- incremental delta-driven solve (gangless batch rounds) --
         self.incremental_solve = incremental_solve
         self.incremental_dirty_threshold = 0.25
-        # candidate selection (k, strata, rounds, method "auto", which is
-        # "exact" off the TPU) takes batch_assign's defaults, as
-        # gang_assign's full rounds do, so both paths solve one problem
+        # candidate selection (k, strata, rounds) takes batch_assign's
+        # defaults, as gang_assign's full rounds do, so both paths solve
+        # one problem.  The method applies to the incremental path only:
+        # "auto" is "exact" (the JAX scheduler's "approx" is for a TPU)
+        self.cand_method = "auto"
         self._cand_cache: dict | None = None
         #: which path the last round took: full_cold | incremental |
         #: full_fallback | disabled (batch rounds), greedy, or none
@@ -188,6 +233,17 @@ class Scheduler:
         #: the dirty node and pod fractions the last round's cache saw
         self.last_dirty_node_frac = 0.0
         self.last_dirty_pod_frac = 0.0
+
+    # -- registration -----------------------------------------------------------
+
+    def register_gang(self, record: GangRecord) -> None:
+        if record.topology is not None:
+            raise ValueError(
+                f"gang {record.name!r}: network-topology requirements are "
+                "not ported (ROADMAP A7: ops/network_topology.py)")
+        if record.wait_time_sec is None:
+            record.wait_time_sec = self.gang_default_timeout_sec
+        self.gangs[record.name] = record
 
     # -- queue ----------------------------------------------------------------
 
@@ -414,20 +470,50 @@ class Scheduler:
         result.assignments[pod.name] = node
 
     def _active_pods(self) -> list[PodSpec]:
-        return sorted(self.pending.values(),
-                      key=lambda p: (-p.priority, p.creation, p.name))
+        """PreEnqueue: skip the pods of rejected gangs."""
+        out = []
+        self._last_gang_rejected_names = []
+        for pod in self.pending.values():
+            if pod.gang is not None:
+                gang = self.gangs.get(pod.gang)
+                if gang is not None and gang.rejected:
+                    if not pod.name.startswith(RSV_POD_PREFIX):
+                        self._last_gang_rejected_names.append(pod.name)
+                    continue
+            out.append(pod)
+        out.sort(key=lambda p: (-p.priority, p.creation, p.name))
+        return out
+
+    def _build_gang_info(self, pods: list[PodSpec]
+                         ) -> tuple[GangInfo, dict[str, int]]:
+        """The round's gangs: sorted names, ``min_member`` (0 for a name no
+        PodGroup registered) and gang groups (the first gang of a group
+        names it)."""
+        names = sorted({p.gang for p in pods if p.gang is not None})
+        index = {n: i for i, n in enumerate(names)}
+        groups: dict[str, int] = {}
+        min_member = np.zeros(len(names), np.int32)
+        group_id = np.arange(len(names), dtype=np.int32)
+        for name, i in index.items():
+            gang = self.gangs.get(name)
+            min_member[i] = gang.min_member if gang else 0
+            if gang and gang.group:
+                group_id[i] = groups.setdefault(gang.group, i)
+        return (GangInfo.build(min_member, group_id, device=self.device),
+                index)
 
     # -- batch and quota --------------------------------------------------------
 
-    def _build_batch(self, pods: list[PodSpec],
+    def _build_batch(self, pods: list[PodSpec], gang_index: dict[str, int],
                      quota_index: dict[str, int]) -> PodBatch:
         # cache key: everything that feeds the batch tensors.  _pending_rev
         # covers pod contents (mutations go through enqueue/dequeue), the
-        # name tuple the active set, capacity node-array growth, class_count
-        # new label/taint equivalence classes
+        # name tuple the active set (gang rejection too), capacity
+        # node-array growth, class_count new label/taint equivalence classes
         key = (
             self._pending_rev,
             tuple(pod.name for pod in pods),
+            tuple(sorted(gang_index.items())),
             tuple(sorted(quota_index.items())),
             self.snapshot.capacity,
             self.snapshot.class_count,
@@ -440,6 +526,7 @@ class Scheduler:
         requests = np.zeros((p, dims), np.int32)
         priority = np.zeros(p, np.int32)
         qos = np.zeros(p, np.int8)
+        gang_id = np.full(p, -1, np.int32)
         quota_id = np.full(p, -1, np.int32)
         non_preempt = np.zeros(p, bool)
         rot = np.zeros(p, np.int32)
@@ -462,12 +549,14 @@ class Scheduler:
         # row-level reuse: an incremental queue change re-fills only the
         # rows whose pod is new or re-specced; unchanged rows gather from
         # the last build's host arrays in one vectorised copy.  Valid only
-        # while the quota index and the selector classes are unchanged:
-        # they parameterise row CONTENT
+        # while the gang and quota indexes and the selector classes are
+        # unchanged: they parameterise row CONTENT (a row copied under
+        # another gang index would carry a stale gang id)
         c_cap = self.snapshot.class_capacity
         prev = self._batch_host
         reuse_ok = (
             prev is not None
+            and prev["gang_index"] == gang_index
             and prev["quota_index"] == quota_index
             and prev["class_cap"] == c_cap
             # the class COUNT: a new class within the same bucket changes
@@ -492,6 +581,7 @@ class Scheduler:
                 requests[dst_a] = prev["requests"][src_a]
                 priority[dst_a] = prev["priority"][src_a]
                 qos[dst_a] = prev["qos"][src_a]
+                gang_id[dst_a] = prev["gang_id"][src_a]
                 quota_id[dst_a] = prev["quota_id"][src_a]
                 non_preempt[dst_a] = prev["non_preempt"][src_a]
                 sel[dst_a] = prev["sel"][src_a]
@@ -504,6 +594,8 @@ class Scheduler:
             requests[i] = pod.requests
             priority[i] = pod.priority
             qos[i] = pod.qos
+            if pod.gang is not None and pod.gang in gang_index:
+                gang_id[i] = gang_index[pod.gang]
             if pod.quota is not None and pod.quota in quota_index:
                 quota_id[i] = quota_index[pod.quota]
             non_preempt[i] = pod.non_preemptible
@@ -514,7 +606,8 @@ class Scheduler:
                 row = memo[sel_key] = self.snapshot.selector_row_for(pod)
             sel[i] = row
         batch = PodBatch.build(
-            requests, priority=priority, qos=qos, quota_id=quota_id,
+            requests, priority=priority, qos=qos, gang_id=gang_id,
+            quota_id=quota_id,
             non_preemptible=non_preempt, selector_mask=sel,
             class_capacity=c_cap, node_capacity=self.snapshot.capacity,
             capacity=cap, rot_id=rot, device=self.device)
@@ -523,7 +616,9 @@ class Scheduler:
             "row_of": {pod.name: i for i, pod in enumerate(pods)},
             "specs": {pod.name: pod for pod in pods},
             "requests": requests, "priority": priority, "qos": qos,
-            "quota_id": quota_id, "non_preempt": non_preempt, "sel": sel,
+            "gang_id": gang_id, "quota_id": quota_id,
+            "non_preempt": non_preempt, "sel": sel,
+            "gang_index": dict(gang_index),
             "quota_index": dict(quota_index),
             "class_cap": c_cap,
             "class_count": self.snapshot.class_count,
@@ -570,26 +665,29 @@ class Scheduler:
         pods = self._active_pods()
         if not pods:
             return result
+        gangs, gang_index = self._build_gang_info(pods)
         quota, quota_index = self._build_quota()
-        batch = self._build_batch(pods, quota_index)
+        batch = self._build_batch(pods, gang_index, quota_index)
         if len(self.reservations):
             # the batch cache keeps the whole batch; the solve gets the one
             # without the pre-pass's binds
             batch, quota = self._reservation_prepass(pods, batch, quota,
                                                      result)
-        gangs = GangInfo.build(np.zeros(0, np.int32), device=self.device)
         solver = ("batch" if len(pods) >= self.batch_solver_threshold
                   else "greedy")
         self.last_solver = solver
         # the incremental path takes every gangless batch round with a
-        # factored selector mask, which is every batch round of this shell
+        # factored selector mask (every batch round of this shell has one);
+        # a round with a gang keeps gang_assign's full path
         use_inc = (solver == "batch" and self.incremental_solve
-                   and batch.selector_mask is not None)
+                   and not gang_index and batch.selector_mask is not None)
         if use_inc:
             assignments, new_state, new_quota = (
                 self._solve_batch_incremental(pods, batch, quota))
         else:
-            self.last_solve_path = "disabled" if solver == "batch" else "greedy"
+            self.last_solve_path = (
+                "greedy" if solver == "greedy"
+                else "full_gang" if gang_index else "disabled")
             assignments, new_state, new_quota = gang_assign(
                 self.snapshot.state, batch, self.config, gangs, quota,
                 passes=self.gang_passes, solver=solver)
@@ -598,8 +696,20 @@ class Scheduler:
         leftover = batch.valid.cpu().numpy() & (a < 0)
         if solver == "batch" and bool(leftover[: len(pods)].any()):
             # exact rescue over the compacted leftovers: the batch engine's
-            # top-k/round approximation may fail pods a greedy scan places
-            small, idx = batch.compact(leftover)
+            # top-k/round approximation may fail pods a greedy scan places.
+            # Rolled-back gangs come back whole; the surplus members of a
+            # gang already satisfied this round rescue as gangless pods
+            # (its min_member is met), so the rescue's pre-enqueue and
+            # rollback cannot strand them
+            ga = batch.gang_id.cpu().numpy()
+            placed = np.bincount(ga[(ga >= 0) & (a >= 0)],
+                                 minlength=gangs.capacity)
+            satisfied = placed >= gangs.min_member.cpu().numpy()
+            rescue_gid = np.where(
+                (ga >= 0) & satisfied[np.maximum(ga, 0)], -1, ga)
+            small, idx = batch.replace(
+                gang_id=torch.from_numpy(rescue_gid.astype(np.int32)).to(
+                    self.device)).compact(leftover)
             r_small, new_state, new_quota = gang_assign(
                 new_state, small, self.config, gangs, new_quota,
                 passes=self.gang_passes, solver="greedy")
@@ -611,6 +721,7 @@ class Scheduler:
         self.snapshot.adopt_state(new_state,
                                   changed_rows=np.unique(a[a >= 0]))
 
+        placed_gangs: set[str] = set()
         binds = []
         for i, pod in enumerate(pods):
             if int(a[i]) >= 0:
@@ -619,12 +730,15 @@ class Scheduler:
                     self._commit_reserve_pod(pod, node, result, now)
                 else:
                     binds.append((pod, node))
+                    if pod.gang:
+                        placed_gangs.add(pod.gang)
         self._commit_binds(binds, result)
 
         # a pod in assignments was bound by the reservation pre-pass (its
         # row left the batch before the solve)
         fail_rows = [i for i, pod in enumerate(pods)
                      if int(a[i]) < 0 and pod.name not in result.assignments]
+        failed_gangs: set[str] = set()
         if fail_rows:
             admitted = None
             if new_quota is not None:
@@ -635,13 +749,39 @@ class Scheduler:
                 result.failures[pods[i].name] = (
                     "quota" if admitted is not None and not admitted[i]
                     else "no feasible node")
+                if pods[i].gang:
+                    failed_gangs.add(pods[i].gang)
+        self._gang_wait_time(placed_gangs, failed_gangs, now)
         return result
+
+    def _gang_wait_time(self, placed: set[str], failed: set[str],
+                        now: float) -> None:
+        """The gang WaitTime machine (Permit's timeout): a gang that failed
+        with no member placed starts its wait, or is rejected once the
+        wait is over; a gang with a member placed clears its wait."""
+        for name in failed - placed:
+            gang = self.gangs.get(name)
+            if gang is None:
+                continue
+            if gang.first_failure is None:
+                gang.first_failure = now
+            elif now - gang.first_failure > gang.wait_time_sec:
+                gang.rejected = True
+        for name in placed:
+            gang = self.gangs.get(name)
+            if gang is not None:
+                gang.first_failure = None
 
     # -- the incremental candidate cache --------------------------------------
 
-    def _select(self, state, batch: PodBatch, k: int):
+    def _cand_method(self) -> str:
+        """``cand_method`` resolved: "auto" is "exact" (the JAX scheduler
+        takes "approx" only on a TPU)."""
+        return "exact" if self.cand_method == "auto" else self.cand_method
+
+    def _select(self, state, batch: PodBatch, k: int, method: str):
         return ba.select_candidates(state, batch, self.config, k=k,
-                                    with_scores=True)
+                                    method=method, with_scores=True)
 
     def _solve_batch_incremental(self, pods: list[PodSpec],
                                  batch: PodBatch, quota):
@@ -665,10 +805,12 @@ class Scheduler:
         snap = self.snapshot
         n = snap.capacity
         k = min(ba.CAND_K, n)
+        method = self._cand_method()
         meta = self._cand_cache
         cache_ok = (
             meta is not None
             and meta["n"] == n
+            and meta["method"] == method
             # identity of the OBJECT: a replaced config invalidates
             and meta["cfg"] is self.config
         )
@@ -715,7 +857,7 @@ class Scheduler:
                     dev(dvalid), k=k)
                 if dirty_pods.any():
                     small, idx = batch.compact(dirty_pods)
-                    sk, sn, ss = self._select(snap.state, small, k)
+                    sk, sn, ss = self._select(snap.state, small, k, method)
                     rows_pad = np.full(small.capacity, batch.capacity,
                                        np.int32)
                     rows_pad[: len(idx)] = idx
@@ -724,13 +866,14 @@ class Scheduler:
             else:
                 path = "full_fallback"
         if cache is None:
-            cache = ba.CandidateCache(*self._select(snap.state, batch, k))
+            cache = ba.CandidateCache(*self._select(snap.state, batch, k,
+                                                    method))
         # the batch build already made this round's name -> row and spec
         # maps for its own row reuse: share them
         host = self._batch_host
         self._cand_cache = {
             "cache": cache, "row_of": host["row_of"], "specs": host["specs"],
-            "n": n, "cfg": self.config,
+            "n": n, "method": method, "cfg": self.config,
         }
         self.last_solve_path = path
         try:
@@ -741,7 +884,8 @@ class Scheduler:
             self._cand_cache = None
             raise
         return {"a": a, "state": state, "quota": quota,
-                "est_accum": est_accum, "batch": batch, "k": k}
+                "est_accum": est_accum, "batch": batch, "k": k,
+                "method": method}
 
     def _finish_batch_incremental(self, ctx: dict):
         """The later passes, each full-selecting over the COMPACTED
@@ -758,7 +902,8 @@ class Scheduler:
                     break
                 small, idx = batch.compact(leftover)
                 a2, state, quota, est_accum = ba.assign_followup_pass(
-                    state, est_accum, small, quota, self.config, k=ctx["k"])
+                    state, est_accum, small, quota, self.config, k=ctx["k"],
+                    method=ctx["method"])
                 a2_np = a2.cpu().numpy()[: len(idx)]
                 placed = a2_np >= 0
                 if not placed.any():

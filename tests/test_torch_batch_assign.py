@@ -263,12 +263,22 @@ def test_round_fit_choose_matches_jax_round_body(seed):
 
 @pytest.mark.parametrize("method", ["approx", "chunked", "fused"])
 def test_unported_or_unknown_methods_raise(method):
+    """Every method of the JAX package is ported (approx and chunked run
+    K1a's reduction and equal JAX's rows); an unknown one raises."""
+    from koordinator_tpu.ops import batch_assign as jba
+
     from koordinator_tpu_torch.ops import batch_assign as tba
 
     js, jp = problem(0, "factored")
-    with pytest.raises(ValueError, match="not ported|unknown"):
-        tba.select_candidates(port(js, "ClusterState"), port(jp, "PodBatch"),
-                              port(config(), "ScoringConfig"), method=method)
+    args = (port(js, "ClusterState"), port(jp, "PodBatch"),
+            port(config(), "ScoringConfig"))
+    if method not in jba.CANDIDATE_METHODS:
+        with pytest.raises(ValueError, match="unknown"):
+            tba.select_candidates(*args, method=method)
+        return
+    want = jba.select_candidates(js, jp, config(), method=method)
+    got = tba.select_candidates(*args, method=method)
+    assert all(same(w, g) for w, g in zip(want, got))
 
 
 def test_cpu_wrappers_launch_nothing_and_other_devices_raise():
@@ -293,11 +303,14 @@ def test_cpu_wrappers_launch_nothing_and_other_devices_raise():
     js, jp = problem(2, "factored")
     ts, tp = port(js, "ClusterState"), port(jp, "PodBatch")
     tba.batch_assign(ts, tp, port(config(), "ScoringConfig"))
+    tba.batch_assign(ts, tp, port(config(), "ScoringConfig"),
+                     method="approx")
     rsv = ReservationSet.zeros(16, device="cpu")
     reservation_greedy_assign(
         ts, tp, port(config(), "ScoringConfig"), rsv,
         torch.zeros((tp.capacity, rsv.capacity), dtype=torch.bool))
     assert build.LAUNCHES == {"select_candidates": 0,
+                              "select_candidates_approx": 0,
                               "refresh_candidates": 0, "round_fit_choose": 0,
                               "segmented_prefix_accept": 0, "greedy_scan": 0,
                               "reservation_scan": 0}

@@ -4,7 +4,8 @@ package, not at import time and not after scheduling rounds down every path
 greedy round, and reservation rounds: reserve-pods and a pinned
 reservation opening, then owner pods through the reservation pre-pass;
 then a cold and an incremental round in the wide key regime, at a capacity
-of 40,960 with 70 node classes)."""
+of 40,960 with 70 node classes; then a gang round and two rounds under
+``cand_method="approx"``)."""
 
 import os
 import re
@@ -98,6 +99,27 @@ for rnd in range(2):
                            node_selector={"rack": f"r{j}"} if j % 2 else {}))
     res = ws.schedule_round()
     assert res.assignments and wide.class_capacity == 128
+assert ws.last_solve_path == "incremental"
+# a gang round (gang_assign's full path) and approx rounds (K1a's reduction
+# in the cache's cold selection, then in an incremental round)
+from koordinator_tpu_torch.scheduler.scheduler import GangRecord
+sched.batch_solver_threshold = 16
+sched.register_gang(GangRecord(name="gang", min_member=3))
+for j in range(20):
+    q = np.zeros(10, np.int32)
+    q[0], q[1] = rng.integers(100, 2000), rng.integers(128, 2048)
+    sched.enqueue(PodSpec(name=f"g{j}", requests=q,
+                          gang="gang" if j < 4 else None))
+res = sched.schedule_round()
+assert sched.last_solve_path == "full_gang" and "g0" in res.assignments
+ws.cand_method = "approx"
+for rnd in range(2):
+    for j in range(40):
+        q = np.zeros(10, np.int32)
+        q[0], q[1] = rng.integers(100, 4000), rng.integers(128, 8192)
+        ws.enqueue(PodSpec(name=f"a{rnd}-{j}", requests=q))
+    res = ws.schedule_round()
+    assert res.assignments
 assert ws.last_solve_path == "incremental"
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "koordinator_tpu"))

@@ -502,14 +502,14 @@ def test_batch_cache_and_row_reuse_equal_a_fresh_build():
         _, quota_index = sched._build_quota()
         before = sched.batch_rebuilds
         cached = sched._batch_cache
-        batch = sched._build_batch(pods, quota_index)
+        batch = sched._build_batch(pods, {}, quota_index)
         if expect_reuse:
             assert batch is cached[1] and sched.batch_rebuilds == before
         fresh = _port_sched(tsnap, ttree)
         fresh._rot_ids = dict(sched._rot_ids)
         fresh._rot_counter = sched._rot_counter
         fresh.pending = dict(sched.pending)
-        assert_same_fields(fresh._build_batch(pods, quota_index), batch,
+        assert_same_fields(fresh._build_batch(pods, {}, quota_index), batch,
                            "PodBatch")
         jpods = [JPod(**specs[p.name]) for p in pods]
         jsched._rot_ids = dict(sched._rot_ids)
