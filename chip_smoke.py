@@ -12,7 +12,9 @@ first failure:
    use (the operations each kernel's inputs need, counted by pair_ops);
 2. build: compiles the kernels from ``koordinator_tpu_torch/kernels/csrc``;
    then ``ptxas``: K1's and K1a's, K2's, K3b's, K4's and K4r's registers
-   and spills from the compiler's log (a spill fails the run);
+   and spills from the compiler's log (a spill fails the run), and the
+   CTAs an SM the card reports for K1 and K1a's two instances (the int32
+   one must reach K1's);
 3. kernels: K1 against its plain PyTorch version at 2,048 pods x 1,024 nodes
    under four configurations (instantaneous thresholds, aggregated
    thresholds, selector classes, dense feasibility), and K3a/K3b against
@@ -46,6 +48,12 @@ first failure:
    1,000, 10,000 and 32,768 nodes (the last with its node columns in
    global memory), dense feasibility and selector classes, the quota tree
    with non-preemptible pods, the scoring configurations of ``k1_edges``;
+   then ``step_edges``: K4 on quota leaves whose consecutive pods fit one
+   at a time, on identical nodes (the 16 CTAs' best ranks tie), on a
+   headroom that wraps and on a negative request charged after the next
+   pod's search moved the 256-pod window past it; every
+   K4 and K4r case prints its time a step (ms over the steps quota
+   admits);
 9. steady state: the flagship cluster behind an ElasticQuota tree (root, 4
    parents, 16 leaves; 80% of the pods in leaves that admit ~60% of their
    cpu), one cold round and five rounds that each follow a usage refresh
@@ -75,8 +83,12 @@ first failure:
    its plain version at round 2's pre-pass (2,048 pods x 10,240 nodes x
    1,024 reservations); then ``reservation_edges``: every reservation on
    one node, 4,096 records on one CTA (read in place from the wrapper's
-   array), mostly exhausted rows, the quota tree, and 32,768 nodes (the
-   node columns in the global scratch);
+   array), mostly exhausted rows, the quota tree, 32,768 nodes (the node
+   columns in the global scratch), and the step's edges: quota leaves
+   whose consecutive pods fit one at a time (the next pod, found while
+   the current one is scored, is turned away after its charge), nodes
+   that tie across the 16 CTAs, and allocate-once and Restricted records
+   on the chosen node;
    then ``wide_edges``: K1, K2 and K3a (with K3b) at 32,768 nodes (the
    packed key regime's last capacity), 40,960 and 65,536 (the wide
    regime), rows with fewer feasible nodes than k, wrapping rot ids and a
@@ -123,7 +135,10 @@ first failure:
    at 65,536 nodes over 4,096 rows in 1,024-row chunks, and on a
    full-capacity wrap case at 10,240 nodes (at k = 32, and at k = 2 and 3,
    strata of one candidate), each with the count of rows whose nodes
-   differ from K1's.
+   differ from K1's; and on the cold batch with 8 rows at rot ids in the
+   band (two nodes share a tie-break there), so that K1a's int32 and
+   64-bit instances both launch, at k = 32, 2 and 3, with the rows each
+   instance took.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the last
 is ``{"ok": true, "device": {...}}``.  Before them, one JSON line lists the
@@ -142,8 +157,9 @@ K2 and K3b add ``device_ms``
 node-level grouping by torch.sort).  An earlier line (``earlier_design``)
 puts this run's K1, K4, K3b and K2 times beside earlier ones at the same
 shapes, each labelled with its commit: the earlier designs (K1 and K4:
-commit e9fcd1c; K3b and K2: commit bf2978c) and the flagship phases'
-K1, K2 and K4 before the wide key regime (commit 30c463b).  They are
+commit e9fcd1c; K3b and K2: commit bf2978c), the flagship phases'
+K1, K2 and K4 before the wide key regime (commit 30c463b), and K1a's,
+K4's and K4r's before their redesign (commit 398251d).  They are
 constants recorded in PERF.md, not measured here
 (``profile_torch_round.py --kernels --root`` measures two designs in one
 run).
@@ -668,6 +684,17 @@ def danger_rot_ids(rng, count: int, n_nodes: int) -> np.ndarray:
     target = (2**31 + rng.integers(0, n_nodes, count)) % 2**32
     rot = (target.astype(object) * inv) % 2**32
     return np.array([r - 2**32 if r >= 2**31 else r for r in rot], np.int32)
+
+
+def _rot_in_band(rng, n_nodes: int) -> int:
+    """A rot id in K1a's band at ``n_nodes``: rot * 7919 (int32-wrapped)
+    lies 1..n_nodes-1 above -2**31 (past -2**31 itself, where every
+    difference wraps and each tie-break keeps one preimage)."""
+    while True:
+        rot = int(danger_rot_ids(rng, 1, n_nodes)[0])
+        off = (rot * 7919 + 2**31) % 2**32
+        if 0 < off < n_nodes:
+            return rot
 
 
 def phase_k1_edges(device) -> None:
@@ -1320,6 +1347,7 @@ def greedy_case(device, seed: int, n_nodes: int, n_pods: int, mode: str,
     return dict(pods=n_pods, nodes=n_nodes, mode=mode, scoring=variant,
                 assigned=assigned,
                 admitted_steps=scans, max_abs_err=err, ms=ms,
+                us_per_step=ms * 1e3 / scans if scans else None,
                 plain_ms=plain_ms, bytes=nbytes, ops=ops, bound_ms=bound_ms,
                 bound_by=by)
 
@@ -1331,8 +1359,8 @@ def phase_greedy(device, n_pods: int = 1_000, n_nodes: int = 10_240,
     out = greedy_case(device, 21, n_nodes, n_pods, "classes", reps)
     emit("greedy", **out, bound_note="the chain of dependent steps, not "
          "bytes or operations, sets this kernel's floor")
-    return {key: out[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                      "bound_ms", "bound_by")}
+    return {key: out[key] for key in ("max_abs_err", "ms", "us_per_step",
+                                      "plain_ms", "bound_ms", "bound_by")}
 
 
 def phase_greedy_edges(device, n_pods: int = 400) -> None:
@@ -1430,14 +1458,16 @@ def phase_rescue(device, solve: dict, reps: int = 3, label: str = "rescue",
               + 2 * quota.headroom.numel() * 4 * 2)
     ops = scan_ops(state, pods, cfg, rows, a)
     bound_ms, by = bound(nbytes, ops)
+    us_per_step = ms * 1e3 / scans if scans else None
     emit(label, pods=p, valid_pods=p_valid, nodes=n,
          quotas=quota.capacity, admitted_steps=scans,
          assigned=int((a >= 0).sum()), max_abs_err=err, ms=ms,
-         plain_ms=plain_ms, bytes=nbytes, ops=ops, bound_ms=bound_ms,
-         bound_by=by, bound_note="the chain of dependent steps, not "
-         "bytes or operations, sets this kernel's floor")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=by, admitted_steps=scans)
+         us_per_step=us_per_step, plain_ms=plain_ms, bytes=nbytes, ops=ops,
+         bound_ms=bound_ms, bound_by=by, bound_note="the chain of dependent "
+         "steps, not bytes or operations, sets this kernel's floor")
+    return dict(max_abs_err=err, ms=ms, us_per_step=us_per_step,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                admitted_steps=scans)
 
 
 def phase_quota_rounds(device, solve: dict, reps: int = 5,
@@ -2071,14 +2101,18 @@ def rsv_case(device, state, pods, cfg, rsv, match, quota=None,
         rsv, n, lib.koord_reservation_scan_nodes_per_cta(n))
     plan = lib.koord_reservation_scan_plan(n, q_rows, depth, vmax)
     check(plan >= 0, "K4r's plan could be asked")
+    rows = scan_rows(pods, quota, a)
+    node_rows = np.bincount(records[:, 2 * R].cpu().numpy(), minlength=n)
     out = dict(pods=p, valid_pods=int(pods.valid.sum()), nodes=n,
                reservations=v, placed=records.shape[0], most_on_a_cta=vmax,
+               most_on_a_node=int(node_rows.max()) if len(node_rows) else 0,
                nodes_in_smem=bool(plan & 1), records_staged=bool(plan & 2),
                assigned=int((a >= 0).sum()),
                through_reservation=int((rc >= 0).sum()),
-               max_abs_err=err, ms=ms, plain_ms=plain_ms)
+               max_abs_err=err, ms=ms, admitted_steps=len(rows),
+               us_per_step=ms * 1e3 / len(rows) if rows else None,
+               plain_ms=plain_ms)
     if with_bound:
-        rows = scan_rows(pods, quota, a)
         c = 0 if pods.selector_mask is None else pods.selector_mask.shape[1]
         dense = 0 if pods.feasible is None else len(rows) * n
         vp = records.shape[0]
@@ -2092,8 +2126,7 @@ def rsv_case(device, state, pods, cfg, rsv, match, quota=None,
                      else 2 * quota.headroom.numel() * 4 * 2))
         ops = rsv_scan_ops(state, pods, cfg, rsv, match, rows, a, rc)
         bound_ms, by = bound(nbytes, ops)
-        out.update(admitted_steps=len(rows), bytes=nbytes, ops=ops,
-                   bound_ms=bound_ms, bound_by=by)
+        out.update(bytes=nbytes, ops=ops, bound_ms=bound_ms, bound_by=by)
     return out
 
 
@@ -2280,13 +2313,164 @@ RSV_EDGES = (
 )
 
 
+def quota_state(device, head, checked, chain):
+    """A QuotaDeviceState of the given (Q, R) headroom, (Q, R) checked
+    dims and (Q, D) chains, every row valid, no min headroom."""
+    import torch
+
+    from koordinator_tpu_torch.quota.admission import QuotaDeviceState
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).to(device)
+
+    return QuotaDeviceState(
+        headroom=t(head), min_headroom=t(np.zeros_like(head)),
+        checked=t(checked), chain=t(chain),
+        valid=t(np.ones(len(head), bool)))
+
+
+def step_edge_problem(device, case: str, n_nodes: int = 10_240):
+    """(state, pods, quota) of one edge of K4's and K4r's step:
+    ``leaf_pairs``: 16 quota leaves of 4,000 mcores, whose pods come back
+    to back in priority order, 2,400 + 2,400 + 1,200 mcores: the second
+    fits the leaf's headroom until the first is charged, so the
+    speculated next pod is turned away and the search resumes at the
+    third; ``ties``: identical, empty nodes, so every CTA's best rank ties
+    and the lowest node must win each step; ``wraps``: leaves qa (cpu
+    checked) and qb (cpu and memory) under a parent whose memory headroom
+    is -2**31 + 1,000, pods alternating qa, qb: qb's are rejected until
+    qa's first charge wraps that headroom past int32's minimum, a rise
+    the kernel must see (one qa pod also requests -500 mcores);
+    ``window``: 600 pods, the first 300 of one leaf of 1,000 mcores:
+    pod 0 requests -10,000 mcores and the 2,000-mcore pods behind it are
+    rejected until its charge, so the next pod admitted while it is scored
+    lies past K4's 256-pod window, and the search that runs again from
+    pod 1 must stage the window anew behind the old one (pods 1-5 are
+    admitted after all)."""
+    from koordinator_tpu_torch.state.cluster_state import PodBatch
+
+    state, _ = random_problem(400, n_nodes, 8, device)
+    if case == "ties":
+        alloc = np.zeros((n_nodes, R), np.int32)
+        alloc[:, CPU], alloc[:, MEM] = 32_000, 131_072
+        zero = np.zeros((n_nodes, R), np.int32)
+        state = state.replace(
+            node_allocatable=to_dev(alloc, device),
+            node_requested=to_dev(zero, device),
+            node_usage=to_dev(zero, device),
+            node_agg_usage=to_dev(zero, device))
+        n_pods = 300
+        req = np.zeros((n_pods, R), np.int32)
+        req[:, CPU], req[:, MEM] = 1_000, 2_048
+        quota = None
+        qid = None
+    elif case == "wraps":
+        n_pods = 96
+        req = np.zeros((n_pods, R), np.int32)
+        req[:, CPU], req[:, MEM] = 500, 2_048
+        req[4, CPU] = -500
+        head = np.full((3, R), 10**6, np.int32)
+        head[0, MEM] = -(2**31) + 1_000
+        checked = np.zeros((3, R), bool)
+        checked[:, CPU] = True
+        checked[2, MEM] = True
+        quota = quota_state(device, head, checked,
+                            np.array([[0, -1], [1, 0], [2, 0]], np.int32))
+        qid = np.tile(np.array([1, 2], np.int32), n_pods // 2)
+    elif case == "window":
+        n_pods, tight = 600, 300
+        req = np.zeros((n_pods, R), np.int32)
+        req[:, CPU] = np.where(np.arange(n_pods) < tight, 2_000, 500)
+        req[0, CPU] = -10_000
+        req[:, MEM] = 1_024
+        head = np.zeros((1, R), np.int32)
+        head[0, CPU] = 1_000
+        checked = np.zeros((1, R), bool)
+        checked[0, CPU] = True
+        quota = quota_state(device, head, checked,
+                            np.array([[0, -1]], np.int32))
+        qid = np.where(np.arange(n_pods) < tight, 0, -1).astype(np.int32)
+    else:
+        n_leaves = 16
+        n_pods = 3 * n_leaves
+        req = np.zeros((n_pods, R), np.int32)
+        req[:, CPU] = np.tile([2_400, 2_400, 1_200], n_leaves)
+        req[:, MEM] = 1_024
+        head = np.zeros((n_leaves, R), np.int32)
+        head[:, CPU] = 4_000
+        checked = np.zeros((n_leaves, R), bool)
+        checked[:, CPU] = True
+        chain = np.full((n_leaves, 2), -1, np.int32)
+        chain[:, 0] = np.arange(n_leaves)
+        quota = quota_state(device, head, checked, chain)
+        qid = np.repeat(np.arange(n_leaves, dtype=np.int32), 3)
+    pods = PodBatch.build(
+        req, priority=(9_000 - np.arange(n_pods)).astype(np.int32),
+        quota_id=qid, rot_id=np.arange(n_pods, dtype=np.int32),
+        node_capacity=n_nodes, class_capacity=8, device=device)
+    return state, pods, quota
+
+
+def phase_step_edges(device) -> None:
+    """K4 against its plain version on the step's edges
+    (step_edge_problem): consecutive pods of one quota leaf whose headroom
+    covers one of them (speculative admission must resume the search), a
+    cluster of identical nodes (the 16 CTAs' best ranks tie), a charge
+    that wraps a headroom past int32's minimum, raising it (the search
+    must run again from the charged pod), and a negative request's charge
+    after the speculated pod moved the pod window past the charged one
+    (the window is staged again behind it)."""
+    from koordinator_tpu_torch.kernels.greedy_scan import greedy_scan_kernel
+    from koordinator_tpu_torch.ops.assignment import greedy_assign_plain
+
+    cfg = scoring_config("default", device)
+    cases = []
+    for case in ("leaf_pairs", "ties", "wraps", "window"):
+        state, pods, quota = step_edge_problem(device, case)
+        a, st, q = greedy_scan_kernel(state, pods, cfg, quota)
+        pa, pst, pq = greedy_assign_plain(state, pods, cfg, quota)
+        errs = [max_abs_err(a, pa),
+                max_abs_err(st.node_requested, pst.node_requested)]
+        if quota is not None:
+            errs.append(max_abs_err(q.headroom, pq.headroom))
+        err = max(errs)
+        check(err == 0, f"K4 equals its plain version ({case})")
+        got = a.cpu().numpy()[:int(pods.valid.sum())]
+        if case == "leaf_pairs":
+            check(bool((got[0::3] >= 0).all() and (got[1::3] == -1).all()
+                       and (got[2::3] >= 0).all()),
+                  "each leaf admitted its first and third pods only")
+        elif case == "ties":
+            check(bool(np.all(np.diff(got) > 0)) and got[0] == 0,
+                  "tied nodes taken lowest first")
+        elif case == "window":
+            check(bool((got[:6] >= 0).all() and (got[6:300] == -1).all()
+                       and (got[300:] >= 0).any()),
+                  "pods 1-5 admitted after the negative request's charge, "
+                  "behind the moved window")
+        else:
+            check(bool((got >= 0).all()),
+                  "qb's pods admitted once the parent's headroom wrapped")
+        cases.append(dict(case=case, pods=len(got), nodes=state.capacity,
+                          assigned=int((got >= 0).sum()), max_abs_err=err))
+    emit("step_edges", cases=cases)
+
+
 def phase_reservation_edges(device) -> None:
     """K4r against its plain version at small sizes on the card: every
-    reservation on one node, records past the shared-memory budget (read
-    in place from the wrapper's array), mostly exhausted rows, the quota
-    tree with non-preemptible pods, and 32,768 nodes (the node columns in
-    the global scratch, the records staged)."""
+    reservation on one node (more records than a warp, which the thread
+    scoring that node tests one by one), records past the shared-memory
+    budget (read in place from the wrapper's array), mostly exhausted
+    rows, the quota tree with non-preemptible pods, 32,768 nodes (the node
+    columns in the global scratch, the records staged), and the step's
+    edges (step_edge_problem): quota leaves whose consecutive pods fit one
+    at a time, and tied nodes whose chosen records are allocate-once,
+    Restricted and Aligned."""
     import torch
+
+    from koordinator_tpu_torch.kernels.greedy_scan import (
+        reservation_scan_kernel,
+    )
 
     cases = []
     for k, (label, n_nodes, n_pods, n_rows, mode, opt) in enumerate(
@@ -2309,7 +2493,50 @@ def phase_reservation_edges(device) -> None:
         check(out["through_reservation"] > 0,
               f"{label}: pods drew from reservations")
         cases.append(dict(case=label, **out))
+    # the step's edges with reservations: the quota leaves' pairs, and
+    # tied nodes whose records are allocate-once, Restricted or Aligned
+    # in turn (rows on four nodes of four CTAs, every pod an owner)
+    from koordinator_tpu_torch.ops.reservation import ReservationSet
+
+    for k, case in enumerate(("leaf_pairs", "ties")):
+        rng = np.random.default_rng(350 + k)
+        state, pods, quota = step_edge_problem(device, case)
+        n_rows = 48
+        reserved = np.zeros((n_rows, R), np.int32)
+        reserved[:, CPU] = rng.integers(1_000, 4_000, n_rows)
+        reserved[:, MEM] = rng.integers(2_048, 8_192, n_rows)
+        on = np.array([700, 3_000, 9_000, state.capacity - 1])
+        rsv = ReservationSet.build(
+            reserved, on[np.arange(n_rows) % 4].astype(np.int32),
+            allocate_once=np.arange(n_rows) % 3 == 0,
+            restricted=np.arange(n_rows) % 3 == 1, device=device)
+        match = torch.from_numpy(
+            rng.random((pods.capacity, rsv.capacity)) < (
+                1.0 if case == "ties" else 0.3)).to(device)
+        out = rsv_case(device, state, pods,
+                       scoring_config("default", device), rsv, match, quota,
+                       reps=2, with_bound=False)
+        a, rc, _, _, _ = reservation_scan_kernel(
+            state, pods, scoring_config("default", device), rsv, match,
+            quota)
+        chosen = rc.cpu().numpy()
+        chosen = chosen[chosen >= 0]
+        once = int(rsv.allocate_once.cpu().numpy()[chosen].sum())
+        restricted = int(rsv.restricted.cpu().numpy()[chosen].sum())
+        if case == "ties":
+            check(once > 0 and restricted > 0,
+                  "tied nodes: pods drew from allocate-once and Restricted "
+                  "records")
+        else:
+            got = a.cpu().numpy()[:int(pods.valid.sum())]
+            check(bool((got[1::3] == -1).all() and (got[0::3] >= 0).all()),
+                  "K4r: each leaf admitted its first pod, not its second")
+        cases.append(dict(case=f"step: {case}", **out,
+                          through_allocate_once=once,
+                          through_restricted=restricted))
     by = {c["case"]: c for c in cases}
+    check(by["every reservation on one node"]["most_on_a_node"] >= 40,
+          "a node holds more records than a warp")
     check(not by["records in the global array"]["records_staged"],
           "the 4,096 records on one CTA stay in the global array")
     check(by["every reservation on one node"]["records_staged"],
@@ -3341,6 +3568,10 @@ def phase_gangs(device, n_nodes: int = 10_240, n_pods: int = 50_000,
 APPROX_WIDE_NODES = 65_536
 APPROX_WIDE_ROWS = 4_096
 APPROX_CHUNK = 1_024
+#: rows of phase 14's cold batch given band rot ids, so both K1a
+#: instances launch (the band is ~N / 2**32 of the rot ids: 2.4e-6 of the
+#: rows at 10,240 nodes)
+APPROX_BAND_ROWS = 8
 
 
 def wrap_case(seed: int, n_nodes: int, n_pods: int, device, ends: int = 4):
@@ -3405,7 +3636,9 @@ def phase_approx(device, n_nodes: int = 10_240, n_pods: int = 50_000,
     scheduler behind the 16-leaf quota tree) with cand_method="approx":
     a cold round and ``steady_rounds`` rounds after a usage refresh of 1%
     of the nodes and 500 arrivals, the launch counts set to 0 before each
-    round and read after it (K1a on every selection, K1 never).  A second
+    round and read after it (K1a on every selection, K1 never; a K1a call
+    in the packed regime counts two launches, its int32 instance and its
+    64-bit one).  A second
     scheduler's cold round under "chunked" must launch K1a alone and bind
     exactly as the approx one's.  On the card both methods make the same
     K1a launch, so that round confirms the scheduler's routing of
@@ -3424,7 +3657,9 @@ def phase_approx(device, n_nodes: int = 10_240, n_pods: int = 50_000,
     from koordinator_tpu_torch.kernels.select_candidates import (
         _pod_rows,
         _rank_parts,
+        approx_band,
         approx_keys,
+        select_candidates_kernel,
     )
     from koordinator_tpu_torch.ops.assignment import score_pods
     from koordinator_tpu_torch.ops.batch_assign import CANDIDATE_CHUNK
@@ -3465,8 +3700,10 @@ def phase_approx(device, n_nodes: int = 10_240, n_pods: int = 50_000,
         emit("approx_round", **rec)
         check(len(res.assignments) > 0, f"phase 14 round {rnd} bound pods")
         check(launches["select_candidates_approx"] > 0
+              and launches["select_candidates_approx"] % 2 == 0
               and launches["select_candidates"] == 0,
-              f"phase 14 round {rnd} selected on K1a alone")
+              f"phase 14 round {rnd} selected on K1a alone, both instances "
+              "a call")
         check(launches["round_fit_choose"] > 0
               and launches["segmented_prefix_accept"]
               == launches["round_fit_choose"],
@@ -3508,6 +3745,35 @@ def phase_approx(device, n_nodes: int = 10_240, n_pods: int = 50_000,
     k1 = held_k1(device, state, batch, cfg, "exact", reps=reps,
                  chunk=CANDIDATE_CHUNK)
     apart = rows_apart(k1a["out"][1], k1["out"][1])
+    # both K1a instances in one call: a few valid rows at band rot ids
+    # (the rows whose tie-break has two preimages go to the 64-bit one),
+    # at k = 32 and at k = 2 and 3 (strata of one candidate)
+    rng_b = np.random.default_rng(14)
+    valid_rows = np.flatnonzero(batch.valid.cpu().numpy())
+    picked = rng_b.choice(valid_rows, APPROX_BAND_ROWS, replace=False)
+    rot = batch.rot_id.cpu().numpy().copy()
+    rot[picked] = [_rot_in_band(rng_b, n) for _ in picked]
+    band_batch = batch.replace(rot_id=to_dev(rot, device))
+    # the rows each instance ranked, as K1a's launch counts them: the
+    # band's (approx_band, held on the CPU to the rows whose tie-break has
+    # two preimages) on the 64-bit instance, the others on the int32 one
+    instance_rows = {}
+    for name, b in (("cold", batch), ("band", band_batch)):
+        ranked = torch.zeros(2, dtype=torch.int32, device=state.device)
+        select_candidates_kernel(state, b, cfg, k, method="approx",
+                                 ranked=ranked)
+        got = ranked.cpu().tolist()
+        band = approx_band(b.rot_id, n)
+        instance_rows[name] = dict(int32=got[0], bit64=got[1])
+        check(got == [int((~band).sum()), int(band.sum())],
+              f"K1a ranked the {name} batch's band rows on its 64-bit "
+              "instance and the others on its int32 one")
+    check(instance_rows["band"]["bit64"] >= APPROX_BAND_ROWS,
+          "the band rows reach K1a's 64-bit instance")
+    both = {kk: held_k1(device, state, band_batch, cfg, "approx",
+                        reps=reps if kk == k else 1, chunk=CANDIDATE_CHUNK,
+                        k=kk, where=f"with band rows, k = {kk}")
+            for kk in (k, 2, 3)}
     fkey = torch.empty((p, n), dtype=torch.float32, device=state.device)
     for i in range(0, p, CANDIDATE_CHUNK):
         sub = _pod_rows(batch, i, min(i + CANDIDATE_CHUNK, p))
@@ -3536,13 +3802,23 @@ def phase_approx(device, n_nodes: int = 10_240, n_pods: int = 50_000,
         source=CSRC + "select_candidates.cu",
         replaces="koordinator_tpu/ops/batch_assign.py:469",
         launches=totals["select_candidates_approx"],
-        max_abs_err=k1a["max_abs_err"], ms=k1a["ms"],
-        plain_ms=k1a["plain_ms"], bound_ms=k1a_b["bound_ms"],
-        bound_by=k1a_b["bound_by"], library_ms=topk_ms)
+        max_abs_err=max([k1a["max_abs_err"]]
+                        + [e["max_abs_err"] for e in both.values()]),
+        ms=k1a["ms"], plain_ms=k1a["plain_ms"], bound_ms=k1a_b["bound_ms"],
+        bound_by=k1a_b["bound_by"], library_ms=topk_ms, k1_ms=k1["ms"],
+        rows_by_instance=instance_rows["cold"],
+        with_band_rows=dict(ms=both[k]["ms"], **instance_rows["band"]))
     emit("approx", nodes=n_nodes, backlog=n_pods, pods=p,
          valid_pods=int(batch.valid.sum()), k=k, ops=k1a_b["ops"],
          bytes=k1a_b["bytes"],
-         k1a_ms=k1a["ms"], k1_ms=k1["ms"], k1a_plain_ms=k1a["plain_ms"],
+         k1a_ms=k1a["ms"], k1_ms=k1["ms"], topk_ms=topk_ms,
+         k1a_over_k1=k1a["ms"] / k1["ms"], k1a_over_topk=k1a["ms"] / topk_ms,
+         bound_ms=k1a_b["bound_ms"], rows_by_instance=instance_rows,
+         k1a_both_instances=dict(
+             rows=APPROX_BAND_ROWS, ms=both[k]["ms"],
+             max_abs_err=max(e["max_abs_err"] for e in both.values()),
+             plain_ms={kk: e["plain_ms"] for kk, e in both.items()}),
+         k1a_plain_ms=k1a["plain_ms"],
          rows_apart_from_k1=apart, launches_by_round=[
              r["launches"]["select_candidates_approx"] for r in records],
          chunked_binds=len(res_c.assignments), edges=[wide, wrap] + ones,
@@ -3578,12 +3854,13 @@ def ptxas_summary(path: str) -> list[dict]:
 
 
 #: the kernels' entry functions in the ptxas log, by kernel (K1 and K1a
-#: come in sixteen instances: one or two strata, the packed or the wide
-#: key regime, one selector word or many, the exact or the approx rank; K2
+#: come in twenty instances: one or two strata, one selector word or many,
+#: and K1's exact rank, K1a's int32 rank (packed) and K1a's 64-bit rank,
+#: the exact and the 64-bit in both key regimes; K2
 #: in eight: all but the last; K4 and K4r in eight: the node columns in
 #: shared or global memory, without or with reservations, one selector
 #: word or many)
-PTXAS_ENTRIES = {"select_candidates": ("select_candidates_kernel", 16),
+PTXAS_ENTRIES = {"select_candidates": ("select_candidates_kernel", 20),
                  "refresh_candidates": ("refresh_candidates_kernel", 8),
                  "segmented_prefix_accept": ("round_accept_kernel", 1),
                  "greedy_scan": ("greedy_scan_kernel", 8)}
@@ -3591,7 +3868,12 @@ PTXAS_ENTRIES = {"select_candidates": ("select_candidates_kernel", 16),
 
 def phase_ptxas(path: str) -> None:
     """K1's and K1a's, K2's, K3b's, K4's and K4r's registers and spills,
-    from the build's ptxas log: none of them may spill."""
+    from the build's ptxas log: none of them may spill.  With them, the
+    CTAs an SM that the card reports for K1 and for K1a's two instances
+    (packed regime, two strata, one selector word): K1a's int32 instance
+    must reach K1's."""
+    from koordinator_tpu_torch.kernels import build
+
     entries = ptxas_summary(path)
     picked = []
     for kernel, (name, count) in PTXAS_ENTRIES.items():
@@ -3602,7 +3884,12 @@ def phase_ptxas(path: str) -> None:
     for e in picked:
         check(e.get("spill_stores", 1) == 0 and e.get("spill_loads", 1) == 0,
               f"no spills in {e['entry']}")
-    emit("ptxas", kernels=[dict(
+    lib = build.lib()
+    ctas = {name: lib.koord_select_candidates_ctas_per_sm(i)
+            for i, name in enumerate(("k1", "k1a_int32", "k1a_64bit"))}
+    check(ctas["k1a_int32"] > 0 and ctas["k1a_int32"] == ctas["k1"],
+          f"K1a's int32 instance reaches K1's CTAs an SM ({ctas})")
+    emit("ptxas", ctas_per_sm=ctas, kernels=[dict(
         kernel=e["kernel"], entry=e["entry"], registers=e.get("registers"),
         spill_stores=e.get("spill_stores"), spill_loads=e.get("spill_loads"),
         smem=e.get("smem")) for e in picked])
@@ -3616,7 +3903,10 @@ def phase_ptxas(path: str) -> None:
 #: int64 lists), the wrapper and the device; ``30c463b`` the flagship
 #: phases' K1, K2 and K4 before the wide key regime and the selector
 #: words (K1 and K2, phases 6 and 7, measured at commit 956bf4b; K4,
-#: phase 8's 1,000 pods at f9c866f and phase 9's rescue at 956bf4b)
+#: phase 8's 1,000 pods at f9c866f and phase 9's rescue at 956bf4b);
+#: ``398251d`` K1a's 64-bit lists at phase 14's cold batch and K4's and
+#: K4r's step before their redesign (K4 at phase 8's 1,000 pods, K4r at
+#: phase 11's pre-pass), from profile_torch_round.py --kernels in turns
 EARLIER_MS = [
     ("select_candidates", "e9fcd1c", [25.41, 25.56, 25.51]),
     ("select_candidates", "30c463b", [8.84]),
@@ -3624,6 +3914,11 @@ EARLIER_MS = [
     ("greedy_scan (rescue)", "30c463b", [1.16]),
     ("greedy_scan (1,000 pods)", "e9fcd1c", [67.78, 68.41, 67.51, 68.80]),
     ("greedy_scan (1,000 pods)", "30c463b", [5.092, 5.221]),
+    ("greedy_scan (1,000 pods)", "398251d", [5.130, 5.083, 5.171]),
+    ("reservation_scan (phase 11 pre-pass)", "398251d",
+     [10.935, 10.901, 11.243]),
+    ("select_candidates_approx (phase 14 cold batch)", "398251d",
+     [11.480, 11.391, 11.385]),
     ("segmented_prefix_accept (a launch, node level, first round)",
      "bf2978c", [5.65, 5.77]),
     ("refresh_candidates (wrapper)", "bf2978c", [0.863, 1.082]),
@@ -3671,6 +3966,7 @@ def main() -> int:
     del log
     k4_1000 = phase_greedy(device)
     phase_greedy_edges(device)
+    phase_step_edges(device)
     scheds, totals, _, k4, k3b = phase_steady(device)
     phase_small(device, scheds)
     del scheds
@@ -3711,16 +4007,21 @@ def main() -> int:
         name="reservation_scan", route="cuda", source=CSRC + "greedy_scan.cu",
         replaces="koordinator_tpu/ops/reservation.py:252",
         launches=k4r_launches, max_abs_err=k4r["max_abs_err"], ms=k4r["ms"],
-        plain_ms=k4r["plain_ms"], bound_ms=k4r["bound_ms"],
-        bound_by=k4r["bound_by"], library_ms=None))
+        us_per_step=k4r["us_per_step"], plain_ms=k4r["plain_ms"],
+        bound_ms=k4r["bound_ms"], bound_by=k4r["bound_by"], library_ms=None))
     this_run = {
         "select_candidates": dict(ms=kernels[0]["ms"]),
         "greedy_scan (rescue)": dict(ms=k4["ms"]),
-        "greedy_scan (1,000 pods)": dict(ms=k4_1000["ms"]),
+        "greedy_scan (1,000 pods)": dict(
+            ms=k4_1000["ms"], us_per_step=k4_1000["us_per_step"]),
         "segmented_prefix_accept (a launch, node level, first round)": dict(
             ms=table_k3b["device_ms"], wrapper_ms=table_k3b["ms"]),
         "refresh_candidates (wrapper)": dict(ms=k2["ms"]),
-        "refresh_candidates (device)": dict(ms=k2["device_ms"])}
+        "refresh_candidates (device)": dict(ms=k2["device_ms"]),
+        "reservation_scan (phase 11 pre-pass)": dict(
+            ms=k4r["ms"], us_per_step=k4r["us_per_step"]),
+        "select_candidates_approx (phase 14 cold batch)": dict(
+            ms=k1a["ms"], k1_ms=k1a["k1_ms"])}
     emit("earlier_design", note="earlier times as PERF.md records them, "
          "each labelled with its commit, beside this run's at the same "
          "shapes", kernels=[

@@ -118,7 +118,9 @@ _SIGNATURES = {
         _I, _I, _I, _I,                  # strata shifts, per-stratum k
         _I, _I, _I, _I, _I,              # approx (K1a)?, its (shift, d) per stratum
         _P,                              # packed node rows scratch
+        _P,                              # K1a's rows ranked per instance (2,), or null
         _P, _P, _P,                      # out cand_key, cand_node, cand_score
+        _P,                              # out (host int): kernels launched
         _P,                              # stream
     ],
     "koord_round_fit_choose": [
@@ -183,9 +185,11 @@ _SIGNATURES = {
 
 
 #: exported C functions that size a kernel's global scratch, in bytes (K3b's
-#: in int32 words), and K4r's nodes per CTA and launch plan
+#: in int32 words), K1's and K1a's CTAs an SM, and K4r's nodes per CTA and
+#: launch plan
 _SCRATCH = {
     "koord_select_candidates_scratch_bytes": [_I],      # N
+    "koord_select_candidates_ctas_per_sm": [_I],        # 0 K1, 1 K1a int32, 2 K1a 64-bit
     "koord_refresh_candidates_scratch_bytes": [_I],     # D
     "koord_greedy_scan_scratch_bytes": [_I, _I, _I],    # N, Q, chain depth
     "koord_reservation_scan_scratch_bytes": [_I, _I, _I],  # N, Q, chain depth

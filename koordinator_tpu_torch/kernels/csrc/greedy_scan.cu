@@ -13,7 +13,9 @@
 //
 // Design: one cluster of 16 CTAs (a non-portable cluster size) walks the
 // pods in priority order (the order comes from the wrapper, as
-// priority_order computes it).
+// priority_order computes it).  A step is one admitted pod; its critical
+// path is the node scan, one exchange of ranks across the cluster, the
+// charge and one CTA barrier.
 // - Each CTA owns a contiguous range of ~N/16 nodes and keeps that range's
 //   node state in shared memory, in columns (one row of the range per
 //   resource dimension, so neighbouring threads read neighbouring words):
@@ -26,23 +28,40 @@
 // - Every CTA keeps a replica of the quota state (headroom, min headroom,
 //   checked, chain, valid) in shared memory and charges it identically, so
 //   the replicas stay equal and admission needs no communication.
-// - Admission a warp at a time: warp 0 tests the next 32 valid pods in
-//   priority order against the current headroom, one pod per lane
-//   (quota_admission_mask's predicate), and jumps with __ballot_sync /
-//   __ffs to the first one admitted.  A pod rejected there, like a pod no
-//   node takes, leaves every carried tensor unchanged in the reference
-//   (assignment.py:254-265 add nothing unless assigned), so it is skipped
-//   with no barrier.  The pod order, quota ids, flags and requests are
-//   staged in a shared-memory window of 256 pods as the scan reaches them;
-//   an admitted pod's estimate and word 0 of its selector row are loaded
-//   then, one value a lane (the launch packs each row into W = ceil(C/64)
-//   words, pack_selector_words in koord_score.cuh; the many-word instances
-//   read a wider row's other words through L1 in the node scan).
-// - An admitted pod is scored by every CTA over its own nodes; each CTA
-//   reduces its best (score, -node) rank, the 16 ranks meet through
-//   distributed shared memory after one cluster barrier, and every CTA
-//   takes the same maximum (jnp.argmax's lowest index on ties).  The CTA
-//   owning the node charges its columns; every CTA charges its quota
+// - 20 warps score; a 21st, the control warp, admits and charges.  It
+//   tests the next 32 valid pods in priority order against the current
+//   headroom, one pod per lane (quota_admission_mask's predicate), and
+//   jumps with __ballot_sync / __ffs to the first one admitted.  A pod
+//   rejected there, like a pod no node takes, leaves every carried tensor
+//   unchanged in the reference (assignment.py:254-265 add nothing unless
+//   assigned), so it is skipped with no barrier.  The pods are staged in a
+//   shared-memory window of 256 as the scan reaches them, a pod a lane: the
+//   order, quota id, request, flags and the checked dims it requests (so
+//   the test walks those dims alone, up its quota's chain, whose levels
+//   the replica keeps compacted).  An admitted pod's estimate and word 0
+//   of its selector row are loaded then, one value a lane (the launch
+//   packs each row into W = ceil(C/64) words, pack_selector_words in
+//   koord_score.cuh; the many-word instances read a wider row's other
+//   words through L1 in the node scan).
+// - Speculative admission: the control warp finds and loads the next pod
+//   while the scanning warps score the current one (the pod's data is
+//   double-buffered by step parity).  With non-negative requests a charge
+//   only lowers the headroom, so a pod rejected before it stays rejected:
+//   after the charge only the speculated pod is re-checked (a dimension a
+//   lane), and the search resumes past it if the charge took its headroom.
+//   A charge that raises a headroom (a negative request, or a headroom
+//   wrapping past int32's minimum) is seen as it is made, and the search
+//   then runs again from the charged pod on.
+// - An admitted pod is scored by every CTA over its own nodes.  Each
+//   scanning warp reduces its best (score, -node) rank and stores it into
+//   every CTA of the cluster with asynchronous remote stores (st.async)
+//   that complete on the receiver's mbarrier, a slot per (CTA, warp) and a
+//   barrier per step parity; the control warp waits for the 320 ranks'
+//   bytes and takes their maximum (jnp.argmax's lowest index on ties), the
+//   same in every CTA.  No cluster barrier and no CTA barrier stand between
+//   the scan and the charge.  A slot is written again two steps later,
+//   after its reader has passed the CTA barrier of the step between.  The
+//   CTA owning the node charges its columns; every CTA charges its quota
 //   replica.  Node accounting and quota state are written back at the end.
 //
 // K4r, the same scan with reservations (kRsv), replaces the reservation
@@ -54,17 +73,22 @@
 // The wrapper hands it the placed reservation rows sorted by node (stable,
 // so the rows of one node stay in ascending row order) as 23-int records
 // (reserved, allocated, node, row, flags), and the (P, V) owner match with
-// its columns in that order.  Each CTA owns the rows on its own nodes:
-// - per admitted pod, its threads test its rows (match, an unexhausted
-//   remainder, the Aligned or Restricted fit against the remainder and
-//   the node's free capacity) and set a shared-memory flag on each node a
-//   fitting row sits on; the node scan ORs the flag into the fit and adds
-//   the boost to the score; the flags are cleared before the next pod;
-// - on the chosen node, the owning CTA's warp 0 nominates the fitting row
-//   with the smallest total remainder (lowest row on ties), draws the
-//   request from it (an allocate-once row is consumed whole) and charges
-//   the node only the spill; the estimate and the quota are charged the
-//   whole pod as in K4.
+// its columns in that order.  Each CTA owns the rows on its own nodes and
+// keeps each node's first record (rfirst):
+// - the thread that scores node i tests node i's records itself (match,
+//   an unexhausted remainder, kept as a flag on the record, and on the
+//   pod's nonzero dims the Aligned or Restricted fit against the remainder
+//   and the node's free capacity); a record that fits passes the node's
+//   fit and adds the boost to its score;
+// - the control warp copies each next pod's match with the CTA's records
+//   beside them when they are staged (into L1 when they stay in the
+//   wrapper's array);
+// - on the chosen node, the owning CTA's control warp re-tests the node's
+//   records (the same records in the same order, so the same verdicts),
+//   nominates the fitting one with the smallest total remainder (lowest
+//   row on ties), draws the request from it (an allocate-once row is
+//   consumed whole) and charges the node only the spill; the estimate and
+//   the quota are charged the whole pod as in K4.
 // A pod that quota rejects, or that no node takes, changes no reservation
 // either, so K4's admission skip holds.  The rows live in shared memory
 // beside the node columns when they fit there, else they stay in the
@@ -87,8 +111,10 @@ namespace {
 using namespace koord;
 
 constexpr int kCluster = 16;
-constexpr int kThreads = 640;
-constexpr int kWarps = kThreads / 32;
+constexpr int kScanWarps = 20;                   // warps scoring the nodes
+constexpr int kScanThreads = kScanWarps * 32;
+constexpr int kThreads = kScanThreads + 32;      // and the control warp
+constexpr int kRanks = kCluster * kScanWarps;    // ranks a CTA takes a step
 constexpr int kWin = 256;           // pods staged per window
 constexpr int kWinInts = 3 + kDims;  // ints per staged pod
 constexpr unsigned kFull = 0xFFFFFFFFu;
@@ -102,7 +128,8 @@ constexpr int kRsvRow = 2 * kDims + 1;
 constexpr int kRsvFlags = 2 * kDims + 2;
 constexpr int kRsvOnce = 1;        // flags: allocate-once
 constexpr int kRsvRestricted = 2;  // flags: Restricted policy
-constexpr int kRsvFit = 4;         // flags: fits the current pod
+constexpr int kRsvLive = 4;        // flags: a remainder is left (the
+                                   // kernel keeps it)
 
 __device__ __forceinline__ long long warp_max(long long v) {
 #pragma unroll
@@ -118,12 +145,59 @@ __device__ __forceinline__ long long warp_min(long long v) {
   return v;
 }
 
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+// The shared::cluster address of ``p``'s offset in CTA ``rank``.
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+// An asynchronous store of ``v`` into a peer's shared memory that
+// completes 8 bytes of the transaction on the peer's mbarrier ``bar``.
+__device__ __forceinline__ void st_async(uint32_t addr, long long v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, "
+      "[%2];\n" ::"r"(addr),
+      "l"(v), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait for the phase of ``bar`` with parity ``parity`` to complete, the
+// peers' stores into this CTA visible.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
 __host__ __device__ __forceinline__ int nodes_per_cta(int N) {
@@ -133,29 +207,34 @@ __host__ __device__ __forceinline__ int nodes_per_cta(int N) {
 // Where each piece of a CTA's state lies: ints first, then bytes.
 struct Layout {
   int S;                 // nodes per CTA (a multiple of 4)
-  long long quota_ints;  // headroom, min headroom (Q x R), chain (Q x QD)
+  long long quota_ints;  // headroom, min headroom (Q x R), chain (Q x QD,
+                         // each row's levels first), levels (Q)
   long long win_ints;    // window: pod row, flags, quota id, request (R)
   long long node_ints;   // 6 x (R x S) columns, class and flags (S)
   long long row_ints;    // K4r: the CTA's reservation records, when staged
+  long long range_ints;  // K4r: each node's first record (S + 1)
   long long quota_bytes; // checked (Q x R), valid (Q), padded to 4
   long long node_bytes;  // magic shifts (R x S)
-  long long boost_bytes; // K4r: a reservation flag per node (S)
+  long long match_bytes; // K4r with staged records: the match of the pod
+                         // of each step parity with them (2 x rows)
 
   // ``rsv``: K4r's layout; ``rows``: reservation records staged per CTA
   __host__ __device__ Layout(int N, int Q, int QD, bool rsv = false,
                              int rows = 0) {
     S = nodes_per_cta(N);
-    quota_ints = 2ll * Q * kDims + static_cast<long long>(Q) * QD;
+    quota_ints = 2ll * Q * kDims + static_cast<long long>(Q) * (QD + 1);
     win_ints = static_cast<long long>(kWin) * kWinInts;
     node_ints = (6ll * kDims + 2) * S;
     row_ints = static_cast<long long>(rows) * kRsvInts;
+    range_ints = rsv ? S + 1 : 0;
     quota_bytes = (static_cast<long long>(Q) * (kDims + 1) + 3) / 4 * 4;
     node_bytes = static_cast<long long>(kDims) * S;
-    boost_bytes = rsv ? S : 0;
+    match_bytes = rsv ? 2ll * rows : 0;
   }
   __host__ __device__ long long smem_bytes(bool nodes) const {
-    return 4 * (quota_ints + win_ints + row_ints + (nodes ? node_ints : 0)) +
-           quota_bytes + (nodes ? node_bytes : 0) + boost_bytes;
+    return 4 * (quota_ints + win_ints + row_ints + range_ints +
+                (nodes ? node_ints : 0)) +
+           quota_bytes + (nodes ? node_bytes : 0) + match_bytes;
   }
   __host__ __device__ long long scratch_bytes() const {
     return 4 * node_ints + (node_bytes + 3) / 4 * 4;
@@ -163,25 +242,56 @@ struct Layout {
 };
 
 // quota_admission_mask for one pod: headroom at every level of its chain
-// on its checked, requested dims, the min headroom at its own quota when
-// it is non-preemptible, and its quota row valid.  A pod without a quota
-// (or a call without quota state) is admitted.
+// on ``need``, its checked dims with a request (bit r), the min headroom at
+// its own quota when it is non-preemptible, and its quota row valid.  The
+// chain's levels are the row's first ``levels`` entries (the replica keeps
+// them compacted).  A pod without a quota (or a call without quota state)
+// is admitted.
 __device__ __forceinline__ bool quota_admits(
-    const int* req, int qid, bool np, bool has_quota, const int* head,
-    const int* min_head, const uint8_t* checked, const int* chain,
-    const uint8_t* qvalid, int QD) {
+    const int* req, uint32_t need, int qid, bool np, bool has_quota,
+    const int* head, const int* min_head, const int* chain,
+    const int* levels, const uint8_t* qvalid, int QD) {
   if (!has_quota || qid < 0) return true;
-  bool ok = qvalid[qid] != 0;
-  for (int r = 0; r < kDims; ++r) {
+  if (!qvalid[qid]) return false;
+  for (uint32_t m = need; m != 0; m &= m - 1) {
+    const int r = __ffs(m) - 1;
     const int q = req[r];
-    if (q == 0 || !checked[qid * kDims + r]) continue;
-    for (int d = 0; d < QD; ++d) {
-      const int anc = chain[qid * QD + d];
-      if (anc >= 0 && q > head[anc * kDims + r]) ok = false;
-    }
-    if (np && q > min_head[qid * kDims + r]) ok = false;
+    for (int d = 0; d < levels[qid]; ++d)
+      if (q > head[chain[qid * QD + d] * kDims + r]) return false;
+    if (np && q > min_head[qid * kDims + r]) return false;
   }
-  return ok;
+  return true;
+}
+
+// reservation_fit of one record against the pod's request: matched (the
+// caller's test), an unexhausted remainder (the record's live flag), and
+// on the pod's nonzero dims (``qnz``) the Aligned (request within
+// remainder + free) or Restricted (reserved dims within the remainder, the
+// others within free) fit on the record's node, whose free capacity is
+// column i of ``n_free``.
+__device__ __forceinline__ bool rsv_fits(const int* rec, const int* req,
+                                         uint32_t qnz, const int* n_free,
+                                         int S, int i) {
+  const int flags = rec[kRsvFlags];
+  if (!(flags & kRsvLive)) return false;
+  const bool restricted = (flags & kRsvRestricted) != 0;
+  for (uint32_t m = qnz; m != 0; m &= m - 1) {
+    const int r = __ffs(m) - 1;
+    const int q = req[r];
+    const int rem = wsub(rec[r], rec[kDims + r]);
+    const int fr = n_free[r * S + i];
+    if (restricted ? (rec[r] > 0 ? q > rem : q > fr) : q > wadd(rem, fr))
+      return false;
+  }
+  return true;
+}
+
+// A record's live flag: some remainder above zero.
+__device__ __forceinline__ int rsv_live(const int* rec) {
+  bool any = false;
+#pragma unroll
+  for (int r = 0; r < kDims; ++r) any = any || wsub(rec[r], rec[kDims + r]) > 0;
+  return any ? kRsvLive : 0;
 }
 
 // K4r's arguments (all null / 0 for K4): the placed reservation rows
@@ -213,13 +323,18 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
     const uint8_t* __restrict__ pnp, int P, int N,
     int* __restrict__ out_assign, const __grid_constant__ RsvArgs ra) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ long long s_best[2];
-  __shared__ long long s_warp[kWarps];
-  __shared__ int s_req[kDims];
-  __shared__ int s_est[kDims];
-  __shared__ PodScalars s_ps;
-  __shared__ SelRow s_sel;
-  __shared__ int s_pod, s_qid, s_np;
+  // a step's ranks from every scanning warp of the cluster, and the
+  // barriers their stores complete on, one of each per step parity
+  __shared__ long long s_rank[2][kRanks];
+  __shared__ __align__(8) uint64_t s_bar[2];
+  // the pod of each step parity: its request, estimate, scalars, selector
+  // row, index (-1: the scan is over), quota id and non-preemptible flag
+  __shared__ int s_req[2][kDims];
+  __shared__ int s_est[2][kDims];
+  __shared__ PodScalars s_ps[2];
+  __shared__ SelRow s_sel[2];
+  __shared__ int s_pod[2], s_qid[2], s_np[2];
+  __shared__ int s_tmp[2];
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -235,22 +350,28 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
   int* head = reinterpret_cast<int*>(smem);
   int* min_head = head + Q * kDims;
   int* chain = min_head + Q * kDims;
-  int* w_idx = chain + Q * QD;
+  int* levels = chain + Q * QD;
+  // the window: a staged pod's index, flags (bit 0 valid, bit 1
+  // non-preemptible, bits 2.. its checked dims with a request), quota id
+  // and request
+  int* w_idx = levels + Q;
   int* w_flags = w_idx + kWin;
   int* w_qid = w_flags + kWin;
   int* w_req = w_qid + kWin;
   int* row_s = w_req + kWin * kDims;  // K4r's staged records
+  int* rfirst = row_s + L.row_ints;    // K4r: each node's first record
   unsigned char* qbytes =
-      smem + 4 * (L.quota_ints + L.win_ints + L.row_ints +
+      smem + 4 * (L.quota_ints + L.win_ints + L.row_ints + L.range_ints +
                   (kNodesInSmem ? L.node_ints : 0));
   uint8_t* checked = qbytes;
   uint8_t* qvalid = qbytes + Q * kDims;
-  uint8_t* boost_at = qbytes + L.quota_bytes +
-                      (kNodesInSmem ? L.node_bytes : 0);
+  // K4r with staged records: each step parity's pod's match with them
+  uint8_t* s_match =
+      qbytes + L.quota_bytes + (kNodesInSmem ? L.node_bytes : 0);
   int* node_i;
   unsigned char* node_b;
   if (kNodesInSmem) {
-    node_i = row_s + L.row_ints;
+    node_i = rfirst + L.range_ints;
     node_b = qbytes + L.quota_bytes;
   } else {
     node_i = reinterpret_cast<int*>(scratch + rank * L.scratch_bytes());
@@ -296,11 +417,21 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
       min_head[i] = q_min_g[i];
       checked[i] = q_checked_g[i];
     }
-    for (int i = tid; i < Q * QD; i += kThreads) chain[i] = q_chain_g[i];
-    for (int i = tid; i < Q; i += kThreads) qvalid[i] = q_valid_g[i];
+    // each row's levels (the chain's entries >= 0), compacted to the front
+    for (int q = tid; q < Q; q += kThreads) {
+      int n = 0;
+      for (int d = 0; d < QD; ++d) {
+        const int anc = q_chain_g[q * QD + d];
+        if (anc >= 0) chain[q * QD + n++] = anc;
+      }
+      levels[q] = n;
+      qvalid[q] = q_valid_g[q];
+    }
   }
-  // K4r: this CTA's records, [r_lo, r_hi) of the sorted rows (the rows on
-  // nodes [lo, lo + S)), staged in shared memory or read in place
+  // K4r: this CTA's records, [r_lo, r_lo + vc) of the sorted rows (the
+  // rows on nodes [lo, lo + S)), staged in shared memory or read in place,
+  // each one's live flag, and each node's first record (rfirst[i],
+  // rfirst[S] = vc)
   int r_lo = 0, vc = 0;
   int* rw = nullptr;
   if constexpr (kRsv) {
@@ -314,182 +445,238 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
         else
           b = m;
       }
-      s_warp[tid] = a;  // free until the first pod's reduction
+      s_tmp[tid] = a;
     }
-    for (int i = tid; i < S; i += kThreads) boost_at[i] = 0;
     __syncthreads();
-    r_lo = static_cast<int>(s_warp[0]);
-    vc = static_cast<int>(s_warp[1]) - r_lo;
+    r_lo = s_tmp[0];
+    vc = s_tmp[1] - r_lo;
     int* src = ra.rows + static_cast<long long>(r_lo) * kRsvInts;
     if (ra.staged > 0) {
       for (int i = tid; i < vc * kRsvInts; i += kThreads) row_s[i] = src[i];
       rw = row_s;
+      __syncthreads();
     } else {
       rw = src;
     }
+    for (int j = tid; j < vc; j += kThreads) {
+      int* rec = rw + j * kRsvInts;
+      rec[kRsvFlags] = (rec[kRsvFlags] & ~kRsvLive) | rsv_live(rec);
+    }
+    for (int i = tid; i <= S; i += kThreads) {
+      int a = 0, b = vc;
+      while (a < b) {
+        const int m = (a + b) >> 1;
+        if (rw[m * kRsvInts + kRsvNode] < lo + i)
+          a = m + 1;
+        else
+          b = m;
+      }
+      rfirst[i] = a;
+    }
+  }
+  if (tid == 0) {
+    for (int b = 0; b < 2; ++b) mbar_init(&s_bar[b], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  cluster.sync();  // every CTA runs before any reads a peer's s_best
+  cluster.sync();  // every CTA's barriers are set before a peer stores
 
-  // warp 0's scan position and staged window [win_lo, win_hi)
-  int cursor = 0, win_lo = 0, win_hi = 0;
-  int parity = 0;
-  for (;;) {
-    if (wid == 0) {
-      int found = -1;
-      while (cursor < P) {
-        if (cursor >= win_hi) {
-          win_lo = cursor;
-          win_hi = min(P, cursor + kWin);
-          for (int i = lane; i < win_hi - win_lo; i += 32) {
-            const int id = order[win_lo + i];
-            w_idx[i] = id;
-            w_flags[i] = (pvalid_g[id] ? 1 : 0) |
-                         ((pnp != nullptr && pnp[id]) ? 2 : 0);
-            w_qid[i] = pquota != nullptr ? pquota[id] : -1;
-            const long long row = static_cast<long long>(id) * kDims;
-#pragma unroll
-            for (int r = 0; r < kDims; ++r)
-              w_req[i * kDims + r] = preq_g[row + r];
-          }
-          __syncwarp();
-        }
-        const int pos = cursor + lane;
-        bool admit = false;
-        if (pos < win_hi) {
-          const int i = pos - win_lo;
-          const int flags = w_flags[i];
-          admit = (flags & 1) &&
-                  quota_admits(w_req + i * kDims, w_qid[i], flags & 2,
-                               has_quota, head, min_head, checked, chain,
-                               qvalid, QD);
-        }
-        const unsigned ballot = __ballot_sync(kFull, admit);
-        if (ballot != 0) {
-          found = cursor + __ffs(ballot) - 1;
-          break;
-        }
-        cursor = min(cursor + 32, win_hi);
-      }
-      if (found >= 0) {
-        const int i = found - win_lo;
-        const int idx = w_idx[i];
-        // the admitted pod's estimate and selector word 0, one load a lane
-        if (lane < kDims) {
-          s_req[lane] = w_req[i * kDims + lane];
-          s_est[lane] = pest_g[static_cast<long long>(idx) * kDims + lane];
-        }
-        if (lane == kDims && sel != nullptr)
-          s_sel = SelRow::of(sel, idx, W, true);
-        __syncwarp();
-        if (lane == 0) {
-          s_pod = idx;
-          s_qid = w_qid[i];
-          s_np = (w_flags[i] >> 1) & 1;
-          s_ps = pod_scalars(s_req, cfg);
-        }
-        cursor = found + 1;
-      } else if (lane == 0) {
-        s_pod = -1;
-      }
-    }
-    __syncthreads();
-    const int idx = s_pod;
-    if (idx < 0) break;
+  // The control warp (the last) admits pods and charges; the others score.
+  // Its window of staged pods [win_lo, win_hi) and the position the next
+  // search starts from.
+  const bool ctl = wid == kScanWarps;
+  int cursor = 0, win_lo = 0, win_hi = 0, next = 0;
+  // the next pod's request (lane r: dimension r), checked dims with a
+  // request, quota id and flag, for the re-check
+  int c_req = 0, c_need = 0, c_qid = -1, c_np = 0;
 
-    if constexpr (kRsv) {
-      // reservation_fit over this CTA's rows, and the node flags
-      // (reservation_node_mask) of the rows that fit
-      const uint8_t* mrow =
-          ra.match + static_cast<long long>(idx) * ra.V + r_lo;
-      for (int j = tid; j < vc; j += kThreads) {
-        int* rec = rw + j * kRsvInts;
-        const int flags = rec[kRsvFlags];
-        bool ok = mrow[j] != 0;
-        const int i = rec[kRsvNode] - lo;
-        if (ok) {
-          bool any_rem = false, aligned = true, restricted = true;
+  // the first position at or after ``from`` whose pod the current headroom
+  // admits (valid, quota_admits), a warp of pods at a time; -1 when none.
+  // Each window is staged as the search reaches it, a pod a lane; a search
+  // that starts behind the window (again from the charged pod, after the
+  // speculated one moved the window past it) stages it anew there.
+  auto find = [&](int from) -> int {
+    cursor = from;
+    while (cursor < P) {
+      if (cursor < win_lo || cursor >= win_hi) {
+        win_lo = cursor;
+        win_hi = min(P, cursor + kWin);
+        for (int i = lane; i < win_hi - win_lo; i += 32) {
+          const int id = order[win_lo + i];
+          const int qid = pquota != nullptr ? pquota[id] : -1;
+          const long long row = static_cast<long long>(id) * kDims;
+          uint32_t need = 0;
 #pragma unroll
           for (int r = 0; r < kDims; ++r) {
-            const int rem = wsub(rec[r], rec[kDims + r]);
-            any_rem = any_rem || rem > 0;
-            const int q = s_req[r];
-            if (q != 0) {
-              const int fr = n_free[r * S + i];
-              aligned = aligned && q <= wadd(rem, fr);
-              restricted = restricted && (rec[r] > 0 ? q <= rem : q <= fr);
-            }
+            const int q = preq_g[row + r];
+            w_req[i * kDims + r] = q;
+            if (has_quota && qid >= 0 && q != 0 && checked[qid * kDims + r])
+              need |= 1u << r;
           }
-          ok = any_rem && ((flags & kRsvRestricted) ? restricted : aligned);
+          w_idx[i] = id;
+          w_qid[i] = qid;
+          w_flags[i] = (pvalid_g[id] ? 1 : 0) |
+                       ((pnp != nullptr && pnp[id]) ? 2 : 0) |
+                       static_cast<int>(need << 2);
         }
-        rec[kRsvFlags] = ok ? (flags | kRsvFit) : (flags & ~kRsvFit);
-        if (ok) boost_at[i] = 1;
+        __syncwarp();
       }
-      __syncthreads();
-    }
-
-    // this CTA's best (score, -node) rank over its nodes
-    const SelRow sr = s_sel;
-    const PodRef pod{s_req, s_est, 1, s_ps};
-    long long best = LLONG_MIN;
-    for (int i = tid; i < cnt; i += kThreads) {
-      const int n = lo + i;
-      const StridedRow nr{n_alloc + i, n_free + i, n_use + i, n_thx + i,
-                          n_thy + i,   n_mag + i,  n_shf + i, S,
-                          n_flags[i]};
-      const bool nv = (nr.flags & kValidFlag) != 0;
-      bool ok;
-      int score;
-      if constexpr (kRsv) {
-        const bool via = boost_at[i] != 0;
-        score = pair_score(nr, pod, cfg, ok, via);
-        if (via) score = wadd(score, ra.boost);
-      } else {
-        score = pair_score(nr, pod, cfg, ok);
+      const int pos = cursor + lane;
+      bool admit = false;
+      if (pos < win_hi) {
+        const int i = pos - win_lo;
+        const int flags = w_flags[i];
+        admit = (flags & 1) &&
+                quota_admits(w_req + i * kDims, flags >> 2, w_qid[i],
+                             flags & 2, has_quota, head, min_head, chain,
+                             levels, qvalid, QD);
       }
-      bool fe = ok && nv;
-      if (sel != nullptr) {
-        fe = fe && sr.template ok<kMulti>(n_cls[i], C);
-      } else {
-        fe = fe && feas[static_cast<long long>(idx) * N + n];
-      }
-      best = max(best, rank_of(fe ? score : -1, n));
+      const unsigned ballot = __ballot_sync(kFull, admit);
+      if (ballot != 0) return cursor + __ffs(ballot) - 1;
+      cursor = min(cursor + 32, win_hi);
     }
-    best = warp_max(best);
-    if (lane == 0) s_warp[wid] = best;
-    __syncthreads();
-    if (wid == 0) {
-      best = warp_max(lane < kWarps ? s_warp[lane] : LLONG_MIN);
-      if (lane == 0) s_best[parity] = best;
+    return -1;
+  };
+  // the pod at window position ``pos`` into buffer ``b``: its request,
+  // estimate and selector word 0 (one load a lane), quota id, flag and
+  // scalars; returns its index.
+  auto load = [&](int pos, int b) -> int {
+    const int i = pos - win_lo;
+    const int idx = w_idx[i];
+    const int flags = w_flags[i];
+    c_req = lane < kDims ? w_req[i * kDims + lane] : 0;
+    c_need = flags >> 2;
+    c_qid = w_qid[i];
+    c_np = (flags >> 1) & 1;
+    if (lane < kDims) {
+      s_req[b][lane] = c_req;
+      s_est[b][lane] = pest_g[static_cast<long long>(idx) * kDims + lane];
     }
+    if (lane == kDims && sel != nullptr)
+      s_sel[b] = SelRow::of(sel, idx, W, true);
     if constexpr (kRsv) {
-      // every thread is past the node scan: clear the flags for the next
-      // pod (the fit bits stay for the nomination)
-      for (int j = tid; j < vc; j += kThreads)
-        boost_at[rw[j * kRsvInts + kRsvNode] - lo] = 0;
+      // its match with this CTA's records: copied beside them when they
+      // are staged, else brought into L1
+      const uint8_t* m = ra.match + static_cast<long long>(idx) * ra.V + r_lo;
+      if (ra.staged > 0) {
+        for (int j = lane; j < vc; j += 32) s_match[b * ra.staged + j] = m[j];
+      } else {
+        const uintptr_t a0 =
+            reinterpret_cast<uintptr_t>(m) & ~uintptr_t{127};
+        const uintptr_t a1 = reinterpret_cast<uintptr_t>(m + vc);
+        for (uintptr_t a = a0 + 128u * lane; a < a1; a += 32u * 128u)
+          asm volatile("prefetch.L1 [%0];\n" ::"l"(a));
+      }
     }
-    // the cluster's maximum: every CTA reads the 16 ranks
-    cluster_arrive();
-    cluster_wait();
-    if (wid == 0) {
-      best = warp_max(lane < kCluster
-                          ? *cluster.map_shared_rank(&s_best[parity], lane)
-                          : LLONG_MIN);
-      const int value = static_cast<int>(best >> 32);
-      if (value >= 0) {
-        const int node =
-            0x7FFFFFFF - static_cast<int>(best & 0xFFFFFFFFll);
+    __syncwarp();
+    if (lane == 0) {
+      s_qid[b] = c_qid;
+      s_np[b] = c_np;
+      s_ps[b] = pod_scalars(s_req[b], cfg);
+    }
+    return idx;
+  };
+  // the next pod's quota_admits against the current headroom, a dimension
+  // a lane
+  auto admits = [&]() -> bool {
+    bool ok = true;
+    if (has_quota && c_qid >= 0) {
+      ok = qvalid[c_qid] != 0;
+      if ((c_need >> lane) & 1) {
+        for (int d = 0; d < levels[c_qid]; ++d)
+          if (c_req > head[chain[c_qid * QD + d] * kDims + lane]) ok = false;
+        if (c_np && c_req > min_head[c_qid * kDims + lane]) ok = false;
+      }
+    }
+    return __all_sync(kFull, ok);
+  };
+
+  if (ctl) {
+    const int pos = find(0);
+    const int idx = pos >= 0 ? load(pos, 0) : -1;
+    next = pos + 1;
+    if (lane == 0) s_pod[0] = idx;
+  }
+  __syncthreads();
+
+  for (int step = 0;; ++step) {
+    const int b = step & 1;
+    const int idx = s_pod[b];
+    if (idx < 0) break;
+    if (!ctl) {
+      // this warp's best (score, -node) rank over its nodes, stored into
+      // every CTA of the cluster
+      const SelRow sr = s_sel[b];
+      const PodRef pod{s_req[b], s_est[b], 1, s_ps[b]};
+      const uint8_t* mrow =
+          !kRsv ? nullptr
+          : ra.staged > 0
+              ? s_match + b * ra.staged
+              : ra.match + static_cast<long long>(idx) * ra.V + r_lo;
+      long long best = LLONG_MIN;
+      for (int i = tid; i < cnt; i += kScanThreads) {
+        bool via = false;
+        if constexpr (kRsv) {
+          // reservation_node_mask: a matched record on this node fits
+          for (int j = rfirst[i]; j < rfirst[i + 1] && !via; ++j)
+            via = mrow[j] != 0 && rsv_fits(rw + j * kRsvInts, s_req[b],
+                                           pod.s.qnz, n_free, S, i);
+        }
+        const int n = lo + i;
+        const ColumnRow nr{n_alloc + i, n_shf + i, S, n_flags[i]};
+        const bool nv = (nr.flags & kValidFlag) != 0;
+        bool ok;
+        int score;
+        if constexpr (kRsv) {
+          score = pair_score(nr, pod, cfg, ok, via);
+          if (via) score = wadd(score, ra.boost);
+        } else {
+          score = pair_score(nr, pod, cfg, ok);
+        }
+        bool fe = ok && nv;
+        if (sel != nullptr) {
+          fe = fe && sr.template ok<kMulti>(n_cls[i], C);
+        } else {
+          fe = fe && feas[static_cast<long long>(idx) * N + n];
+        }
+        best = max(best, rank_of(fe ? score : -1, n));
+      }
+      best = warp_max(best);
+      if (lane < kCluster)
+        st_async(peer_addr(&s_rank[b][rank * kScanWarps + wid], lane), best,
+                 peer_addr(&s_bar[b], lane));
+    } else {
+      if (lane == 0) mbar_expect_tx(&s_bar[b], kRanks * 8);
+      // speculative admission: while the step's pod is scored, the next
+      // pod the current headroom admits (a charge that only lowers the
+      // headroom leaves a pod rejected now rejected after it)
+      int pos = find(next);
+      int nidx = pos >= 0 ? load(pos, b ^ 1) : -1;
+      mbar_wait(&s_bar[b], static_cast<uint32_t>((step >> 1) & 1));
+      long long best = LLONG_MIN;
+      for (int j = lane; j < kRanks; j += 32) best = max(best, s_rank[b][j]);
+      best = warp_max(best);
+      const bool placed = static_cast<int>(best >> 32) >= 0;
+      const int qid = s_qid[b];
+      bool rose = false;  // the charge raised a headroom
+      if (placed) {
+        const int node = 0x7FFFFFFF - static_cast<int>(best & 0xFFFFFFFFll);
         const int i = node - lo;
         if (i >= 0 && i < cnt) {
-          int charge = lane < kDims ? s_req[lane] : 0;
+          int charge = lane < kDims ? s_req[b][lane] : 0;
           if constexpr (kRsv) {
-            // nominate_reservation: the fitting row on the node with the
-            // smallest total remainder, the lowest row on ties (the
-            // records of one node are in row order)
+            // nominate_reservation: the fitting record on the node with
+            // the smallest total remainder, the lowest row on ties (the
+            // node's records are in row order), re-tested as the scan did
+            const uint8_t* mrow =
+                ra.staged > 0
+                    ? s_match + b * ra.staged
+                    : ra.match + static_cast<long long>(idx) * ra.V + r_lo;
             long long key = LLONG_MAX;
-            for (int j = lane; j < vc; j += 32) {
+            for (int j = rfirst[i] + lane; j < rfirst[i + 1]; j += 32) {
               const int* rec = rw + j * kRsvInts;
-              if ((rec[kRsvFlags] & kRsvFit) && rec[kRsvNode] == node) {
+              if (mrow[j] &&
+                  rsv_fits(rec, s_req[b], s_ps[b].qnz, n_free, S, i)) {
                 int total = 0;
 #pragma unroll
                 for (int r = 0; r < kDims; ++r)
@@ -503,15 +690,24 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
             // dim, charge the node the spill
             if (key != LLONG_MAX) {
               int* rec = rw + static_cast<int>(key & 0xFFFFFFFFll) * kRsvInts;
+              const int flags = rec[kRsvFlags];
+              bool live = false;
               if (lane < kDims) {
                 const int rem = wsub(rec[lane], rec[kDims + lane]);
                 const int take = min(charge, rem);
-                rec[kDims + lane] = (rec[kRsvFlags] & kRsvOnce)
+                const int alloc_r = (flags & kRsvOnce)
                                         ? rec[lane]
                                         : wadd(rec[kDims + lane], take);
+                rec[kDims + lane] = alloc_r;
+                live = wsub(rec[lane], alloc_r) > 0;
                 charge = wsub(charge, take);
               }
-              if (lane == 0) ra.out_rsv[idx] = rec[kRsvRow];
+              live = __any_sync(kFull, live);
+              if (lane == 0) {
+                rec[kRsvFlags] =
+                    live ? (flags | kRsvLive) : (flags & ~kRsvLive);
+                ra.out_rsv[idx] = rec[kRsvRow];
+              }
             }
           }
           if (lane < kDims) {
@@ -520,26 +716,45 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
             // threshold's left side rise by est and 100 * est
             const int o = lane * S + i;
             n_free[o] = wsub(n_free[o], charge);
-            n_use[o] = wadd(n_use[o], s_est[lane]);
-            n_thx[o] = wadd(n_thx[o], wmul(kMaxScore, s_est[lane]));
+            n_use[o] = wadd(n_use[o], s_est[b][lane]);
+            n_thx[o] = wadd(n_thx[o], wmul(kMaxScore, s_est[b][lane]));
           }
           if (lane == 0) out_assign[idx] = node;
         }
-        const int qid = s_qid;
         if (has_quota && qid >= 0 && qvalid[qid] && lane < kDims) {
-          const int q = s_req[lane];
-          for (int d = 0; d < QD; ++d) {
-            const int anc = chain[qid * QD + d];
-            if (anc >= 0)
-              head[anc * kDims + lane] = wsub(head[anc * kDims + lane], q);
+          // (a negative request, or a headroom wrapping past int32's
+          // minimum, raises it)
+          const int q = s_req[b][lane];
+          for (int d = 0; d < levels[qid]; ++d) {
+            int* h = head + chain[qid * QD + d] * kDims + lane;
+            const int was = *h;
+            *h = wsub(was, q);
+            rose = rose || *h > was;
           }
-          if (s_np)
-            min_head[qid * kDims + lane] =
-                wsub(min_head[qid * kDims + lane], q);
+          if (s_np[b]) {
+            int* h = min_head + qid * kDims + lane;
+            const int was = *h;
+            *h = wsub(was, q);
+            rose = rose || *h > was;
+          }
         }
       }
+      rose = __any_sync(kFull, rose);
+      const bool charged = placed && has_quota && qid >= 0 && qvalid[qid];
+      if (rose) {
+        // a pod rejected before the charge may be admitted now: search
+        // again from the step's pod on
+        pos = find(next);
+        nidx = pos >= 0 ? load(pos, b ^ 1) : -1;
+      } else if (charged && pos >= 0 && !admits()) {
+        // the charge took the headroom the speculated pod needed: resume
+        // the scan past it
+        pos = find(pos + 1);
+        nidx = pos >= 0 ? load(pos, b ^ 1) : -1;
+      }
+      if (pos >= 0) next = pos + 1;
+      if (lane == 0) s_pod[b ^ 1] = nidx;
     }
-    parity ^= 1;
     __syncthreads();
   }
 
@@ -565,7 +780,7 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
           dst[j * kRsvInts + kDims + r] = row_s[j * kRsvInts + kDims + r];
     }
   }
-  cluster.sync();  // no CTA leaves while a peer may still read its s_best
+  cluster.sync();  // no CTA leaves while a peer may still store into it
 }
 
 template <bool kNodesInSmem, bool kRsv, bool kMulti>
@@ -579,8 +794,8 @@ cudaError_t launch(long long smem, cudaStream_t st, const int* alloc,
                    const ScoreCfg& cfg, int* q_head, int* q_min,
                    const uint8_t* q_checked, const int* q_chain,
                    const uint8_t* q_valid, int Q, int QD, const int* pquota,
-                   const uint8_t* pnp, int P, int N, int* out_assign,
-                   const RsvArgs& ra) {
+                   const uint8_t* pnp, int P, int N,
+                   int* out_assign, const RsvArgs& ra) {
   auto kernel = greedy_scan_kernel<kNodesInSmem, kRsv, kMulti>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -604,8 +819,8 @@ cudaError_t launch(long long smem, cudaStream_t st, const int* alloc,
   return cudaLaunchKernelEx(&lc, kernel, alloc, reqd, usage, base, nvalid,
                             nclass, scratch, preq, pest, pvalid, order, sel,
                             C, W, feas, cfg, q_head, q_min, q_checked, q_chain,
-                            q_valid, Q, QD, pquota, pnp, P, N, out_assign,
-                            ra);
+                            q_valid, Q, QD, pquota, pnp, P, N,
+                            out_assign, ra);
 }
 
 // The dynamic shared memory a CTA may take: the card's opt-in limit less
@@ -657,8 +872,9 @@ int scan(const int* alloc, int* reqd, const int* usage, const int* base,
          unsigned long long* sel, const uint8_t* feas, const int* cfg,
          int cfg_len, int* q_head, int* q_min,
          const uint8_t* q_checked, const int* q_chain, const uint8_t* q_valid,
-         int Q, int QD, const int* pquota, const uint8_t* pnp, int P, int N,
-         int* out_assign, const RsvArgs& ra, int vmax, void* stream) {
+         int Q, int QD, const int* pquota, const uint8_t* pnp,
+         int P, int N, int* out_assign, const RsvArgs& ra,
+         int vmax, void* stream) {
   if (cfg_len != kCfgLen || cfg == nullptr || N < 1 ||
       (sel_mask == nullptr) == (feas == nullptr) ||
       (sel_mask != nullptr && (C < 1 || sel == nullptr)) ||
@@ -688,8 +904,8 @@ int scan(const int* alloc, int* reqd, const int* usage, const int* base,
     return launch<decltype(in_smem)::value, kRsv, decltype(km)::value>(
         plan.smem, st, alloc, reqd, usage, base, nvalid, nclass, scratch,
         preq, pest, pvalid, order, sel, C, W, feas, sc, q_head, q_min,
-        q_checked, q_chain, q_valid, Q, QD, pquota, pnp, P, N, out_assign,
-        args);
+        q_checked, q_chain, q_valid, Q, QD, pquota, pnp, P, N,
+        out_assign, args);
   };
   auto by_words = [&](auto in_smem) {
     return W > 1 ? go(in_smem, std::true_type{})
@@ -712,8 +928,9 @@ template <bool kRsv>
 long long scratch_bytes(int N, int Q, int QD) {
   Plan plan;
   if (plan_for<kRsv>(N, Q, QD, 0, &plan) != cudaSuccess) return -1;
-  return plan.nodes_in_smem ? 0
-                            : kCluster * Layout(N, Q, QD).scratch_bytes();
+  return plan.nodes_in_smem
+             ? 0
+             : kCluster * Layout(N, Q, QD, kRsv).scratch_bytes();
 }
 
 }  // namespace

@@ -280,21 +280,28 @@ __device__ __forceinline__ int pair_score(const Row& n, const PodRef& t,
   return wadd(wadd(wmul(la, c.la_pw), wmul(fp, c.fp_pw)), wmul(sc, c.sc_pw));
 }
 
-// A node whose terms lie in columns: value r of node i at p[r * stride + i]
-// (K4's node ranges, stride S) or in a row (K2's staged rows, stride 1).
-struct StridedRow {
-  const int *a_, *fr_, *use_, *thx_, *thy_;
-  const uint32_t* m_;
-  const uint8_t* l_;
-  int stride;
+// A node whose terms lie in the columns of K4's node range: term c (0
+// allocatable, 1 free capacity, 2 usage, 3 and 4 the threshold's two sides,
+// 5 the magic multipliers) of dimension r at base[(c * R + r) * S], the
+// magic shifts at shf[r * S], base and shf pointing at the node's column.
+// One base pointer, not one a term, keeps the scan's registers few.
+struct ColumnRow {
+  const int* base;
+  const uint8_t* shf;
+  int S;
   uint32_t flags;  // bits 0..R-1: a > 0, bit R: valid
-  __device__ __forceinline__ int a(int r) const { return a_[r * stride]; }
-  __device__ __forceinline__ int fr(int r) const { return fr_[r * stride]; }
-  __device__ __forceinline__ int use(int r) const { return use_[r * stride]; }
-  __device__ __forceinline__ int thx(int r) const { return thx_[r * stride]; }
-  __device__ __forceinline__ int thy(int r) const { return thy_[r * stride]; }
-  __device__ __forceinline__ uint32_t m(int r) const { return m_[r * stride]; }
-  __device__ __forceinline__ uint32_t l(int r) const { return l_[r * stride]; }
+  __device__ __forceinline__ int t(int c, int r) const {
+    return base[(c * kDims + r) * S];
+  }
+  __device__ __forceinline__ int a(int r) const { return t(0, r); }
+  __device__ __forceinline__ int fr(int r) const { return t(1, r); }
+  __device__ __forceinline__ int use(int r) const { return t(2, r); }
+  __device__ __forceinline__ int thx(int r) const { return t(3, r); }
+  __device__ __forceinline__ int thy(int r) const { return t(4, r); }
+  __device__ __forceinline__ uint32_t m(int r) const {
+    return static_cast<uint32_t>(t(5, r));
+  }
+  __device__ __forceinline__ uint32_t l(int r) const { return shf[r * S]; }
   __device__ __forceinline__ uint32_t apos() const {
     return flags & ((1u << kDims) - 1u);
   }

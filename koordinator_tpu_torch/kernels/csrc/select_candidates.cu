@@ -6,8 +6,9 @@
 //   koordinator_tpu/ops/batch_assign.py:126-154 _rank_parts (ranking key)
 //   koordinator_tpu/ops/batch_assign.py:451-525 _reduce_candidates
 //   koordinator_tpu/ops/batch_assign.py:182-197 _topk_by_rank (both regimes)
-// K1a, the kApprox instances, replaces the approx branch of the same
-// reduction for method="approx" (and "chunked", whose rows are the same):
+// K1a, the approx instances (kRank != kExact), replaces the approx branch
+// of the same reduction for method="approx" (and "chunked", whose rows are
+// the same):
 //   koordinator_tpu/ops/batch_assign.py:469-504 approx_max_k over a 24-bit
 //                                               float key
 //   koordinator_tpu/ops/batch_assign.py:528     _chunked_candidates
@@ -73,22 +74,41 @@
 //   register's bit test alone.
 // - An epilogue, stratum s on the pod's thread s, re-scores each chosen
 //   node to emit the stratum-0 key and the clipped score of every slot.
-// - K1a (kApprox): everything above but the rank.  The JAX package picks
-//   the top k_i of a float32 key a = (q << shift) | (tb >> d) (the
-//   quantized score over the tie-break's high bits, an integer below
+// - K1a (the approx ranks): everything above but the rank.  The JAX
+//   package picks the top k_i of a float32 key a = (q << shift) | (tb >> d)
+//   (the quantized score over the tie-break's high bits, an integer below
 //   2^24), and approx_max_k's CPU lowering breaks its ties lowest column
-//   first.  The lists hold the 64-bit a << 31 | (2^31 - 1 - column):
-//   the exact order, and the node read back from the low bits, with no
-//   preimage to resolve.  A stratum of one candidate stores the column
-//   itself, the higher first: at k = 1 approx_max_k's CPU lowering
-//   reduces to the row's last maximum.  (Replacing only the tie-break's low d bits by
-//   the column's place in its run of 2^d would keep int32 lists in the
-//   packed regime, but the run's columns are not one cyclic interval on
-//   rows whose rotated difference wraps int32, where a tie-break has two
-//   preimages.)  The cost is K1's wide occupancy, 4 CTAs an SM, at every
-//   N.  A stratum whose share is every column (k_i >= N, packed only)
-//   ranks exactly, as in the JAX package: (shift, d) = (15, 0) makes a
-//   the exact key.  The -1 slots take the lowest infeasible columns.
+//   first.  In the packed regime shift + d = 15, so a is K1's exact key
+//   q << 15 | tb with its low d bits dropped: a run of 2^d tie-break values
+//   shares one a.  On a row whose tie-break is a rotation of the columns
+//   (one preimage a value) the tie-break falls as the column rises, so
+//   lowest column first is exact's highest tie-break first in every run but
+//   the one holding column 0, whose columns wrap from N - 1 to 0.  There
+//   the order is a rotation of the run's low bits: with z the low bits of
+//   tb(column 0), low' = (low - z - 1) mod 2^d.  So the packed K1a
+//   instance (kRank = kApprox32) keeps int32 lists at K1's occupancy, 6
+//   CTAs an SM: K1's key with that one run's low bits rotated, the
+//   constant computed once a pod (approx_tb).  A stratum of one candidate
+//   ranks the row's last maximum (approx_max_k's CPU lowering at k = 1), the
+//   highest column first: the low bits complemented, and in the wrap run
+//   rotated by z + 1.  The node comes back by inverting the rotation and
+//   reading the tie-break's one preimage.  A row whose rotated difference
+//   wraps int32 so that two nodes share a tie-break (tb_band: the "band",
+//   int32(rot * 7919) within N above -2^31 and N not a divisor of 2^32,
+//   about N / 2^32 of the rot ids) is skipped there and ranked by the
+//   64-bit instance (kRank = kApprox64), launched beside it over the same
+//   batch: a << 31 | (2^31 - 1 - column), the node read back from the low
+//   bits, a stratum of one candidate storing the column itself.  Each of
+//   its clusters returns at once when none of its pods is a band row, so
+//   the split costs no copy to the host.  The wide regime (N > 2^15) ranks
+//   every row on the 64-bit instance: a and a column do not fit 32 bits
+//   there.  The 64-bit lists take K1's wide occupancy, 4 CTAs an SM.  A
+//   stratum whose share is every column (k_i >= N, packed only) ranks
+//   exactly, as in the JAX package: (shift, d) = (15, 0) makes a the exact
+//   key.  The -1 slots take the lowest infeasible columns (at k = 1 the
+//   last column).  kernels/select_candidates.py mirrors both ranks
+//   (approx_rank_int32, topk_from_approx_int32, approx_band; approx_rank,
+//   topk_from_approx_ranks).
 
 #include <cooperative_groups.h>
 
@@ -111,6 +131,9 @@ constexpr int kStages = 3;                     // tiles in flight
 constexpr int kTileBytes = kTile * kRowInts * 4;
 constexpr int kSliceBytes = kTileBytes / kCluster;
 static_assert(kSliceBytes % 16 == 0, "bulk copies move 16-byte multiples");
+// dynamic shared memory a CTA takes: the ring of tiles, the pods' requests
+// and estimates
+constexpr int kSmemBytes = kStages * kTileBytes + 2 * kDims * kPods * 4;
 
 // Filter + Score of the pod against one packed node row; sets feas to the
 // full feasibility verdict.
@@ -202,8 +225,41 @@ __device__ __forceinline__ int approx_col(long long v, bool last) {
   return static_cast<int>(last ? low : kApproxColMask - low);
 }
 
-template <int NS, bool kWide, bool kMulti, bool kApprox>
-__global__ void __launch_bounds__(kThreads, kWide || kApprox ? 4 : 6)
+// The list entries of an instance: K1's keys (kExact), K1a's int32 keys
+// (kApprox32, packed regime, rows off the band) or K1a's 64-bit ranks
+// (kApprox64).
+enum Rank { kExact = 0, kApprox32 = 1, kApprox64 = 2 };
+
+// The band: rows whose rotated difference wraps int32 for the nodes at or
+// above 2^31 + rot7919 (0 < that < N) while 2^32 is not a multiple of N,
+// so that two nodes share a tie-break (tie_break_preimages in
+// kernels/select_candidates.py).
+__device__ __forceinline__ bool tb_band(int rot7919, int N) {
+  const long long wrap_from = static_cast<long long>(rot7919) + (1ll << 31);
+  return wrap_from > 0 && wrap_from < N && (1ull << 32) % N != 0;
+}
+
+// K1a's int32 rank of tie-break tb in a stratum dropping d low bits: the
+// low bits complemented by ``x`` (a stratum of one candidate) and, in the
+// run of column 0's tie-break tb0, rotated by ``t``; the other bits as in
+// K1's key.  approx_tb_inverse undoes it.
+__device__ __forceinline__ int approx_tb(int tb, int tb0, int d, int x,
+                                         int t) {
+  const int mask = (1 << d) - 1;
+  const int add = ((tb ^ tb0) >> d) == 0 ? t : 0;
+  return (tb & ~mask) | (((tb ^ x) + add) & mask);
+}
+
+__device__ __forceinline__ int approx_tb_inverse(int v, int tb0, int d,
+                                                 int x, int t) {
+  const int mask = (1 << d) - 1;
+  const int add = ((v ^ tb0) >> d) == 0 ? t : 0;
+  return (v & ~mask) | ((((v & mask) - add) & mask) ^ x);
+}
+
+template <int NS, bool kWide, bool kMulti, int kRank>
+__global__ void __launch_bounds__(kThreads,
+                                  kWide || kRank == kApprox64 ? 4 : 6)
     select_candidates_kernel(
     const int* __restrict__ rows, int n_tiles,
     const int* __restrict__ preq_g, const int* __restrict__ pest_g,
@@ -213,10 +269,11 @@ __global__ void __launch_bounds__(kThreads, kWide || kApprox ? 4 : 6)
     const __grid_constant__ ScoreCfg cfg, int P, int N, int sb0, int sb1,
     int k0,
     int k1, int ash0, int ad0, int ash1, int ad1, int group_stride,
-    int* __restrict__ out_key, int* __restrict__ out_node,
-    int* __restrict__ out_score) {
-  // the list entries: packed int32 keys, or 64-bit ranks (wide, approx)
-  constexpr bool k64 = kWide || kApprox;
+    int* __restrict__ ranked, int* __restrict__ out_key,
+    int* __restrict__ out_node, int* __restrict__ out_score) {
+  // the list entries: int32 keys (K1 packed, K1a's packed instance), or
+  // 64-bit ranks (wide, K1a's 64-bit instance)
+  constexpr bool k64 = kWide || kRank == kApprox64;
   using Key = std::conditional_t<k64, long long, int>;
   constexpr Key kEmpty = k64 ? LLONG_MIN : INT_MIN;
   extern __shared__ __align__(128) int4 s_tiles[];
@@ -240,9 +297,32 @@ __global__ void __launch_bounds__(kThreads, kWide || kApprox ? 4 : 6)
   // the nodes h, h + kLanes, ... of every tile
   const int slot = tid / kLanes;
   const int lane = tid % kLanes;
+  // the rows this instance ranks: K1a's int32 instance those off the band,
+  // its 64-bit one in the packed regime the band's, the others every row
+  constexpr bool kOffBandOnly = kRank == kApprox32;
+  constexpr bool kBandOnly = kRank == kApprox64 && !kWide;
+  if constexpr (kBandOnly) {
+    // a cluster none of whose pods is a band row returns at once
+    bool band = false;
+    for (int r = 0; r < kCluster; ++r) {
+      const int q = (group * kCluster + r) * kPods + slot;
+      band = band || (q < P && tb_band(wmul(rot_g[q], 7919), N));
+    }
+    if (!__syncthreads_or(band)) return;
+  }
   const int p = (group * kCluster + static_cast<int>(rank)) * kPods + slot;
-  const bool in_range = p < P;
+  const int rot7919 = p < P ? wmul(rot_g[p], 7919) : 0;
+  const bool in_range =
+      p < P && (kOffBandOnly ? !tb_band(rot7919, N)
+                : kBandOnly  ? tb_band(rot7919, N)
+                             : true);
   const bool pvalid = in_range && pvalid_g[p];
+  if (kRank != kExact && ranked != nullptr) {  // uniform over the CTA
+    // K1a's report of the rows each instance ranked: [0] int32, [1] 64-bit
+    const int n_rows = __syncthreads_count(in_range && lane == 0);
+    if (tid == 0 && n_rows > 0)
+      atomicAdd(ranked + (kRank == kApprox32 ? 0 : 1), n_rows);
+  }
 
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) mbar_init(&s_full[s], 1);
@@ -275,7 +355,6 @@ __global__ void __launch_bounds__(kThreads, kWide || kApprox ? 4 : 6)
     pt = PodRef{s_pq + slot, s_pe + slot, kPods, pod_scalars(q, cfg)};
   }
   __syncthreads();
-  const int rot7919 = in_range ? wmul(rot_g[p], 7919) : 0;
   const bool has_sel = sel != nullptr;
   const SelRow sr = has_sel ? SelRow::of(sel, p, W, pvalid)
                             : SelRow{nullptr, 0ull};
@@ -286,6 +365,21 @@ __global__ void __launch_bounds__(kThreads, kWide || kApprox ? 4 : 6)
 #pragma unroll
     for (int j = 0; j < kMaxPerStratum; ++j) lists[s][j] = kEmpty;
   int n_feas = 0;
+  // K1a's int32 instance: per stratum, the low bits' complement (a stratum
+  // of one candidate) and the rotation of column 0's run
+  const int tb0 = tie_break(0, rot7919, N);
+  int ax[2] = {0, 0}, at[2] = {0, 0};
+  if constexpr (kRank == kApprox32) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const int d = s == 0 ? ad0 : ad1;
+      const int mask = (1 << d) - 1;
+      const int z1 = (tb0 & mask) + 1;
+      const bool last = (s == 0 ? k0 : k1) == 1;
+      ax[s] = last ? mask : 0;
+      at[s] = last ? z1 : -z1;
+    }
+  }
 
   if (any) {
     const uint16_t all = static_cast<uint16_t>((1u << kCluster) - 1u);
@@ -322,11 +416,20 @@ __global__ void __launch_bounds__(kThreads, kWide || kApprox ? 4 : 6)
 #pragma unroll
           for (int s = 0; s < NS; ++s) {
             const int key = clipped >> (s == 0 ? sb0 : sb1);
-            if constexpr (kApprox)
+            if constexpr (kRank == kApprox64)
               insert_sorted(lists[s],
                             approx_rank(key, tb, s == 0 ? ash0 : ash1,
                                         s == 0 ? ad0 : ad1, n,
                                         (s == 0 ? k0 : k1) == 1));
+            else if constexpr (kRank == kApprox32)
+              // (a stratum that drops no tie-break bit, d = 0, ranks by
+              // K1's key: a uniform branch)
+              insert_sorted(lists[s],
+                            (key << kTbBits) |
+                                ((s == 0 ? ad0 : ad1) == 0
+                                     ? tb
+                                     : approx_tb(tb, tb0, s == 0 ? ad0 : ad1,
+                                                 ax[s], at[s])));
             else if constexpr (kWide)
               insert_sorted(lists[s], wide_rank(key, tb));
             else
@@ -402,7 +505,52 @@ __global__ void __launch_bounds__(kThreads, kWide || kApprox ? 4 : 6)
     const int sb = s == 0 ? sb0 : sb1;
     const long long base_o = row0 + (s == 0 ? 0 : k0);
     const int f = min(n_feas, ks_s);
-    if constexpr (kApprox) {
+    if constexpr (kRank == kApprox32) {
+      // the key's rank inverted to the tie-break, whose one preimage is
+      // the node (n1, or past the wrap boundary its image); the -1 slots
+      // as in the 64-bit instance
+      const bool last = ks_s == 1;
+      const int d = s == 0 ? ad0 : ad1;
+      int fill = 0;
+      for (int j = 0; j < ks_s; ++j) {
+        const long long o = base_o + j;
+        int n, key = -1, cscore = -1;
+        if (j < f) {
+          const int tb = approx_tb_inverse(out_key[o] & kScoreClip, tb0, d,
+                                           s == 0 ? ax[0] : ax[1],
+                                           s == 0 ? at[0] : at[1]);
+          n = (N - 1) - tb + rot_mod;
+          if (n >= N) n -= N;
+          if (n >= wrap_from) {
+            n += two32_mod;
+            if (n >= N) n -= N;
+          }
+          bool feas;
+          cscore = clip_score(score_row<kMulti>(
+              rows + static_cast<long long>(n) * kRowInts, n, p, P, pt, cfg,
+              feas_t, sr, has_sel, C, feas));
+          key = ((cscore >> sb0) << kTbBits) | tie_break(n, rot7919, N);
+        } else if (last) {
+          n = N - 1;   // f = 0: every column is infeasible
+        } else {
+          for (;; ++fill) {
+            bool feas = false;
+            if (pvalid) {
+              score_row<kMulti>(
+                  rows + static_cast<long long>(fill) * kRowInts, fill, p, P,
+                  pt, cfg, feas_t, sr, has_sel, C, feas);
+            }
+            if (!feas) break;
+          }
+          n = fill++;
+        }
+        out_key[o] = key;
+        out_node[o] = n;
+        out_score[o] = cscore;
+      }
+      continue;
+    }
+    if constexpr (kRank == kApprox64) {
       // the entry's node is in its low bits; the -1 slots take the row's
       // infeasible columns, ascending (approx_max_k's order of its -1.0
       // keys), or at k = 1 its last column
@@ -561,16 +709,17 @@ __global__ void __launch_bounds__(kThreads, kWide || kApprox ? 4 : 6)
   }
 }
 
-template <int NS, bool kWide, bool kMulti, bool kApprox>
+template <int NS, bool kWide, bool kMulti, int kRank>
 cudaError_t launch(const int* rows, int n_tiles, const int* preq,
                    const int* pest, const uint8_t* pvalid, const int* rot_id,
                    const unsigned long long* sel, int C, int W,
                    const uint8_t* feas_t,
                    const ScoreCfg& cfg, int P, int N, int sb0, int sb1,
-                   int k0, int k1, const int (&ash)[4], int* out_key,
-                   int* out_node, int* out_score, cudaStream_t st) {
-  auto kernel = select_candidates_kernel<NS, kWide, kMulti, kApprox>;
-  const int smem = kStages * kTileBytes + 2 * kDims * kPods * 4;
+                   int k0, int k1, const int (&ash)[4], int* ranked,
+                   int* out_key, int* out_node, int* out_score,
+                   cudaStream_t st) {
+  auto kernel = select_candidates_kernel<NS, kWide, kMulti, kRank>;
+  const int smem = kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -603,10 +752,37 @@ cudaError_t launch(const int* rows, int n_tiles, const int* preq,
   return cudaLaunchKernelEx(&lc, kernel, rows, n_tiles, preq, pest, pvalid,
                             rot_id, sel, C, W, feas_t, cfg, P, N, sb0, sb1,
                             k0, k1, ash[0], ash[1], ash[2], ash[3], stride,
-                            out_key, out_node, out_score);
+                            ranked, out_key, out_node, out_score);
+}
+
+// CTAs of an instance one SM holds at once, as the card reports it for
+// the kernel's registers and shared memory; -1 when it cannot be asked.
+template <int NS, bool kWide, bool kMulti, int kRank>
+long long ctas_per_sm() {
+  auto kernel = select_candidates_kernel<NS, kWide, kMulti, kRank>;
+  int blocks = -1;
+  if (cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kSmemBytes) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads,
+                                                    kSmemBytes) !=
+          cudaSuccess)
+    return -1;
+  return blocks;
 }
 
 }  // namespace
+
+// CTAs an SM of the packed regime's instances with two strata and one
+// selector word: ``rank`` 0 K1, 1 K1a's int32 lists, 2 K1a's 64-bit ones.
+extern "C" long long koord_select_candidates_ctas_per_sm(int rank) {
+  switch (rank) {
+    case kExact: return ctas_per_sm<2, false, false, kExact>();
+    case kApprox32: return ctas_per_sm<2, false, false, kApprox32>();
+    case kApprox64: return ctas_per_sm<2, false, false, kApprox64>();
+    default: return -1;
+  }
+}
 
 // Bytes of the packed node rows koord_select_candidates needs as scratch.
 extern "C" long long koord_select_candidates_scratch_bytes(int N) {
@@ -621,8 +797,8 @@ extern "C" int koord_select_candidates(
     const uint8_t* sel, int C, unsigned long long* words,
     const uint8_t* feas_t, const int* cfg, int cfg_len, int P, int N,
     int n_strata, int sb0, int sb1, int k0, int k1, int approx, int ash0,
-    int ad0, int ash1, int ad1, int* rows, int* out_key, int* out_node,
-    int* out_score, void* stream) {
+    int ad0, int ash1, int ad1, int* rows, int* ranked, int* out_key,
+    int* out_node, int* out_score, int* launched, void* stream) {
   const int ash[4] = {ash0, ad0, ash1, ad1};
   bool ash_ok = approx == 0 || approx == 1;
   for (int v : ash) ash_ok = ash_ok && v >= 0 && v <= 30;
@@ -647,18 +823,30 @@ extern "C" int koord_select_candidates(
   if (err == cudaSuccess && sel != nullptr)
     err = pack_selector(sel, P, C, words, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // the instance: strata, key regime, selector words, reduction (K1a)
-  auto go = [&](auto ns, auto kw, auto km, auto ka) {
+  // the instance: strata, key regime, selector words, rank (K1, K1a);
+  // each launch counted in *launched
+  int n_launched = 0;
+  auto go = [&](auto ns, auto kw, auto km, auto kr) {
+    ++n_launched;
     return launch<decltype(ns)::value, decltype(kw)::value,
-                  decltype(km)::value, decltype(ka)::value>(
+                  decltype(km)::value, decltype(kr)::value>(
         rows, n_tiles, preq, pest, pvalid, rot_id,
         sel != nullptr ? words : nullptr, C, W, feas_t, sc, P,
-        N, sb0, sb1, k0, decltype(ns)::value > 1 ? k1 : 0, ash, out_key,
-        out_node, out_score, st);
+        N, sb0, sb1, k0, decltype(ns)::value > 1 ? k1 : 0, ash, ranked,
+        out_key, out_node, out_score, st);
   };
+  using Exact = std::integral_constant<int, kExact>;
+  using Approx32 = std::integral_constant<int, kApprox32>;
+  using Approx64 = std::integral_constant<int, kApprox64>;
   auto by_approx = [&](auto ns, auto kw, auto km) {
-    return approx ? go(ns, kw, km, std::true_type{})
-                  : go(ns, kw, km, std::false_type{});
+    if (!approx) return go(ns, kw, km, Exact{});
+    if constexpr (decltype(kw)::value) {
+      return go(ns, kw, km, Approx64{});
+    } else {
+      // K1a packed: the int32 instance off the band, the 64-bit one on it
+      const cudaError_t e = go(ns, kw, km, Approx32{});
+      return e != cudaSuccess ? e : go(ns, kw, km, Approx64{});
+    }
   };
   auto by_words = [&](auto ns, auto kw) {
     return W > 1 ? by_approx(ns, kw, std::true_type{})
@@ -670,6 +858,7 @@ extern "C" int koord_select_candidates(
   };
   err = n_strata == 1 ? by_regime(std::integral_constant<int, 1>{})
                       : by_regime(std::integral_constant<int, 2>{});
+  if (launched != nullptr) *launched = n_launched;
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,6 +31,9 @@ from koordinator_tpu_torch.state.cluster_state import ClusterState, PodBatch
 #: ints of K4r's reservation record (csrc/greedy_scan.cu kRsvInts):
 #: reserved (R), allocated (R), node, row, flags
 RSV_INTS = 2 * NUM_RESOURCE_DIMS + 3
+#: pods K4's control warp stages at a time, in priority order
+#: (csrc/greedy_scan.cu kWin)
+SCAN_WINDOW = 256
 _ONCE, _RESTRICTED = 1, 2
 
 
@@ -203,3 +206,188 @@ def reservation_scan_kernel(state: ClusterState, pods: PodBatch,
     allocated[perm] = records[:, r:2 * r]
     return (assignments, rsv_choice, new_state,
             rsv.replace(allocated=allocated), new_quota)
+
+
+# -- what the kernel computes instead of the plain version's steps ----------
+#
+# greedy_scan_mirror models, in PyTorch, how K4 and K4r order a step's work
+# differently from greedy_scan_plain (csrc/greedy_scan.cu), so the CPU tests
+# can hold it against the JAX package: the next pod found while the current
+# one is scored and re-checked after its charge, and the reservation fit
+# read through each node's range of records.
+
+
+def greedy_scan_mirror(state: ClusterState, pods: PodBatch,
+                       cfg: ScoringConfig, quota=None, rsv=None, match=None,
+                       boost: int = 10_000, trace: dict | None = None,
+                       window: int = SCAN_WINDOW):
+    """K4's and K4r's step as the kernel orders it, in PyTorch: returns
+    (assignments, rsv_choice, new_state, new_rsv, new_quota) as
+    :func:`greedy_scan_plain` does.
+
+    - Admission: ``find`` walks the pods in priority order from a position
+      to the first one valid and admitted by the current headroom.  While
+      a step's pod is scored, the next pod is found against the headroom
+      before its charge (speculation); after the charge that pod alone is
+      re-checked and, if the charge took its headroom, the search resumes
+      past it.  A charge that raises a headroom (a negative request, or a
+      headroom wrapping past int32's minimum) may admit a pod rejected
+      before it: the search then runs again from the charged pod on.
+      The search reads the pods through a window of ``window`` positions
+      in priority order, staged anew where a search starts outside it
+      (also behind it: the speculated pod may have moved it past the
+      charged one); a read outside the window raises.
+    - The reservation fit (K4r) is read through each node's range
+      ``[first[n], first[n + 1])`` of :func:`reservation_records` (sorted
+      by node): a node fits through a record when a matched record of its
+      range fits the pod; the nomination re-tests the chosen node's range
+      and takes the smallest total remainder, the lowest record (row) on
+      ties.
+    ``trace``, when given, gets ``headroom``: the (headroom, min_headroom)
+    before the scan and after each charge of the quota, ``resumed``: how
+    many speculated pods the re-check turned away, and ``rose``: how many
+    charges raised a headroom."""
+    from koordinator_tpu_torch.ops.assignment import (
+        _composite_score,
+        _threshold_mask,
+    )
+    from koordinator_tpu_torch.quota.admission import (
+        charge_quota,
+        quota_admission_mask,
+    )
+
+    n, r = state.capacity, NUM_RESOURCE_DIMS
+    order = priority_order(pods).tolist()
+    valid = pods.valid.tolist()
+    qids = pods.quota_id.tolist()
+    nps = pods.non_preemptible.tolist()
+    est_all = pod_estimates(pods, cfg)
+    feasible_all = pods.feasible_rows(state)
+    alloc, node_valid = state.node_allocatable, state.node_valid
+    requested = state.node_requested.clone()
+    est_added = torch.zeros_like(state.node_usage)
+    assignments = torch.full((pods.capacity,), -1, dtype=torch.int32)
+    rsv_choice = None
+    if rsv is not None:
+        rsv_choice = torch.full((pods.capacity,), -1, dtype=torch.int32)
+        records, perm, _ = reservation_records(rsv, n, 1)
+        rec_node = records[:, 2 * r].contiguous()
+        first = torch.searchsorted(rec_node, torch.arange(n + 1,
+                                                          dtype=torch.int32))
+        flags = records[:, 2 * r + 2]
+        reserved = records[:, :r]
+        allocated = records[:, r:2 * r].clone()
+    if trace is not None:
+        trace["resumed"] = trace["rose"] = 0
+        trace["headroom"] = ([] if quota is None else
+                             [(quota.headroom, quota.min_headroom)])
+
+    def admits(i: int) -> bool:
+        return quota is None or bool(quota_admission_mask(
+            quota, pods.requests[i:i + 1], pods.quota_id[i:i + 1],
+            pods.non_preemptible[i:i + 1])[0])
+
+    win = [0, 0]                                 # the staged [lo, hi)
+
+    def staged(pos: int) -> int:
+        """The pod at ``pos``, read through the window as the kernel does."""
+        if not win[0] <= pos < win[1]:
+            raise IndexError(f"position {pos} outside the window {win}")
+        return order[pos]
+
+    def find(pos: int) -> int:
+        while pos < len(order):
+            if not win[0] <= pos < win[1]:
+                win[:] = [pos, min(len(order), pos + window)]
+            idx = staged(pos)
+            if valid[idx] and admits(idx):
+                return pos
+            pos += 1
+        return -1
+
+    def record_fits(req, free):
+        """(V',) bool: each record's fit for ``req`` on its node."""
+        rem = reserved - allocated
+        free_at = free[rec_node.long()]
+        unreq = req[None, :] == 0
+        aligned = ((req[None, :] <= rem + free_at) | unreq).all(-1)
+        restricted = (torch.where(reserved > 0, req[None, :] <= rem,
+                                  req[None, :] <= free_at) | unreq).all(-1)
+        ok = torch.where((flags & _RESTRICTED) != 0, restricted, aligned)
+        return ok & (rem > 0).any(-1)
+
+    pos = find(0)
+    while pos >= 0:
+        idx = order[pos]
+        nxt = find(pos + 1)                      # the speculated next pod
+        if nxt >= 0:
+            staged(nxt)                          # loaded while idx is scored
+        req, est = pods.requests[idx], est_all[idx]
+        free = torch.where(node_valid[:, None], alloc - requested, 0)
+        fits = torch.all((req[None, :] <= free) | (req[None, :] == 0), -1)
+        if rsv is not None:
+            ok = match[idx, perm] & record_fits(req, free)
+            # any fitting record in each node's range
+            run = torch.cat([torch.zeros(1, dtype=torch.int64),
+                             ok.to(torch.int64).cumsum(0)])
+            via = (run[first[1:]] - run[first[:-1]]) > 0
+            fits = fits | via
+        feasible = (fits
+                    & _threshold_mask(cfg, state.node_usage + est_added,
+                                      state.node_agg_usage + est_added,
+                                      alloc, est[None, :])[0]
+                    & feasible_all[idx] & node_valid)
+        scores = _composite_score(cfg, alloc, requested,
+                                  state.node_usage + est_added, req[None, :],
+                                  est[None, :])[0]
+        if rsv is not None:
+            scores = scores + torch.where(via, boost, 0).to(scores.dtype)
+        masked = torch.where(feasible, scores, -1)
+        best = int(torch.argmax(masked))
+        charged = rose = False
+        if int(masked[best]) >= 0:
+            add = req
+            if rsv is not None:
+                lo, hi = int(first[best]), int(first[best + 1])
+                cand = [j for j in range(lo, hi) if bool(ok[j])]
+                if cand:
+                    total = (reserved - allocated).sum(-1).to(torch.int32)
+                    j = min(cand, key=lambda c: (int(total[c]), c))
+                    rem = reserved[j] - allocated[j]
+                    take = torch.minimum(req, rem)
+                    allocated[j] = (reserved[j] if int(flags[j]) & _ONCE
+                                    else allocated[j] + take)
+                    add = req - take
+                    rsv_choice[idx] = int(perm[j])
+            requested[best] += add
+            est_added[best] += est
+            assignments[idx] = best
+            if quota is not None:
+                q = qids[idx]
+                charged = q >= 0 and bool(quota.valid[q])
+                was = quota
+                quota = charge_quota(quota, req, q,
+                                     non_preemptible=nps[idx])
+                rose = bool((quota.headroom > was.headroom).any()
+                            | (quota.min_headroom > was.min_headroom).any())
+                if trace is not None:
+                    trace["headroom"].append((quota.headroom,
+                                              quota.min_headroom))
+        if rose:
+            nxt = find(pos + 1)                  # search again
+            if trace is not None:
+                trace["rose"] += 1
+        elif charged and nxt >= 0 and not admits(order[nxt]):
+            nxt = find(nxt + 1)                  # resume past it
+        if nxt >= 0:
+            staged(nxt)                          # loaded for the next step
+            if trace is not None:
+                trace["resumed"] += 1
+        pos = nxt
+    new_rsv = None
+    if rsv is not None:
+        out = rsv.allocated.clone()
+        out[perm] = allocated
+        new_rsv = rsv.replace(allocated=out)
+    return (assignments, rsv_choice, state.replace(node_requested=requested),
+            new_rsv, quota)

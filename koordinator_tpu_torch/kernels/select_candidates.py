@@ -19,6 +19,7 @@ tie-break ranks second (the WIDE regime), up to the 2**30 ceiling of
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
@@ -428,6 +429,92 @@ def topk_from_approx_ranks(a: torch.Tensor, k: int) -> torch.Tensor:
     return torch.where(j < f, node, fill).to(torch.int32)
 
 
+def approx_band(rot_id: torch.Tensor, n_total: int) -> torch.Tensor:
+    """(P,) bool: the rows K1a ranks on its 64-bit instance in the packed
+    regime, those whose tie-break gives two nodes one value
+    (:func:`tie_break_preimages` finds a second preimage): int32(rot_id *
+    7919) lies within N above -2**31, past -2**31 itself, and 2**32 is not
+    a multiple of N."""
+    wrap_from = (rot_id.to(torch.int32) * 7919).to(torch.int64) + 2**31
+    return (wrap_from > 0) & (wrap_from < n_total) & (2**32 % n_total != 0)
+
+
+def _approx_int32_parts(sb: int, k: int, rot_id: torch.Tensor,
+                        n_total: int):
+    """(d, x, t, tb0) of K1a's int32 rank for a stratum of ``k`` at spread
+    bits ``sb``: the tie-break bits the approx key drops (0 when the
+    stratum takes every column and ranks exactly), the low bits'
+    complement (a stratum of one candidate), the rotation of the run that
+    holds column 0 and column 0's tie-break (P, 1)."""
+    d = approx_shifts(sb, n_total)[1] if k < n_total else 0
+    mask = (1 << d) - 1
+    tb0 = _candidate_tb(torch.zeros((rot_id.shape[0], 1), dtype=torch.int32),
+                        rot_id, n_total).to(torch.int64)
+    z1 = (tb0 & mask) + 1
+    last = k == 1
+    return d, (mask if last else 0), (z1 if last else -z1), tb0
+
+
+def approx_rank_int32(key: torch.Tensor, tb: torch.Tensor, sb: int, k: int,
+                      rot_id: torch.Tensor, n_total: int) -> torch.Tensor:
+    """(P, N) int32: K1a's packed-regime list entry of every column (-1
+    where infeasible) for a stratum of ``k`` at spread bits ``sb``
+    (``key``/``tb`` from :func:`_rank_parts` at ``sb``).  K1's key
+    ``q << 15 | tb`` with the tie-break's low d bits (those the approx key
+    drops) complemented when k = 1, and, in the run of 2**d values that
+    holds column 0's tie-break, rotated so that the run reads from column
+    0 upwards: on a row off :func:`approx_band` its descending order is
+    :func:`approx_rank`'s (approx key descending, the lowest column first,
+    at k = 1 the highest)."""
+    d, x, t, tb0 = _approx_int32_parts(sb, k, rot_id, n_total)
+    mask = (1 << d) - 1
+    tb = tb.to(torch.int64)
+    add = torch.where(((tb ^ tb0) >> d) == 0, t, 0)
+    tb_r = (tb & ~mask) | (((tb ^ x) + add) & mask)
+    key = key.to(torch.int64)
+    return torch.where(key >= 0, ((key >> _TB_BITS) << _TB_BITS) | tb_r,
+                       -1).to(torch.int32)
+
+
+def topk_from_approx_int32(key: torch.Tensor, tb: torch.Tensor, sb: int,
+                           k: int, rot_id: torch.Tensor,
+                           n_total: int) -> torch.Tensor:
+    """Per-row top-k columns (int32) as K1a forms them in the packed
+    regime.  Rows off :func:`approx_band`: the best k
+    :func:`approx_rank_int32` entries and the count f of feasible columns;
+    slot j < f inverts the rotation to the tie-break and takes its one
+    preimage (the node), slot j >= f the (j - f)-th infeasible column,
+    ascending (at k = 1 column N - 1).  Band rows: the 64-bit instance,
+    :func:`topk_from_approx_ranks`, for every stratum.  Equals :func:`_topk_approx` for a
+    stratum below the column count, and ``_topk_by_rank`` at or above it."""
+    p, n = key.shape
+    k = min(k, n)
+    d, x, t, tb0 = _approx_int32_parts(sb, k, rot_id, n_total)
+    mask = (1 << d) - 1
+    vals = torch.sort(approx_rank_int32(key, tb, sb, k, rot_id, n_total),
+                      dim=1, descending=True).values[:, :k].to(torch.int64)
+    v = vals & ((1 << _TB_BITS) - 1)
+    add = torch.where(((v ^ tb0) >> d) == 0, t, 0)
+    tb_v = (v & ~mask) | ((((v & mask) - add) & mask) ^ x)
+    first, _ = tie_break_preimages(tb_v, rot_id[:, None].expand(p, k),
+                                   n_total)
+    f = (key >= 0).sum(dim=1, keepdim=True)
+    j = torch.arange(k)[None, :]
+    infeasible_first = torch.sort((key >= 0).to(torch.int8), dim=1,
+                                  stable=True).indices[:, :k]
+    fill = (torch.full_like(infeasible_first, n - 1) if k == 1 else
+            torch.gather(infeasible_first, 1, (j - f).clamp(min=0)))
+    cols = torch.where(j < f, first.to(torch.int64), fill)
+    band = approx_band(rot_id, n_total)
+    if bool(band.any()):
+        # an exact stratum's approx key is K1's key ((shift, d) = (15, 0))
+        a = (approx_keys(key, tb, sb, n_total) if k < n_total
+             else key.to(torch.int64))
+        wide = topk_from_approx_ranks(a, k)
+        cols = torch.where(band[:, None], wide.to(torch.int64), cols)
+    return cols.to(torch.int32)
+
+
 def selector_words(sel: torch.Tensor) -> torch.Tensor:
     """A (P, C) selector mask as (P, W) int64 words, W = ceil(C / 64): bit
     c % 64 of word c // 64 is column c (the layout the kernels' launches
@@ -546,10 +633,15 @@ def _check_method(method: str) -> None:
 def select_candidates_kernel(state: ClusterState, pods: PodBatch,
                              cfg: ScoringConfig, k: int = 32,
                              strata=(5, 15), chunk: int | None = None,
-                             method: str = "exact"):
+                             method: str = "exact", ranked=None):
     """K1's wrapper: (cand_key, cand_node, cand_score), each (P, k) int32.
-    ``method="approx"`` launches K1a, the instance whose lists rank by
-    the approx key (:func:`approx_rank`).
+    ``method="approx"`` launches K1a, the instances whose lists rank by
+    the approx key: in the packed regime the int32 one
+    (:func:`approx_rank_int32`) over the rows off the band
+    (:func:`approx_band`) and the 64-bit one (:func:`approx_rank`) over
+    the band's, in the wide regime the 64-bit one over every row.
+    ``ranked``, a (2,) int32 CUDA tensor, gets the rows K1a's int32 and
+    64-bit instances ranked added to it, as the kernel counts them.
 
     CPU tensors take :func:`select_candidates_plain` (``chunk`` sets its
     pod-chunk width).  CUDA tensors launch the kernel, which streams the
@@ -617,6 +709,11 @@ def select_candidates_kernel(state: ClusterState, pods: PodBatch,
     # the selector rows as words, packed by the kernel's launch
     words = (None if sel is None else
              torch.empty((p, -(-c // 64)), dtype=torch.int64, device=dev))
+    if ranked is not None:
+        build.expect(ranked, "ranked", torch.int32, (2,))
+        if ranked.device != dev:
+            raise ValueError(f"ranked: on {ranked.device}, expected {dev}")
+    launched = ctypes.c_int(0)
     err = lib.koord_select_candidates(
         build.ptr(state.node_allocatable), build.ptr(state.node_requested),
         build.ptr(state.node_usage), build.ptr(base),
@@ -626,9 +723,9 @@ def select_candidates_kernel(state: ClusterState, pods: PodBatch,
         build.ptr(feas_t),
         build.ptr(cfgv), cfgv.numel(), p, n, len(strata),
         sb[0], sb[1], ks[0], ks[1], int(method == "approx"), *shifts,
-        build.ptr(rows), build.ptr(key), build.ptr(node), build.ptr(score),
-        build.stream_of(key))
+        build.ptr(rows), build.ptr(ranked), build.ptr(key), build.ptr(node),
+        build.ptr(score), ctypes.addressof(launched), build.stream_of(key))
     name = "select_candidates" + ("_approx" if method == "approx" else "")
     build.check(err, name)
-    build.LAUNCHES[name] += 1
+    build.LAUNCHES[name] += launched.value   # K1a packed: two instances
     return key, node, score

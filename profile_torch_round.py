@@ -30,7 +30,9 @@ Needs a CUDA device.
 times K1 on the cold flagship round's own batch (65,536 rows, 50,000
 valid, x 10,240 nodes), K4 at 1,000 pods x 10,240 nodes (chip_smoke.py
 phase 8's problem) and K4 on the rescue of a steady round (phase 9's
-setup, its first steady round), K3b's whole acceptance of a solve's first
+setup, its first steady round), K1a on phase 9's (and 14's) cold round's
+batch, K4r at phase 11's round-2 reservation pre-pass (2,048 owner pods,
+10,240 nodes, 1,024 reservations), K3b's whole acceptance of a solve's first
 propose/accept round on the cold flagship round and on phase 9's cold
 round behind the quota tree (a port without the per-round acceptance
 runs its level-by-level calls), and K2 at phase 7's shape (D = 128); for
@@ -44,6 +46,15 @@ one change each (VARIANTS below whose name starts with PREFIX, under
 ``probe_results/variants/``) with the package's compiler flags, and times
 them in turns with the tree's own kernels, every variant's outputs
 required equal but those of INCOMPARABLE.
+
+    python3 profile_torch_round.py --steps
+
+builds a copy of K4's source with clock stamps in CTA 0 (STEP_STAMPS) and
+prints, for K4 at 1,000 pods and K4r at phase 11's pre-pass, the mean SM
+cycles of each stretch of a step: the scan to the last warp's rank, that
+rank to the last rank in from the cluster, the next pod's search, the
+reduction, the charge, the re-check and publication, and the wait for
+the next step.
 """
 
 from __future__ import annotations
@@ -121,11 +132,13 @@ VARIANTS = [
     # K4 on 8 CTAs: its node columns no longer fit shared memory
     ("k4_cluster_8", [("greedy_scan.cu", "constexpr int kCluster = 16;",
                        "constexpr int kCluster = 8;")]),
-    # K4 with 256 or 512 threads a CTA instead of 640
-    ("k4_threads_256", [("greedy_scan.cu", "constexpr int kThreads = 640;",
-                         "constexpr int kThreads = 256;")]),
-    ("k4_threads_512", [("greedy_scan.cu", "constexpr int kThreads = 640;",
-                         "constexpr int kThreads = 512;")]),
+    # K4 with 8 or 16 scanning warps a CTA instead of 20
+    ("k4_scan_warps_8", [("greedy_scan.cu",
+                          "constexpr int kScanWarps = 20;",
+                          "constexpr int kScanWarps = 8;")]),
+    ("k4_scan_warps_16", [("greedy_scan.cu",
+                           "constexpr int kScanWarps = 20;",
+                           "constexpr int kScanWarps = 16;")]),
     # K2 with one or two threads a pod instead of four
     ("k2_lanes_1", [("refresh_candidates.cu", "constexpr int kLanes = 4;",
                      "constexpr int kLanes = 1;")]),
@@ -135,7 +148,8 @@ VARIANTS = [
     # without decoding the lists (outputs not comparable): where its time
     # goes
     ("k2_no_fresh", [("refresh_candidates.cu",
-                      "      if (!pvalid) continue;\n      for (int i = lane;",
+                      "      if (!(kWide ? in_range : pvalid)) continue;\n"
+                      "      for (int i = lane;",
                       "      continue;\n      for (int i = lane;")]),
     ("k2_no_decode", [("refresh_candidates.cu",
                        "  // pass 2: each slot's node and score, and the",
@@ -206,15 +220,52 @@ def build_variants(build, prefix: str = "") -> dict:
                         pool.map(lambda c: build_copy(build, c[1]), copies)))
 
 
+def prepass_inputs(dev: str) -> dict:
+    """The inputs of chip_smoke.py phase 11's round-2 reservation pre-pass
+    (K4r): the flagship cluster with its 1,024 Reservations after round 1,
+    and the 2,048 owner pods of highest priority of round 2's 3,000, as
+    the scheduler hands them to reservation_greedy_assign."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from koordinator_tpu_torch.scheduler.scheduler import Scheduler
+    from koordinator_tpu_torch.scheduler.snapshot import ClusterSnapshot
+
+    nodes, pods = cs.main_path_specs(0, 10_240, 50_000)
+    rng = np.random.default_rng(17)
+    snap = ClusterSnapshot(capacity=10_240, device=dev)
+    for spec in nodes:
+        snap.upsert_node(spec)
+    now = [0.0]
+    sched = Scheduler(snap, device=dev, clock=lambda: now[0])
+    for spec in cs.reservation_specs(rng, nodes, cs.N_RESERVATIONS,
+                                     cs.N_PINNED):
+        sched.add_reservation(spec)
+    sched.enqueue_many(pods)
+    sched.schedule_round()
+    now[0] = 10.0
+    sched.enqueue_many(cs.owner_pods(rng, 0, 3_000))
+    log: list = []
+    with cs.prepass_probe(log, dev):
+        sched.schedule_round()
+    return log[0]
+
+
 def kernel_cases(dev: str):
     """({name: closure}, shapes): K1 on the cold flagship round's own
     batch, K4 at 1,000 pods x 10,240 nodes (chip_smoke.py phase 8's
     problem) and K4 on the rescue of a steady round (phase 9's setup, a
-    cold round and one steady round on the forced-threshold scheduler)."""
+    cold round and one steady round on the forced-threshold scheduler),
+    K1a on that cold round's batch (phase 14's cold round selects on the
+    same batch under cand_method="approx") and K4r at phase 11's round-2
+    pre-pass."""
     import numpy as np
 
     import chip_smoke as cs
-    from koordinator_tpu_torch.kernels.greedy_scan import greedy_scan_kernel
+    from koordinator_tpu_torch.kernels.greedy_scan import (
+        greedy_scan_kernel,
+        reservation_scan_kernel,
+    )
     from koordinator_tpu_torch.kernels.select_candidates import (
         select_candidates_kernel,
     )
@@ -247,7 +298,13 @@ def kernel_cases(dev: str):
         "k3b_quota_round_ms": first_round_accept(
             cold["state"], cold["batch"], cold["cfg"], cold["quota"]),
         "k2_ms": refresh_case(state, pods, cfg),
+        "k1a_ms": lambda: select_candidates_kernel(
+            cold["state"], cold["batch"], cold["cfg"], 32, method="approx"),
     }
+    pre = prepass_inputs(dev)
+    cases["k4r_ms"] = lambda: reservation_scan_kernel(
+        pre["state"], pre["pods"], pre["cfg"], pre["rsv"], pre["match"],
+        pre["quota"])[:2]
     shapes = {
         "k1_shape": [pods.capacity, int(pods.valid.sum()), state.capacity],
         "k4_shape": [gpods.capacity, gstate.capacity],
@@ -260,6 +317,11 @@ def kernel_cases(dev: str):
                                   cold["quota"].capacity],
         "k2_shape": [pods.capacity, int(pods.valid.sum()), state.capacity,
                      128],
+        "k1a_shape": [cold["batch"].capacity,
+                      int(cold["batch"].valid.sum()),
+                      cold["state"].capacity],
+        "k4r_shape": [pre["pods"].capacity, int(pre["pods"].valid.sum()),
+                      pre["state"].capacity, pre["rsv"].capacity],
     }
     return cases, shapes
 
@@ -363,6 +425,9 @@ DEVICE_KERNELS = {
     "k3b_quota_round_ms": ("prefix_accept_kernel", "round_accept_kernel"),
     "k2_ms": ("refresh_candidates_kernel", "pack_node_rows",
               "pack_selector_words"),
+    "k1a_ms": ("select_candidates_kernel", "pack_node_rows",
+               "pack_selector_words"),
+    "k4r_ms": ("greedy_scan_kernel", "pack_selector_words"),
 }
 
 
@@ -440,6 +505,112 @@ def kernel_times(args) -> int:
     return 0
 
 
+#: a copy of K4's and K4r's source with clock stamps in CTA 0, a step at a
+#: time: 0 the scan starts, 1 the last scanning warp has sent its rank, 2
+#: the control warp has found and loaded the next pod, 3 every rank is in,
+#: 4 reduced, 5 charged, 6 the next pod published
+_STAMP = "if (rank == 0 && step < 4096) "
+STEP_STAMPS = [
+    ("greedy_scan.cu", "namespace cg = cooperative_groups;\n",
+     "namespace cg = cooperative_groups;\n"
+     "__device__ unsigned long long g_stamps[7][4096];\n"
+     "extern \"C\" int koord_step_stamps(unsigned long long* out) {\n"
+     "  return (int)cudaMemcpyFromSymbol(out, g_stamps, sizeof(g_stamps));\n"
+     "}\n"
+     "extern \"C\" int koord_step_stamps_reset() {\n"
+     "  static unsigned long long zero[7][4096];\n"
+     "  return (int)cudaMemcpyToSymbol(g_stamps, zero, sizeof(zero));\n"
+     "}\n"),
+    ("greedy_scan.cu", "    if (idx < 0) break;\n",
+     "    if (idx < 0) break;\n"
+     "    if (tid == 0) { " + _STAMP + "g_stamps[0][step] = clock64(); }\n"),
+    ("greedy_scan.cu", "                 peer_addr(&s_bar[b], lane));\n",
+     "                 peer_addr(&s_bar[b], lane));\n"
+     "      if (lane == 0) { " + _STAMP + "atomicMax(&g_stamps[1][step], "
+     "(unsigned long long)clock64()); }\n"),
+    ("greedy_scan.cu",
+     "      mbar_wait(&s_bar[b], static_cast<uint32_t>((step >> 1) & 1));\n",
+     "      if (lane == 0) { " + _STAMP
+     + "g_stamps[2][step] = clock64(); }\n"
+     "      mbar_wait(&s_bar[b], static_cast<uint32_t>((step >> 1) & 1));\n"
+     "      if (lane == 0) { " + _STAMP
+     + "g_stamps[3][step] = clock64(); }\n"),
+    ("greedy_scan.cu",
+     "      const bool placed = static_cast<int>(best >> 32) >= 0;\n",
+     "      const bool placed = static_cast<int>(best >> 32) >= 0;\n"
+     "      if (lane == 0) { " + _STAMP
+     + "g_stamps[4][step] = clock64(); }\n"),
+    ("greedy_scan.cu", "      rose = __any_sync(kFull, rose);\n",
+     "      rose = __any_sync(kFull, rose);\n"
+     "      if (lane == 0) { " + _STAMP
+     + "g_stamps[5][step] = clock64(); }\n"),
+    ("greedy_scan.cu", "      if (lane == 0) s_pod[b ^ 1] = nidx;\n",
+     "      if (lane == 0) s_pod[b ^ 1] = nidx;\n"
+     "      if (lane == 0) { " + _STAMP
+     + "g_stamps[6][step] = clock64(); }\n"),
+]
+
+
+def step_times(args) -> int:
+    """Where a step of K4 (1,000 pods x 10,240 nodes) and of K4r (phase
+    11's pre-pass) goes: STEP_STAMPS' copy of the sources, one launch
+    each, the mean SM cycles of every stretch of a step over its steps
+    (CTA 0's clock).  One JSON line a kernel."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from koordinator_tpu_torch.kernels import build
+    from koordinator_tpu_torch.kernels.greedy_scan import (
+        greedy_scan_kernel,
+        reservation_scan_kernel,
+    )
+
+    dev = "cuda"
+    lib = build_copy(build, patched_sources("step_stamps", STEP_STAMPS,
+                                            build.CSRC))
+    lib.koord_step_stamps.argtypes = [ctypes.c_void_p]
+    lib.koord_step_stamps_reset.argtypes = []
+    for fn in (lib.koord_step_stamps, lib.koord_step_stamps_reset):
+        fn.restype = ctypes.c_int
+    build._lib = lib
+    state, pods = cs.random_problem(21, 10_240, 1_000, dev, "classes")
+    quota, pods = cs.quota_setup(pods, dev, 21)
+    cfg = cs.scoring_config("default", dev)
+    pre = prepass_inputs(dev)
+    cases = {
+        "k4_1000_pods": lambda: greedy_scan_kernel(state, pods, cfg, quota),
+        "k4r_prepass": lambda: reservation_scan_kernel(
+            pre["state"], pre["pods"], pre["cfg"], pre["rsv"], pre["match"],
+            pre["quota"]),
+    }
+    for name, fn in cases.items():
+        fn()
+        torch.cuda.synchronize()
+        lib.koord_step_stamps_reset()
+        fn()
+        torch.cuda.synchronize()
+        t = np.zeros((7, 4096), np.uint64)
+        lib.koord_step_stamps(t.ctypes.data)
+        t = t.astype(np.int64)
+        steps = int((t[0] > 0).sum())
+        n = min(steps, 4096) - 1   # step 0 (setup) and the last left out
+
+        def mean(a, b):
+            return float(np.mean(t[b, 1:n] - t[a, 1:n]))
+
+        print(json.dumps(dict(
+            kernel=name, nvidia_smi=cs.smi_name_power(), steps=steps,
+            cycles=dict(
+                step=float(np.mean(t[0, 2:n + 1] - t[0, 1:n])),
+                scan=mean(0, 1), last_rank_in=mean(1, 3),
+                next_pod_found=mean(0, 2), reduce=mean(3, 4),
+                charge=mean(4, 5), recheck_publish=mean(5, 6),
+                publish_to_next=float(np.mean(t[0, 2:n + 1] - t[6, 1:n]))))),
+              flush=True)
+    return 0
+
+
 def index_add_split(prof, dev_us) -> list:
     """index_add_'s device time (ms) and calls by the shapes of its inputs
     (the table it adds into, the index, the rows added), which tell its
@@ -479,7 +650,12 @@ def main() -> int:
     ap.add_argument("--shapes", action="store_true",
                     help="record input shapes; split index_add_'s device "
                     "time by them")
+    ap.add_argument("--steps", action="store_true",
+                    help="split a step of K4 and K4r into its stretches "
+                    "(SM cycles) instead")
     args = ap.parse_args()
+    if args.steps:
+        return step_times(args)
     if args.kernels:
         if args.root:
             sys.path.insert(0, os.path.abspath(args.root))

@@ -350,3 +350,128 @@ def test_gang_assign_batch_approx_matches_jax():
     placed = np.bincount(gang_id[(gang_id >= 0) & (ga.numpy() >= 0)],
                          minlength=8)
     assert placed.max() > 0 and (placed == 0).any()
+
+
+# -- K1a's int32 lists (packed regime) ----------------------------------------
+
+from hypothesis import given, settings  # noqa: E402
+from hypothesis import strategies as st  # noqa: E402
+
+#: node counts of the int32 rank's tests: below a run, off a multiple of
+#: the run length 2**d, powers of two (where 2**32 % N == 0) and the packed
+#: regime's last capacity
+INT32_NODES = (1, 2, 5, 31, 64, 100, 257, 1_000, 4_099, 10_240, 32_768)
+
+
+def _rot_at(offset: int) -> int:
+    """The rot id whose rot * 7919 (int32-wrapped) is -2**31 + offset."""
+    rot = ((2**31 + offset) % 2**32 * pow(7919, -1, 2**32)) % 2**32
+    return rot - 2**32 if rot >= 2**31 else rot
+
+
+def _int32_case(n: int, p: int, seed: int, score_hi: int, density: float):
+    """(scores, feasible, rot_id) of ``p`` rows over ``n`` columns: scores
+    in [0, score_hi) (few distinct keys, so runs of one approx key hold
+    many columns), the first two rows wholly feasible, one row with none,
+    and rot ids in three kinds a row: random, the band's
+    (:func:`danger_rot_ids`) and rot * 7919 == -2**31 exactly (every
+    difference wraps, one preimage a value)."""
+
+    rng = np.random.default_rng(seed)
+    scores = torch.from_numpy(rng.integers(0, score_hi, (p, n))
+                              .astype(np.int32))
+    feas = rng.random((p, n)) < density
+    feas[:2] = True
+    feas[2] = False
+    rot = rng.integers(-(2**31), 2**31 - 1, p).astype(np.int32)
+    rot[1::3] = danger_rot_ids(rng, len(rot[1::3]), n)
+    rot[3] = _rot_at(0)
+    return scores, torch.from_numpy(feas), torch.from_numpy(rot)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_reduce(k: int, sb: int):
+    import jax
+
+    from koordinator_tpu.ops import batch_assign as jba
+
+    return jax.jit(lambda s, f, r: jba._reduce_candidates(
+        s, f, (sb,), k, "approx", r)[1])
+
+
+@settings(max_examples=30, deadline=None)
+@given(n=st.sampled_from(INT32_NODES), sb=st.integers(0, 7),
+       k=st.integers(1, 32), seed=st.integers(0, 2**16),
+       score_hi=st.sampled_from([2, 40, 4_000]),
+       density=st.sampled_from([0.05, 0.6, 1.0]))
+def test_int32_approx_rank_matches_jax(n, sb, k, seed, score_hi, density):
+    """K1a's packed int32 lists (``approx_rank_int32``) and their decoding
+    (``topk_from_approx_int32``: the rotation inverted, the tie-break's one
+    preimage, -1 slots the lowest infeasible columns or at k = 1 column
+    N - 1; band rows on the 64-bit rank) give ``_topk_approx``'s columns
+    and the JAX package's approx branch of ``_reduce_candidates``, exactly,
+    at every spread, k and node count (k >= N ranks exactly)."""
+    import jax.numpy as jnp
+
+    from koordinator_tpu_torch.kernels import select_candidates as k1
+
+    k = min(k, n)
+    scores, feas, rot = _int32_case(n, 8, seed, score_hi, density)
+    key, tb = k1._rank_parts(scores, feas, sb, rot)
+    got = k1.topk_from_approx_int32(key, tb, sb, k, rot, n)
+    plain = (k1._topk_approx(key, tb, sb, k, n) if k < n
+             else k1._topk_by_rank(key, tb, k, n)[1])
+    assert torch.equal(got, plain)
+    want = _jax_reduce(k, sb)(jnp.asarray(scores.numpy()),
+                              jnp.asarray(feas.numpy()),
+                              jnp.asarray(rot.numpy()))
+    assert np.array_equal(np.asarray(want), got.numpy())
+
+
+@settings(max_examples=40, deadline=None)
+@given(n=st.one_of(st.sampled_from(INT32_NODES), st.integers(1, 2**15)),
+       offsets=st.lists(st.integers(0, 2**15), min_size=1, max_size=6),
+       seed=st.integers(0, 2**16))
+def test_approx_band_is_where_a_tie_break_has_two_preimages(n, offsets,
+                                                             seed):
+    """``approx_band`` holds exactly for the rot ids at which some
+    tie-break value of the row has two preimages
+    (``tie_break_preimages``): rot ids whose rot * 7919 lies ``offset``
+    above -2**31 (the band when 0 < offset < N and N does not divide
+    2**32), and random ones."""
+    from koordinator_tpu_torch.kernels import select_candidates as k1
+
+    rng = np.random.default_rng(seed)
+    rots = [_rot_at(off % (2 * n)) for off in offsets]
+    rots += rng.integers(-(2**31), 2**31 - 1, 3).tolist()
+    rot = torch.tensor(rots, dtype=torch.int32)
+    values = torch.arange(n, dtype=torch.int32)[None, :].expand(len(rots), n)
+    _, second = k1.tie_break_preimages(values, rot[:, None].expand(-1, n), n)
+    assert torch.equal(k1.approx_band(rot, n), (second >= 0).any(dim=1))
+
+
+@settings(max_examples=40, deadline=None)
+@given(n=st.sampled_from(INT32_NODES), sb=st.integers(0, 7),
+       k=st.integers(1, 32), seed=st.integers(0, 2**16),
+       score_hi=st.sampled_from([2, 40, 4_000]))
+def test_int32_approx_rank_orders_as_the_64_bit_rank(n, sb, k, seed,
+                                                      score_hi):
+    """Off the band, the int32 rank orders a row's feasible columns as
+    K1a's 64-bit ``approx_rank`` does (approx key descending, the lowest
+    column first; at k = 1 the highest), every column of the row: the
+    entries are distinct, so the two sorts agree position by position."""
+    from koordinator_tpu_torch.kernels import select_candidates as k1
+
+    if k >= n:
+        return                       # an exact stratum: no approx rank
+    scores, feas, rot = _int32_case(n, 8, seed, score_hi, 1.0)
+    key, tb = k1._rank_parts(scores, feas, sb, rot)
+    r32 = k1.approx_rank_int32(key, tb, sb, k, rot, n)
+    cols = torch.arange(n)[None, :].expand(8, n)
+    r64 = k1.approx_rank(k1.approx_keys(key, tb, sb, n), cols, last=k == 1)
+    off = ~k1.approx_band(rot, n) & feas.all(dim=1)   # row 2 has none
+    assert int(off.sum()) >= 3
+    for i in torch.nonzero(off).flatten().tolist():
+        assert r32[i].unique().numel() == n
+        assert torch.equal(torch.argsort(r32[i], descending=True),
+                           torch.argsort(r64[i], descending=True))

@@ -14,6 +14,7 @@ import torch
 
 from tests.torch_parity import (
     CPU,
+    MEM,
     R,
     assert_same_fields,
     config,
@@ -22,6 +23,7 @@ from tests.torch_parity import (
     quota_trees,
     same,
     set_torch_threads,
+    tight_quota,
     with_quota_ids,
 )
 
@@ -212,3 +214,129 @@ def test_greedy_scan_skips_unplaced_pods_exactly(seed, mode):
     assert torch.equal(full[1].node_requested, kept[1].node_requested)
     assert_same_fields(want[2], kept[2], "QuotaDeviceState")
     assert_same_fields(want[2], full[2], "QuotaDeviceState")
+
+
+# -- K4's step, as the kernel orders it --------------------------------------
+
+#: quota-tight sweeps of the step's model: (seed, mode, scoring, what may
+#: raise a headroom: nothing, pods requesting a negative amount, or the
+#: parent's memory headroom wrapping past int32's minimum)
+STEP_CASES = [
+    (40, "factored", "default", "none"),
+    (41, "dense", "dominant", "none"),
+    (47, "factored", "agg", "none"),
+    (43, "factored", "most_allocated", "negative"),
+    (44, "dense", "everything", "negative"),
+    (46, "factored", "default", "wrap"),
+]
+
+
+@pytest.mark.parametrize("seed,mode,variant,rise", STEP_CASES)
+def test_step_model_equals_plain_and_jax(seed, mode, variant, rise):
+    """K4's step as the kernel orders it (``greedy_scan_mirror``: the next
+    pod found while the current one is scored and re-checked after its
+    charge, and searched again after a charge that raised a headroom)
+    gives ``greedy_assign_plain``'s and the JAX package's
+    ``greedy_assign``'s assignments, node accounting and quota on
+    quota-tight sweeps, most pods under one parent.  A headroom rises
+    under a negative request, and when qa's pods charge the parent's
+    memory headroom (left at -2**31 + 1,000) past int32's minimum: qb's
+    pods, which check memory, are rejected until that wrap and admitted
+    after it."""
+    import jax.numpy as jnp
+
+    from koordinator_tpu.ops.assignment import greedy_assign as jax_greedy
+
+    from koordinator_tpu_torch.kernels.greedy_scan import greedy_scan_mirror
+    from koordinator_tpu_torch.ops.assignment import greedy_assign_plain
+
+    js, jp = problem(seed, mode, n_nodes=48, n_pods=64, invalid_tail=2)
+    jp = with_quota_ids(jp, seed)
+    rng = np.random.default_rng(seed + 3000)
+    qid = rng.choice(np.array([1, 2, 1, 2, 3, -1], np.int32),
+                     size=jp.capacity)
+    req = np.asarray(jp.requests).copy()
+    if rise == "negative":
+        req[rng.integers(0, 60, 3), CPU] = -1_500
+    jp = jp.replace(quota_id=jnp.asarray(qid), requests=jnp.asarray(req))
+    jquota, tquota = tight_quota(seed)
+    if rise == "wrap":
+        head = np.array(jquota.headroom)
+        head[0, MEM] = -(2**31) + 1_000
+        checked = np.array(jquota.checked)
+        checked[2, MEM] = True
+        jquota = jquota.replace(headroom=jnp.asarray(head),
+                                checked=jnp.asarray(checked))
+        tquota = port(jquota, "QuotaDeviceState")
+    jcfg = config(variant)
+    want = jax_greedy(js, jp, jcfg, jquota)
+    ts, tp, tc = (port(js, "ClusterState"), port(jp, "PodBatch"),
+                  port(jcfg, "ScoringConfig"))
+    plain = greedy_assign_plain(ts, tp, tc, tquota)
+    trace = {}
+    got = greedy_scan_mirror(ts, tp, tc, tquota, trace=trace)
+    assert same(want[0], got[0]) and torch.equal(got[0], plain[0])
+    assert_same_fields(want[1], got[2], "ClusterState")
+    assert_same_fields(want[2], got[4], "QuotaDeviceState")
+    assert torch.equal(got[4].headroom, plain[2].headroom)
+    a = got[0].numpy()
+    assert (a >= 0).any() and (a[qid >= 0] == -1).any()
+    if rise == "none":
+        assert trace["resumed"] >= 1 and trace["rose"] == 0
+    else:
+        assert trace["rose"] >= 1
+    if rise == "wrap":
+        assert (a[qid == 2] >= 0).any()
+
+
+@pytest.mark.parametrize("window", [16, 32])
+def test_step_model_stages_the_window_again_behind_it(window):
+    """A charge that raises a headroom after the speculated next pod moved
+    the kernel's pod window past the charged one: pod 0 requests -10,000
+    mcores of qa, whose headroom of 1,000 rejects the 2,000-mcore pods
+    behind it until that charge, and the next pod admitted before it lies
+    two windows on.  The search that runs again from pod 1 stages the
+    window anew behind the old one, and pods 1-5 are admitted after all,
+    as in ``greedy_assign_plain`` and the JAX package's
+    ``greedy_assign``."""
+    import jax.numpy as jnp
+
+    from koordinator_tpu.ops.assignment import greedy_assign as jax_greedy
+
+    from koordinator_tpu_torch.kernels.greedy_scan import greedy_scan_mirror
+    from koordinator_tpu_torch.ops.assignment import greedy_assign_plain
+
+    n_pods, tight = 3 * window, 5 * window // 2
+    js, jp = problem(48, "factored", n_nodes=48, n_pods=n_pods)
+    req = np.zeros((n_pods, R), np.int32)
+    req[:, CPU] = np.where(np.arange(n_pods) < tight, 2_000, 500)
+    req[0, CPU] = -10_000
+    req[:, MEM] = 1_024
+    qid = np.where(np.arange(n_pods) < tight, 1, -1).astype(np.int32)
+    jp = jp.replace(requests=jnp.asarray(req), quota_id=jnp.asarray(qid),
+                    priority=jnp.asarray(9_000 - np.arange(n_pods),
+                                         jnp.int32),
+                    non_preemptible=jnp.zeros(n_pods, bool),
+                    selector_mask=jnp.ones_like(jp.selector_mask))
+    jquota, _ = tight_quota(48)
+    head = np.array(jquota.headroom)
+    head[:, CPU] = 10**6
+    head[1, CPU] = 1_000
+    checked = np.array(jquota.checked)
+    checked[1, CPU] = True
+    jquota = jquota.replace(headroom=jnp.asarray(head),
+                            checked=jnp.asarray(checked))
+    tquota = port(jquota, "QuotaDeviceState")
+    jcfg = config("default")
+    want = jax_greedy(js, jp, jcfg, jquota)
+    ts, tp, tc = (port(js, "ClusterState"), port(jp, "PodBatch"),
+                  port(jcfg, "ScoringConfig"))
+    plain = greedy_assign_plain(ts, tp, tc, tquota)
+    trace = {}
+    got = greedy_scan_mirror(ts, tp, tc, tquota, trace=trace, window=window)
+    assert same(want[0], got[0]) and torch.equal(got[0], plain[0])
+    assert_same_fields(want[1], got[2], "ClusterState")
+    assert_same_fields(want[2], got[4], "QuotaDeviceState")
+    a = got[0].numpy()
+    assert (a[:6] >= 0).all() and (a[6:tight] == -1).all()
+    assert (a[tight:] >= 0).any() and trace["rose"] >= 1

@@ -26,6 +26,7 @@ from tests.torch_parity import (
     quota_trees,
     same,
     set_torch_threads,
+    tight_quota,
     with_quota_ids,
 )
 
@@ -682,3 +683,93 @@ def test_reservation_records_layout():
              + 2 * rsv.restricted.numpy()[want].astype(int))
     assert np.array_equal(rec[:, 2 * R + 2], flags)
     assert vmax == np.bincount(node[want] // nodes_per_cta).max()
+
+
+# -- K4r's step, as the kernel orders it -------------------------------------
+
+#: quota-tight sweeps of the step's model: (seed, mode, scoring, rows, on
+#: a few nodes)
+STEP_SWEEPS = [
+    (20, "factored", "default", 24, False),
+    (21, "dense", "agg", 40, True),
+    (22, "out_of_range", "everything", 64, True),
+    (23, "factored", "most_allocated", 48, False),
+]
+
+
+def _step_case(seed, mode, variant, rows, few):
+    """A crowded problem with reservations, the owner match and the tight
+    quota tree, as JAX objects and the port's."""
+    state, pods = problem(seed, mode, n_nodes=32, n_pods=48)
+    state = state.replace(
+        node_requested=(np.asarray(state.node_allocatable) * 0.6).astype(
+            np.int32))
+    rsv = random_reservations(seed, state, rows,
+                              on_nodes=[2, 9, 9, 30] if few else None)
+    match = random_match(seed, pods, rsv, density=0.5)
+    pods = with_quota_ids(pods, seed)
+    # most pods under the parent's two leaves, whose headroom they share
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed + 3000)
+    pods = pods.replace(quota_id=jnp.asarray(rng.choice(
+        np.array([1, 2, 1, 2, 3, -1], np.int32), size=pods.capacity)))
+    quota, tquota = tight_quota(seed)
+    return state, pods, config(variant), rsv, match, quota, tquota
+
+
+@pytest.mark.parametrize("seed,mode,variant,rows,few", STEP_SWEEPS)
+def test_step_model_equals_plain_and_jax(seed, mode, variant, rows, few):
+    """K4r's step as the kernel orders it (``greedy_scan_mirror``: each
+    node's range of records, the fit folded into the node pass, the next
+    pod found while the current one is scored and re-checked after its
+    charge) gives ``greedy_scan_plain``'s and the JAX package's
+    ``reservation_greedy_assign``'s assignments, reservation choices,
+    node accounting, reservations and quota, on quota-tight sweeps."""
+    from koordinator_tpu_torch.kernels.greedy_scan import greedy_scan_mirror
+    from koordinator_tpu_torch.ops.assignment import greedy_scan_plain
+
+    state, pods, cfg, rsv, match, quota, tquota = _step_case(
+        seed, mode, variant, rows, few)
+    want = assert_scan_parity(state, pods, cfg, rsv, match, quota, tquota)
+    ts, tp, tc, tr = both(state, pods, cfg, rsv)
+    m = torch.from_numpy(match)
+    plain = greedy_scan_plain(ts, tp, tc, tquota, tr, m)
+    trace = {}
+    got = greedy_scan_mirror(ts, tp, tc, tquota, tr, m, trace=trace)
+    for ref in (want, plain):
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        assert torch.equal(got[2].node_requested, ref[2].node_requested)
+        assert torch.equal(got[3].allocated, ref[3].allocated)
+        assert torch.equal(got[4].headroom, ref[4].headroom)
+        assert torch.equal(got[4].min_headroom, ref[4].min_headroom)
+    qid = tp.quota_id.numpy()
+    assert (got[0].numpy()[qid >= 0] == -1).any()   # quota turned some away
+    assert bool((got[1] >= 0).any())                # some drew a record
+    assert trace["resumed"] >= 1                    # a re-check failed
+
+
+@pytest.mark.parametrize("seed,mode,variant,rows,few", STEP_SWEEPS)
+def test_quota_rejection_is_final_within_a_scan(seed, mode, variant, rows,
+                                                few):
+    """The premise of speculative admission: with requests that are not
+    negative, no pod that the headroom rejects before a charge is admitted
+    after it, at any point of the scan (every pod of the batch, under the
+    headroom before the scan and after each charge)."""
+    from koordinator_tpu_torch.kernels.greedy_scan import greedy_scan_mirror
+    from koordinator_tpu_torch.quota.admission import quota_admission_mask
+
+    state, pods, cfg, rsv, match, _, tquota = _step_case(
+        seed, mode, variant, rows, few)
+    ts, tp, tc, tr = both(state, pods, cfg, rsv)
+    assert bool((tp.requests >= 0).all())
+    trace = {}
+    greedy_scan_mirror(ts, tp, tc, tquota, tr, torch.from_numpy(match),
+                       trace=trace)
+    assert len(trace["headroom"]) >= 3
+    admitted = torch.stack([
+        quota_admission_mask(tquota.replace(headroom=h, min_headroom=mh),
+                             tp.requests, tp.quota_id, tp.non_preemptible)
+        for h, mh in trace["headroom"]])
+    assert bool((admitted[0] & ~admitted[-1]).any())  # the quota binds
+    assert not bool((~admitted[:-1] & admitted[1:]).any())

@@ -189,6 +189,30 @@ def quota_trees(seed: int = 0, loose: bool = False):
     return trees[0], trees[1]
 
 
+def tight_quota(seed: int):
+    """(JAX QuotaDeviceState, port twin) of :func:`quota_trees`' hierarchy
+    with the checked headroom of the parent and the leaves cut to a few
+    pods' worth (requests run 100-4,000 mcores and 128-8,192 MiB) and
+    qa's min headroom to one or two, so consecutive pods of one leaf often
+    find room for one of them only."""
+    import jax.numpy as jnp
+
+    from koordinator_tpu.quota.admission import QuotaDeviceState
+
+    jtree, _ = quota_trees(seed)
+    quota, _ = QuotaDeviceState.from_tree(jtree)
+    rng = np.random.default_rng(seed + 2000)
+    head = np.array(quota.headroom)
+    head[0, CPU] = rng.integers(5_000, 12_000)
+    head[1:3, CPU] = rng.integers(1_500, 7_000, 2)
+    head[3, MEM] = rng.integers(6_000, 20_000)      # qc checks memory
+    min_head = np.array(quota.min_headroom)
+    min_head[1, CPU] = rng.integers(1_000, 5_000)
+    quota = quota.replace(headroom=jnp.asarray(head),
+                          min_headroom=jnp.asarray(min_head))
+    return quota, port(quota, "QuotaDeviceState")
+
+
 def with_quota_ids(pods, seed: int):
     """The JAX PodBatch with quota ids over {qa, qb, qc, none} (rows of the
     sorted quota index: parent=0, qa=1, qb=2, qc=3) and some
