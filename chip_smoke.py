@@ -138,13 +138,39 @@ first failure:
    differ from K1's; and on the cold batch with 8 rows at rot ids in the
    band (two nodes share a tie-break there), so that K1a's int32 and
    64-bit instances both launch, at k = 32, 2 and 3, with the rows each
-   instance took.
+   instance took;
+15. preemption (``phase_preemption``): the flagship cluster filled to 95%
+   of its cpu through ``add_bound_pods`` (~170,000 bound pods: 70%
+   koord-batch, 20% koord-mid, 10% koord-prod and non-preemptible; 80% in
+   16 leaf quotas; 32 PDBs over an app label with budgets 0-8), the overuse
+   revoke on, and 1,200 koord-prod arrivals (60% in the leaves, 8 gangs of
+   8-16 members, 16 that never preempt).  Round 1 runs PostFilter at the
+   1,024 cap: the gangs as jobs (K5 through preempt_one), then chains of
+   256 single preemptors (K5 through preempt_chain); round 2 binds the
+   nominations; round 3, on a fake clock past the 5 s delay, raises
+   leaf-0's demand, which shrinks its siblings' runtime under their used,
+   and QuotaRevoke runs K6 over every bound pod.  Each round prints its
+   wall time, PostFilter ms, preemptors tried and nominated, victims
+   evicted, revoked pods and nominated binds; no node is over its
+   allocatable, the accounting equals the bound pods and the nominations,
+   every PDB paid for its evictions.  Every K5 chain and preempt_one call
+   of the rounds, and the K6 call, equal their plain versions on their
+   recorded inputs; K5 is timed on the first full chain (the wrapper,
+   and K5a and K5b alone), K6 on round 3's call.  Before it
+   ``preempt_edges``: K5 and K6 on their edges (a node with 110
+   candidates, PDB budgets of 0 and rank ties, an all-tie choice, no
+   eligible node, priorities at NEG_PRI and -2**31 with headroom at
+   +-2**30, inactive rows, a later preemptor seeing an earlier one's
+   nomination, 65,536 nodes, 4,096 PDBs, one quota of 50,000 pods, hopeless
+   quotas with and without a PDB-blocked pod).
 
 The line before the last is ``nvidia-smi``'s name and power limit; the last
 is ``{"ok": true, "device": {...}}``.  Before them, one JSON line lists the
-seven kernels: time, launches over the steady-state run of the forced-
+nine kernels: time, launches over the steady-state run of the forced-
 threshold scheduler (the slice's main path; K4r's over the reservations
-phase's three rounds; K1a's over phase 14's three rounds), bound, plain
+phase's three rounds; K1a's over phase 14's three rounds; K5's and K6's
+over phase 15's three rounds, K5's time that of one chain of 256
+preemptors beside ``ms_per_preemptor``), bound, plain
 and library time, under ``phase12`` the same at phase 12's shapes with
 its launches over phase 12's four rounds, and under ``phase13`` the
 launches over phase 13's three rounds, with K1's, K3b's and K4's numbers
@@ -376,6 +402,33 @@ def timed_ms(fn, device, reps: int = 3, warmup: int = 1) -> float:
     for _ in range(reps):
         fn()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def device_ms_by_kernel(fn, names, device, reps: int = 2) -> dict:
+    """Mean device milliseconds a call of ``fn`` spends in the kernels
+    whose profiler keys contain each of ``names``, from a torch.profiler
+    trace of ``reps`` calls after one untraced; None for a name with no
+    device time (off the card, or no device time in the trace)."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return dict.fromkeys(names)
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        for name in names:
+            if name in e.key:
+                total[name] += float(getattr(
+                    e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0)))
+    return {n: (t / 1e3 / reps if t > 0 else None) for n, t in total.items()}
 
 
 def max_abs_err(a, b) -> int:
@@ -1836,9 +1889,12 @@ def phase_steady(device, n_nodes: int = 10_240, n_pods: int = 50_000,
           "the forced scheduler refreshed every steady round")
     for kname, count in totals.items():
         # K4r runs only where reservations exist (phase_reservations), K1a
-        # only under an approx candidate method (phase_approx)
+        # only under an approx candidate method (phase_approx), K5 and K6
+        # only with preemption and the overuse revoke on (phase_preemption)
         check(count > 0 or kname in ("reservation_scan",
-                                     "select_candidates_approx"),
+                                     "select_candidates_approx",
+                                     "victim_select", "victim_commit",
+                                     "overuse_revoke"),
               f"{kname} launched on the steady-state path")
     by_name = {p.name: p for p in pods}
     by_name.update(enqueued)
@@ -3826,6 +3882,758 @@ def phase_approx(device, n_nodes: int = 10_240, n_pods: int = 50_000,
     return entry, records
 
 
+# -- phase 15: preemption and quota overuse revoke (K5, K6) -------------------
+
+K5_OPEN = 2**30
+
+
+def k5_problem(seed: int, n_nodes: int, n_bound: int, device, *, c: int = 8,
+               n_pdbs: int = 4, n_quotas: int = 4, crowd: int = 0,
+               edges: bool = False):
+    """(state, sched, chain) of a seeded preemption problem on ``device``:
+    ``n_bound`` bound pods over ``n_nodes`` (``crowd`` more on node 0, more
+    than one of K5a's 32-row chunks), PDB and quota ids, and ``c``
+    preemptors with their feasible rows, same-quota flags, activity, the
+    PDB budgets and a (Q, R) base headroom.  ``edges`` puts priorities at
+    NEG_PRI, -2**31 and past 2**30 (per-node sums wrap) and preemptors at
+    2**31 - 1 and -2**31 + 2."""
+    import torch
+
+    from koordinator_tpu_torch.ops.preemption import ScheduledPods
+    from koordinator_tpu_torch.state.cluster_state import ClusterState
+
+    rng = np.random.default_rng(seed)
+    alloc = np.zeros((n_nodes, R), np.int32)
+    alloc[:, CPU] = rng.integers(8_000, 64_000, n_nodes)
+    alloc[:, MEM] = rng.integers(16_384, 262_144, n_nodes)
+    v = n_bound + crowd
+    node = rng.integers(0, n_nodes, v).astype(np.int32)
+    node[n_bound:] = 0
+    req = np.zeros((v, R), np.int32)
+    req[:, CPU] = rng.integers(100, 4_000, v)
+    req[:, MEM] = rng.integers(128, 8_192, v)
+    if crowd:
+        req[n_bound:, CPU] = rng.integers(20, 200, crowd)
+        alloc[0, CPU] = 60_000 + int(req[n_bound:, CPU].sum())
+    node[rng.random(v) < 0.02] = -1
+    pri = rng.integers(3_000, 9_000, v).astype(np.int32)
+    pri[rng.random(v) < 0.3] = rng.integers(3_000, 3_004)
+    if edges:
+        pick = rng.random(v)
+        pri[pick < 0.1] = -(2**31) + 1
+        pri[(pick >= 0.1) & (pick < 0.2)] = -(2**31)
+        band = (pick >= 0.2) & (pick < 0.35)
+        pri[band] = rng.integers(2**30, 2**30 + 2**29, int(band.sum()))
+    quota = rng.integers(-1, n_quotas, v).astype(np.int32)
+    nonp = rng.random(v) < 0.1
+    pdb = (rng.integers(-1, n_pdbs, v).astype(np.int32) if n_pdbs
+           else np.full(v, -1, np.int32))
+    requested = np.zeros((n_nodes, R), np.int64)
+    np.add.at(requested, node[node >= 0], req[node >= 0])
+    requested = np.minimum(requested, alloc).astype(np.int32)
+    state = ClusterState.from_arrays(alloc, requested=requested,
+                                     capacity=n_nodes, device=device)
+    sched = ScheduledPods.build(req, node, priority=pri, quota_id=quota,
+                                non_preemptible=nonp, pdb_id=pdb,
+                                device=device)
+    reqs = np.zeros((c, R), np.int32)
+    reqs[:, CPU] = rng.integers(1_000, 12_000, c)
+    reqs[:, MEM] = rng.integers(0, 16_384, c)
+    pris = rng.integers(9_000, 10_000, c).astype(np.int32)
+    if edges:
+        pris[:] = rng.choice([2**31 - 1, 2**30 + 2**29, -(2**31) + 2], c)
+    qids = rng.integers(-1, n_quotas, c).astype(np.int32)
+    base_hr = rng.integers(-3_000, 15_000, (n_quotas, R)).astype(np.int32)
+    base_hr[:, 2:] = rng.choice([K5_OPEN, -K5_OPEN, 0], (n_quotas, R - 2))
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a)).to(device)
+
+    chain = dict(
+        reqs=dev(reqs), pris=dev(pris), qids=dev(qids),
+        feas=dev(rng.random((c, n_nodes)) < 0.9),
+        same_q=dev((qids >= 0) & (rng.random(c) < 0.8)),
+        active=dev(rng.random(c) < 0.9),
+        pdb=dev(rng.integers(0, 9, max(n_pdbs, 1)).astype(np.int32)),
+        base_hr=dev(base_hr))
+    return state, sched, chain
+
+
+CHAIN_ARGS = ("reqs", "pris", "qids", "feas", "same_q", "active", "pdb",
+              "base_hr")
+
+
+def chain_err(got, want) -> int:
+    """The largest difference between two ChainOutcomes over every output."""
+    return max(max_abs_err(got.node, want.node),
+               max_abs_err(got.victims, want.victims),
+               max_abs_err(got.state.node_requested,
+                           want.state.node_requested),
+               max_abs_err(got.sched.valid, want.sched.valid),
+               max_abs_err(got.pdb_allowed, want.pdb_allowed),
+               max_abs_err(got.assumed, want.assumed))
+
+
+def held_k5(device, state, sched, ch, label: str, one_rows=(0,)) -> dict:
+    """K5 against its plain versions on one problem: the chain, then for
+    the rows ``one_rows`` preempt_one on both quota paths (no headroom with
+    the job rule and with the elastic-quota rule, the row's base headroom)
+    and the dry run alone."""
+    from koordinator_tpu_torch.kernels import preemption as k5
+    from koordinator_tpu_torch.ops import preemption as ops
+
+    args = [ch[k] for k in CHAIN_ARGS]
+    got = k5.preempt_chain_kernel(state, sched, *args)
+    sync(device)
+    want = ops.preempt_chain_plain(state, sched, *args)
+    err = chain_err(got, want)
+    check(err == 0, f"K5 chain equals its plain version ({label})")
+    for j in one_rows:
+        q = max(int(ch["qids"][j]), 0)
+        for hr, sq in ((None, False), (None, True),
+                       (ch["base_hr"][q], True), (ch["base_hr"][q], False)):
+            one = (state, sched, ch["reqs"][j], ch["pris"][j], ch["qids"][j],
+                   ch["feas"][j], ch["pdb"])
+            kw = dict(quota_headroom=hr, same_quota_only=sq)
+            g, w = k5.preempt_one_kernel(*one, **kw), ops.preempt_one_plain(
+                *one, **kw)
+            e1 = max(max_abs_err(g.node, w.node),
+                     max_abs_err(g.victims, w.victims),
+                     max_abs_err(g.state.node_requested,
+                                 w.state.node_requested),
+                     max_abs_err(g.sched.valid, w.sched.valid),
+                     max_abs_err(g.pdb_allowed, w.pdb_allowed))
+            gs, ws = k5.select_victims_kernel(*one, **kw), \
+                ops.select_victims_plain(*one, **kw)
+            e1 = max([e1] + [max_abs_err(getattr(gs, f), getattr(ws, f))
+                             for f in ("eligible", "victim", "violating",
+                                       "num_victims", "num_violating",
+                                       "max_victim_pri", "sum_victim_pri")])
+            check(e1 == 0, f"K5 preempt_one and its dry run equal their "
+                  f"plain versions ({label}, row {j}, headroom "
+                  f"{hr is not None}, same quota {sq})")
+            err = max(err, e1)
+    return dict(case=label, nodes=state.capacity, bound=sched.capacity,
+                preemptors=int(ch["reqs"].shape[0]), max_abs_err=err,
+                nominated=int((got.node >= 0).sum()),
+                victims=int(got.victims.sum()),
+                nodes_out=got.node.tolist()[:8])
+
+
+def k6_problem(seed: int, n_pods: int, n_quotas: int, device, *,
+               runtime_frac: float = 0.6, n_pdbs: int = 3):
+    """(sched, used, runtime, checked, pdb budgets) of a seeded overuse
+    problem: ``n_pods`` bound pods over ``n_quotas`` quotas (10% outside
+    any), each quota's runtime ``runtime_frac`` of its used on cpu and
+    memory (every other quota under), PDB budget 0 for PDB 0."""
+    import torch
+
+    from koordinator_tpu_torch.ops.preemption import ScheduledPods
+
+    rng = np.random.default_rng(seed)
+    req = np.zeros((n_pods, R), np.int32)
+    req[:, CPU] = rng.integers(100, 4_000, n_pods)
+    req[:, MEM] = rng.integers(128, 8_192, n_pods)
+    req[rng.random(n_pods) < 0.05, CPU] = 0
+    quota = rng.integers(0, n_quotas, n_pods).astype(np.int32)
+    quota[rng.random(n_pods) < 0.1] = -1
+    pri = rng.integers(3_000, 9_000, n_pods).astype(np.int32)
+    pri[rng.random(n_pods) < 0.3] = 5_000
+    nonp = rng.random(n_pods) < 0.05
+    pdb = rng.integers(-1, n_pdbs, n_pods).astype(np.int32)
+    pdb[rng.random(n_pods) < 0.9] = -1
+    used = np.zeros((n_quotas, R), np.int64)
+    np.add.at(used, quota[quota >= 0], req[quota >= 0])
+    used = np.minimum(used, 2**30).astype(np.int32)
+    runtime = used.copy()
+    runtime[::2, :2] = (used[::2, :2] * runtime_frac).astype(np.int32)
+    checked = np.zeros((n_quotas, R), bool)
+    checked[:, :2] = True
+    sched = ScheduledPods.build(req, np.zeros(n_pods, np.int32),
+                                priority=pri, quota_id=quota,
+                                non_preemptible=nonp, pdb_id=pdb,
+                                device=device)
+    budgets = np.full(n_pdbs, 5, np.int32)
+    budgets[0] = 0
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    return sched, dev(used), dev(runtime), dev(checked), dev(budgets)
+
+
+def held_k6(device, label: str, sched, used, runtime, checked, pdb,
+            reps: int = 0) -> dict:
+    """K6 against its plain version: the revoke masks, and each quota's
+    phase-1 walk length (the removals); with ``reps``, both timed."""
+    from koordinator_tpu_torch.kernels import overuse_revoke as k6
+    from koordinator_tpu_torch.quota.overuse_revoke import (
+        select_overuse_victims_plain,
+    )
+
+    got, walk = k6.overuse_revoke_launch(sched, used, runtime, checked, pdb)
+    sync(device)
+    want = select_overuse_victims_plain(sched, used, runtime, checked, pdb)
+    err = max_abs_err(got, want)
+    check(err == 0, f"K6 equals its plain version ({label})")
+    out = dict(case=label, pods=sched.capacity, quotas=used.shape[0],
+               max_abs_err=err, revoked=int(got.sum()),
+               revoked_in_quota_0=int((got & (sched.quota_id == 0)).sum()),
+               longest_walk=int(walk.max()))
+    if reps:
+        out["ms"] = timed_ms(lambda: k6.overuse_revoke_launch(
+            sched, used, runtime, checked, pdb), device, reps=reps)
+        out["plain_ms"] = timed_ms(lambda: select_overuse_victims_plain(
+            sched, used, runtime, checked, pdb), device, reps=1, warmup=0)
+    return out
+
+
+def phase_preempt_edges(device, wide_nodes: int = 65_536,
+                        wide_bound: int = 196_608,
+                        many_pdbs: int = 4_096,
+                        long_quota: int = 50_000) -> None:
+    """K5 and K6 against their plain versions on their edges, every output
+    exact: a node with 110 candidates (the PDB carry crosses K5a's 32-row
+    chunks), PDBs with budget 0 and rank ties, an all-tie choice (the
+    lowest row wins), no eligible node (-1), priorities at NEG_PRI and
+    -2**31 with headroom at +-2**30 and wrapping priority sums, inactive
+    chain rows, a later preemptor that must see an earlier one's
+    nomination, 65,536 nodes, 4,096 PDBs; K6 on one quota of 50,000 pods
+    and on hopeless quotas with a blocked pod (skipped) and without (every
+    candidate evicted)."""
+    import torch
+
+    t_start = time.perf_counter()
+    cases = []
+    # 110 candidates on node 0 over two PDBs with budgets 40 and 70
+    state, sched, ch = k5_problem(151, 64, 2_000, device, crowd=110,
+                                  n_pdbs=2)
+    pdb = sched.pdb_id.clone()
+    pdb[2_000:2_110] = torch.arange(110, device=pdb.device) % 2
+    sched = sched.replace(pdb_id=pdb)
+    ch["pdb"] = torch.tensor([40, 70], dtype=torch.int32, device=pdb.device)
+    ch["reqs"][:, CPU] = 50_000
+    cases.append(held_k5(device, state, sched, ch, "crowd_110"))
+    # budget 0 everywhere, many priority ties
+    state, sched, ch = k5_problem(152, 256, 4_000, device, n_pdbs=3)
+    sched = sched.replace(priority=torch.where(
+        sched.priority > 6_000, 3_000, sched.priority))
+    ch["pdb"].zero_()
+    cases.append(held_k5(device, state, sched, ch, "pdb_zero_ties"))
+    # identical nodes and pods: every key ties
+    state, sched, ch = k5_problem(153, 128, 1_024, device, n_pdbs=0)
+    n = 128
+    state = state.replace(
+        node_allocatable=state.node_allocatable[:1].repeat(n, 1),
+        node_requested=state.node_requested[:1].repeat(n, 1))
+    sched = sched.replace(
+        node=(torch.arange(sched.capacity, device=pdb.device) % n).to(
+            torch.int32),
+        requests=sched.requests[:1].repeat(sched.capacity, 1),
+        priority=torch.full_like(sched.priority, 3_000),
+        non_preemptible=torch.zeros_like(sched.non_preemptible),
+        quota_id=torch.full_like(sched.quota_id, -1),
+        pdb_id=torch.full_like(sched.pdb_id, -1),
+        valid=torch.ones_like(sched.valid))
+    ch["feas"][:] = True
+    ch["same_q"][:] = False
+    ch["active"][:] = True
+    cases.append(held_k5(device, state, sched, ch, "all_ties"))
+    check(cases[-1]["nodes_out"][0] == 0,
+          "an all-tie choice takes the lowest row")
+    # no preemptor above anyone
+    state, sched, ch = k5_problem(154, 256, 3_000, device)
+    ch["pris"][:] = -(2**31) + 1
+    cases.append(held_k5(device, state, sched, ch, "no_eligible"))
+    check(cases[-1]["nominated"] == 0, "no eligible node gives -1")
+    # int32 edges
+    for seed in (155, 156):
+        state, sched, ch = k5_problem(seed, 256, 6_000, device, edges=True,
+                                      c=12)
+        cases.append(held_k5(device, state, sched, ch, f"int32_{seed}",
+                             one_rows=(0, 1)))
+    # inactive rows
+    state, sched, ch = k5_problem(157, 256, 4_000, device, c=16)
+    ch["active"][:] = False
+    ch["active"][5] = True
+    cases.append(held_k5(device, state, sched, ch, "inactive"))
+    # a later preemptor repeating an earlier one
+    state, sched, ch = k5_problem(158, 64, 1_200, device, c=6)
+    for key in ("reqs", "pris", "qids", "feas", "same_q"):
+        ch[key][1:] = ch[key][0]
+    ch["active"][:] = True
+    cases.append(held_k5(device, state, sched, ch, "later_sees_earlier"))
+    # 65,536 nodes, and 4,096 PDBs
+    state, sched, ch = k5_problem(159, wide_nodes, wide_bound, device, c=4)
+    cases.append(held_k5(device, state, sched, ch, f"nodes_{wide_nodes}"))
+    state, sched, ch = k5_problem(160, 10_240, 100_000, device, c=8,
+                                  n_pdbs=many_pdbs)
+    cases.append(held_k5(device, state, sched, ch, f"pdbs_{many_pdbs}"))
+
+    k6_cases = [held_k6(device, f"one_quota_{long_quota}",
+                        *k6_problem(161, long_quota, 1, device,
+                                    runtime_frac=0.3), reps=3)]
+    # hopeless: a non-preemptible pod alone overshoots runtime
+    sched, used, runtime, checked, pdb = k6_problem(162, 4_000, 4, device)
+    nonp = sched.non_preemptible.clone()
+    quota = sched.quota_id
+    first = int(torch.nonzero(quota == 0)[0])
+    nonp[first] = True
+    req = sched.requests.clone()
+    req[first, CPU] = 1_000_000
+    used[0, CPU] += 1_000_000
+    runtime[0, CPU] = 500_000
+    for blocked in (True, False):
+        pdb_id = torch.where(quota == 0, -1, sched.pdb_id)
+        if blocked:
+            pdb_id[int(torch.nonzero((quota == 0) & ~nonp)[0])] = 0
+        s = sched.replace(non_preemptible=nonp, requests=req, pdb_id=pdb_id)
+        k6_cases.append(held_k6(device, f"hopeless_blocked_{blocked}", s,
+                                used, runtime, checked, pdb))
+    from koordinator_tpu_torch.quota.overuse_revoke import overuse_lists
+
+    _, offsets, _ = overuse_lists(s, used.shape[0], pdb)
+    check(k6_cases[-1]["revoked_in_quota_0"] == int(offsets[1] - offsets[0]),
+          "a hopeless quota with no blocked pod loses every candidate")
+    check(k6_cases[-2]["revoked_in_quota_0"] == 0,
+          "a hopeless quota with a blocked pod is skipped")
+    emit("preempt_edges", k5=cases, k6=k6_cases,
+         seconds=time.perf_counter() - t_start)
+
+
+N_PREEMPT_ARRIVALS = 1_200
+N_PREEMPT_GANGS = 8
+N_PREEMPT_NEVER = 16
+N_PDBS = 32
+PREEMPT_FILL = 0.95
+#: round 1 at t = 0, round 2 at 1 s, round 3 past the 5 s revoke delay
+PREEMPT_TIMES = (0.0, 1.0, 20.0)
+#: leaf 0's weight (its max) as a multiple of its used: it lends its share
+#: until its demand rises in round 3
+LEND_FACTOR = 2.5
+
+
+def preempt_specs(seed: int = 15, n_nodes: int = 10_240):
+    """Phase 15's cluster: the flagship nodes filled to PREEMPT_FILL of
+    their cpu and memory with bound pods of the flagship's pod ranges
+    (each node takes 96 drawn pods in turn while they fit, ~18 a node):
+    70% koord-batch (5000-5999), 20% koord-mid (7000-7999),
+    10% koord-prod (9000-9999, non-preemptible); 80% in the 16 leaf quotas;
+    32% labelled app=app-<k> for one of N_PDBS PDBs (~1% each), the rest
+    app=svc-<k>.  Returns (nodes, bound pods as (PodSpec, node name), the
+    leaves' used cpu, PDB budgets)."""
+    from koordinator_tpu_torch.scheduler.snapshot import PodSpec
+
+    nodes, _ = main_path_specs(seed, n_nodes, 1)
+    rng = np.random.default_rng(seed + 1)
+    alloc = np.stack([n.allocatable for n in nodes]).astype(np.int64)
+    draw = 96
+    cpu = rng.integers(100, 4_000, (n_nodes, draw))
+    mem = rng.integers(128, 8_192, (n_nodes, draw))
+    # each node takes the drawn pods in turn while they fit both dims
+    keep = np.zeros((n_nodes, draw), bool)
+    room = PREEMPT_FILL * alloc[:, [CPU, MEM]]
+    for k in range(draw):
+        fits = (cpu[:, k] <= room[:, 0]) & (mem[:, k] <= room[:, 1])
+        keep[:, k] = fits
+        room[fits, 0] -= cpu[fits, k]
+        room[fits, 1] -= mem[fits, k]
+    node_of, slot = np.nonzero(keep)
+    v = len(node_of)
+    band = rng.random(v)
+    pri = np.where(band < 0.7, rng.integers(5_000, 6_000, v),
+                   np.where(band < 0.9, rng.integers(7_000, 8_000, v),
+                            rng.integers(9_000, 10_000, v)))
+    leaf = rng.integers(0, N_LEAVES, v)
+    in_quota = rng.random(v) < 0.8
+    app = rng.integers(0, 100, v)
+    bound, used = [], np.zeros(N_LEAVES, np.int64)
+    for i in range(v):
+        req = np.zeros(R, np.int32)
+        req[CPU], req[MEM] = cpu[node_of[i], slot[i]], mem[node_of[i], slot[i]]
+        q = f"leaf-{leaf[i]}" if in_quota[i] else None
+        if q is not None:
+            used[leaf[i]] += int(req[CPU])
+        label = (f"app-{app[i]}" if app[i] < N_PDBS else f"svc-{app[i]}")
+        bound.append((PodSpec(name=f"bound-{i}", requests=req,
+                              priority=int(pri[i]), quota=q,
+                              non_preemptible=bool(pri[i] >= 9_000),
+                              labels={"app": label}),
+                       nodes[node_of[i]].name))
+    budgets = rng.integers(0, 9, N_PDBS)
+    return nodes, bound, used, budgets
+
+
+def preempt_tree(nodes, leaf_used):
+    """root -> 4 parents -> 16 leaves on cpu: a parent's max the sum of its
+    leaves' used, a leaf's min half its used and its max (its weight)
+    twice, LEND_FACTOR times for leaf-0, which so lends the share it does
+    not use to its siblings."""
+    from koordinator_tpu_torch.quota.tree import QuotaTree
+
+    total = np.sum([n.allocatable for n in nodes], axis=0).astype(np.int64)
+    tree = QuotaTree(total)
+    per = N_LEAVES // N_PARENTS
+    for i in range(N_PARENTS):
+        mx = np.full(R, -1, np.int64)
+        mx[CPU] = int(leaf_used[i * per:(i + 1) * per].sum())
+        tree.add(f"parent-{i}", np.zeros(R, np.int64), mx)
+        for j in range(i * per, (i + 1) * per):
+            mn = np.zeros(R, np.int64)
+            mn[CPU] = int(leaf_used[j]) // 2
+            leaf_mx = np.full(R, -1, np.int64)
+            leaf_mx[CPU] = int(leaf_used[j] * (LEND_FACTOR if j == 0 else 2))
+            tree.add(f"leaf-{j}", mn, leaf_mx, parent=f"parent-{i}")
+    return tree
+
+
+def preempt_arrivals(rng, count: int, n_gangs: int, n_never: int):
+    """The koord-prod arrivals (9000-9999): 60% in the leaf quotas, cpu
+    8,000-16,000 and memory 8,192-16,384 (more than a filled node has free
+    on one of them: its slack is 5% of the dim it filled), ``n_gangs``
+    gangs of
+    8-16 members at the top priorities (they take the job path first),
+    ``n_never`` with preemptionPolicy Never.  Returns (pods, gangs as
+    (name, size))."""
+    from koordinator_tpu_torch.scheduler.snapshot import PodSpec
+
+    out, gangs = [], []
+    sizes = rng.integers(8, 17, n_gangs)
+    gang_of = np.full(count, -1)
+    at = 0
+    for g, size in enumerate(sizes):
+        gang_of[at:at + size] = g
+        gangs.append((f"prod-gang-{g}", int(size)))
+        at += size
+    never = set(rng.choice(np.arange(at, count), n_never, replace=False)
+                .tolist())
+    for j in range(count):
+        req = np.zeros(R, np.int32)
+        req[CPU] = rng.integers(8_000, 16_000)
+        req[MEM] = rng.integers(8_192, 16_384)
+        g = int(gang_of[j])
+        prio = (9_990 + g) if g >= 0 else int(rng.integers(9_000, 9_990))
+        q = (f"leaf-{rng.integers(0, N_LEAVES)}" if rng.random() < 0.6
+             else None)
+        out.append(PodSpec(
+            name=f"prod-{j}", requests=req, priority=prio, quota=q,
+            gang=gangs[g][0] if g >= 0 else None, creation=float(j),
+            preemption_policy="Never" if j in never
+            else "PreemptLowerPriority"))
+    return out, gangs
+
+
+def k5_ops(rows_live: int, cands: list[int], n: int) -> int:
+    """K5's int32 operations over a chain: every live row's candidate test
+    (6), each candidate's PDB rank, freed vector and reprieve step
+    (R + 6 and 4R + 4), each node's record, fit and choice (4R + 13)."""
+    return sum(rows_live * 6 + c * (5 * R + 10) + n * (4 * R + 13)
+               for c in cands)
+
+
+def k5_bound(rec, state, sched) -> dict:
+    """K5's bound over a recorded chain: each preemptor reads every live
+    row's CSR entry, validity, priority, preemptibility and quota once (the
+    candidate test) and writes its flag byte; reads each of its candidates'
+    request and PDB id once; reads the (N, R) allocatable and requested
+    rows, its feasible row and the node validity; and writes its (V,)
+    victim row and its node.  The per-node record is scratch between K5a
+    and K5b, not an output, and is not counted.  The candidates are
+    counted on the carry each preemptor saw."""
+    from koordinator_tpu_torch.ops.preemption import candidates
+
+    args, out = rec
+    reqs, pris, qids, _, same_q = args[2:7]
+    n, v = state.capacity, sched.capacity
+    live = sched.valid & (sched.node >= 0)
+    rows_live = int(live.sum())
+    valid = sched.valid.clone()
+    cands = []
+    for c in range(reqs.shape[0]):
+        cands.append(int(candidates(sched.replace(valid=valid), pris[c],
+                                    qids[c], same_q[c]).sum()))
+        valid &= ~out.victims[c]
+    per_row = 4 + 1 + 4 + 1 + 4 + 1
+    per_cand = R * 4 + 4
+    nbytes = sum(rows_live * per_row + cand * per_cand
+                 + n * (2 * R * 4 + 2) + v + 4 for cand in cands)
+    ops = k5_ops(rows_live, cands, n)
+    ms, by = bound(nbytes, ops)
+    return dict(bound_ms=ms, bound_by=by, bytes=nbytes, ops=ops,
+                candidates_mean=float(np.mean(cands)))
+
+
+def k6_bound(sched, used, walk) -> dict:
+    """K6's bound: each row's quota, validity, preemptibility, priority
+    and PDB read once (the candidate lists), each walked pod's request
+    read once a phase, the (Q, R) used, runtime and checked rows, the
+    (V,) mask written; a phase-1 step 2R + 2 operations, a phase-2 step
+    3R + 2, a row 5."""
+    v, q = sched.capacity, used.shape[0]
+    steps = int(walk.sum())
+    nbytes = v * (4 + 1 + 1 + 4 + 4) + 2 * steps * R * 4 + q * R * 9 + v
+    ops = v * 5 + steps * (2 * R + 2 + 3 * R + 2)
+    ms, by = bound(nbytes, ops)
+    return dict(bound_ms=ms, bound_by=by, bytes=nbytes, ops=ops,
+                walk_steps=steps)
+
+
+def phase_preemption(device, n_nodes: int = 10_240,
+                     n_arrivals: int = N_PREEMPT_ARRIVALS,
+                     n_gangs: int = N_PREEMPT_GANGS, reps: int = 3):
+    """Phase 15: preemption behind ElasticQuota through the Scheduler.  The
+    flagship cluster filled to 95% of its cpu through ``add_bound_pods``
+    (preempt_specs; the leaves' used set as their ElasticQuota status
+    reports it), 32 PDBs, the 16-leaf tree (preempt_tree), the overuse
+    revoke on (5 s delay); 1,200 koord-prod arrivals (preempt_arrivals).
+    Round 1 (t = 0) runs PostFilter at the 1,024 cap: the gang jobs
+    (preempt_one) first, then chains of 256 single preemptors (K5 through
+    preempt_chain); round 2 (t = 1) binds the nominations and preempts for
+    what is left; round 3 (t = 20) first raises leaf-0's demand (100
+    pending pods that never preempt), which shrinks its siblings' runtime
+    under their used, and the QuotaRevoke phase runs K6 over every bound
+    pod.  After each round no node is over its allocatable, the node
+    accounting equals the bound pods' and the nominations' requests, and
+    every PDB's budget is its start less the evictions it covered.  Every
+    K5 chain and preempt_one call of the rounds and the K6 call are held
+    against their plain versions on their recorded inputs.  Returns (K5's
+    and K6's kernel entries, the round records)."""
+    from koordinator_tpu_torch.kernels import build
+    from koordinator_tpu_torch.kernels import overuse_revoke as k6
+    from koordinator_tpu_torch.kernels import preemption as k5
+    from koordinator_tpu_torch.ops import preemption as ops
+    from koordinator_tpu_torch.quota import overuse_revoke as orv
+    from koordinator_tpu_torch.scheduler import scheduler as smod
+    from koordinator_tpu_torch.scheduler.snapshot import (
+        ClusterSnapshot,
+        PodSpec,
+    )
+
+    t_start = time.perf_counter()
+    nodes, bound, leaf_used, budgets = preempt_specs(15, n_nodes)
+    snap = ClusterSnapshot(capacity=n_nodes, device=device)
+    for spec in nodes:
+        snap.upsert_node(spec)
+    now = [0.0]
+    evicted, revoked = [], []
+    sched = smod.Scheduler(
+        snap, quota_tree=preempt_tree(nodes, leaf_used), device=device,
+        clock=lambda: now[0],
+        preempt_fn=lambda v, by: evicted.append((v, by)))
+    sched.enable_overuse_revoke(lambda p, q: revoked.append((p, q)),
+                                delay_evict_sec=5.0)
+    for k in range(N_PDBS):
+        sched.register_pdb(smod.PdbRecord(
+            name=f"pdb-{k}", selector={"app": f"app-{k}"},
+            allowed=int(budgets[k])))
+    t0 = time.perf_counter()
+    sched.add_bound_pods([smod.BoundPod(pod, name,
+                                        snap.node_generation[name])
+                          for pod, name in bound])
+    for name, q in sched.quota_tree.nodes.items():
+        q.used = np.zeros(R, np.int64)
+        q.non_preemptible_used = np.zeros(R, np.int64)
+    for bp in sched.bound.values():
+        sched._charge_quota_used(bp, sign=1)
+    seed_s = time.perf_counter() - t0
+    rng = np.random.default_rng(151)
+    arrivals, gangs = preempt_arrivals(rng, n_arrivals, n_gangs,
+                                       N_PREEMPT_NEVER)
+    for name, size in gangs:
+        sched.register_gang(smod.GangRecord(name=name, min_member=size))
+    sched.enqueue_many(arrivals)
+    start_budgets = {n: r.allowed for n, r in sched.pdbs.items()}
+    labels = {pod.name: pod.labels for pod, _ in bound}
+
+    # record the kernels' calls: the chains, the gang members' preempt_one
+    # and the revoke walk, with their outputs
+    chains, ones, walks = [], [], []
+    real_chain, real_one = smod.preempt_chain, smod.preempt_one
+    real_sel = orv.select_overuse_victims
+
+    def rec_chain(*a):
+        out = real_chain(*a)
+        chains.append((a, out))
+        return out
+
+    def rec_one(*a, **kw):
+        out = real_one(*a, **kw)
+        ones.append((a, kw, out))
+        return out
+
+    def rec_sel(*a):
+        out = real_sel(*a)
+        walks.append((a, out))
+        return out
+
+    post_ms: list[float] = []
+    real_post = sched._run_preemption
+
+    def timed_post(*a):
+        sync(device)
+        t1 = time.perf_counter()
+        real_post(*a)
+        sync(device)
+        post_ms.append((time.perf_counter() - t1) * 1e3)
+
+    sched._run_preemption = timed_post
+    smod.preempt_chain, smod.preempt_one = rec_chain, rec_one
+    orv.select_overuse_victims = rec_sel
+    records, launches = [], {}
+    try:
+        for rnd, t in enumerate(PREEMPT_TIMES):
+            now[0] = t
+            if rnd == 2:
+                demand = leaf_used[0] * 3 // 10 // 100
+                sched.enqueue_many([PodSpec(
+                    name=f"leaf0-demand-{j}",
+                    requests=np.array([demand, 1_024] + [0] * (R - 2),
+                                      np.int32),
+                    priority=3_000, quota="leaf-0", creation=1e6 + j,
+                    preemption_policy="Never") for j in range(100)])
+            n_evicted, n_revoked = len(evicted), len(revoked)
+            n_chains, n_ones = len(chains), len(ones)
+            post_ms.clear()
+            nominated_before = set(sched.nominations)
+            build.reset_launch_counts()
+            sync(device)
+            t1 = time.perf_counter()
+            res = sched.schedule_round()
+            sync(device)
+            wall = time.perf_counter() - t1
+            launches[rnd] = dict(build.LAUNCHES)
+            round_chains = [int(a[2].shape[0]) for a, _ in chains[n_chains:]]
+            rec = dict(
+                round=rnd, t=t, wall_s=wall,
+                postfilter_ms=sum(post_ms), binds=len(res.assignments),
+                nominated_binds=sum(1 for n in res.assignments
+                                    if n in nominated_before),
+                failed=len(res.failures),
+                preemptors_tried=sum(round_chains) + len(ones) - n_ones,
+                nominated=len(res.nominations),
+                evicted=len(evicted) - n_evicted,
+                revoked=len(revoked) - n_revoked, chains=round_chains,
+                launches={k: launches[rnd][k] for k in (
+                    "victim_select", "victim_commit", "overuse_revoke")})
+            rec.update(preempt_checks(sched, start_budgets, labels, evicted,
+                                      revoked, f"phase 15 round {rnd}"))
+            records.append(rec)
+            emit("preempt_round", **rec)
+    finally:
+        smod.preempt_chain, smod.preempt_one = real_chain, real_one
+        orv.select_overuse_victims = real_sel
+        sched._run_preemption = real_post
+    check(records[0]["nominated"] > 0 and records[0]["evicted"] > 0,
+          "round 1 preempted")
+    check(launches[0]["victim_select"] > 0
+          and launches[0]["victim_commit"] == launches[0]["victim_select"],
+          "round 1 launched K5a and K5b once a preemptor")
+    check(records[1]["nominated_binds"] > 0, "round 2 bound nominations")
+    check(launches[2]["overuse_revoke"] > 0 and records[2]["revoked"] > 0,
+          "round 3 ran K6 and revoked")
+
+    # every chain and preempt_one call against the plain versions
+    chain_errs, chain_plain_ms = [], []
+    for args, out in chains:
+        t1 = time.perf_counter()
+        want = ops.preempt_chain_plain(*args)
+        sync(device)
+        chain_plain_ms.append((time.perf_counter() - t1) * 1e3)
+        chain_errs.append(chain_err(out, want))
+    one_err = 0
+    for args, kw, out in ones:
+        want = ops.preempt_one_plain(*args, **kw)
+        one_err = max(one_err, max_abs_err(out.node, want.node),
+                      max_abs_err(out.victims, want.victims),
+                      max_abs_err(out.state.node_requested,
+                                  want.state.node_requested),
+                      max_abs_err(out.sched.valid, want.sched.valid),
+                      max_abs_err(out.pdb_allowed, want.pdb_allowed))
+    err5 = max(chain_errs + [one_err])
+    check(err5 == 0, "every K5 call of phase 15 equals its plain version")
+    check(len(chains) > 0 and len(ones) > 0,
+          "phase 15 ran chains and gang jobs")
+    # K5 timed on round 1's first full chain: the wrapper, and each
+    # kernel's device time within that chain from the profiler's trace
+    full = max(range(len(chains)), key=lambda i: chains[i][0][2].shape[0])
+    args, out = chains[full]
+    c = int(args[2].shape[0])
+    k5_ms = timed_ms(lambda: k5.preempt_chain_kernel(*args), device,
+                     reps=reps)
+    split = device_ms_by_kernel(lambda: k5.preempt_chain_kernel(*args),
+                                ("victim_select_kernel",
+                                 "victim_commit_kernel"), device)
+    b5 = k5_bound((args, out), args[0], args[1])
+    k5_entry = dict(
+        name="victim_select", route="cuda", source=CSRC + "victim_select.cu",
+        replaces="koordinator_tpu/ops/preemption.py:160",
+        launches=sum(r["victim_select"] for r in launches.values()),
+        launches_commit=sum(r["victim_commit"] for r in launches.values()),
+        max_abs_err=err5, ms=k5_ms, plain_ms=chain_plain_ms[full],
+        bound_ms=b5["bound_ms"], bound_by=b5["bound_by"], library_ms=None,
+        preemptors=c, ms_per_preemptor=k5_ms / c,
+        k5a_ms=split["victim_select_kernel"],
+        k5b_ms=split["victim_commit_kernel"])
+    # K6 on round 3's call
+    check(len(walks) >= 1, "phase 15 called the revoke walk")
+    (s6, used6, rt6, ck6, pdb6), revoke6 = walks[-1]
+    want6 = orv.select_overuse_victims_plain(s6, used6, rt6, ck6, pdb6)
+    err6 = max_abs_err(revoke6, want6)
+    check(err6 == 0, "K6 equals its plain version at phase 15")
+    got6, walk6 = k6.overuse_revoke_launch(s6, used6, rt6, ck6, pdb6)
+    k6_ms = timed_ms(lambda: k6.overuse_revoke_launch(s6, used6, rt6, ck6,
+                                                      pdb6), device,
+                     reps=reps)
+    plain6 = timed_ms(lambda: orv.select_overuse_victims_plain(
+        s6, used6, rt6, ck6, pdb6), device, reps=1, warmup=0)
+    b6 = k6_bound(s6, used6, walk6)
+    k6_entry = dict(
+        name="overuse_revoke", route="cuda",
+        source=CSRC + "overuse_revoke.cu",
+        replaces="koordinator_tpu/quota/overuse_revoke.py:32",
+        launches=sum(r["overuse_revoke"] for r in launches.values()),
+        max_abs_err=err6, ms=k6_ms, plain_ms=plain6,
+        bound_ms=b6["bound_ms"], bound_by=b6["bound_by"], library_ms=None,
+        longest_walk=int(walk6.max()), walk_steps=b6["walk_steps"])
+    emit("preemption", nodes=n_nodes, bound=len(bound),
+         v_rows=int(s6.capacity), pdbs=N_PDBS, arrivals=n_arrivals,
+         gangs=n_gangs, seed_s=seed_s, chains=len(chains),
+         chain_sizes=[int(a[2].shape[0]) for a, _ in chains],
+         gang_preempt_one_calls=len(ones),
+         k5=dict(k5_entry, **{k: b5[k] for k in (
+             "bytes", "ops", "candidates_mean")}),
+         k6=dict(k6_entry, **{k: b6[k] for k in ("bytes", "ops")}),
+         seconds=time.perf_counter() - t_start)
+    return [k5_entry, k6_entry], records
+
+
+def preempt_checks(sched, start_budgets, labels, evicted, revoked,
+                   label) -> dict:
+    """No node over its allocatable; the node accounting equals the bound
+    pods' and the standing nominations' requests; each PDB's budget is its
+    start less the evicted and revoked pods it covers."""
+    st = sched.snapshot.state
+    requested = st.node_requested.cpu().numpy().astype(np.int64)
+    alloc = st.node_allocatable.cpu().numpy().astype(np.int64)
+    check(bool((requested <= alloc).all()), f"{label}: no overcommit")
+    expect = np.zeros_like(requested)
+    for bp in sched.bound.values():
+        expect[sched.snapshot.node_index[bp.node]] += bp.requests
+    for name, node in sched.nominations.items():
+        expect[sched.snapshot.node_index[node]] += sched.pending[
+            name].requests
+    check(np.array_equal(expect, requested),
+          f"{label}: accounting = bound pods + nominations")
+    gone = [v for v, _ in evicted] + [p for p, _ in revoked]
+    for name, rec in sched.pdbs.items():
+        hits = sum(1 for v in gone if rec.matches(labels.get(v, {})))
+        check(rec.allowed == start_budgets[name] - hits,
+              f"{label}: {name} paid for its evictions")
+    return dict(standing_nominations=len(sched.nominations),
+                bound=len(sched.bound))
+
+
+
 def ptxas_summary(path: str) -> list[dict]:
     """Registers, spills and shared memory of every kernel in the
     compiler's -Xptxas -v log (one entry per compiled entry function)."""
@@ -3863,7 +4671,10 @@ def ptxas_summary(path: str) -> list[dict]:
 PTXAS_ENTRIES = {"select_candidates": ("select_candidates_kernel", 20),
                  "refresh_candidates": ("refresh_candidates_kernel", 8),
                  "segmented_prefix_accept": ("round_accept_kernel", 1),
-                 "greedy_scan": ("greedy_scan_kernel", 8)}
+                 "greedy_scan": ("greedy_scan_kernel", 8),
+                 "victim_select": ("victim_select_kernel", 1),
+                 "victim_commit": ("victim_commit_kernel", 1),
+                 "overuse_revoke": ("overuse_revoke_kernel", 1)}
 
 
 def phase_ptxas(path: str) -> None:
@@ -3978,6 +4789,8 @@ def main() -> int:
     gke, gke_launches = phase_gke(device)
     gang_rounds, gang_held = phase_gangs(device)
     k1a, _ = phase_approx(device)
+    phase_preempt_edges(device)
+    k5_k6, _ = phase_preemption(device)
     kernels[1:1] = [dict(
         name="refresh_candidates", route="cuda",
         source=CSRC + "refresh_candidates.cu",
@@ -4047,6 +4860,9 @@ def main() -> int:
                                     **gang_held.get(entry["name"], {}))
     # K1a at phase 14's cold round, its launches over phase 14's rounds
     kernels.append(k1a)
+    # K5 on phase 15's first full chain, K6 on its round 3; their launches
+    # over phase 15's three rounds
+    kernels += k5_k6
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

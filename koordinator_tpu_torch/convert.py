@@ -17,6 +17,7 @@ import torch
 from koordinator_tpu_torch.device import resolve_device
 from koordinator_tpu_torch.ops.assignment import ScoringConfig
 from koordinator_tpu_torch.ops.gang import GangInfo
+from koordinator_tpu_torch.ops.preemption import ScheduledPods
 from koordinator_tpu_torch.ops.reservation import ReservationSet
 from koordinator_tpu_torch.quota.admission import QuotaDeviceState
 from koordinator_tpu_torch.state.cluster_state import ClusterState, PodBatch
@@ -28,6 +29,7 @@ _CLASSES = {
     "QuotaDeviceState": QuotaDeviceState,
     "GangInfo": GangInfo,
     "ReservationSet": ReservationSet,
+    "ScheduledPods": ScheduledPods,
 }
 
 #: field names per carried type (the same in both packages)

@@ -181,6 +181,25 @@ _SIGNATURES = {
         _P, _P,                          # out assignments, reservation choice
         _P,                              # stream
     ],
+    "koord_preempt_chain": [
+        _P, _P, _P, _I,                  # node alloc, requested (in/out), valid, N
+        _P, _P, _P, _P, _P, _P, _I,      # bound requests/priority/quota/non-preemptible/pdb, valid (in/out), V
+        _P, _P, _P,                      # CSR offsets, rows, rows a node
+        _P, _P, _P, _P, _P, _P, _I,      # preemptor requests/priority/quota, feasible, same quota, active, C
+        _P, _I,                          # PDB budgets (in/out), B
+        _I, _P, _P, _P, _I,              # quota mode, headroom, base headroom, assumed (in/out), Q
+        _I,                              # nominate
+        _P, _P, _P,                      # scratch: CSR flags, PDB keys, per-node record
+        _P, _P,                          # out nodes, victims
+        _I, _I, _I,                      # first preemptor, count, commit
+        _P,                              # stream
+    ],
+    "koord_overuse_revoke": [
+        _P, _P, _P, _I,                  # bound requests, CSR offsets, rows, Q
+        _P, _P, _P, _P,                  # used, runtime, checked, has_blocked
+        _P, _P,                          # out revoke, walk lengths
+        _P,                              # stream
+    ],
 }
 
 
@@ -233,7 +252,8 @@ def check(err: int, what: str) -> None:
 LAUNCHES = {"select_candidates": 0, "select_candidates_approx": 0,
             "refresh_candidates": 0,
             "round_fit_choose": 0, "segmented_prefix_accept": 0,
-            "greedy_scan": 0, "reservation_scan": 0}
+            "greedy_scan": 0, "reservation_scan": 0,
+            "victim_select": 0, "victim_commit": 0, "overuse_revoke": 0}
 
 
 def reset_launch_counts() -> None:

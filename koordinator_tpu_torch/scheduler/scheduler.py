@@ -52,6 +52,20 @@ One round, as the JAX ``Scheduler`` runs it with its defaults:
    round and is rejected once ``wait_time_sec`` has passed since; a gang
    with a member placed clears its wait.
 
+Around them, when enabled: the Nominated phase (after the tick) binds the
+pods an earlier round's preemption nominated, each re-checked on its
+nominated node with its own assumed charge released (a gang all-or-nothing;
+a failed one loses its nomination and rejoins the batch); the QuotaRevoke
+phase (``enable_overuse_revoke``, before PreEnqueue) evicts the least
+important pods of quotas over their runtime past the delay (K6); and the
+PostFilter phase (``enable_preemption``, after the gang WaitTime machine)
+preempts for the round's failed pods, highest priority first, up to
+``preempt_cap`` a round: gangs as jobs all-or-nothing through
+``preempt_one``, runs of single pods through ``preempt_chain`` in chunks of
+``preempt_chunk`` (K5), the victims evicted through ``preempt_fn`` and their
+PDBs charged, each preemptor's request assumed on its node and quota and
+recorded in ``result.nominations``.
+
 Removing a bound pod (:meth:`Scheduler.delete_pod`,
 :meth:`Scheduler.remove_bound_pod`) returns what it drew from a
 reservation to that reservation and frees only the rest of its request;
@@ -66,10 +80,11 @@ Left out of this reduced shell, and kept by the JAX scheduler: gangs with
 network-topology requirements (``register_gang`` refuses them: the
 topology planner waits for ``ops/network_topology.py``), explanations, the
 auditor's per-workload attempts and Diagnose's per-reason counts (failures
-carry a short reason), hints and their dense masks, preemption and
-nominations, the fine-grained CPU and device allocators, forecast and
-quality modes, degraded mode, tenancy, the solve mesh, and the journey,
-timeline and metrics hooks.
+carry a short reason; the nominations are in ``result.nominations``), hints
+and their dense masks, the fine-grained CPU and device allocators (and so
+``add_bound_pod``'s ``resource_status``), forecast and quality modes,
+degraded mode, tenancy, the solve mesh, and the journey, timeline and
+metrics hooks.
 """
 
 from __future__ import annotations
@@ -81,14 +96,25 @@ import numpy as np
 import torch
 
 from koordinator_tpu_torch.ops import batch_assign as ba
-from koordinator_tpu_torch.ops.assignment import ScoringConfig
+from koordinator_tpu_torch.ops import scoring
+from koordinator_tpu_torch.ops.assignment import (
+    ScoringConfig,
+    _threshold_mask,
+    score_pods,
+)
 from koordinator_tpu_torch.ops.gang import GangInfo, gang_assign
+from koordinator_tpu_torch.ops.preemption import (
+    ScheduledPods,
+    preempt_chain,
+    preempt_one,
+)
 from koordinator_tpu_torch.ops.reservation import reservation_greedy_assign
 from koordinator_tpu_torch.quota.admission import (
+    HEADROOM_CLAMP,
     QuotaDeviceState,
     quota_admission_mask,
 )
-from koordinator_tpu_torch.quota.tree import QuotaTree
+from koordinator_tpu_torch.quota.tree import UNBOUNDED, QuotaTree
 from koordinator_tpu_torch.scheduler.reservations import (
     ReservationCache,
     ReservationPhase,
@@ -99,6 +125,22 @@ from koordinator_tpu_torch.state.cluster_state import PodBatch, _bucket
 #: pending-queue key prefix for synthetic reserve-pods (koordinator models a
 #: Reservation as a pod the scheduler places; reservation_types.go)
 RSV_POD_PREFIX = "rsv::"
+
+
+@dataclasses.dataclass
+class PdbRecord:
+    """PodDisruptionBudget: selector + remaining disruption budget."""
+
+    name: str
+    selector: dict[str, str]
+    allowed: int  # status.disruptionsAllowed
+
+    def matches(self, labels: dict[str, str]) -> bool:
+        # a PDB with an empty selector matches nothing; a pod with no labels
+        # matches no PDB (filterPodsWithPDBViolation, preempt.go:224)
+        if not self.selector or not labels:
+            return False
+        return all(labels.get(k) == v for k, v in self.selector.items())
 
 
 @dataclasses.dataclass(slots=True)
@@ -135,6 +177,18 @@ class BoundPod:
     def non_preemptible(self) -> bool:
         return self.pod.non_preemptible
 
+    @property
+    def priority(self) -> int:
+        return self.pod.priority
+
+    @property
+    def labels(self) -> dict[str, str]:
+        return self.pod.labels
+
+    @property
+    def gang(self) -> str | None:
+        return self.pod.gang
+
 
 @dataclasses.dataclass
 class GangRecord:
@@ -160,6 +214,9 @@ class SchedulingResult:
     round_pods: int = 0
     #: pods the greedy rescue pass placed (batch rounds only)
     rescued: int = 0
+    #: PostFilter outcomes: preemptor pod -> (nominated node, victim names)
+    nominations: dict[str, tuple[str, list[str]]] = dataclasses.field(
+        default_factory=dict)
 
 
 class Scheduler:
@@ -173,7 +230,8 @@ class Scheduler:
                  gang_default_timeout_sec: float = 600.0,
                  batch_solver_threshold: int = 1024,
                  incremental_solve: bool = True, device=None,
-                 clock=time.monotonic):
+                 clock=time.monotonic, enable_preemption: bool | None = None,
+                 preempt_fn=None):
         if device is not None and torch.device(device) != snapshot.device:
             raise ValueError(f"device {device} differs from the snapshot's "
                              f"{snapshot.device}")
@@ -234,6 +292,29 @@ class Scheduler:
         self.last_dirty_node_frac = 0.0
         self.last_dirty_pod_frac = 0.0
 
+        # -- preemption (PostFilter) --
+        # by default only preempt when someone is wired to evict the victim
+        # (freeing accounting for pods that keep running would double-book
+        # nodes)
+        self.enable_preemption = (enable_preemption
+                                  if enable_preemption is not None
+                                  else preempt_fn is not None)
+        #: called as preempt_fn(victim_name, preemptor_name) per eviction
+        self.preempt_fn = preempt_fn
+        self.pdbs: dict[str, PdbRecord] = {}
+        #: preemptor pod -> nominated node name (nominatedNodeName)
+        self.nominations: dict[str, str] = {}
+        #: node INSTANCE each nomination's charge was assumed against
+        self._nomination_gen: dict[str, int] = {}
+        #: failed pods that may attempt preemption in one round, highest
+        #: priority first (a gang that does not fit the rest is skipped
+        #: whole; the others retry next round)
+        self.preempt_cap = 1024
+        #: single-pod preemptors run in chains of at most this many
+        self.preempt_chunk = 256
+        #: the quota overuse revoke controller (enable_overuse_revoke)
+        self.overuse_revoke = None
+
     # -- registration -----------------------------------------------------------
 
     def register_gang(self, record: GangRecord) -> None:
@@ -244,6 +325,43 @@ class Scheduler:
         if record.wait_time_sec is None:
             record.wait_time_sec = self.gang_default_timeout_sec
         self.gangs[record.name] = record
+
+    def register_pdb(self, record: PdbRecord) -> None:
+        self.pdbs[record.name] = record
+
+    def add_bound_pod(self, pod: BoundPod) -> None:
+        """Seed a pre-existing bound pod (informer replay at startup): its
+        request is reserved on its node here and released by
+        :meth:`remove_bound_pod`."""
+        self.add_bound_pods([pod])
+
+    def add_bound_pods(self, pods: list[BoundPod]) -> None:
+        """:meth:`add_bound_pod` for many pods, their node charges in one
+        device update (integer adds commute: the same bits)."""
+        by_node: dict[str, np.ndarray] = {}
+        for pod in pods:
+            self.bound[pod.name] = pod
+            if pod.node in self.snapshot.node_index:
+                cur = by_node.get(pod.node)
+                req = pod.requests.astype(np.int32)
+                by_node[pod.node] = req if cur is None else cur + req
+        self.snapshot.reserve_batch(by_node)
+
+    def enable_overuse_revoke(self, revoke_fn,
+                              delay_evict_sec: float = 5.0) -> None:
+        """Turn on the elastic-quota overuse revoke loop
+        (quota_overuse_revoke.go): each round, quotas whose used exceeds
+        runtime continuously past the delay get their least important pods
+        revoked until they fit.  ``revoke_fn(pod, quota)`` is required: it
+        performs the eviction, and freeing capacity nobody evicts would
+        oversubscribe the node."""
+        from koordinator_tpu_torch.quota.overuse_revoke import (
+            QuotaOveruseRevokeController,
+        )
+
+        self.overuse_revoke = QuotaOveruseRevokeController(
+            self, revoke_fn=revoke_fn, delay_evict_sec=delay_evict_sec,
+            clock=self.clock)
 
     # -- queue ----------------------------------------------------------------
 
@@ -256,16 +374,24 @@ class Scheduler:
             self.enqueue(pod)
 
     def dequeue(self, pod_name: str) -> None:
-        if self.pending.pop(pod_name, None) is not None:
+        # a deleted nominated preemptor releases its assumed node and quota
+        # charge, and must not pin a later pod of the same name
+        pod = self.pending.pop(pod_name, None)
+        if pod is not None:
             self._pending_rev += 1
+        if pod_name in self.nominations and pod is not None:
+            self._nomination_release(pod)
+        else:
+            self.nominations.pop(pod_name, None)
+            self._nomination_gen.pop(pod_name, None)
 
     # -- bound pods -------------------------------------------------------------
 
     def delete_pod(self, name: str) -> None:
-        """Informer pod delete, whatever state the pod is in: a pending pod
-        is dequeued; a bound pod releases its node charge and its quota
-        charge."""
-        if name in self.pending:
+        """Informer pod delete, whatever state the pod is in: a pending or
+        nominated pod is dequeued; a bound pod releases its node charge and
+        its quota charge."""
+        if name in self.pending or name in self.nominations:
             self.dequeue(name)
         bound = self.bound.get(name)
         if bound is not None:
@@ -662,6 +788,16 @@ class Scheduler:
         if len(self.reservations):
             # the pinned fit check reads the flushed device rows
             self._reservation_tick(now)
+        if self.nominations:
+            # Nominated: earlier rounds' preemptors bind on their nodes
+            self.snapshot.flush()
+            self._resolve_nominations(result)
+        if self.overuse_revoke is not None and self.quota_tree is not None:
+            # QuotaRevoke: after the nominations (their released charges
+            # must not trigger evictions), before the solve (the freed
+            # headroom admits this round), on a fresh runtime
+            self._refresh_quota_tree()
+            self.overuse_revoke.revoke_once()
         pods = self._active_pods()
         if not pods:
             return result
@@ -752,6 +888,8 @@ class Scheduler:
                 if pods[i].gang:
                     failed_gangs.add(pods[i].gang)
         self._gang_wait_time(placed_gangs, failed_gangs, now)
+        if self.enable_preemption and result.failures:
+            self._run_preemption(pods, batch, result)
         return result
 
     def _gang_wait_time(self, placed: set[str], failed: set[str],
@@ -915,23 +1053,26 @@ class Scheduler:
         return torch.from_numpy(a_np).to(self.device), state, quota
 
     def _commit_binds(self, binds, result: SchedulingResult,
-                      reservations=None) -> None:
+                      reservations=None, charge_quota: bool = True) -> None:
         """Record the binds in the result and the ``bound`` registry, charge
         each quota's ``used`` once per (quota, non-preemptible) group, then
         call ``bind_fn`` per pod.  ``reservations`` gives each bind's
         (reservation, drawn vector, reservation generation) when the
-        pre-pass made it."""
+        pre-pass made it; ``charge_quota=False`` converts nominations, whose
+        quota charge is already on the tree."""
         gen = self.snapshot.node_generation
         for k, (pod, node) in enumerate(binds):
             result.assignments[pod.name] = node
             if self.pending.pop(pod.name, None) is not None:
                 self._pending_rev += 1
+            self.nominations.pop(pod.name, None)
+            self._nomination_gen.pop(pod.name, None)
             if reservations is None:
                 self.bound[pod.name] = BoundPod(pod, node, gen.get(node, 0))
             else:
                 self.bound[pod.name] = BoundPod(pod, node, gen.get(node, 0),
                                                 *reservations[k])
-        if self.quota_tree is not None:
+        if self.quota_tree is not None and charge_quota:
             groups: dict[tuple[str, bool], list[np.ndarray]] = {}
             for pod, _node in binds:
                 if pod.quota and pod.quota in self.quota_tree.nodes:
@@ -946,3 +1087,347 @@ class Scheduler:
         if self.bind_fn is not None:
             for pod, node in binds:
                 self.bind_fn(pod.name, node)
+
+    # -- nominated pods (nominatedNodeName) -------------------------------------
+
+    def _nomination_assume(self, pod: PodSpec, node: str) -> None:
+        """Account a nomination: reserve the node and charge the quota, so
+        neither the victims' freed capacity nor the quota headroom can be
+        spent twice before the preemptor binds."""
+        self.snapshot.reserve(node, pod.requests)
+        self._charge_quota_used(pod, sign=1)
+        self.nominations[pod.name] = node
+        self._nomination_gen[pod.name] = self.snapshot.node_generation.get(
+            node, 0)
+
+    def _nomination_release(self, pod: PodSpec) -> None:
+        """Undo :meth:`_nomination_assume` (a stale nomination, a deleted
+        pod); a no-op for a pod without one."""
+        node = self.nominations.pop(pod.name, None)
+        if node is None:
+            return
+        self.snapshot.unreserve_instance(
+            node, pod.requests, self._nomination_gen.pop(pod.name, 0))
+        self._charge_quota_used(pod, sign=-1)
+
+    def _nominated_fit(self, pod: PodSpec, row: int) -> bool:
+        """Filter again for a nominated pod on its nominated node (its own
+        assumed charge released by the caller), then its quota."""
+        batch = PodBatch.build(
+            pod.requests[None].astype(np.int32),
+            priority=np.array([pod.priority], np.int32),
+            feasible=self.snapshot.feasibility_row(pod)[None],
+            node_capacity=self.snapshot.capacity, capacity=16,
+            device=self.device)
+        _, feasible = score_pods(self.snapshot.state, batch, self.config)
+        if not bool(feasible[0, row]):
+            return False
+        if pod.quota is not None and self.quota_tree is not None:
+            return self.quota_tree.admits(pod.quota, pod.requests,
+                                          pod.non_preemptible)
+        return True
+
+    def _resolve_nominations(self, result: SchedulingResult) -> None:
+        """Bind the pods nominated in an earlier round.  Each pod's own
+        assumed charge is released, Filter runs again on its nominated
+        node, and it binds there (the assumed charge becomes the bind's)
+        or loses the nomination and rejoins the batch.  Gang members
+        resolve all-or-nothing: when one member's node stopped being
+        viable, every member's nomination is released."""
+        groups: dict[str, list[PodSpec]] = {}
+        for name in list(self.nominations):
+            pod = self.pending.get(name)
+            if pod is None:
+                self.nominations.pop(name, None)   # pod gone: nothing held
+                self._nomination_gen.pop(name, None)
+                continue
+            groups.setdefault(pod.gang or f"\0solo:{name}", []).append(pod)
+        for members in groups.values():
+            assumed: list[tuple[PodSpec, str]] = []
+            ok = True
+            for pod in members:
+                node_name = self.nominations[pod.name]
+                row = self.snapshot.node_index.get(node_name)
+                # release its own charge, re-check with its peers' held
+                self._nomination_release(pod)
+                if row is None or not self._nominated_fit(pod, row):
+                    ok = False
+                    break
+                self._nomination_assume(pod, node_name)
+                assumed.append((pod, node_name))
+            if ok:
+                # the assumed charges become the binds' (no second charge)
+                self._commit_binds(assumed, result, charge_quota=False)
+            else:
+                for pod in members:
+                    self._nomination_release(pod)
+
+    # -- preemption (PostFilter) ---------------------------------------------------
+
+    def _pdb_arrays(self) -> tuple[list[str], np.ndarray]:
+        names = sorted(self.pdbs)
+        allowed = np.array([self.pdbs[n].allowed for n in names],
+                           np.int32).reshape(-1)
+        if not names:
+            allowed = np.zeros(1, np.int32)   # a padded row, never matched
+        return names, allowed
+
+    def _build_scheduled(self, quota_index: dict[str, int]):
+        """The ``bound`` registry as :class:`ScheduledPods` (rows in sorted
+        name order) and the names.  A pod bound to an earlier instance of a
+        re-added node gets node -1 (its capacity was never charged to the
+        current row); a pod matching several PDBs carries the one with the
+        smallest remaining budget, the lowest index on ties (eviction pays
+        every match)."""
+        pdb_names, _ = self._pdb_arrays()
+        pdb_index = {n: i for i, n in enumerate(pdb_names)}
+        names = sorted(self.bound)
+        v = len(names)
+        dims = self.snapshot.dims
+        node_index = self.snapshot.node_index
+        node_gen = self.snapshot.node_generation
+        req = np.zeros((v, dims), np.int32)
+        node = np.full(v, -1, np.int32)
+        pri = np.zeros(v, np.int32)
+        qid = np.full(v, -1, np.int32)
+        nonp = np.zeros(v, bool)
+        pdb = np.full(v, -1, np.int32)
+        by_labels: dict[tuple, int] = {}
+        for i, name in enumerate(names):
+            bp = self.bound[name]
+            row = node_index.get(bp.node)
+            if row is not None and node_gen.get(bp.node, 0) == \
+                    bp.node_generation:
+                node[i] = row
+            req[i] = bp.requests
+            pri[i] = bp.priority
+            if bp.quota is not None and bp.quota in quota_index:
+                qid[i] = quota_index[bp.quota]
+            nonp[i] = bp.non_preemptible
+            key = tuple(sorted(bp.labels.items()))
+            best = by_labels.get(key)
+            if best is None:
+                matches = [pi for pn, pi in pdb_index.items()
+                           if self.pdbs[pn].matches(bp.labels)]
+                best = by_labels[key] = (
+                    min(matches,
+                        key=lambda pi: self.pdbs[pdb_names[pi]].allowed)
+                    if matches else -1)
+            pdb[i] = best
+        return ScheduledPods.build(
+            req, node, priority=pri if v else None,
+            quota_id=qid if v else None, non_preemptible=nonp if v else None,
+            pdb_id=pdb if v else None, device=self.device), names
+
+    def _quota_headroom(self, quota_name: str | None) -> np.ndarray | None:
+        """(R,) runtime - used of the pod's quota (postFilterState.usedLimit):
+        the victims must bring used back under it.  Dims outside the
+        quota's declared max are unbounded."""
+        if quota_name is None or self.quota_tree is None:
+            return None
+        qnode = self.quota_tree.nodes.get(quota_name)
+        if qnode is None:
+            return None
+        hr = np.where(qnode.max != UNBOUNDED, qnode.runtime - qnode.used,
+                      HEADROOM_CLAMP)
+        return np.clip(hr, -HEADROOM_CLAMP, HEADROOM_CLAMP).astype(np.int32)
+
+    def _run_preemption(self, pods: list[PodSpec], batch: PodBatch,
+                        result: SchedulingResult) -> None:
+        """PostFilter: for each failed pod, find the cheapest victim set,
+        evict and nominate.  Gang members preempt together, all-or-nothing
+        (Coscheduling job preemption); a pod with a quota preempts within
+        it (elasticquota's SelectVictimsOnNode)."""
+        # reserve-pods place through the reservation lifecycle instead
+        failed = [p for p in pods if p.name in result.failures
+                  and not p.name.startswith(RSV_POD_PREFIX)]
+        if not failed:
+            return
+        quota_index = ({} if self.quota_tree is None else
+                       {n: i for i, n in enumerate(sorted(
+                           self.quota_tree.nodes))})
+        sched, bound_names = self._build_scheduled(quota_index)
+        if not bound_names:
+            return
+        _, pdb_np = self._pdb_arrays()
+        pdb_allowed = torch.from_numpy(pdb_np).to(self.device)
+        snap_state = self.snapshot.state
+        # the host commits below change the snapshot's accounting in place
+        state = snap_state.replace(
+            node_requested=snap_state.node_requested.clone())
+
+        # gangs preempt as one job, other pods alone, highest priority first
+        failed.sort(key=lambda p: (-p.priority, p.creation, p.name))
+        jobs: list[list[PodSpec]] = []
+        seen_gangs: set[str] = set()
+        for p in failed:
+            if p.gang is not None:
+                if p.gang in seen_gangs:
+                    continue
+                seen_gangs.add(p.gang)
+                jobs.append([q for q in failed if q.gang == p.gang])
+            else:
+                jobs.append([p])
+        # the round's budget: a gang that does not fit what is left is
+        # skipped whole, and the rest retry next round
+        budget = self.preempt_cap
+        capped: list[list[PodSpec]] = []
+        for job in jobs:
+            if budget <= 0:
+                break
+            if any(p.preemption_policy == "Never" for p in job):
+                continue
+            if len(job) > budget:
+                continue
+            capped.append(job)
+            budget -= len(job)
+        if not capped:
+            return
+
+        # the capped preemptors' feasible rows, ANDed with the load-aware
+        # threshold (preemption lowers no measured usage)
+        pod_row = {p.name: i for i, p in enumerate(pods)}
+        fail_rows = sorted({pod_row[p.name] for job in capped for p in job})
+        rows_t = torch.tensor(fail_rows, dtype=torch.long, device=self.device)
+        if batch.feasible is not None:
+            feas = batch.feasible[rows_t]
+        else:
+            c = batch.selector_mask.shape[1]
+            nc = torch.clamp(snap_state.node_class, max=c - 1).long()
+            feas = (batch.selector_mask[rows_t][:, nc]
+                    & (snap_state.node_class < c)[None, :])
+        pod_est = scoring.estimate_pod_usage_by_band(
+            batch.requests[rows_t], self.config.estimator_factors,
+            self.config.estimator_defaults)
+        feas = feas & _threshold_mask(
+            self.config, snap_state.node_usage, snap_state.node_agg_usage,
+            snap_state.node_allocatable, pod_est)
+        mask_row = {pods[r].name: i for i, r in enumerate(fail_rows)}
+
+        i = 0
+        while i < len(capped):
+            job = capped[i]
+            if len(job) == 1 and job[0].gang is None:
+                # a run of single-pod preemptors: one chain
+                chunk: list[PodSpec] = []
+                while (i < len(capped) and len(capped[i]) == 1
+                       and capped[i][0].gang is None
+                       and len(chunk) < self.preempt_chunk):
+                    chunk.append(capped[i][0])
+                    i += 1
+                state, sched, pdb_allowed = self._run_preempt_chunk(
+                    chunk, state, sched, pdb_allowed, quota_index,
+                    bound_names, feas, mask_row, result)
+                continue
+            i += 1
+            state, sched, pdb_allowed = self._run_preempt_job(
+                job, state, sched, pdb_allowed, quota_index, bound_names,
+                feas, mask_row, result)
+
+    def _run_preempt_job(self, job, state, sched, pdb_allowed, quota_index,
+                         bound_names, feas, mask_row, result):
+        """A gang: one preempt_one a member, each seeing the ones before,
+        committed only when every member found a node.  Returns the evolved
+        (state, sched, pdb)."""
+        cur_state, cur_sched, cur_pdb = state, sched, pdb_allowed
+        outcomes = []
+        # quota the job's earlier members took or freed (their requests less
+        # their same-quota victims'): the tree is charged only at commit
+        job_assumed: dict[str, np.ndarray] = {}
+        for p in job:
+            quota_hr = self._quota_headroom(p.quota)
+            same_quota = quota_hr is not None
+            if same_quota and p.quota in job_assumed:
+                quota_hr = np.clip(
+                    quota_hr.astype(np.int64) - job_assumed[p.quota],
+                    -HEADROOM_CLAMP, HEADROOM_CLAMP).astype(np.int32)
+            qid = quota_index.get(p.quota, -1) if p.quota else -1
+            out = preempt_one(
+                cur_state, cur_sched,
+                torch.from_numpy(p.requests.astype(np.int32)).to(self.device),
+                p.priority, qid, feas[mask_row[p.name]], cur_pdb,
+                quota_headroom=(torch.from_numpy(quota_hr).to(self.device)
+                                if same_quota else None),
+                same_quota_only=same_quota)
+            node_row = int(out.node)
+            if node_row < 0:
+                # all-or-nothing: drop the job's tentative evictions
+                return state, sched, pdb_allowed
+            victim_names = [bound_names[v] for v in
+                            torch.nonzero(out.victims).flatten().tolist()]
+            outcomes.append((p, node_row, victim_names))
+            if p.quota is not None:
+                delta = p.requests.astype(np.int64)
+                for vname in victim_names:
+                    bp = self.bound[vname]
+                    if bp.quota == p.quota:
+                        delta = delta - bp.requests.astype(np.int64)
+                job_assumed[p.quota] = job_assumed.get(p.quota, 0) + delta
+            cur_state, cur_sched, cur_pdb = (out.state, out.sched,
+                                             out.pdb_allowed)
+        # later jobs see this one's evictions and nominations; the victims'
+        # rows stay in place (invalid in sched)
+        for p, node_row, victim_names in outcomes:
+            self._commit_one_preemption(p, node_row, victim_names, result)
+        return cur_state, cur_sched, cur_pdb
+
+    def _run_preempt_chunk(self, chunk, state, sched, pdb_allowed,
+                           quota_index, bound_names, feas, mask_row, result):
+        """A run of single-pod preemptors as one ``preempt_chain``: the same
+        as :meth:`_run_preempt_job` a pod.  Returns (state, sched, pdb)."""
+        c, r = len(chunk), self.snapshot.dims
+        reqs = np.zeros((c, r), np.int32)
+        pris = np.zeros(c, np.int32)
+        qids = np.full(c, -1, np.int32)
+        same_q = np.zeros(c, bool)
+        # (Q, R) runtime - used by quota row; rows with no headroom open
+        base_hr = np.full((max(len(quota_index), 1), r), HEADROOM_CLAMP,
+                          np.int32)
+        for name, qi in quota_index.items():
+            hr = self._quota_headroom(name)
+            if hr is not None:
+                base_hr[qi] = hr
+        for j, p in enumerate(chunk):
+            reqs[j] = p.requests.astype(np.int32)
+            pris[j] = p.priority
+            qids[j] = quota_index.get(p.quota, -1) if p.quota else -1
+            same_q[j] = self._quota_headroom(p.quota) is not None
+        rows = torch.tensor([mask_row[p.name] for p in chunk],
+                            dtype=torch.long, device=self.device)
+
+        def dev(a):
+            return torch.from_numpy(a).to(self.device)
+
+        out = preempt_chain(
+            state, sched, dev(reqs), dev(pris), dev(qids),
+            feas[rows].contiguous(), dev(same_q),
+            torch.ones(c, dtype=torch.bool, device=self.device), pdb_allowed,
+            dev(base_hr))
+        nodes = out.node.cpu().numpy()
+        victims_of: dict[int, list[str]] = {}
+        for j, v in torch.nonzero(out.victims).cpu().tolist():
+            victims_of.setdefault(j, []).append(bound_names[v])
+        for j, p in enumerate(chunk):
+            if nodes[j] >= 0:
+                self._commit_one_preemption(p, int(nodes[j]),
+                                            victims_of.get(j, []), result)
+        return out.state, out.sched, out.pdb_allowed
+
+    def _commit_one_preemption(self, p: PodSpec, node_row: int,
+                               victim_names: list[str],
+                               result: SchedulingResult) -> None:
+        """The host commit of one preemptor: evict its victims (node charge
+        and quota released, every matching PDB pays, ``preempt_fn``), assume
+        its nomination and record it on the round's result."""
+        node_name = self.snapshot.node_name(node_row)
+        for vname in victim_names:
+            bp = self.bound.pop(vname)
+            self._release_bound_capacity(bp)
+            self._charge_quota_used(bp, sign=-1)
+            for rec in self.pdbs.values():
+                if rec.matches(bp.labels):
+                    rec.allowed -= 1
+            if self.preempt_fn is not None:
+                self.preempt_fn(vname, p.name)
+        self._nomination_assume(p, node_name)
+        result.nominations[p.name] = (node_name, victim_names)

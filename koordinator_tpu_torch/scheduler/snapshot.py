@@ -57,6 +57,9 @@ class PodSpec:
     labels: dict[str, str] = dataclasses.field(default_factory=dict)
     #: controller key for reservation owner matching
     owner: str | None = None
+    #: pod.spec.preemptionPolicy: "Never" opts out of preempting others
+    #: (PodEligibleToPreemptOthers, elasticquota/preempt.go:62)
+    preemption_policy: str = "PreemptLowerPriority"
 
 
 class ClusterSnapshot:
@@ -90,6 +93,8 @@ class ClusterSnapshot:
         # recycled); the (P, C) selector masks index them via node_class
         self._class_index: dict[tuple, int] = {}
         self._class_sigs: list[tuple] = []
+        #: (live rows, their class ids), rebuilt after a node upsert/remove
+        self._row_classes: tuple[np.ndarray, np.ndarray] | None = None
 
     @property
     def class_capacity(self) -> int:
@@ -152,6 +157,7 @@ class ClusterSnapshot:
                 self.node_generation.get(spec.name, -1) + 1)
         self.node_specs[spec.name] = spec
         self._class_of(spec)
+        self._row_classes = None
         self._dirty.add(row)
         self._cand_dirty.add(row)
         return row
@@ -162,6 +168,7 @@ class ClusterSnapshot:
             return
         del self.node_specs[name]
         del self._row_to_name[row]
+        self._row_classes = None
         self._free_rows.append(row)
         self._dirty.add(row)
         self._cand_dirty.add(row)
@@ -300,3 +307,20 @@ class ClusterSnapshot:
 
     def node_name(self, row: int) -> str | None:
         return self._row_to_name.get(row)
+
+    def feasibility_row(self, pod: PodSpec) -> np.ndarray:
+        """(N,) bool selector/toleration mask of one pod over the live node
+        rows (False elsewhere): the pod's class row expanded through each
+        live node's class, the same bits as testing every node's labels
+        and taints."""
+        mask = np.zeros(self.capacity, bool)
+        if self._row_classes is None:
+            self._row_classes = (
+                np.fromiter(self.node_index.values(), np.int64,
+                            len(self.node_index)),
+                np.fromiter((self._class_of(self.node_specs[name])
+                             for name in self.node_index), np.int64,
+                            len(self.node_index)))
+        rows, classes = self._row_classes
+        mask[rows] = self.selector_row_for(pod)[classes]
+        return mask

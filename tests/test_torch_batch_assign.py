@@ -309,11 +309,32 @@ def test_cpu_wrappers_launch_nothing_and_other_devices_raise():
     reservation_greedy_assign(
         ts, tp, port(config(), "ScoringConfig"), rsv,
         torch.zeros((tp.capacity, rsv.capacity), dtype=torch.bool))
+    from koordinator_tpu_torch.ops.preemption import (
+        ScheduledPods,
+        preempt_chain,
+    )
+    from koordinator_tpu_torch.quota.overuse_revoke import (
+        select_overuse_victims,
+    )
+
+    n = ts.capacity
+    sched = ScheduledPods.build(
+        np.full((6, 10), 500, np.int32), np.arange(6, dtype=np.int32) % n,
+        quota_id=np.zeros(6, np.int32), device="cpu")
+    preempt_chain(ts, sched, tp.requests[:2], tp.priority[:2],
+                  torch.full((2,), -1, dtype=torch.int32),
+                  torch.ones((2, n), dtype=torch.bool),
+                  torch.zeros(2, dtype=torch.bool),
+                  torch.ones(2, dtype=torch.bool),
+                  torch.zeros(1, dtype=torch.int32), None)
+    q = torch.zeros((1, 10), dtype=torch.int32)
+    select_overuse_victims(sched, q + 3_000, q, q == 0)
     assert build.LAUNCHES == {"select_candidates": 0,
                               "select_candidates_approx": 0,
                               "refresh_candidates": 0, "round_fit_choose": 0,
                               "segmented_prefix_accept": 0, "greedy_scan": 0,
-                              "reservation_scan": 0}
+                              "reservation_scan": 0, "victim_select": 0,
+                              "victim_commit": 0, "overuse_revoke": 0}
     meta = dict(device="meta")
     key = torch.empty((4, 8), dtype=torch.int32, **meta)
     with pytest.raises(ValueError, match="no kernel for device"):
@@ -334,13 +355,17 @@ def test_cpu_wrappers_launch_nothing_and_other_devices_raise():
 def test_kernel_sources_carry_their_note_and_build_lazily():
     """Each .cu names the JAX function it replaces (file:line) and what
     bounds it; importing the package compiles nothing."""
+    import re
+
     from koordinator_tpu_torch.kernels import build
 
     srcs = build.sources()
     assert sorted(os.path.basename(s) for s in srcs) == [
-        "greedy_scan.cu", "refresh_candidates.cu", "round_fit_choose.cu",
-        "segmented_prefix_accept.cu", "select_candidates.cu"]
+        "greedy_scan.cu", "overuse_revoke.cu", "refresh_candidates.cu",
+        "round_fit_choose.cu", "segmented_prefix_accept.cu",
+        "select_candidates.cu", "victim_select.cu"]
     for path in srcs:
         head = open(path).read().split("#include")[0]
-        assert "koordinator_tpu/ops/" in head and "bounds it" in head, path
+        assert re.search(r"koordinator_tpu/\w+/\w+\.py:\d+", head), path
+        assert "bounds it" in head, path
     assert build._lib is None

@@ -5,7 +5,8 @@ greedy round, and reservation rounds: reserve-pods and a pinned
 reservation opening, then owner pods through the reservation pre-pass;
 then a cold and an incremental round in the wide key regime, at a capacity
 of 40,960 with 70 node classes; then a gang round and two rounds under
-``cand_method="approx"``)."""
+``cand_method="approx"``; then a preemption round, its nominations' binds
+and a quota overuse revoke)."""
 
 import os
 import re
@@ -121,6 +122,54 @@ for rnd in range(2):
     res = ws.schedule_round()
     assert res.assignments
 assert ws.last_solve_path == "incremental"
+# preemption (PostFilter: a chain of single pods and a gang job; the
+# Nominated round binds them) and the quota overuse revoke
+from koordinator_tpu_torch.scheduler.scheduler import BoundPod, PdbRecord
+now = [0.0]
+ps = ClusterSnapshot(capacity=8, device="cpu")
+for i in range(4):
+    a = np.zeros(10, np.int32)
+    a[0], a[1] = 8000, 65536
+    ps.upsert_node(NodeSpec(name=f"m{i}", allocatable=a))
+total = np.zeros(10, np.int64)
+total[0], total[1] = 32000, 262144
+ptree = QuotaTree(total)
+for qn, floor in (("a", 0), ("b", 24000)):
+    mx = np.full(10, -1, np.int64)
+    mx[0] = 32000
+    mn = np.zeros(10, np.int64)
+    mn[0] = floor
+    ptree.add(qn, mn, mx)
+evicted, revoked = [], []
+pre = Scheduler(ps, quota_tree=ptree, device="cpu", clock=lambda: now[0],
+                preempt_fn=lambda v, by: evicted.append(v))
+pre.enable_overuse_revoke(lambda p, q: revoked.append(p), delay_evict_sec=5.0)
+pre.register_pdb(PdbRecord(name="pdb", selector={"app": "x"}, allowed=10))
+for j in range(8):
+    q = np.zeros(10, np.int32)
+    q[0] = 4000
+    pre.add_bound_pod(BoundPod(PodSpec(name=f"b{j}", requests=q, priority=j,
+                                       quota="a", labels={"app": "x"}),
+                               f"m{j % 4}"))
+# the quota's used as its ElasticQuota status reports it
+ptree.nodes["a"].used[0] += 32000
+pre.register_gang(GangRecord(name="pg", min_member=2))
+for j in range(4):
+    q = np.zeros(10, np.int32)
+    q[0] = 4000
+    pre.enqueue(PodSpec(name=f"h{j}", requests=q, priority=9000 + j,
+                        gang="pg" if j >= 2 else None))
+res = pre.schedule_round()
+assert res.nominations and evicted
+res = pre.schedule_round()
+assert res.assignments
+q = np.zeros(10, np.int32)
+q[0] = 20000
+pre.enqueue(PodSpec(name="bq", requests=q, priority=9999, quota="b"))
+pre.schedule_round()
+now[0] = 10.0
+pre.schedule_round()
+assert revoked
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "koordinator_tpu"))
 print("LOADED", bad)
