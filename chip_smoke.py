@@ -155,14 +155,22 @@ first failure:
    allocatable, the accounting equals the bound pods and the nominations,
    every PDB paid for its evictions.  Every K5 chain and preempt_one call
    of the rounds, and the K6 call, equal their plain versions on their
-   recorded inputs; K5 is timed on the first full chain (the wrapper,
-   and K5a and K5b alone), K6 on round 3's call.  Before it
-   ``preempt_edges``: K5 and K6 on their edges (a node with 110
+   recorded inputs, and K5 launches once a chain and once a preempt_one;
+   K5 is timed on the first full chain (the wrapper on the node-ordered
+   rows the PostFilter carried, a preemptor's share, the kernel's device
+   time, the rows' build apart, the floor of dependent steps), K6 on round
+   3's call and, from ``preempt_edges``, on one quota of 50,000 pods.
+   Before it ``preempt_edges``: K5 and K6 on their edges (a node with 110
    candidates, PDB budgets of 0 and rank ties, an all-tie choice, no
    eligible node, priorities at NEG_PRI and -2**31 with headroom at
    +-2**30, inactive rows, a later preemptor seeing an earlier one's
-   nomination, 65,536 nodes, 4,096 PDBs, one quota of 50,000 pods, hopeless
-   quotas with and without a PDB-blocked pod).
+   nomination, two preemptors in a row on one node, a PDB budget one
+   preemptor spends flipping the next one's node, grids of 1, 3 and 132
+   CTAs, a PostFilter's two chains and a gang on the rows they carry,
+   65,536 nodes, 4,096 PDBs, one quota of 50,000 pods, hopeless quotas
+   with and without a PDB-blocked pod, K6's walk stopping at lane 0, lane
+   31 and past the end).  Both phases run under a watchdog: past
+   K5_PHASE_LIMIT_S seconds the run ends with code 4 and a message.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the last
 is ``{"ok": true, "device": {...}}``.  Before them, one JSON line lists the
@@ -372,6 +380,32 @@ def scan_ops(state, pods, cfg, rows, assignments) -> int:
             requested[a[i]] += pods.requests[i]
             added[a[i]] += est[i]
     return ops
+
+
+#: seconds a K5/K6 phase may take before the run fails (a K5 launch whose
+#: CTAs never meet would otherwise hold the card until the time limit)
+K5_PHASE_LIMIT_S = 300.0
+
+
+@contextlib.contextmanager
+def watchdog(seconds: float, what: str):
+    """Ends the process with code 4 and a message when the block takes
+    more than ``seconds``."""
+    import threading
+
+    done = threading.Event()
+
+    def bark():
+        if not done.wait(seconds):
+            print(f"chip_smoke: {what} did not finish within {seconds} s",
+                  file=sys.stderr, flush=True)
+            os._exit(4)
+
+    threading.Thread(target=bark, daemon=True).start()
+    try:
+        yield
+    finally:
+        done.set()
 
 
 def sync(device) -> None:
@@ -1893,8 +1927,7 @@ def phase_steady(device, n_nodes: int = 10_240, n_pods: int = 50_000,
         # only with preemption and the overuse revoke on (phase_preemption)
         check(count > 0 or kname in ("reservation_scan",
                                      "select_candidates_approx",
-                                     "victim_select", "victim_commit",
-                                     "overuse_revoke"),
+                                     "victim_select", "overuse_revoke"),
               f"{kname} launched on the steady-state path")
     by_name = {p.name: p for p in pods}
     by_name.update(enqueued)
@@ -3974,16 +4007,17 @@ def chain_err(got, want) -> int:
                max_abs_err(got.assumed, want.assumed))
 
 
-def held_k5(device, state, sched, ch, label: str, one_rows=(0,)) -> dict:
+def held_k5(device, state, sched, ch, label: str, one_rows=(0,),
+            grid: int = 0) -> dict:
     """K5 against its plain versions on one problem: the chain, then for
     the rows ``one_rows`` preempt_one on both quota paths (no headroom with
     the job rule and with the elastic-quota rule, the row's base headroom)
-    and the dry run alone."""
+    and the dry run alone; ``grid`` CTAs (0: the default)."""
     from koordinator_tpu_torch.kernels import preemption as k5
     from koordinator_tpu_torch.ops import preemption as ops
 
     args = [ch[k] for k in CHAIN_ARGS]
-    got = k5.preempt_chain_kernel(state, sched, *args)
+    got = k5.preempt_chain_kernel(state, sched, *args, grid=grid)
     sync(device)
     want = ops.preempt_chain_plain(state, sched, *args)
     err = chain_err(got, want)
@@ -3995,16 +4029,16 @@ def held_k5(device, state, sched, ch, label: str, one_rows=(0,)) -> dict:
             one = (state, sched, ch["reqs"][j], ch["pris"][j], ch["qids"][j],
                    ch["feas"][j], ch["pdb"])
             kw = dict(quota_headroom=hr, same_quota_only=sq)
-            g, w = k5.preempt_one_kernel(*one, **kw), ops.preempt_one_plain(
-                *one, **kw)
+            g, w = (k5.preempt_one_kernel(*one, **kw, grid=grid),
+                    ops.preempt_one_plain(*one, **kw))
             e1 = max(max_abs_err(g.node, w.node),
                      max_abs_err(g.victims, w.victims),
                      max_abs_err(g.state.node_requested,
                                  w.state.node_requested),
                      max_abs_err(g.sched.valid, w.sched.valid),
                      max_abs_err(g.pdb_allowed, w.pdb_allowed))
-            gs, ws = k5.select_victims_kernel(*one, **kw), \
-                ops.select_victims_plain(*one, **kw)
+            gs, ws = (k5.select_victims_kernel(*one, **kw, grid=grid),
+                      ops.select_victims_plain(*one, **kw))
             e1 = max([e1] + [max_abs_err(getattr(gs, f), getattr(ws, f))
                              for f in ("eligible", "victim", "violating",
                                        "num_victims", "num_violating",
@@ -4014,10 +4048,110 @@ def held_k5(device, state, sched, ch, label: str, one_rows=(0,)) -> dict:
                   f"{hr is not None}, same quota {sq})")
             err = max(err, e1)
     return dict(case=label, nodes=state.capacity, bound=sched.capacity,
-                preemptors=int(ch["reqs"].shape[0]), max_abs_err=err,
-                nominated=int((got.node >= 0).sum()),
+                preemptors=int(ch["reqs"].shape[0]), grid=grid,
+                max_abs_err=err, nominated=int((got.node >= 0).sum()),
                 victims=int(got.victims.sum()),
                 nodes_out=got.node.tolist()[:8])
+
+
+def held_k5_carried(device, state, sched, ch, label: str) -> dict:
+    """One PostFilter's K5 calls on the carry each leaves: the first half
+    of the preemptors as a chain, the second half as another, then rows 0
+    and 1 as a gang's preempt_one calls (no headroom, then the row's base
+    headroom), each against its plain version on the plain carry; the
+    node-ordered rows, built once before the first call, are the ones
+    every returned ScheduledPods carries, and equal a fresh build at the
+    end."""
+    from koordinator_tpu_torch.kernels import preemption as k5
+    from koordinator_tpu_torch.ops import preemption as ops
+
+    n = state.capacity
+    c = int(ch["reqs"].shape[0])
+    built = k5.victim_csr(sched, n)
+    g_state, g_sched, g_pdb = state, sched, ch["pdb"]
+    w_state, w_sched, w_pdb = state, sched, ch["pdb"]
+    err = 0
+    for lo, hi in ((0, c // 2), (c // 2, c)):
+        cut = [ch[k][lo:hi] for k in CHAIN_ARGS[:6]]
+        got = k5.preempt_chain_kernel(g_state, g_sched, *cut, g_pdb,
+                                      ch["base_hr"])
+        want = ops.preempt_chain_plain(w_state, w_sched, *cut, w_pdb,
+                                       ch["base_hr"])
+        check(k5.victim_csr(got.sched, n) is built,
+              f"K5's node-ordered rows are carried ({label})")
+        err = max(err, chain_err(got, want))
+        g_state, g_sched, g_pdb = got.state, got.sched, got.pdb_allowed
+        w_state, w_sched, w_pdb = want.state, want.sched, want.pdb_allowed
+    for j, hr in ((0, None), (1, ch["base_hr"][max(int(ch["qids"][1]), 0)])):
+        one = [ch[k][j] for k in ("reqs", "pris", "qids", "feas")]
+        kw = dict(quota_headroom=hr, same_quota_only=hr is not None)
+        got = k5.preempt_one_kernel(g_state, g_sched, *one, g_pdb, **kw)
+        want = ops.preempt_one_plain(w_state, w_sched, *one, w_pdb, **kw)
+        check(k5.victim_csr(got.sched, n) is built,
+              f"K5's node-ordered rows are carried ({label})")
+        err = max(err, max_abs_err(got.node, want.node),
+                  max_abs_err(got.victims, want.victims),
+                  max_abs_err(got.state.node_requested,
+                              want.state.node_requested),
+                  max_abs_err(got.sched.valid, want.sched.valid),
+                  max_abs_err(got.pdb_allowed, want.pdb_allowed))
+        g_state, g_sched, g_pdb = got.state, got.sched, got.pdb_allowed
+        w_state, w_sched, w_pdb = want.state, want.sched, want.pdb_allowed
+    sync(device)
+    check(err == 0, f"K5 on carried rows equals its plain versions ({label})")
+    fresh = k5.VictimCSR(g_sched, n)
+    for f in ("offsets", "rows", "row_count", "pri", "quota", "pdb", "nonp",
+              "req"):
+        check(bool((getattr(fresh, f) == getattr(built, f)).all()),
+              f"the carried rows' {f} equal a fresh build ({label})")
+    return dict(case=label, nodes=n, bound=sched.capacity, preemptors=c,
+                max_abs_err=err, calls=4)
+
+
+def k5_tiny(device, alloc_cpu, pods, preemptors, budgets):
+    """(state, sched, chain) of a hand-made chain: ``pods`` as (node, cpu,
+    priority, pdb, non-preemptible) on nodes of ``alloc_cpu`` mcores (each
+    node's accounting their sum), ``preemptors`` as (cpu, priority,
+    feasible nodes); no quota anywhere."""
+    import torch
+
+    from koordinator_tpu_torch.ops.preemption import ScheduledPods
+    from koordinator_tpu_torch.state.cluster_state import ClusterState
+
+    n, v, c = len(alloc_cpu), len(pods), len(preemptors)
+    alloc = np.zeros((n, R), np.int32)
+    alloc[:, CPU] = alloc_cpu
+    alloc[:, MEM] = 65_536
+    req = np.zeros((v, R), np.int32)
+    req[:, CPU] = [p[1] for p in pods]
+    req[:, MEM] = 256
+    node = np.array([p[0] for p in pods], np.int32)
+    requested = np.zeros((n, R), np.int64)
+    np.add.at(requested, node, req)
+    state = ClusterState.from_arrays(alloc,
+                                     requested=requested.astype(np.int32),
+                                     capacity=n, device=device)
+    sched = ScheduledPods.build(
+        req, node, priority=np.array([p[2] for p in pods], np.int32),
+        quota_id=np.full(v, -1, np.int32),
+        non_preemptible=np.array([p[4] for p in pods], bool),
+        pdb_id=np.array([p[3] for p in pods], np.int32), device=device)
+    reqs = np.zeros((c, R), np.int32)
+    reqs[:, CPU] = [p[0] for p in preemptors]
+    feas = np.zeros((c, n), bool)
+    for j, p in enumerate(preemptors):
+        feas[j, list(p[2])] = True
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a)).to(device)
+
+    return state, sched, dict(
+        reqs=dev(reqs), pris=dev(np.array([p[1] for p in preemptors],
+                                          np.int32)),
+        qids=dev(np.full(c, -1, np.int32)), feas=dev(feas),
+        same_q=dev(np.zeros(c, bool)), active=dev(np.ones(c, bool)),
+        pdb=dev(np.array(budgets, np.int32)),
+        base_hr=dev(np.full((1, R), K5_OPEN, np.int32)))
 
 
 def k6_problem(seed: int, n_pods: int, n_quotas: int, device, *,
@@ -4062,12 +4196,48 @@ def k6_problem(seed: int, n_pods: int, n_quotas: int, device, *,
     return sched, dev(used), dev(runtime), dev(checked), dev(budgets)
 
 
+def k6_stop_problem(n_pods: int, removed: int | None, device,
+                    blocked: bool = False):
+    """(sched, used, runtime, checked, pdb budgets) of one quota of
+    ``n_pods`` candidates of 100 mcores, priorities ascending, at runtime
+    ``used - 100 * removed``: K6's phase 1 removes exactly ``removed`` pods
+    (None: runtime -1, the walk runs past the end and the quota is
+    hopeless; ``blocked`` adds a pod an exhausted PDB protects)."""
+    import torch
+
+    from koordinator_tpu_torch.ops.preemption import ScheduledPods
+
+    v = n_pods + 1
+    req = np.zeros((v, R), np.int32)
+    req[:, CPU] = 100
+    req[:, MEM] = 128
+    pdb = np.full(v, -1, np.int32)
+    pdb[-1] = 0 if blocked else -1
+    used = np.zeros((1, R), np.int32)
+    used[0] = req.sum(0)
+    runtime = used.copy()
+    runtime[0, CPU] = -1 if removed is None else used[0, CPU] - 100 * removed
+    checked = np.zeros((1, R), bool)
+    checked[0, CPU] = True
+    sched = ScheduledPods.build(
+        req, np.zeros(v, np.int32),
+        priority=np.arange(1_000, 1_000 + v, dtype=np.int32),
+        quota_id=np.zeros(v, np.int32), pdb_id=pdb, device=device)
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    return (sched, dev(used), dev(runtime), dev(checked),
+            dev(np.array([0, 5, 5], np.int32)))
+
+
 def held_k6(device, label: str, sched, used, runtime, checked, pdb,
             reps: int = 0) -> dict:
     """K6 against its plain version: the revoke masks, and each quota's
     phase-1 walk length (the removals); with ``reps``, both timed."""
     from koordinator_tpu_torch.kernels import overuse_revoke as k6
     from koordinator_tpu_torch.quota.overuse_revoke import (
+        overuse_keys,
         select_overuse_victims_plain,
     )
 
@@ -4075,32 +4245,46 @@ def held_k6(device, label: str, sched, used, runtime, checked, pdb,
     sync(device)
     want = select_overuse_victims_plain(sched, used, runtime, checked, pdb)
     err = max_abs_err(got, want)
+    # the keys launch alone against its plain version
+    q = used.shape[0]
+    got_keys = k6.overuse_keys_launch(sched, q, pdb)[:3]
+    want_keys = overuse_keys(sched, q, pdb)
+    err = max([err] + [max_abs_err(g, w) for g, w in zip(got_keys,
+                                                          want_keys)])
     check(err == 0, f"K6 equals its plain version ({label})")
     out = dict(case=label, pods=sched.capacity, quotas=used.shape[0],
                max_abs_err=err, revoked=int(got.sum()),
                revoked_in_quota_0=int((got & (sched.quota_id == 0)).sum()),
                longest_walk=int(walk.max()))
+    out["walks"] = walk.tolist()[:4]
     if reps:
         out["ms"] = timed_ms(lambda: k6.overuse_revoke_launch(
             sched, used, runtime, checked, pdb), device, reps=reps)
         out["plain_ms"] = timed_ms(lambda: select_overuse_victims_plain(
             sched, used, runtime, checked, pdb), device, reps=1, warmup=0)
+        out.update(k6_bound(sched, used, walk))
     return out
 
 
 def phase_preempt_edges(device, wide_nodes: int = 65_536,
                         wide_bound: int = 196_608,
                         many_pdbs: int = 4_096,
-                        long_quota: int = 50_000) -> None:
+                        long_quota: int = 50_000) -> dict:
     """K5 and K6 against their plain versions on their edges, every output
-    exact: a node with 110 candidates (the PDB carry crosses K5a's 32-row
-    chunks), PDBs with budget 0 and rank ties, an all-tie choice (the
-    lowest row wins), no eligible node (-1), priorities at NEG_PRI and
-    -2**31 with headroom at +-2**30 and wrapping priority sums, inactive
-    chain rows, a later preemptor that must see an earlier one's
-    nomination, 65,536 nodes, 4,096 PDBs; K6 on one quota of 50,000 pods
-    and on hopeless quotas with a blocked pod (skipped) and without (every
-    candidate evicted)."""
+    exact: a node with 110 candidates (the PDB carry crosses K5's 32-row
+    chunks, and rows past the 64 a warp stages are read from the CSR),
+    PDBs with budget 0 and rank ties, an all-tie choice (the lowest row
+    wins), no eligible node (-1), priorities at NEG_PRI and -2**31 with
+    headroom at +-2**30 and wrapping priority sums, inactive chain rows, a
+    later preemptor that must see an earlier one's nomination, two
+    preemptors in a row on the same node, a PDB budget one preemptor
+    spends flipping the next one's choice, grids of 1, 3 and 132 CTAs, one
+    PostFilter's calls on the node-ordered rows they carry, 65,536 nodes
+    (a CTA looping over hundreds of them), 4,096 PDBs; K6 on one quota of
+    50,000 pods, on hopeless quotas with a blocked pod (skipped) and
+    without (every candidate evicted), and with phase 1 stopping at lane
+    0, at lane 31 and past the end of the list.  Returns the 50,000-pod
+    quota's K6 record."""
     import torch
 
     t_start = time.perf_counter()
@@ -4166,9 +4350,41 @@ def phase_preempt_edges(device, wide_nodes: int = 65_536,
     # 65,536 nodes, and 4,096 PDBs
     state, sched, ch = k5_problem(159, wide_nodes, wide_bound, device, c=4)
     cases.append(held_k5(device, state, sched, ch, f"nodes_{wide_nodes}"))
+    cases.append(held_k5(device, state, sched, ch,
+                         f"nodes_{wide_nodes}_grid_132", grid=132))
     state, sched, ch = k5_problem(160, 10_240, 100_000, device, c=8,
                                   n_pdbs=many_pdbs)
     cases.append(held_k5(device, state, sched, ch, f"pdbs_{many_pdbs}"))
+    # the partial keys over 1, 3 and 132 CTAs
+    state, sched, ch = k5_problem(163, 256, 4_000, device, c=12,
+                                  crowd=70, edges=True)
+    for grid in (1, 3, 132):
+        cases.append(held_k5(device, state, sched, ch, f"grid_{grid}",
+                             grid=grid))
+    # two preemptors in a row on node 1, the only one with victims
+    pods = [(0, 9_000, 9_500, -1, False), (2, 9_000, 1_000, -1, True)]
+    pods += [(1, 2_500, 1_000 + k, -1, False) for k in range(4)]
+    state, sched, ch = k5_tiny(device, [10_000] * 3, pods,
+                               [(4_000, 9_000, (0, 1, 2))] * 2, [1])
+    cases.append(held_k5(device, state, sched, ch, "same_node_twice"))
+    check(cases[-1]["nodes_out"][:2] == [1, 1],
+          "consecutive preemptors take the same node")
+    # preemptor 0 spends PDB 0's last budget; preemptor 1 then finds node
+    # 1's pod of that PDB violating and takes node 2 (node 1 without it)
+    pods = [(0, 9_000, 1_000, 0, False), (1, 9_000, 1_000, 0, False),
+            (2, 9_000, 2_000, -1, False)]
+    for first_active, want in ((True, [0, 2]), (False, [-1, 1])):
+        state, sched, ch = k5_tiny(
+            device, [10_000] * 3, pods,
+            [(5_000, 9_000, (0,)), (5_000, 9_000, (1, 2))], [1])
+        ch["active"][0] = first_active
+        cases.append(held_k5(device, state, sched, ch,
+                             f"pdb_flip_{first_active}"))
+        check(cases[-1]["nodes_out"][:2] == want,
+              "a PDB budget spent by one preemptor flips the next choice")
+    # one PostFilter's calls on the rows they carry
+    state, sched, ch = k5_problem(164, 10_240, 100_000, device, c=16)
+    cases.append(held_k5_carried(device, state, sched, ch, "carried"))
 
     k6_cases = [held_k6(device, f"one_quota_{long_quota}",
                         *k6_problem(161, long_quota, 1, device,
@@ -4197,8 +4413,20 @@ def phase_preempt_edges(device, wide_nodes: int = 65_536,
           "a hopeless quota with no blocked pod loses every candidate")
     check(k6_cases[-2]["revoked_in_quota_0"] == 0,
           "a hopeless quota with a blocked pod is skipped")
+    # phase 1's stop at lane 0, at lane 31, past the end
+    for n_pods, removed, blocked in ((100, 64, False), (100, 63, False),
+                                     (96, 95, False), (100, None, False),
+                                     (96, None, True)):
+        k6_cases.append(held_k6(
+            device, f"stop_{n_pods}_{removed}_{blocked}",
+            *k6_stop_problem(n_pods, removed, device, blocked=blocked)))
+        want = (removed if removed is not None
+                else n_pods if blocked else n_pods + 1)
+        check(k6_cases[-1]["walks"][0] == want,
+              f"K6's walk stops after {want} pods")
     emit("preempt_edges", k5=cases, k6=k6_cases,
          seconds=time.perf_counter() - t_start)
+    return k6_cases[0]
 
 
 N_PREEMPT_ARRIVALS = 1_200
@@ -4332,35 +4560,50 @@ def k5_ops(rows_live: int, cands: list[int], n: int) -> int:
 
 
 def k5_bound(rec, state, sched) -> dict:
-    """K5's bound over a recorded chain: each preemptor reads every live
-    row's CSR entry, validity, priority, preemptibility and quota once (the
-    candidate test) and writes its flag byte; reads each of its candidates'
-    request and PDB id once; reads the (N, R) allocatable and requested
-    rows, its feasible row and the node validity; and writes its (V,)
-    victim row and its node.  The per-node record is scratch between K5a
-    and K5b, not an output, and is not counted.  The candidates are
-    counted on the carry each preemptor saw."""
+    """K5's bound over a recorded chain, each input byte read once and each
+    output byte written once for the whole chain: the bound rows' fields
+    (requests, node, priority, quota, PDB id, preemptibility, validity),
+    the (N, R) allocatable and requested rows and node validity, the
+    preemptors' requests, priorities, quotas, feasible rows and flags, the
+    PDB budgets and the (Q, R) base headroom in; the (C, V) victim mask,
+    the nodes, the node accounting, the valid rows, the budgets and the
+    (Q, R) assumed quota out.  Operations: k5_ops over the candidates each
+    preemptor saw on the carry.  Beside it, the floor of dependent steps:
+    for each preemptor its busiest node's reprieve walk (the most
+    candidates on one node), plus one handoff (arrive, choose, commit,
+    wake) a preemptor."""
+    import torch
+
     from koordinator_tpu_torch.ops.preemption import candidates
 
     args, out = rec
     reqs, pris, qids, _, same_q = args[2:7]
-    n, v = state.capacity, sched.capacity
+    n, v, r = state.capacity, sched.capacity, R
+    c = int(reqs.shape[0])
+    q = int(args[9].shape[0]) if args[9] is not None else 1
+    b = int(args[8].shape[0])
     live = sched.valid & (sched.node >= 0)
     rows_live = int(live.sum())
+    safe = torch.clamp(sched.node, min=0).long()
     valid = sched.valid.clone()
-    cands = []
-    for c in range(reqs.shape[0]):
-        cands.append(int(candidates(sched.replace(valid=valid), pris[c],
-                                    qids[c], same_q[c]).sum()))
-        valid &= ~out.victims[c]
-    per_row = 4 + 1 + 4 + 1 + 4 + 1
-    per_cand = R * 4 + 4
-    nbytes = sum(rows_live * per_row + cand * per_cand
-                 + n * (2 * R * 4 + 2) + v + 4 for cand in cands)
+    cands, walks = [], []
+    for j in range(c):
+        cand = candidates(sched.replace(valid=valid), pris[j], qids[j],
+                          same_q[j])
+        cands.append(int(cand.sum()))
+        per_node = torch.zeros(n, dtype=torch.int64, device=cand.device)
+        per_node.index_add_(0, safe, cand.to(torch.int64))
+        walks.append(int(per_node.max()))
+        valid &= ~out.victims[j]
+    bytes_in = (v * (r * 4 + 4 * 4 + 2) + n * (2 * r * 4 + 1)
+                + c * (r * 4 + 4 + 4 + n + 2) + b * 4 + q * r * 4)
+    bytes_out = c * v + c * 4 + n * r * 4 + v + b * 4 + q * r * 4
+    nbytes = bytes_in + bytes_out
     ops = k5_ops(rows_live, cands, n)
     ms, by = bound(nbytes, ops)
     return dict(bound_ms=ms, bound_by=by, bytes=nbytes, ops=ops,
-                candidates_mean=float(np.mean(cands)))
+                candidates_mean=float(np.mean(cands)),
+                floor_steps=sum(walks) + c, busiest_walk_max=max(walks))
 
 
 def k6_bound(sched, used, walk) -> dict:
@@ -4380,7 +4623,8 @@ def k6_bound(sched, used, walk) -> dict:
 
 def phase_preemption(device, n_nodes: int = 10_240,
                      n_arrivals: int = N_PREEMPT_ARRIVALS,
-                     n_gangs: int = N_PREEMPT_GANGS, reps: int = 3):
+                     n_gangs: int = N_PREEMPT_GANGS, reps: int = 3,
+                     one_quota: dict | None = None):
     """Phase 15: preemption behind ElasticQuota through the Scheduler.  The
     flagship cluster filled to 95% of its cpu through ``add_bound_pods``
     (preempt_specs; the leaves' used set as their ElasticQuota status
@@ -4396,8 +4640,10 @@ def phase_preemption(device, n_nodes: int = 10_240,
     accounting equals the bound pods' and the nominations' requests, and
     every PDB's budget is its start less the evictions it covered.  Every
     K5 chain and preempt_one call of the rounds and the K6 call are held
-    against their plain versions on their recorded inputs.  Returns (K5's
-    and K6's kernel entries, the round records)."""
+    against their plain versions on their recorded inputs; K5 launches once
+    a chain and once a preempt_one.  ``one_quota``, the K6 record of
+    phase_preempt_edges' one quota of 50,000 pods, is printed beside round
+    3's.  Returns (K5's and K6's kernel entries, the round records)."""
     from koordinator_tpu_torch.kernels import build
     from koordinator_tpu_torch.kernels import overuse_revoke as k6
     from koordinator_tpu_torch.kernels import preemption as k5
@@ -4503,6 +4749,7 @@ def phase_preemption(device, n_nodes: int = 10_240,
             wall = time.perf_counter() - t1
             launches[rnd] = dict(build.LAUNCHES)
             round_chains = [int(a[2].shape[0]) for a, _ in chains[n_chains:]]
+            k5_calls = len(round_chains) + len(ones) - n_ones
             rec = dict(
                 round=rnd, t=t, wall_s=wall,
                 postfilter_ms=sum(post_ms), binds=len(res.assignments),
@@ -4513,8 +4760,12 @@ def phase_preemption(device, n_nodes: int = 10_240,
                 nominated=len(res.nominations),
                 evicted=len(evicted) - n_evicted,
                 revoked=len(revoked) - n_revoked, chains=round_chains,
+                k5_calls=k5_calls,
                 launches={k: launches[rnd][k] for k in (
-                    "victim_select", "victim_commit", "overuse_revoke")})
+                    "victim_select", "overuse_revoke")})
+            check(launches[rnd]["victim_select"] == k5_calls,
+                  f"round {rnd} launched K5 once a chain and once a "
+                  "preempt_one")
             rec.update(preempt_checks(sched, start_budgets, labels, evicted,
                                       revoked, f"phase 15 round {rnd}"))
             records.append(rec)
@@ -4525,9 +4776,7 @@ def phase_preemption(device, n_nodes: int = 10_240,
         sched._run_preemption = real_post
     check(records[0]["nominated"] > 0 and records[0]["evicted"] > 0,
           "round 1 preempted")
-    check(launches[0]["victim_select"] > 0
-          and launches[0]["victim_commit"] == launches[0]["victim_select"],
-          "round 1 launched K5a and K5b once a preemptor")
+    check(launches[0]["victim_select"] > 0, "round 1 launched K5")
     check(records[1]["nominated_binds"] > 0, "round 2 bound nominations")
     check(launches[2]["overuse_revoke"] > 0 and records[2]["revoked"] > 0,
           "round 3 ran K6 and revoked")
@@ -4553,32 +4802,35 @@ def phase_preemption(device, n_nodes: int = 10_240,
     check(err5 == 0, "every K5 call of phase 15 equals its plain version")
     check(len(chains) > 0 and len(ones) > 0,
           "phase 15 ran chains and gang jobs")
-    # K5 timed on round 1's first full chain: the wrapper, and each
-    # kernel's device time within that chain from the profiler's trace
+    # K5 timed on round 1's first full chain, on the node-ordered rows the
+    # PostFilter carried (its later chains' case); the kernel's device time
+    # within the chain from the profiler's trace; the rows' build apart
     full = max(range(len(chains)), key=lambda i: chains[i][0][2].shape[0])
     args, out = chains[full]
     c = int(args[2].shape[0])
     k5_ms = timed_ms(lambda: k5.preempt_chain_kernel(*args), device,
                      reps=reps)
-    split = device_ms_by_kernel(lambda: k5.preempt_chain_kernel(*args),
-                                ("victim_select_kernel",
-                                 "victim_commit_kernel"), device)
+    k5_dev = device_ms_by_kernel(lambda: k5.preempt_chain_kernel(*args),
+                                 ("preempt_chain_kernel",), device)
+    csr_ms = timed_ms(lambda: k5.VictimCSR(args[1], n_nodes), device,
+                      reps=reps)
     b5 = k5_bound((args, out), args[0], args[1])
     k5_entry = dict(
         name="victim_select", route="cuda", source=CSRC + "victim_select.cu",
         replaces="koordinator_tpu/ops/preemption.py:160",
         launches=sum(r["victim_select"] for r in launches.values()),
-        launches_commit=sum(r["victim_commit"] for r in launches.values()),
         max_abs_err=err5, ms=k5_ms, plain_ms=chain_plain_ms[full],
         bound_ms=b5["bound_ms"], bound_by=b5["bound_by"], library_ms=None,
         preemptors=c, ms_per_preemptor=k5_ms / c,
-        k5a_ms=split["victim_select_kernel"],
-        k5b_ms=split["victim_commit_kernel"])
+        device_ms=k5_dev["preempt_chain_kernel"], csr_build_ms=csr_ms,
+        floor_steps=b5["floor_steps"],
+        us_per_floor_step=k5_ms * 1e3 / b5["floor_steps"])
     # K6 on round 3's call
     check(len(walks) >= 1, "phase 15 called the revoke walk")
     (s6, used6, rt6, ck6, pdb6), revoke6 = walks[-1]
     want6 = orv.select_overuse_victims_plain(s6, used6, rt6, ck6, pdb6)
-    err6 = max_abs_err(revoke6, want6)
+    err6 = max(max_abs_err(revoke6, want6), held_k6(
+        device, "phase15_round3", s6, used6, rt6, ck6, pdb6)["max_abs_err"])
     check(err6 == 0, "K6 equals its plain version at phase 15")
     got6, walk6 = k6.overuse_revoke_launch(s6, used6, rt6, ck6, pdb6)
     k6_ms = timed_ms(lambda: k6.overuse_revoke_launch(s6, used6, rt6, ck6,
@@ -4595,13 +4847,17 @@ def phase_preemption(device, n_nodes: int = 10_240,
         max_abs_err=err6, ms=k6_ms, plain_ms=plain6,
         bound_ms=b6["bound_ms"], bound_by=b6["bound_by"], library_ms=None,
         longest_walk=int(walk6.max()), walk_steps=b6["walk_steps"])
+    if one_quota is not None:
+        k6_entry["one_quota_50000"] = {k: one_quota.get(k) for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "longest_walk",
+            "revoked", "max_abs_err")}
     emit("preemption", nodes=n_nodes, bound=len(bound),
          v_rows=int(s6.capacity), pdbs=N_PDBS, arrivals=n_arrivals,
          gangs=n_gangs, seed_s=seed_s, chains=len(chains),
          chain_sizes=[int(a[2].shape[0]) for a, _ in chains],
          gang_preempt_one_calls=len(ones),
          k5=dict(k5_entry, **{k: b5[k] for k in (
-             "bytes", "ops", "candidates_mean")}),
+             "bytes", "ops", "candidates_mean", "busiest_walk_max")}),
          k6=dict(k6_entry, **{k: b6[k] for k in ("bytes", "ops")}),
          seconds=time.perf_counter() - t_start)
     return [k5_entry, k6_entry], records
@@ -4672,9 +4928,9 @@ PTXAS_ENTRIES = {"select_candidates": ("select_candidates_kernel", 20),
                  "refresh_candidates": ("refresh_candidates_kernel", 8),
                  "segmented_prefix_accept": ("round_accept_kernel", 1),
                  "greedy_scan": ("greedy_scan_kernel", 8),
-                 "victim_select": ("victim_select_kernel", 1),
-                 "victim_commit": ("victim_commit_kernel", 1),
-                 "overuse_revoke": ("overuse_revoke_kernel", 1)}
+                 "victim_select": ("preempt_chain_kernel", 1),
+                 "overuse_revoke": ("overuse_revoke_kernel", 1),
+                 "overuse_keys": ("overuse_keys_kernel", 1)}
 
 
 def phase_ptxas(path: str) -> None:
@@ -4717,8 +4973,15 @@ def phase_ptxas(path: str) -> None:
 #: phase 8's 1,000 pods at f9c866f and phase 9's rescue at 956bf4b);
 #: ``398251d`` K1a's 64-bit lists at phase 14's cold batch and K4's and
 #: K4r's step before their redesign (K4 at phase 8's 1,000 pods, K4r at
-#: phase 11's pre-pass), from profile_torch_round.py --kernels in turns
+#: phase 11's pre-pass), from profile_torch_round.py --kernels in turns;
+#: ``6aa9629`` K5's two launches a preemptor and K6's walk a pod a step
+#: (chip_smoke.py's phases 15 and preempt_edges, as PERF.md records them)
 EARLIER_MS = [
+    ("victim_select (phase 15 chain of 256)", "6aa9629",
+     [7.33, 7.47, 7.297]),
+    ("overuse_revoke (phase 15 round 3)", "6aa9629", [0.969, 1.10, 1.248]),
+    ("overuse_revoke (one quota of 50,000 pods)", "6aa9629",
+     [14.70, 15.01]),
     ("select_candidates", "e9fcd1c", [25.41, 25.56, 25.51]),
     ("select_candidates", "30c463b", [8.84]),
     ("greedy_scan (rescue)", "e9fcd1c", [24.32]),
@@ -4789,8 +5052,10 @@ def main() -> int:
     gke, gke_launches = phase_gke(device)
     gang_rounds, gang_held = phase_gangs(device)
     k1a, _ = phase_approx(device)
-    phase_preempt_edges(device)
-    k5_k6, _ = phase_preemption(device)
+    with watchdog(K5_PHASE_LIMIT_S, "phase_preempt_edges"):
+        one_quota = phase_preempt_edges(device)
+    with watchdog(K5_PHASE_LIMIT_S, "phase 15 (preemption)"):
+        k5_k6, _ = phase_preemption(device, one_quota=one_quota)
     kernels[1:1] = [dict(
         name="refresh_candidates", route="cuda",
         source=CSRC + "refresh_candidates.cu",
@@ -4834,7 +5099,12 @@ def main() -> int:
         "reservation_scan (phase 11 pre-pass)": dict(
             ms=k4r["ms"], us_per_step=k4r["us_per_step"]),
         "select_candidates_approx (phase 14 cold batch)": dict(
-            ms=k1a["ms"], k1_ms=k1a["k1_ms"])}
+            ms=k1a["ms"], k1_ms=k1a["k1_ms"]),
+        "victim_select (phase 15 chain of 256)": dict(
+            ms=k5_k6[0]["ms"], device_ms=k5_k6[0]["device_ms"]),
+        "overuse_revoke (phase 15 round 3)": dict(ms=k5_k6[1]["ms"]),
+        "overuse_revoke (one quota of 50,000 pods)": dict(
+            ms=one_quota["ms"])}
     emit("earlier_design", note="earlier times as PERF.md records them, "
          "each labelled with its commit, beside this run's at the same "
          "shapes", kernels=[

@@ -183,20 +183,26 @@ _SIGNATURES = {
     ],
     "koord_preempt_chain": [
         _P, _P, _P, _I,                  # node alloc, requested (in/out), valid, N
-        _P, _P, _P, _P, _P, _P, _I,      # bound requests/priority/quota/non-preemptible/pdb, valid (in/out), V
-        _P, _P, _P,                      # CSR offsets, rows, rows a node
+        _P, _P, _P, _P, _P, _P, _P, _P,  # CSR offsets, rows, priority, quota, PDB, non-preemptible, requests (R, M), rows a node
+        _I,                              # M (rows, the CSR's length)
+        _P, _P, _P, _P,                  # valid by row (in/out); scratch: flag bytes, dry-run flags (2, M), PDB keys
         _P, _P, _P, _P, _P, _P, _I,      # preemptor requests/priority/quota, feasible, same quota, active, C
-        _P, _I,                          # PDB budgets (in/out), B
-        _I, _P, _P, _P, _I,              # quota mode, headroom, base headroom, assumed (in/out), Q
-        _I,                              # nominate
-        _P, _P, _P,                      # scratch: CSR flags, PDB keys, per-node record
-        _P, _P,                          # out nodes, victims
-        _I, _I, _I,                      # first preemptor, count, commit
+        _P, _P, _I,                      # PDB budgets in, out, B
+        _I, _P, _P, _P, _I,              # quota mode, headroom, base headroom, assumed (out), Q
+        _I, _I,                          # nominate, commit
+        _P, _P, _P,                      # out per-node record (dry run alone), nodes, victim list by row
+        _P, _P, _P, _P, _I,              # scratch: the CTAs' own budgets and quota (or null), partial keys, node order, arrivals; grid
+        _P,                              # stream
+    ],
+    "koord_overuse_keys": [
+        _P, _P, _P, _P, _P, _P,          # bound quota, priority, valid, non-preemptible, PDB, budgets (or null)
+        _I, _I, _I,                      # B, V, Q
+        _P, _P, _P, _P,                  # out keys, counts (Q + 1), blocked (Q + 1), revoke (cleared)
         _P,                              # stream
     ],
     "koord_overuse_revoke": [
-        _P, _P, _P, _I,                  # bound requests, CSR offsets, rows, Q
-        _P, _P, _P, _P,                  # used, runtime, checked, has_blocked
+        _P, _P, _P, _P, _I,              # bound requests, rows sorted by key, counts, blocked, Q
+        _P, _P, _P,                      # used, runtime, checked
         _P, _P,                          # out revoke, walk lengths
         _P,                              # stream
     ],
@@ -204,8 +210,8 @@ _SIGNATURES = {
 
 
 #: exported C functions that size a kernel's global scratch, in bytes (K3b's
-#: in int32 words), K1's and K1a's CTAs an SM, and K4r's nodes per CTA and
-#: launch plan
+#: in int32 words), K1's and K1a's CTAs an SM, K4r's nodes per CTA and
+#: launch plan, and K5's grid
 _SCRATCH = {
     "koord_select_candidates_scratch_bytes": [_I],      # N
     "koord_select_candidates_ctas_per_sm": [_I],        # 0 K1, 1 K1a int32, 2 K1a 64-bit
@@ -215,6 +221,8 @@ _SCRATCH = {
     "koord_reservation_scan_nodes_per_cta": [_I],       # N
     "koord_reservation_scan_plan": [_I, _I, _I, _I],    # N, Q, chain depth, most records a CTA
     "koord_segmented_prefix_accept_scratch_ints": [_L],  # entries
+    "koord_preempt_chain_grid": [_I, _I, _I, _I],       # N, B, Q x R, CTAs asked (0: as many as resident)
+    "koord_preempt_chain_local_ints": [_I, _I, _I],     # B, Q x R, grid
 }
 
 
@@ -253,7 +261,7 @@ LAUNCHES = {"select_candidates": 0, "select_candidates_approx": 0,
             "refresh_candidates": 0,
             "round_fit_choose": 0, "segmented_prefix_accept": 0,
             "greedy_scan": 0, "reservation_scan": 0,
-            "victim_select": 0, "victim_commit": 0, "overuse_revoke": 0}
+            "victim_select": 0, "overuse_revoke": 0}
 
 
 def reset_launch_counts() -> None:

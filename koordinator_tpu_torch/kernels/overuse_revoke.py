@@ -2,11 +2,15 @@
 
 :func:`overuse_revoke_kernel` is the wrapper: CPU tensors take the plain
 version, ``quota/overuse_revoke.py`` :func:`select_overuse_victims_plain`;
-CUDA tensors get each quota's candidates in ascending importance
-(:func:`~koordinator_tpu_torch.quota.overuse_revoke.overuse_lists`, torch
-glue) and launch K6 once: a warp a quota, the lanes holding the resource
-dimensions, walking phase 1 forward and phase 2 back.  A launch the card
-refuses raises.  :func:`overuse_revoke_mirror` is the same walk in Python,
+CUDA tensors launch K6 twice with one sort between, and no host
+synchronisation: the keys launch (each row's (quota, priority) key, the
+rows and PDB-blocked pods of each quota; its plain version
+:func:`~koordinator_tpu_torch.quota.overuse_revoke.overuse_keys`), one
+stable sort of the keys (each quota's candidates in ascending importance),
+then the walks: a warp a quota, phase 1 forward 32 rows a step (lanes on
+rows, prefix sums and a ballot), phase 2 back a pod a step (lanes on the
+resource dimensions, the requests staged in shared memory a tile ahead).
+Each launch adds one to K6's count.  A launch the card refuses raises.  :func:`overuse_revoke_mirror` is the same decomposition in Python,
 held against the reference on the CPU.
 """
 
@@ -23,10 +27,44 @@ from koordinator_tpu_torch.quota.overuse_revoke import (
     select_overuse_victims_plain,
 )
 
+WARP = 32
+
+
+def overuse_keys_launch(sched, q_cap: int, pdb_allowed=None):
+    """K6's first launch: (key (V,) int64, counts (Q + 1,), blocked (Q + 1,)
+    int32, as :func:`~koordinator_tpu_torch.quota.overuse_revoke.
+    overuse_keys` returns them, and the (V,) revoke mask cleared)."""
+    v = sched.capacity
+    for name in ("quota_id", "priority", "pdb_id"):
+        build.expect(getattr(sched, name), f"sched.{name}", torch.int32,
+                     (v,))
+    for name in ("valid", "non_preemptible"):
+        build.expect(getattr(sched, name), f"sched.{name}", torch.bool,
+                     (v,))
+    b = 0
+    if pdb_allowed is not None:
+        b = pdb_allowed.shape[0]
+        build.expect(pdb_allowed, "pdb_allowed", torch.int32, (b,))
+    dev = sched.quota_id.device
+    key = torch.empty(v, dtype=torch.int64, device=dev)
+    counts = torch.empty(q_cap + 1, dtype=torch.int32, device=dev)
+    blocked = torch.empty(q_cap + 1, dtype=torch.int32, device=dev)
+    revoke = torch.empty(v, dtype=torch.bool, device=dev)
+    err = build.lib().koord_overuse_keys(
+        build.ptr(sched.quota_id), build.ptr(sched.priority),
+        build.ptr(sched.valid), build.ptr(sched.non_preemptible),
+        build.ptr(sched.pdb_id), build.ptr(pdb_allowed), b, v, q_cap,
+        build.ptr(key), build.ptr(counts), build.ptr(blocked),
+        build.ptr(revoke), build.stream_of(key))
+    build.check(err, "overuse_keys")
+    build.LAUNCHES["overuse_revoke"] += 1
+    return key, counts, blocked, revoke
+
 
 def overuse_revoke_launch(sched, used, runtime, checked, pdb_allowed=None):
-    """Launch K6: returns (revoke (V,) bool, walk (Q,) int32, the number of
-    pods phase 1 removed from each quota)."""
+    """K6: the keys launch, one stable sort, the walks' launch.  Returns
+    (revoke (V,) bool, walk (Q,) int32, the number of pods phase 1
+    removed from each quota)."""
     q, r = used.shape
     v = sched.capacity
     build.expect(sched.requests, "sched.requests", torch.int32,
@@ -34,15 +72,13 @@ def overuse_revoke_launch(sched, used, runtime, checked, pdb_allowed=None):
     build.expect(used, "used", torch.int32, (q, r))
     build.expect(runtime, "runtime", torch.int32, (q, r))
     build.expect(checked, "checked", torch.bool, (q, r))
-    rows, offsets, has_blocked = overuse_lists(sched, q, pdb_allowed)
-    dev = used.device
-    revoke = torch.zeros(v, dtype=torch.bool, device=dev)
-    walk = torch.zeros(q, dtype=torch.int32, device=dev)
-    lib = build.lib()
-    err = lib.koord_overuse_revoke(
-        build.ptr(sched.requests), build.ptr(offsets), build.ptr(rows), q,
-        build.ptr(used), build.ptr(runtime), build.ptr(checked),
-        build.ptr(has_blocked), build.ptr(revoke), build.ptr(walk),
+    key, counts, blocked, revoke = overuse_keys_launch(sched, q, pdb_allowed)
+    rows = torch.sort(key, stable=True).indices
+    walk = torch.empty(q, dtype=torch.int32, device=used.device)
+    err = build.lib().koord_overuse_revoke(
+        build.ptr(sched.requests), build.ptr(rows), build.ptr(counts),
+        build.ptr(blocked), q, build.ptr(used), build.ptr(runtime),
+        build.ptr(checked), build.ptr(revoke), build.ptr(walk),
         build.stream_of(used))
     build.check(err, "overuse_revoke")
     build.LAUNCHES["overuse_revoke"] += 1
@@ -61,11 +97,14 @@ def overuse_revoke_kernel(sched, used, runtime, checked, pdb_allowed=None):
 
 
 def overuse_revoke_mirror(sched, used, runtime, checked, pdb_allowed=None):
-    """K6's walk in Python: for each quota, phase 1 down its list while the
-    quota is over on a checked dim (a vote over the lanes), then phase 2
-    back up the removed prefix: a skipped quota keeps every pod, a hopeless
-    one loses every removed pod, the others reprieve each pod that fits.
-    Returns (revoke (V,) bool, walk (Q,)) as numpy arrays."""
+    """K6's walk in Python, as the kernel decomposes it: for each quota,
+    phase 1 down its list 32 rows a step (each row's used before its
+    removal from the chunk's exclusive prefix sums; the first row of the
+    chunk not over on a checked dim, a ballot, stops the walk there), then
+    phase 2 back up the removed prefix over 32-row tiles: a skipped quota
+    keeps every pod, a hopeless one loses every removed pod, the others
+    reprieve each pod that fits, one a step.  Returns (revoke (V,) bool,
+    walk (Q,)) as numpy arrays."""
     q_cap = used.shape[0]
     rows, offsets, has_blocked = (t.cpu().numpy() for t in overuse_lists(
         sched, q_cap, pdb_allowed))
@@ -74,36 +113,35 @@ def overuse_revoke_mirror(sched, used, runtime, checked, pdb_allowed=None):
     checked = checked.cpu().numpy()
     revoke = np.zeros(sched.capacity, bool)
     walk = np.zeros(q_cap, np.int32)
-    dims = used.shape[1]
     for q in range(q_cap):
         start, end = int(offsets[q]), int(offsets[q + 1])
-        u = [int(x) for x in used[q]]
-        rt = [int(x) for x in runtime[q]]
-        ck = [bool(x) for x in checked[q]]
-
-        def over():
-            return any(u[d] > rt[d] and ck[d] for d in range(dims))
-
-        k = 0
-        while start + k < end and over():
-            row = int(rows[start + k])
-            u = [wrap32(u[d] - int(req[row, d])) for d in range(dims)]
-            k += 1
+        u = used[q].astype(np.int64)
+        rt, ck = runtime[q], checked[q]
+        k = end - start
+        for base in range(start, end, WARP):
+            r = req[rows[base:min(base + WARP, end)]]
+            ex = np.cumsum(r, axis=0) - r
+            before = wrap32(u[None, :] - ex)
+            over = ((before > rt) & ck).any(axis=1)
+            if not over.all():
+                lane = int(np.argmin(over))          # the ballot's first
+                k = base - start + lane
+                u = before[lane]
+                break
+            u = wrap32(u - r.sum(axis=0))
         walk[q] = k
-        hopeless = over()
-        skip = hopeless and bool(has_blocked[q])
-        for pos in range(start + k - 1, start - 1, -1):
-            row = int(rows[pos])
-            rd = [int(x) for x in req[row]]
-            if skip:
-                back = True
-            elif hopeless:
-                back = False
-            else:
-                back = all(wrap32(u[d] + rd[d]) <= rt[d] or rd[d] == 0
-                           or not ck[d] for d in range(dims))
-            if back:
-                u = [wrap32(u[d] + rd[d]) for d in range(dims)]
-            else:
-                revoke[row] = True
+        if ((u > rt) & ck).any():                    # hopeless
+            if not has_blocked[q]:
+                revoke[rows[start:start + k]] = True
+            continue
+        for tile in range((k - 1) // WARP, -1, -1):
+            lo = start + tile * WARP
+            staged = rows[lo:min(lo + WARP, start + k)]
+            for i in range(len(staged) - 1, -1, -1):
+                rd = req[staged[i]]
+                back = bool((((wrap32(u + rd) <= rt) | (rd == 0) | ~ck)).all())
+                if back:
+                    u = wrap32(u + rd)
+                else:
+                    revoke[staged[i]] = True
     return revoke, walk

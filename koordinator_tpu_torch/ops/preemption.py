@@ -15,8 +15,9 @@ scan splits exactly into independent per-node walks, each in the node's own
 reprieve order; the plain versions here (``*_plain``) walk every node at once,
 one candidate of each node a step.  On CUDA tensors :func:`select_victims`,
 :func:`preempt_one` and :func:`preempt_chain` run K5
-(``kernels/preemption.py``: a warp per node for the dry run, one CTA for the
-choice and the commit, chained over the preemptors on one stream).
+(``kernels/preemption.py``: one persistent launch a call, a warp per node
+for the dry run, the last CTA to arrive choosing and committing, over the
+rows in node order that a PostFilter's calls share).
 
 int32 semantics follow the reference: ``free + freed``, ``headroom + freed``,
 the chain's ``base - assumed`` and the per-node priority sums wrap; the
@@ -75,7 +76,13 @@ class ScheduledPods:
     valid: torch.Tensor            # (V,) bool
 
     def replace(self, **changes) -> "ScheduledPods":
-        return dataclasses.replace(self, **changes)
+        out = dataclasses.replace(self, **changes)
+        # K5's rows in node order (kernels/preemption.py victim_csr) ride
+        # along: they are rebuilt where a field they were gathered from is
+        # no longer the same tensor
+        if "_csr" in self.__dict__:
+            out._csr = self._csr
+        return out
 
     @property
     def capacity(self) -> int:
@@ -468,8 +475,8 @@ def preempt_chain(state, sched, reqs, pris, qids, feasible, same_quota,
     commits: the same as :func:`preempt_one` per preemptor with the host's
     commit in between (``same_quota`` picks the elastic-quota rule per row,
     whose headroom is ``base_headroom`` less what earlier rows charged, and
-    the other rows run against ``HEADROOM_OPEN``).  K5 on CUDA tensors: two
-    launches a preemptor on one stream, no host synchronisation between."""
+    the other rows run against ``HEADROOM_OPEN``).  K5 on CUDA tensors: one
+    launch a chain, no host synchronisation between the preemptors."""
     from koordinator_tpu_torch.kernels import preemption as k5
 
     return k5.preempt_chain_kernel(state, sched, reqs, pris, qids, feasible,

@@ -12,7 +12,8 @@ The JAX package runs both walks as two scans over every bound pod in one
 global order; each step reads and writes only its own quota's ``used``, so
 the scans split into independent per-quota walks.  On CUDA tensors
 :func:`select_overuse_victims` runs K6 (``kernels/overuse_revoke.py``, a
-warp per quota), on the CPU :func:`select_overuse_victims_plain`.  Used and
+warp per quota, 32 rows a step forward and the reprieve over staged tiles
+back), on the CPU :func:`select_overuse_victims_plain`.  Used and
 runtime are compared on the quota's declared-max (checked) dims, as the
 admission does.
 """
@@ -27,15 +28,18 @@ import torch
 from koordinator_tpu_torch.ops.preemption import ScheduledPods, wrap32
 
 
-def overuse_lists(sched: ScheduledPods, q_cap: int, pdb_allowed=None):
-    """The walks' inputs: (rows, offsets, has_blocked).  Candidates are the
-    valid, preemptible pods of a quota row in [0, q_cap) that no exhausted
-    PDB protects; ``rows[offsets[q]:offsets[q + 1]]`` are quota q's in
-    ascending importance (priority, then row), int32.  ``has_blocked`` (Q,)
-    marks the quotas holding a pod an exhausted PDB protects.  Rows outside
-    any quota map to quota 0 in the reference and change nothing there:
-    they are left out."""
+def overuse_keys(sched: ScheduledPods, q_cap: int, pdb_allowed=None):
+    """Each row's list key and quota counts: (key (V,) int64, counts
+    (Q + 1,), blocked (Q + 1,)), the plain version of K6's first launch.
+    Candidates are the valid, preemptible pods of a quota row in [0, q_cap)
+    that no exhausted PDB protects; a candidate's key is (quota << 32) |
+    (priority + 2**31), every other row's (q_cap << 32) | (priority +
+    2**31), so a stable sort lists each quota's candidates in ascending
+    importance (priority, then row) and the other rows after them.
+    ``counts[q]`` counts the rows keyed to q; ``blocked[q]`` is 1 where an
+    exhausted PDB protects a pod of quota q."""
     quota = sched.quota_id
+    dev = quota.device
     cand = sched.valid & ~sched.non_preemptible & (quota >= 0)
     blocked = torch.zeros_like(cand)
     if pdb_allowed is not None:
@@ -46,15 +50,32 @@ def overuse_lists(sched: ScheduledPods, q_cap: int, pdb_allowed=None):
             pdb_allowed[torch.clamp(sched.pdb_id, 0, b - 1).long()] <= 0)
         cand = cand & ~blocked
     in_range = quota < q_cap
-    rows = torch.nonzero(cand & in_range).flatten()
-    rows = rows[torch.sort(sched.priority[rows], stable=True).indices]
-    rows = rows[torch.sort(quota[rows], stable=True).indices]
-    counts = torch.bincount(quota[rows].long(), minlength=q_cap)[:q_cap]
-    offsets = torch.zeros(q_cap + 1, dtype=torch.int64, device=quota.device)
-    offsets[1:] = torch.cumsum(counts, 0)
-    has_blocked = torch.zeros(q_cap, dtype=torch.bool, device=quota.device)
-    has_blocked[quota[blocked & in_range].long()] = True
-    return rows.to(torch.int32), offsets.to(torch.int32), has_blocked
+    seg = torch.where(cand & in_range, quota, q_cap).to(torch.int64)
+    key = (seg << 32) | (sched.priority.to(torch.int64) + 2**31)
+    counts = torch.zeros(q_cap + 1, dtype=torch.int32, device=dev)
+    counts.index_add_(0, seg, torch.ones_like(seg, dtype=torch.int32))
+    held = torch.where(blocked & in_range, quota, q_cap).to(torch.int64)
+    blocked_count = torch.zeros(q_cap + 1, dtype=torch.int32, device=dev)
+    blocked_count.index_add_(0, held, torch.ones_like(held,
+                                                      dtype=torch.int32))
+    blocked_count[q_cap] = 0
+    return key, counts, (blocked_count > 0).to(torch.int32)
+
+
+def overuse_lists(sched: ScheduledPods, q_cap: int, pdb_allowed=None):
+    """The walks' inputs (rows, offsets, has_blocked) from
+    :func:`overuse_keys`, with one stable sort and no host
+    synchronisation.  ``rows[offsets[q]:offsets[q + 1]]`` are quota q's
+    candidates in ascending importance, int32, and every other row follows
+    ``offsets[Q]`` (``rows`` holds all V); ``has_blocked`` (Q,) marks the
+    quotas holding a pod an exhausted PDB protects.  Rows outside any
+    quota map to quota 0 in the reference and change nothing there: they
+    are left out."""
+    key, counts, blocked = overuse_keys(sched, q_cap, pdb_allowed)
+    rows = torch.sort(key, stable=True).indices
+    offsets = torch.zeros(q_cap + 1, dtype=torch.int32, device=key.device)
+    offsets[1:] = torch.cumsum(counts[:q_cap], 0)
+    return rows.to(torch.int32), offsets, blocked[:q_cap] > 0
 
 
 def select_overuse_victims_plain(sched: ScheduledPods, used, runtime,
@@ -71,7 +92,7 @@ def select_overuse_victims_plain(sched: ScheduledPods, used, runtime,
     dev = sched.requests.device
     q_cap = used.shape[0]
     rows, offsets, has_blocked = overuse_lists(sched, q_cap, pdb_allowed)
-    rows = rows.long()
+    rows = rows[:int(offsets[-1])].long()
     qrow = sched.quota_id[rows].long()
     req = sched.requests[rows]
     m = rows.shape[0]

@@ -47,6 +47,16 @@ one change each (VARIANTS below whose name starts with PREFIX, under
 them in turns with the tree's own kernels, every variant's outputs
 required equal but those of INCOMPARABLE.
 
+    python3 profile_torch_round.py --preempt [--grids 132,264] [--root DIR]
+
+times K5 on chip_smoke.py phase 15's first full chain (256 preemptors over
+10,240 nodes and ~170,000 bound pods, on the node-ordered rows its
+PostFilter built; the rows' build timed apart) and K6 on phase 15's round
+3 and on one quota of 50,000 pods, with CUDA events, and their kernels'
+device time from torch.profiler; prints one JSON line with a digest of
+the inputs and outputs.  With ``--root`` it times another checkout's port
+on the same seeded inputs: run parent, tree, tree, parent in one call.
+
     python3 profile_torch_round.py --steps
 
 builds a copy of K4's source with clock stamps in CTA 0 (STEP_STAMPS) and
@@ -139,6 +149,181 @@ VARIANTS = [
     ("k4_scan_warps_16", [("greedy_scan.cu",
                            "constexpr int kScanWarps = 20;",
                            "constexpr int kScanWarps = 16;")]),
+    # K5 with no dry run (every node out of the choice): the handoff's
+    # own time, a preemptor at a time (outputs not comparable)
+    ("k5_no_dry_run", [("victim_select.cu",
+                        "  const int start = a.offsets[nd], end = "
+                        "a.offsets[nd + 1];\n",
+                        "  if (a.C > 0) return no_key();\n"
+                        "  const int start = a.offsets[nd], end = "
+                        "a.offsets[nd + 1];\n")]),
+    # K5 with 8 warps a CTA instead of 16
+    ("k5_warps_8", [("victim_select.cu", "constexpr int kWarps = 16;",
+                     "constexpr int kWarps = 8;")]),
+    # K5 with one CTA of 32 warps an SM (half the CTAs to meet), each warp
+    # staging 32 rows
+    ("k5_cta_1024", [
+        ("victim_select.cu", "constexpr int kWarps = 16;",
+         "constexpr int kWarps = 32;"),
+        ("victim_select.cu", "constexpr int kStage = 64;",
+         "constexpr int kStage = 32;"),
+        ("victim_select.cu", "constexpr int kCtasPerSm = 2;",
+         "constexpr int kCtasPerSm = 1;")]),
+    # K5 with clock stamps: SM cycles of each node's pass 1, pass 2 and
+    # record, and of each CTA's dry runs, wait and choice-and-commit, a
+    # preemptor, summed in shared memory and added to K5_STAMPS once a
+    # warp at the end (read by preempt_times)
+    ("k5_stamps", [
+        ("victim_select.cu", "namespace {\n",
+         "namespace {\n__device__ unsigned long long g_k5[12];\n"
+         "__shared__ unsigned long long s_acc[32][12];\n"),
+        ("victim_select.cu",
+         "  const int start = a.offsets[nd], end = a.offsets[nd + 1];\n",
+         "  const long long st0 = clock64();\n"
+         "  const int start = a.offsets[nd], end = a.offsets[nd + 1];\n"),
+        ("victim_select.cu",
+         "  __syncwarp();  // the staged requests before any lane reads them\n",
+         "  __syncwarp();  // the staged requests before any lane reads them\n"
+         "  const long long st1 = clock64();\n"),
+        ("victim_select.cu",
+         "  __syncwarp();  // every lane's reads of the stage before the next "
+         "node\n",
+         "  __syncwarp();  // every lane's reads of the stage before the next "
+         "node\n  const long long st2 = clock64();\n"),
+        ("victim_select.cu", "  if (!eligible) return no_key();\n",
+         "  if (lane == 0) {\n"
+         "    unsigned long long* acc = s_acc[threadIdx.x >> 5];\n"
+         "    acc[0] += st1 - st0;\n    acc[1] += st2 - st1;\n"
+         "    acc[2] += clock64() - st2;\n    acc[3] += 1;\n"
+         "    acc[4] += end - start;\n    acc[5] += nvic;\n"
+         "  }\n  if (!eligible) return no_key();\n"),
+        ("victim_select.cu",
+         "  if (threadIdx.x == 0) s_next[0] = 0;\n  __syncthreads();\n",
+         "  if (threadIdx.x == 0) s_next[0] = 0;\n"
+         "  for (int i = threadIdx.x; i < 32 * 12; i += kThreads) "
+         "s_acc[i / 12][i % 12] = 0;\n  __syncthreads();\n"),
+        ("victim_select.cu", "    Key best = no_key();\n",
+         "    const long long m0 = clock64();\n    Key best = no_key();\n"),
+        ("victim_select.cu",
+         "    if (lane == 0) s_key[warp] = best;\n    __syncthreads();\n",
+         "    if (lane == 0) s_key[warp] = best;\n    __syncthreads();\n"
+         "    const long long m1 = clock64();\n    long long m2 = m1;\n"),
+        ("victim_select.cu",
+         "    __syncthreads();\n\n    // every CTA: the chosen node",
+         "    __syncthreads();\n    m2 = clock64();\n\n"
+         "    // every CTA: the chosen node"),
+        ("victim_select.cu",
+         "node >= n0 && node < n1, lane);\n    }\n    __syncthreads();\n",
+         "node >= n0 && node < n1, lane);\n    }\n    __syncthreads();\n"
+         "    if (threadIdx.x == 0) {\n"
+         "      s_acc[0][6] += m1 - m0;\n      s_acc[0][7] += m2 - m1;\n"
+         "      s_acc[0][8] += clock64() - m2;\n      s_acc[0][9] += 1;\n"
+         "      if (m1 - m0 > s_acc[0][10]) s_acc[0][10] = m1 - m0;\n"
+         "    }\n"),
+        ("victim_select.cu", "  if (a.commit && blockIdx.x == 0) {\n",
+         "  __syncthreads();\n  if (lane == 0)\n"
+         "    for (int i = 0; i < 10; ++i) atomicAdd(&g_k5[i], "
+         "s_acc[warp][i]);\n"
+         "  if (threadIdx.x == 0) atomicMax(&g_k5[10], s_acc[0][10]);\n"
+         "  if (a.commit && blockIdx.x == 0) {\n"),
+        ("victim_select.cu", "// Runs K5 over the C preemptors",
+         "extern \"C\" int koord_k5_stamps(unsigned long long* out) {\n"
+         "  return (int)cudaMemcpyFromSymbol(out, g_k5, sizeof(g_k5));\n}\n"
+         "extern \"C\" int koord_k5_stamps_reset() {\n"
+         "  static unsigned long long zero[12];\n"
+         "  return (int)cudaMemcpyToSymbol(g_k5, zero, sizeof(zero));\n}\n"
+         "// Runs K5 over the C preemptors"),
+    ]),
+    # K5's dry run reading the node-ordered rows through the read-only
+    # path (__ldg)
+    ("k5_ldg", [
+        ("victim_select.cu",
+         "  const int start = a.offsets[nd], end = a.offsets[nd + 1];\n",
+         "  const int start = __ldg(a.offsets + nd), "
+         "end = __ldg(a.offsets + nd + 1);\n"),
+        ("victim_select.cu",
+         "    const int pri = in ? a.cpri[pos] : 0;\n"
+         "    const bool cand = in && (fl & (kValid | kNonPreemptible)) == "
+         "kValid &&\n                      pri < ppri && (!sq || "
+         "a.cquota[pos] == pq);\n    const int pdb = cand ? a.cpdb[pos] : -1;",
+         "    const int pri = in ? __ldg(a.cpri + pos) : 0;\n"
+         "    const bool cand = in && (fl & (kValid | kNonPreemptible)) == "
+         "kValid &&\n                      pri < ppri && (!sq || "
+         "__ldg(a.cquota + pos) == pq);\n"
+         "    const int pdb = cand ? __ldg(a.cpdb + pos) : -1;"),
+        ("victim_select.cu",
+         "      const int r = in ? a.creq[static_cast<long long>(d) * a.M + "
+         "pos] : 0;",
+         "      const int r = in ? __ldg(a.creq + static_cast<long long>(d) * "
+         "a.M + pos) : 0;"),
+        ("victim_select.cu",
+         "base == start ? first_pri : a.cpri[pos];",
+         "base == start ? first_pri : __ldg(a.cpri + pos);")]),
+    # K5 with one CTA an SM and the registers that leaves
+    ("k5_ctas_1", [("victim_select.cu", "constexpr int kCtasPerSm = 2;",
+                    "constexpr int kCtasPerSm = 1;")]),
+    # K5's meeting alone (no dry run) with clock stamps in thread 0 of
+    # each CTA: SM cycles from the dry runs' end to the CTA barrier, to
+    # the arrival's issue, to the last arrival seen, to the acquire and
+    # barrier, to the partial keys reduced, to the commit and barrier
+    # (summed in K5_MEET; read by preempt_times)
+    ("k5_meeting_stamps", [
+        ("victim_select.cu", "namespace {\n",
+         "namespace {\n__device__ unsigned long long g_meet[8];\n"),
+        ("victim_select.cu",
+         "  const int start = a.offsets[nd], end = a.offsets[nd + 1];\n",
+         "  if (a.C > 0) return no_key();\n"
+         "  const int start = a.offsets[nd], end = a.offsets[nd + 1];\n"),
+        ("victim_select.cu", "    Key best = no_key();\n",
+         "    long long t[7];\n    Key best = no_key();\n"),
+        ("victim_select.cu",
+         "    if (lane == 0) s_key[warp] = best;\n    __syncthreads();\n",
+         "    t[0] = clock64();\n"
+         "    if (lane == 0) s_key[warp] = best;\n    __syncthreads();\n"
+         "    t[1] = clock64();\n"),
+        ("victim_select.cu",
+         "                   \"r\"(1u)\n                   : \"memory\");\n",
+         "                   \"r\"(1u)\n                   : \"memory\");\n"
+         "      t[2] = clock64();\n"),
+        ("victim_select.cu", "      ld_acquire(a.arrivals);\n    }\n"
+         "    __syncthreads();\n",
+         "      t[3] = clock64();\n      ld_acquire(a.arrivals);\n    }\n"
+         "    __syncthreads();\n    t[4] = clock64();\n"),
+        ("victim_select.cu",
+         "    k = warp_min(k);\n    if (lane == 0) s_key[warp] = k;\n"
+         "    __syncthreads();\n",
+         "    k = warp_min(k);\n    if (lane == 0) s_key[warp] = k;\n"
+         "    __syncthreads();\n    t[5] = clock64();\n"),
+        ("victim_select.cu",
+         "node >= n0 && node < n1, lane);\n    }\n    __syncthreads();\n",
+         "node >= n0 && node < n1, lane);\n    }\n    __syncthreads();\n"
+         "    if (threadIdx.x == 0) {\n      t[6] = clock64();\n"
+         "      for (int i = 0; i < 6; ++i)\n"
+         "        atomicAdd(&g_meet[i], (unsigned long long)(t[i + 1] - t[i]));\n"
+         "      atomicAdd(&g_meet[6], 1ull);\n    }\n"),
+        ("victim_select.cu", "// Runs K5 over the C preemptors",
+         "extern \"C\" int koord_k5_stamps(unsigned long long* out) {\n"
+         "  return (int)cudaMemcpyFromSymbol(out, g_meet, sizeof(g_meet));\n}\n"
+         "extern \"C\" int koord_k5_stamps_reset() {\n"
+         "  static unsigned long long zero[8];\n"
+         "  return (int)cudaMemcpyToSymbol(g_meet, zero, sizeof(zero));\n}\n"
+         "// Runs K5 over the C preemptors"),
+    ]),
+    # K5's freed vector by a butterfly of shuffles instead of
+    # __reduce_add_sync
+    ("k5_xor_sum", [("victim_select.cu",
+                     "      const unsigned s = __reduce_add_sync(kFull, cand "
+                     "? static_cast<unsigned>(r) : 0u);\n",
+                     "      unsigned s = cand ? static_cast<unsigned>(r) : 0u;"
+                     "\n      for (int o = 16; o; o >>= 1) "
+                     "s += __shfl_xor_sync(kFull, s, o);\n")]),
+    # K5's PDB ranks by 32 shuffles instead of __match_any_sync
+    ("k5_rank_loop", [("victim_select.cu",
+                       "    int rank = __popc(__match_any_sync(kFull, key) "
+                       "& lower);\n",
+                       "    int rank = 0;\n    for (int i = 0; i < 32; ++i) "
+                       "{\n      const int o = __shfl_sync(kFull, key, i);\n"
+                       "      rank += i < lane && o == key;\n    }\n")]),
     # K2 with one or two threads a pod instead of four
     ("k2_lanes_1", [("refresh_candidates.cu", "constexpr int kLanes = 4;",
                      "constexpr int kLanes = 1;")]),
@@ -159,7 +344,16 @@ VARIANTS = [
 
 #: variants whose outputs differ from the tree's by design
 INCOMPARABLE = ("k1_staging_only", "k1_staging_only_no_multicast",
-                "k2_no_fresh", "k2_no_decode")
+                "k2_no_fresh", "k2_no_decode", "k5_no_dry_run",
+                "k5_meeting_stamps")
+#: k5_meeting_stamps' stretches of a CTA's meeting, SM cycles
+K5_MEET = ("to_barrier", "to_arrival", "to_last_seen", "to_acquired",
+           "to_reduced", "to_committed")
+#: K5_STAMPS' sums, in the order k5_stamps adds them
+K5_STAMPS = ("pass1_cycles", "pass2_cycles", "record_cycles", "nodes",
+             "rows", "victims", "cta_dry_run_cycles", "cta_wait_cycles",
+             "cta_choose_commit_cycles", "cta_preemptors",
+             "cta_dry_run_cycles_max")
 
 
 def patched_sources(name: str, patches, csrc: str) -> str:
@@ -505,6 +699,208 @@ def kernel_times(args) -> int:
     return 0
 
 
+def preempt_inputs(dev: str) -> dict:
+    """chip_smoke.py's phase 15 without its checks: the flagship cluster
+    filled with ~170,000 bound pods behind the 16-leaf tree, 1,200
+    arrivals, the three rounds; returns round 1's first full K5 chain
+    (its arguments, the sched carrying what the PostFilter built) and
+    round 3's K6 call, and K6's one quota of 50,000 pods
+    (chip_smoke.k6_problem, as phase_preempt_edges makes it)."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from koordinator_tpu_torch.quota import overuse_revoke as orv
+    from koordinator_tpu_torch.scheduler import scheduler as smod
+    from koordinator_tpu_torch.scheduler.snapshot import (
+        ClusterSnapshot,
+        PodSpec,
+    )
+
+    nodes, bound, leaf_used, budgets = cs.preempt_specs(15, 10_240)
+    snap = ClusterSnapshot(capacity=len(nodes), device=dev)
+    for spec in nodes:
+        snap.upsert_node(spec)
+    now = [0.0]
+    sched = smod.Scheduler(snap, quota_tree=cs.preempt_tree(nodes, leaf_used),
+                           device=dev, clock=lambda: now[0],
+                           preempt_fn=lambda v, by: None)
+    sched.enable_overuse_revoke(lambda p, q: None, delay_evict_sec=5.0)
+    for k in range(cs.N_PDBS):
+        sched.register_pdb(smod.PdbRecord(
+            name=f"pdb-{k}", selector={"app": f"app-{k}"},
+            allowed=int(budgets[k])))
+    sched.add_bound_pods([smod.BoundPod(pod, name, snap.node_generation[name])
+                          for pod, name in bound])
+    for q in sched.quota_tree.nodes.values():
+        q.used = np.zeros(cs.R, np.int64)
+        q.non_preemptible_used = np.zeros(cs.R, np.int64)
+    for bp in sched.bound.values():
+        sched._charge_quota_used(bp, sign=1)
+    arrivals, gangs = cs.preempt_arrivals(np.random.default_rng(151),
+                                          cs.N_PREEMPT_ARRIVALS,
+                                          cs.N_PREEMPT_GANGS,
+                                          cs.N_PREEMPT_NEVER)
+    for name, size in gangs:
+        sched.register_gang(smod.GangRecord(name=name, min_member=size))
+    sched.enqueue_many(arrivals)
+    chains, walks = [], []
+    real_chain, real_sel = smod.preempt_chain, orv.select_overuse_victims
+
+    def rec_chain(*a):
+        chains.append(a)
+        return real_chain(*a)
+
+    def rec_sel(*a):
+        walks.append(a)
+        return real_sel(*a)
+
+    smod.preempt_chain, orv.select_overuse_victims = rec_chain, rec_sel
+    try:
+        for rnd, t in enumerate(cs.PREEMPT_TIMES):
+            now[0] = t
+            if rnd == 2:
+                demand = leaf_used[0] * 3 // 10 // 100
+                sched.enqueue_many([PodSpec(
+                    name=f"leaf0-demand-{j}",
+                    requests=np.array([demand, 1_024] + [0] * (cs.R - 2),
+                                      np.int32),
+                    priority=3_000, quota="leaf-0", creation=1e6 + j,
+                    preemption_policy="Never") for j in range(100)])
+            sched.schedule_round()
+    finally:
+        smod.preempt_chain, orv.select_overuse_victims = real_chain, real_sel
+    full = max(chains, key=lambda a: a[2].shape[0])
+    return dict(chain=full, revoke=walks[-1],
+                one_quota=cs.k6_problem(161, 50_000, 1, dev,
+                                        runtime_frac=0.3))
+
+
+#: the kernels' names in the profiler's trace, this tree's and the
+#: parent's (K5a and K5b, two launches a preemptor)
+K5_NAMES = ("preempt_chain_kernel", "victim_select_kernel",
+            "victim_commit_kernel")
+K6_NAMES = ("overuse_revoke_kernel",)
+
+
+def preempt_times(args) -> int:
+    """K5 on phase 15's first full chain of 256 and K6 on phase 15's round
+    3 and on one quota of 50,000 pods, three readings of three calls each
+    with CUDA events, and their kernels' device time from torch.profiler;
+    with ``--grids``, K5 also at those grid sizes (a tree whose wrapper
+    takes one).  One JSON line, with a digest of the inputs and the
+    outputs: run it for two checkouts in turns to compare them."""
+    import inspect
+
+    import torch
+
+    import chip_smoke as cs
+    from koordinator_tpu_torch.kernels import build
+    from koordinator_tpu_torch.kernels import overuse_revoke as k6
+    from koordinator_tpu_torch.kernels import preemption as k5
+
+    dev = "cuda"
+    t0 = time.perf_counter()
+    build.lib()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inp = preempt_inputs(dev)
+    setup_s = time.perf_counter() - t0
+    chain, revoke, one = inp["chain"], inp["revoke"], inp["one_quota"]
+    cases = {
+        "k5_chain": lambda: k5.preempt_chain_kernel(*chain),
+        "k6_round3": lambda: k6.overuse_revoke_launch(*revoke),
+        "k6_one_quota_50000": lambda: k6.overuse_revoke_launch(*one),
+    }
+    if args.grids and "grid" in inspect.signature(
+            k5.preempt_chain_kernel).parameters:
+        for g in (int(x) for x in args.grids.split(",")):
+            cases[f"k5_chain_grid_{g}"] = (
+                lambda g=g: k5.preempt_chain_kernel(*chain, grid=g))
+    if hasattr(k5, "VictimCSR"):
+        cases["k5_csr_build"] = lambda: k5.VictimCSR(chain[1],
+                                                     chain[0].capacity)
+
+        def dry_runs():
+            # every preemptor's dry run on the chain's first carry, with
+            # no choice, commit or handoff between them
+            base_hr = chain[9]
+            run = k5.ChainLaunch(*chain[:9], k5.CHAIN, headroom=base_hr,
+                                 commit=False)
+            run.launch()
+            return run.nodes, run.node_rec
+
+        cases["k5_dry_runs_only"] = dry_runs
+    out = k5.preempt_chain_kernel(*chain)
+    got6 = k6.overuse_revoke_launch(*revoke)[0]
+    got1 = k6.overuse_revoke_launch(*one)[0]
+    digest_in = [int(t.to(torch.int64).sum()) for t in (
+        chain[2], chain[5], chain[1].requests, chain[1].valid,
+        revoke[1], revoke[2], one[0].requests)]
+    digest_out = [int(t.to(torch.int64).sum()) for t in (
+        out.node, out.victims, out.state.node_requested, out.sched.valid,
+        out.pdb_allowed, got6, got1)]
+    times = {case: [cs.timed_ms(fn, dev, reps=3) for _ in range(3)]
+             for case, fn in cases.items()}
+    if args.variants is not None:
+        libs = build_variants(build, args.variants)
+        tree_lib = build.lib()
+        ref = digest_out
+        try:
+            for name, handle in libs.items():
+                build._lib = handle
+                out = k5.preempt_chain_kernel(*chain)
+                d = [int(t.to(torch.int64).sum()) for t in (
+                    out.node, out.victims, out.state.node_requested,
+                    out.sched.valid, out.pdb_allowed)]
+                if d != ref[:5] and name not in INCOMPARABLE:
+                    raise RuntimeError(f"{name}: outputs differ from the "
+                                       "tree's")
+                for case in [c for c in cases if c.startswith("k5_chain")]:
+                    times[f"{name}:{case}"] = [
+                        cs.timed_ms(cases[case], dev, reps=3)
+                        for _ in range(3)]
+                if name == "k5_meeting_stamps":
+                    stamps = (ctypes.c_ulonglong * 12)()
+                    handle.koord_k5_stamps_reset()
+                    k5.preempt_chain_kernel(*chain)
+                    torch.cuda.synchronize()
+                    handle.koord_k5_stamps.argtypes = [ctypes.c_void_p]
+                    handle.koord_k5_stamps(ctypes.addressof(stamps))
+                    n = max(stamps[6], 1)
+                    times["k5_meeting_stamps"] = {
+                        k: stamps[i] / n for i, k in enumerate(K5_MEET)}
+                if name == "k5_stamps":
+                    stamps = (ctypes.c_ulonglong * 12)()
+                    handle.koord_k5_stamps_reset()
+                    k5.preempt_chain_kernel(*chain)
+                    torch.cuda.synchronize()
+                    handle.koord_k5_stamps.argtypes = [ctypes.c_void_p]
+                    handle.koord_k5_stamps(ctypes.addressof(stamps))
+                    sums = dict(zip(K5_STAMPS, stamps))
+                    per_node = {k: sums[k] / max(sums["nodes"], 1)
+                                for k in K5_STAMPS[:6] if k != "nodes"}
+                    per_cta = {k: sums[k] / max(sums["cta_preemptors"], 1)
+                               for k in K5_STAMPS[6:9]}
+                    times["k5_stamps"] = dict(
+                        sums=sums, per_node=per_node,
+                        per_cta_preemptor=per_cta)
+        finally:
+            build._lib = tree_lib
+    names = {"k5_chain": K5_NAMES, "k6_round3": K6_NAMES,
+             "k6_one_quota_50000": K6_NAMES}
+    device = {case: [device_ms(cases[case], names[case]) for _ in range(3)]
+              for case in names}
+    launches = dict(build.LAUNCHES)
+    print(json.dumps({
+        "preempt": args.root or ".", "device": torch.cuda.get_device_name(0),
+        "nvidia_smi": cs.smi_name_power(), "build_s": build_s,
+        "setup_s": setup_s, "preemptors": int(chain[2].shape[0]),
+        "bound_rows": int(chain[1].valid.sum()), "times": times,
+        "device_ms": device, "digest_in": digest_in,
+        "digest_out": digest_out, "launches": launches}), flush=True)
+    return 0
+
+
 #: a copy of K4's and K4r's source with clock stamps in CTA 0, a step at a
 #: time: 0 the scan starts, 1 the last scanning warp has sent its rank, 2
 #: the control warp has found and loaded the next pod, 3 every rank is in,
@@ -653,14 +1049,18 @@ def main() -> int:
     ap.add_argument("--steps", action="store_true",
                     help="split a step of K4 and K4r into its stretches "
                     "(SM cycles) instead")
+    ap.add_argument("--preempt", action="store_true",
+                    help="time K5 and K6 at phase 15's shapes instead")
+    ap.add_argument("--grids", help="with --preempt: K5 also at these "
+                    "grid sizes (comma-separated CTA counts)")
     args = ap.parse_args()
     if args.steps:
         return step_times(args)
-    if args.kernels:
+    if args.kernels or args.preempt:
         if args.root:
             sys.path.insert(0, os.path.abspath(args.root))
             os.chdir(args.root)
-        return kernel_times(args)
+        return preempt_times(args) if args.preempt else kernel_times(args)
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke

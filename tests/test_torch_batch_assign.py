@@ -334,7 +334,7 @@ def test_cpu_wrappers_launch_nothing_and_other_devices_raise():
                               "refresh_candidates": 0, "round_fit_choose": 0,
                               "segmented_prefix_accept": 0, "greedy_scan": 0,
                               "reservation_scan": 0, "victim_select": 0,
-                              "victim_commit": 0, "overuse_revoke": 0}
+                              "overuse_revoke": 0}
     meta = dict(device="meta")
     key = torch.empty((4, 8), dtype=torch.int32, **meta)
     with pytest.raises(ValueError, match="no kernel for device"):

@@ -175,6 +175,54 @@ def test_one_long_quota_walk():
     assert int(walk[0]) > 1_000 and revoke.sum() < walk[0]
 
 
+def stop_problem(n_pods: int, removed: int | None, blocked: bool = False):
+    """One quota of ``n_pods`` candidates of 100 mcores each, priorities
+    ascending, at runtime ``used - 100 * removed``: phase 1 removes exactly
+    ``removed`` pods (None: runtime -1, so the walk runs past the end of
+    the list and the quota is hopeless; ``blocked`` adds a pod an exhausted
+    PDB protects, so it is skipped)."""
+    v = n_pods + 1
+    req = np.zeros((v, R), np.int32)
+    req[:, CPU] = 100
+    req[:, MEM] = 128
+    pdb = np.full(v, -1, np.int32)
+    pdb[-1] = 0 if blocked else -1
+    used = np.zeros((1, R), np.int32)
+    used[0] = req.sum(0)
+    runtime = used.copy()
+    runtime[0, CPU] = -1 if removed is None else used[0, CPU] - 100 * removed
+    checked = np.zeros((1, R), bool)
+    checked[0, CPU] = True
+    return dict(req=req, quota=np.zeros(v, np.int32),
+                pri=np.arange(1_000, 1_000 + v, dtype=np.int32),
+                nonp=np.zeros(v, bool), pdb=pdb, valid=np.ones(v, bool),
+                used=used, runtime=runtime, checked=checked,
+                pdb_allowed=np.array([0, 5, 5], np.int32),
+                v_cap=max(8, 1 << (v - 1).bit_length()))
+
+
+@pytest.mark.parametrize("n_pods,removed,where", [
+    (100, 0, "lane 0 of the first chunk"),
+    (100, 64, "lane 0 of the third chunk"),
+    (100, 31, "lane 31 of the first chunk"),
+    (100, 63, "lane 31 of the second chunk"),
+    (96, 95, "lane 31 of the last chunk"),
+    (100, None, "past the end"),
+    (96, None, "past the end of a whole chunk"),
+])
+def test_k6_stopping_points(n_pods, removed, where):
+    """Phase 1 walks 32 rows a step: its stop is found by a ballot within a
+    chunk, at any lane, or past the end of the list (hopeless: every
+    candidate goes, or none with a blocked pod)."""
+    revoke, walk = run_overuse(stop_problem(n_pods, removed))
+    want = n_pods + 1 if removed is None else removed
+    assert int(walk[0]) == want, where
+    if removed is None:
+        assert revoke.sum() == n_pods + 1
+        revoke, walk = run_overuse(stop_problem(n_pods, None, blocked=True))
+        assert int(walk[0]) == n_pods and not revoke.any()
+
+
 # -- the controller through both schedulers (tests/test_scheduler.py) -----------
 
 

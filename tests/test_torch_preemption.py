@@ -328,7 +328,7 @@ def chain_problem(seed: int, c: int = 10, **opts):
                     same_q=same_q, active=active, base_hr=base_hr)
 
 
-def run_chain(pb, ch):
+def run_chain(pb, ch, grid: int = 3):
     import jax.numpy as jnp
 
     from koordinator_tpu_torch.kernels import preemption as k5
@@ -350,7 +350,7 @@ def run_chain(pb, ch):
     assert same(jout.sched.valid, tout.sched.valid)
     assert same(jout.pdb_allowed, tout.pdb_allowed)
     mirror = k5.preempt_chain_mirror(tstate, tsched, *targs, k5.CHAIN,
-                                     headroom=t(ch["base_hr"]))
+                                     headroom=t(ch["base_hr"]), grid=grid)
     assert np.array_equal(mirror["nodes"], np.asarray(jout.node))
     assert np.array_equal(mirror["victims"], np.asarray(jout.victims))
     assert np.array_equal(mirror["requested"],
@@ -391,6 +391,162 @@ def test_chain_later_preemptor_sees_an_earlier_nomination():
     node = np.asarray(out.node)
     if node[0] >= 0:
         assert node[1] != node[0] or not np.asarray(out.victims)[1].any()
+
+
+@pytest.mark.parametrize("grid", [1, 3, 132])
+@pytest.mark.parametrize("seed,opts", [
+    (26, {}), (27, dict(edges=True, crowd=40, n_pdbs=4)),
+])
+def test_chain_mirror_at_grid_sizes(seed, opts, grid):
+    """K5's partial keys over 1, 3 and 132 CTAs (most CTAs own no node at
+    12 nodes): the choice and every output are the reference's."""
+    pb, ch = chain_problem(seed, **opts)
+    run_chain(pb, ch, grid=grid)
+
+
+def tiny_problem(alloc_cpu, pods, preemptors, pdb_allowed):
+    """A hand-made chain: ``pods`` as (node, cpu, priority, pdb,
+    non-preemptible) on nodes of ``alloc_cpu`` mcores (each node's
+    accounting their sum), ``preemptors`` as (cpu, priority, feasible
+    nodes); no quota anywhere."""
+    n, v = len(alloc_cpu), len(pods)
+    alloc = np.zeros((n, R), np.int32)
+    alloc[:, CPU] = alloc_cpu
+    alloc[:, MEM] = 65_536
+    req = np.zeros((v, R), np.int32)
+    req[:, CPU] = [p[1] for p in pods]
+    req[:, MEM] = 256
+    node = np.array([p[0] for p in pods], np.int32)
+    requested = np.zeros((n, R), np.int64)
+    np.add.at(requested, node, req)
+    pb = dict(alloc=alloc, requested=requested.astype(np.int32),
+              valid_node=np.ones(n, bool), req=req, node=node,
+              pri=np.array([p[2] for p in pods], np.int32),
+              quota=np.full(v, -1, np.int32),
+              nonp=np.array([p[4] for p in pods], bool),
+              pdb=np.array([p[3] for p in pods], np.int32),
+              pdb_allowed=np.array(pdb_allowed, np.int32),
+              v_cap=max(8, 1 << (v - 1).bit_length()))
+    c = len(preemptors)
+    reqs = np.zeros((c, R), np.int32)
+    reqs[:, CPU] = [p[0] for p in preemptors]
+    feas = np.zeros((c, n), bool)
+    for j, p in enumerate(preemptors):
+        feas[j, list(p[2])] = True
+    ch = dict(reqs=reqs, pris=np.array([p[1] for p in preemptors], np.int32),
+              qids=np.full(c, -1, np.int32), feas=feas,
+              same_q=np.zeros(c, bool), active=np.ones(c, bool),
+              base_hr=np.full((1, R), OPEN, np.int32))
+    return pb, ch
+
+
+@pytest.mark.parametrize("grid", [1, 2])
+def test_consecutive_preemptors_choose_the_same_node(grid):
+    """Node 1 alone holds victims; two preemptors in a row both take it,
+    the second against the first's evictions and nomination."""
+    pods = [(0, 9_000, 9_500, -1, False), (2, 9_000, 1_000, -1, True)]
+    pods += [(1, 2_500, 1_000 + k, -1, False) for k in range(4)]
+    pb, ch = tiny_problem([10_000] * 3, pods,
+                          [(4_000, 9_000, (0, 1, 2)),
+                           (4_000, 9_000, (0, 1, 2))], [1])
+    out = run_chain(pb, ch, grid=grid)
+    assert np.asarray(out.node).tolist() == [1, 1]
+    victims = np.asarray(out.victims)
+    assert victims[0].any() and victims[1].any()
+    assert not (victims[0] & victims[1]).any()
+
+
+@pytest.mark.parametrize("first_active", [True, False])
+def test_pdb_budget_spent_by_one_preemptor_flips_the_next_choice(
+        first_active):
+    """Preemptor 0 evicts the only pod it can, PDB 0's last budget; pod 1
+    on node 1, of the same PDB, then becomes violating for preemptor 1,
+    which takes node 2 (a higher victim priority, no violation) instead of
+    node 1 — which it takes when preemptor 0 is inactive."""
+    pods = [(0, 9_000, 1_000, 0, False), (1, 9_000, 1_000, 0, False),
+            (2, 9_000, 2_000, -1, False)]
+    pb, ch = tiny_problem([10_000] * 3, pods,
+                          [(5_000, 9_000, (0,)), (5_000, 9_000, (1, 2))],
+                          [1])
+    ch["active"][0] = first_active
+    out = run_chain(pb, ch, grid=2)
+    assert np.asarray(out.node).tolist() == ([0, 2] if first_active
+                                             else [-1, 1])
+
+
+def test_csr_carried_across_two_chains_and_a_gang():
+    """One PostFilter's calls: two chains, then a gang's two preempt_one
+    calls (both quota paths), each on the carry of the one before; the
+    port, the mirror (on the carried CSR) and JAX agree at every call, the
+    CSR is built once and carried by every returned ScheduledPods, and it
+    equals a fresh build on the last one."""
+    import jax.numpy as jnp
+
+    from koordinator_tpu_torch.kernels import preemption as k5
+    from koordinator_tpu_torch.ops import preemption as tp
+
+    pb, ch = chain_problem(28, c=10, crowd=40, n_pdbs=4)
+    jstate, jsched = jax_objects(pb)
+    tstate, tsched = port_objects(jstate, jsched)
+    jpdb, tpdb = jnp.asarray(pb["pdb_allowed"]), t(pb["pdb_allowed"])
+    n = tstate.capacity
+    built = k5.victim_csr(tsched, n)
+    for lo, hi in ((0, 5), (5, 10)):
+        cut = {k: ch[k][lo:hi] for k in ("reqs", "pris", "qids", "feas",
+                                         "same_q", "active")}
+        jout = jitted("preempt_chain")(
+            jstate, jsched, *(jnp.asarray(cut[k]) for k in (
+                "reqs", "pris", "qids", "feas", "same_q", "active")),
+            jpdb, jnp.asarray(ch["base_hr"]))
+        targs = [t(cut[k]) for k in ("reqs", "pris", "qids", "feas",
+                                     "same_q", "active")] + [tpdb]
+        tout = tp.preempt_chain(tstate, tsched, *targs, t(ch["base_hr"]))
+        mirror = k5.preempt_chain_mirror(tstate, tsched, *targs, k5.CHAIN,
+                                         headroom=t(ch["base_hr"]), grid=2)
+        for got in (tout.node, mirror["nodes"]):
+            assert same(jout.node, got)
+        for got in (tout.victims, mirror["victims"]):
+            assert same(jout.victims, got)
+        for got in (tout.sched.valid, mirror["valid"]):
+            assert same(jout.sched.valid, got)
+        for got in (tout.pdb_allowed, mirror["pdb"]):
+            assert same(jout.pdb_allowed, got)
+        assert same(jout.state.node_requested, mirror["requested"])
+        assert k5.victim_csr(tout.sched, n) is built
+        jstate, jsched, jpdb = jout.state, jout.sched, jout.pdb_allowed
+        tstate, tsched, tpdb = tout.state, tout.sched, tout.pdb_allowed
+    for j, (hr, mode) in enumerate(((None, k5.NO_QUOTA),
+                                    (ch["base_hr"][0], k5.HEADROOM))):
+        sq = hr is not None
+        jout = jitted("preempt_one")(
+            jstate, jsched, jnp.asarray(ch["reqs"][j]),
+            jnp.int32(ch["pris"][j]), jnp.int32(ch["qids"][j]),
+            jnp.asarray(ch["feas"][j]), jpdb,
+            quota_headroom=None if hr is None else jnp.asarray(hr),
+            same_quota_only=sq)
+        one = (t(ch["reqs"][j]), torch.tensor(ch["pris"][j]),
+               torch.tensor(ch["qids"][j]), t(ch["feas"][j]), tpdb)
+        tout = tp.preempt_one(tstate, tsched, *one,
+                              quota_headroom=None if hr is None else t(hr),
+                              same_quota_only=sq)
+        mirror = k5.preempt_chain_mirror(
+            tstate, tsched, one[0][None], one[1].reshape(1),
+            one[2].reshape(1), one[3][None], torch.tensor([sq]),
+            torch.tensor([True]), tpdb, mode,
+            headroom=None if hr is None else t(hr), grid=2)
+        assert int(jout.node) == int(tout.node) == int(mirror["nodes"][0])
+        assert same(jout.victims, tout.victims)
+        assert same(jout.victims, mirror["victims"][0])
+        assert same(jout.sched.valid, mirror["valid"])
+        assert same(jout.pdb_allowed, mirror["pdb"])
+        assert same(jout.state.node_requested, mirror["requested"])
+        assert k5.victim_csr(tout.sched, n) is built
+        jstate, jsched, jpdb = jout.state, jout.sched, jout.pdb_allowed
+        tstate, tsched, tpdb = tout.state, tout.sched, tout.pdb_allowed
+    fresh = k5.VictimCSR(tsched, n)
+    for f in ("offsets", "rows", "row_count", "pri", "quota", "pdb", "nonp",
+              "req"):
+        assert torch.equal(getattr(fresh, f), getattr(built, f)), f
 
 
 # -- hypothesis: the shapes of tests/test_preemption_properties.py ---------------
