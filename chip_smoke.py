@@ -4280,7 +4280,9 @@ def phase_preempt_edges(device, wide_nodes: int = 65_536,
     preemptors in a row on the same node, a PDB budget one preemptor
     spends flipping the next one's choice, grids of 1, 3 and 132 CTAs, one
     PostFilter's calls on the node-ordered rows they carry, 65,536 nodes
-    (a CTA looping over hundreds of them), 4,096 PDBs; K6 on one quota of
+    (a CTA looping over hundreds of them), 4,096 PDBs, and 10,000 PDBs and
+    1,024 quota rows (each CTA's copies of the budgets and the assumed
+    quota in the global scratch, not shared memory); K6 on one quota of
     50,000 pods, on hopeless quotas with a blocked pod (skipped) and
     without (every candidate evicted), and with phase 1 stopping at lane
     0, at lane 31 and past the end of the list.  Returns the 50,000-pod
@@ -4355,6 +4357,23 @@ def phase_preempt_edges(device, wide_nodes: int = 65_536,
     state, sched, ch = k5_problem(160, 10_240, 100_000, device, c=8,
                                   n_pdbs=many_pdbs)
     cases.append(held_k5(device, state, sched, ch, f"pdbs_{many_pdbs}"))
+    # each CTA's budgets and assumed quota past shared memory, in its
+    # slice of the global scratch: 10,000 PDBs, then 1,024 quota rows in
+    # the chain's quota mode
+    for label, seed, nodes, pods, kw in (
+            ("pdbs_10000", 165, 10_240, 100_000, dict(n_pdbs=10_000)),
+            ("quotas_1024", 166, 2_048, 20_000,
+             dict(n_quotas=1_024, c=16))):
+        state, sched, ch = k5_problem(seed, nodes, pods, device, **kw)
+        cases.append(held_k5(device, state, sched, ch, label))
+        if torch.device(device).type == "cuda":
+            from koordinator_tpu_torch.kernels import build
+
+            local = int(build.lib().koord_preempt_chain_local_ints(
+                int(ch["pdb"].shape[0]), int(ch["base_hr"].numel()), 1))
+            cases[-1]["global_local_ints"] = local
+            check(local > 0, f"K5 keeps its copies in the global scratch "
+                  f"({label})")
     # the partial keys over 1, 3 and 132 CTAs
     state, sched, ch = k5_problem(163, 256, 4_000, device, c=12,
                                   crowd=70, edges=True)
@@ -4551,59 +4570,86 @@ def preempt_arrivals(rng, count: int, n_gangs: int, n_never: int):
     return out, gangs
 
 
-def k5_ops(rows_live: int, cands: list[int], n: int) -> int:
-    """K5's int32 operations over a chain: every live row's candidate test
-    (6), each candidate's PDB rank, freed vector and reprieve step
-    (R + 6 and 4R + 4), each node's record, fit and choice (4R + 13)."""
-    return sum(rows_live * 6 + c * (5 * R + 10) + n * (4 * R + 13)
-               for c in cands)
+def k5_ops(rows: int, cands: int, nodes: int, dims: int,
+           victims: int) -> int:
+    """K5's int32 operations for one preemptor that requests ``dims`` of
+    the R dimensions: the candidate test (6) on each of the ``rows`` live
+    rows of the ``nodes`` it can take; each of those rows' ``cands``
+    candidates' PDB rank and violating test (6), freed sum (``dims``) and
+    reprieve step (4 ``dims`` + 4); each such node's fit, record and choice
+    (4 ``dims`` + 13); each victim's commit (2R + 1: node accounting,
+    quota, PDB).  A dimension requested 0 of fits whatever is left, and a
+    node the preemptor cannot take is never chosen."""
+    return (rows * 6 + cands * (5 * dims + 10) + nodes * (4 * dims + 13)
+            + victims * (2 * R + 1))
 
 
 def k5_bound(rec, state, sched) -> dict:
-    """K5's bound over a recorded chain, each input byte read once and each
-    output byte written once for the whole chain: the bound rows' fields
-    (requests, node, priority, quota, PDB id, preemptibility, validity),
-    the (N, R) allocatable and requested rows and node validity, the
-    preemptors' requests, priorities, quotas, feasible rows and flags, the
-    PDB budgets and the (Q, R) base headroom in; the (C, V) victim mask,
-    the nodes, the node accounting, the valid rows, the budgets and the
-    (Q, R) assumed quota out.  Operations: k5_ops over the candidates each
-    preemptor saw on the carry.  Beside it, the floor of dependent steps:
-    for each preemptor its busiest node's reprieve walk (the most
-    candidates on one node), plus one handoff (arrive, choose, commit,
-    wake) a preemptor."""
+    """K5's bound over a recorded chain, counting what this run's data
+    needs, each input byte read once and each output byte written once for
+    the whole chain.  Bytes in: every row's validity; each live row's node,
+    priority, quota, PDB id and preemptibility, and its request on the
+    dimensions some preemptor requests (each victim's others for the
+    commit); the nodes' validity and their allocatable and requested rows
+    on those dimensions; the preemptors' requests, priorities, quotas,
+    feasible rows and flags; the PDB budgets and the (Q, R) base headroom.
+    Bytes out: the (C, V) victim mask, the nodes, the node accounting, the
+    valid rows, the budgets and the (Q, R) assumed quota.  Operations:
+    k5_ops for each active preemptor over the carry it saw, on the nodes it
+    can take (feasible and valid) only.  Beside it, the floor of dependent
+    steps: for each active preemptor its busiest such node's reprieve walk
+    (the most candidates on one node), plus one handoff (arrive, choose,
+    commit, wake) a preemptor."""
     import torch
 
     from koordinator_tpu_torch.ops.preemption import candidates
 
     args, out = rec
-    reqs, pris, qids, _, same_q = args[2:7]
+    reqs, pris, qids, feas, same_q, active = args[2:8]
     n, v, r = state.capacity, sched.capacity, R
     c = int(reqs.shape[0])
     q = int(args[9].shape[0]) if args[9] is not None else 1
     b = int(args[8].shape[0])
-    live = sched.valid & (sched.node >= 0)
-    rows_live = int(live.sum())
+    bound_row = sched.node >= 0
     safe = torch.clamp(sched.node, min=0).long()
+    takeable = feas.bool() & state.node_valid.bool()[None, :]
+    requested_dims = (reqs != 0).sum(dim=1).tolist()
+    used_dims = int((reqs != 0).any(dim=0).sum())
     valid = sched.valid.clone()
-    cands, walks = [], []
+    ops, walks = 0, []
+    rows_t, cands_t, nodes_t = [], [], []
     for j in range(c):
+        if not bool(active[j]):
+            continue
+        on = takeable[j][safe] & bound_row
+        live = valid & on
         cand = candidates(sched.replace(valid=valid), pris[j], qids[j],
-                          same_q[j])
-        cands.append(int(cand.sum()))
+                          same_q[j]) & on
         per_node = torch.zeros(n, dtype=torch.int64, device=cand.device)
         per_node.index_add_(0, safe, cand.to(torch.int64))
         walks.append(int(per_node.max()))
+        rows_t.append(int(live.sum()))
+        cands_t.append(int(cand.sum()))
+        nodes_t.append(int(takeable[j].sum()))
+        ops += k5_ops(rows_t[-1], cands_t[-1], nodes_t[-1],
+                      requested_dims[j], int(out.victims[j].sum()))
         valid &= ~out.victims[j]
-    bytes_in = (v * (r * 4 + 4 * 4 + 2) + n * (2 * r * 4 + 1)
+    live_rows = int((sched.valid & bound_row).sum())
+    n_victims = int(out.victims.sum())
+    bytes_in = (v + live_rows * (4 * 4 + 1 + used_dims * 4)
+                + n_victims * (r - used_dims) * 4
+                + n * (2 * used_dims * 4 + 1)
                 + c * (r * 4 + 4 + 4 + n + 2) + b * 4 + q * r * 4)
     bytes_out = c * v + c * 4 + n * r * 4 + v + b * 4 + q * r * 4
     nbytes = bytes_in + bytes_out
-    ops = k5_ops(rows_live, cands, n)
     ms, by = bound(nbytes, ops)
     return dict(bound_ms=ms, bound_by=by, bytes=nbytes, ops=ops,
-                candidates_mean=float(np.mean(cands)),
-                floor_steps=sum(walks) + c, busiest_walk_max=max(walks))
+                rows_mean=float(np.mean(rows_t)) if rows_t else 0.0,
+                candidates_mean=float(np.mean(cands_t)) if cands_t else 0.0,
+                nodes_mean=float(np.mean(nodes_t)) if nodes_t else 0.0,
+                dims_mean=float(np.mean(requested_dims)),
+                floor_steps=sum(walks) + c,
+                busiest_walk_max=max(walks, default=0))
 
 
 def k6_bound(sched, used, walk) -> dict:
@@ -4857,7 +4903,8 @@ def phase_preemption(device, n_nodes: int = 10_240,
          chain_sizes=[int(a[2].shape[0]) for a, _ in chains],
          gang_preempt_one_calls=len(ones),
          k5=dict(k5_entry, **{k: b5[k] for k in (
-             "bytes", "ops", "candidates_mean", "busiest_walk_max")}),
+             "bytes", "ops", "rows_mean", "candidates_mean", "nodes_mean",
+             "dims_mean", "busiest_walk_max")}),
          k6=dict(k6_entry, **{k: b6[k] for k in ("bytes", "ops")}),
          seconds=time.perf_counter() - t_start)
     return [k5_entry, k6_entry], records

@@ -32,8 +32,9 @@ _CLASSES = {
     "ScheduledPods": ScheduledPods,
 }
 
-#: field names per carried type (the same in both packages)
-FIELDS = {name: tuple(f.name for f in dataclasses.fields(cls))
+#: field names per carried type (the same in both packages; a field kept
+#: out of comparison, such as ScheduledPods' carried csr, is the port's own)
+FIELDS = {name: tuple(f.name for f in dataclasses.fields(cls) if f.compare)
           for name, cls in _CLASSES.items()}
 
 

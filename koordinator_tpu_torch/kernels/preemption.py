@@ -115,10 +115,10 @@ class VictimCSR:
 def victim_csr(sched, n_cap: int) -> VictimCSR:
     """``sched``'s :class:`VictimCSR`: the one it carries, or a new one
     (then carried by ``sched`` and every ``replace`` of it)."""
-    csr = sched.__dict__.get("_csr")
+    csr = sched.csr
     if csr is None or not csr.matches(sched, n_cap):
         csr = VictimCSR(sched, n_cap)
-        sched._csr = csr
+        sched.csr = csr
     return csr
 
 

@@ -16,8 +16,10 @@ reprieve order; the plain versions here (``*_plain``) walk every node at once,
 one candidate of each node a step.  On CUDA tensors :func:`select_victims`,
 :func:`preempt_one` and :func:`preempt_chain` run K5
 (``kernels/preemption.py``: one persistent launch a call, a warp per node
-for the dry run, the last CTA to arrive choosing and committing, over the
-rows in node order that a PostFilter's calls share).
+for the dry run over the rows in node order that a PostFilter's calls
+share; after each preemptor the CTAs meet once, every CTA then chooses the
+node and applies the commit to its own copies of the PDB budgets and the
+assumed quota, and the node's owner updates the node).
 
 int32 semantics follow the reference: ``free + freed``, ``headroom + freed``,
 the chain's ``base - assumed`` and the per-node priority sums wrap; the
@@ -74,15 +76,14 @@ class ScheduledPods:
     non_preemptible: torch.Tensor  # (V,) bool
     pdb_id: torch.Tensor           # (V,) int32, -1 = no PDB matches
     valid: torch.Tensor            # (V,) bool
+    # K5's rows in node order (kernels/preemption.py victim_csr), carried
+    # by every replace(): rebuilt where a field they were gathered from is
+    # no longer the same tensor.  Not one of the reference's fields.
+    csr: object | None = dataclasses.field(default=None, compare=False,
+                                           repr=False)
 
     def replace(self, **changes) -> "ScheduledPods":
-        out = dataclasses.replace(self, **changes)
-        # K5's rows in node order (kernels/preemption.py victim_csr) ride
-        # along: they are rebuilt where a field they were gathered from is
-        # no longer the same tensor
-        if "_csr" in self.__dict__:
-            out._csr = self._csr
-        return out
+        return dataclasses.replace(self, **changes)
 
     @property
     def capacity(self) -> int:

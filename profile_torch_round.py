@@ -157,18 +157,6 @@ VARIANTS = [
                         "  if (a.C > 0) return no_key();\n"
                         "  const int start = a.offsets[nd], end = "
                         "a.offsets[nd + 1];\n")]),
-    # K5 with 8 warps a CTA instead of 16
-    ("k5_warps_8", [("victim_select.cu", "constexpr int kWarps = 16;",
-                     "constexpr int kWarps = 8;")]),
-    # K5 with one CTA of 32 warps an SM (half the CTAs to meet), each warp
-    # staging 32 rows
-    ("k5_cta_1024", [
-        ("victim_select.cu", "constexpr int kWarps = 16;",
-         "constexpr int kWarps = 32;"),
-        ("victim_select.cu", "constexpr int kStage = 64;",
-         "constexpr int kStage = 32;"),
-        ("victim_select.cu", "constexpr int kCtasPerSm = 2;",
-         "constexpr int kCtasPerSm = 1;")]),
     # K5 with clock stamps: SM cycles of each node's pass 1, pass 2 and
     # record, and of each CTA's dry runs, wait and choice-and-commit, a
     # preemptor, summed in shared memory and added to K5_STAMPS once a
@@ -234,34 +222,6 @@ VARIANTS = [
          "  return (int)cudaMemcpyToSymbol(g_k5, zero, sizeof(zero));\n}\n"
          "// Runs K5 over the C preemptors"),
     ]),
-    # K5's dry run reading the node-ordered rows through the read-only
-    # path (__ldg)
-    ("k5_ldg", [
-        ("victim_select.cu",
-         "  const int start = a.offsets[nd], end = a.offsets[nd + 1];\n",
-         "  const int start = __ldg(a.offsets + nd), "
-         "end = __ldg(a.offsets + nd + 1);\n"),
-        ("victim_select.cu",
-         "    const int pri = in ? a.cpri[pos] : 0;\n"
-         "    const bool cand = in && (fl & (kValid | kNonPreemptible)) == "
-         "kValid &&\n                      pri < ppri && (!sq || "
-         "a.cquota[pos] == pq);\n    const int pdb = cand ? a.cpdb[pos] : -1;",
-         "    const int pri = in ? __ldg(a.cpri + pos) : 0;\n"
-         "    const bool cand = in && (fl & (kValid | kNonPreemptible)) == "
-         "kValid &&\n                      pri < ppri && (!sq || "
-         "__ldg(a.cquota + pos) == pq);\n"
-         "    const int pdb = cand ? __ldg(a.cpdb + pos) : -1;"),
-        ("victim_select.cu",
-         "      const int r = in ? a.creq[static_cast<long long>(d) * a.M + "
-         "pos] : 0;",
-         "      const int r = in ? __ldg(a.creq + static_cast<long long>(d) * "
-         "a.M + pos) : 0;"),
-        ("victim_select.cu",
-         "base == start ? first_pri : a.cpri[pos];",
-         "base == start ? first_pri : __ldg(a.cpri + pos);")]),
-    # K5 with one CTA an SM and the registers that leaves
-    ("k5_ctas_1", [("victim_select.cu", "constexpr int kCtasPerSm = 2;",
-                    "constexpr int kCtasPerSm = 1;")]),
     # K5's meeting alone (no dry run) with clock stamps in thread 0 of
     # each CTA: SM cycles from the dry runs' end to the CTA barrier, to
     # the arrival's issue, to the last arrival seen, to the acquire and
@@ -309,21 +269,6 @@ VARIANTS = [
          "  return (int)cudaMemcpyToSymbol(g_meet, zero, sizeof(zero));\n}\n"
          "// Runs K5 over the C preemptors"),
     ]),
-    # K5's freed vector by a butterfly of shuffles instead of
-    # __reduce_add_sync
-    ("k5_xor_sum", [("victim_select.cu",
-                     "      const unsigned s = __reduce_add_sync(kFull, cand "
-                     "? static_cast<unsigned>(r) : 0u);\n",
-                     "      unsigned s = cand ? static_cast<unsigned>(r) : 0u;"
-                     "\n      for (int o = 16; o; o >>= 1) "
-                     "s += __shfl_xor_sync(kFull, s, o);\n")]),
-    # K5's PDB ranks by 32 shuffles instead of __match_any_sync
-    ("k5_rank_loop", [("victim_select.cu",
-                       "    int rank = __popc(__match_any_sync(kFull, key) "
-                       "& lower);\n",
-                       "    int rank = 0;\n    for (int i = 0; i < 32; ++i) "
-                       "{\n      const int o = __shfl_sync(kFull, key, i);\n"
-                       "      rank += i < lane && o == key;\n    }\n")]),
     # K2 with one or two threads a pod instead of four
     ("k2_lanes_1", [("refresh_candidates.cu", "constexpr int kLanes = 4;",
                      "constexpr int kLanes = 1;")]),
@@ -629,6 +574,12 @@ def device_ms(fn, names, reps: int = 3) -> float | None:
     """Mean device time a call of ``fn`` spends in the kernels whose names
     contain one of ``names``, from torch.profiler; None when the profiler
     reports no device time."""
+    return device_ms_parts(fn, {"": names}, reps)[""]
+
+
+def device_ms_parts(fn, parts: dict, reps: int = 3) -> dict:
+    """:func:`device_ms` for each part of ``parts`` (a name to the kernel
+    names it sums) from one profile of ``reps`` calls of ``fn``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -638,12 +589,15 @@ def device_ms(fn, names, reps: int = 3) -> float | None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    total = dict.fromkeys(parts, 0.0)
     for e in prof.key_averages():
-        if any(n in e.key for n in names):
-            total += float(getattr(e, "self_device_time_total",
-                                   getattr(e, "self_cuda_time_total", 0.0)))
-    return total / 1e3 / reps if total > 0 else None
+        us = float(getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0)))
+        for part, names in parts.items():
+            if any(n in e.key for n in names):
+                total[part] += us
+    return {part: t / 1e3 / reps if t > 0 else None
+            for part, t in total.items()}
 
 
 def digest(cases: dict) -> list[int]:
@@ -779,13 +733,20 @@ def preempt_inputs(dev: str) -> dict:
 #: parent's (K5a and K5b, two launches a preemptor)
 K5_NAMES = ("preempt_chain_kernel", "victim_select_kernel",
             "victim_commit_kernel")
-K6_NAMES = ("overuse_revoke_kernel",)
+#: K6's device time by part: the walks' launch, the keys launch (the
+#: parent builds the keys with PyTorch calls: none), the sort (cub's radix
+#: sort kernels), and every kernel of the call
+K6_PARTS = {"walk": ("overuse_revoke_kernel",),
+            "keys": ("overuse_keys_kernel",),
+            "sort": ("RadixSort", "SortKV", "sort"),
+            "all": ("",)}
 
 
 def preempt_times(args) -> int:
     """K5 on phase 15's first full chain of 256 and K6 on phase 15's round
     3 and on one quota of 50,000 pods, three readings of three calls each
-    with CUDA events, and their kernels' device time from torch.profiler;
+    with CUDA events, and their kernels' device time from torch.profiler
+    (K6's by K6_PARTS: the walks, the keys launch, the sort, the whole);
     with ``--grids``, K5 also at those grid sizes (a tree whose wrapper
     takes one).  One JSON line, with a digest of the inputs and the
     outputs: run it for two checkouts in turns to compare them."""
@@ -886,10 +847,11 @@ def preempt_times(args) -> int:
                         per_cta_preemptor=per_cta)
         finally:
             build._lib = tree_lib
-    names = {"k5_chain": K5_NAMES, "k6_round3": K6_NAMES,
-             "k6_one_quota_50000": K6_NAMES}
-    device = {case: [device_ms(cases[case], names[case]) for _ in range(3)]
-              for case in names}
+    device = {"k5_chain": [device_ms(cases["k5_chain"], K5_NAMES)
+                           for _ in range(3)]}
+    for case in ("k6_round3", "k6_one_quota_50000"):
+        reads = [device_ms_parts(cases[case], K6_PARTS) for _ in range(3)]
+        device[case] = {part: [r[part] for r in reads] for part in K6_PARTS}
     launches = dict(build.LAUNCHES)
     print(json.dumps({
         "preempt": args.root or ".", "device": torch.cuda.get_device_name(0),
