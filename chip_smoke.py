@@ -172,9 +172,27 @@ first failure:
    31 and past the end).  Both phases run under a watchdog: past
    K5_PHASE_LIMIT_S seconds the run ends with code 4 and a message.
 
+The Diagnose phase (K7, ``explain_counts``): every round of phases 9, 12,
+13 and 15 runs with the Scheduler's default ``explain=True``, and
+``checked_diagnose`` holds each round's K7 call against K7's plain
+version on the same inputs, and the round's ``result.failures`` (field
+by field) against the failures the plain counts give; K7 must have
+launched exactly once on every round with a failure; the check's time is
+taken off the round's wall.  K7 is held against its plain version, timed, on phase 9's
+and phase 12's last steady rounds' failed rows and on phase 15's round 1;
+``explain_edges`` (before phase 9) holds it on one pod, 45 pods over
+1,000 nodes, 65 selector classes, a dense mask, the aggregated thresholds
+and every scoring term, requests of 0 against a negative free, every node
+infeasible, and padded node rows with invalid pods.  Phase 10's and 14's
+failures are compared field by field too; the plain path (``plain_path``)
+takes K7's plain version.
+
 The line before the last is ``nvidia-smi``'s name and power limit; the last
-is ``{"ok": true, "device": {...}}``.  Before them, one JSON line lists the
-nine kernels: time, launches over the steady-state run of the forced-
+is ``{"ok": true, "device": {...}}``.  Before them a ``diagnose`` line
+gives the Diagnose phase's host ms a round at phases 9 (the forced
+scheduler) and 15, and one JSON line lists the ten kernels (K7's at phase
+9's last steady round, its launches over the forced scheduler's rounds,
+with ``phase12``, ``phase13`` and ``phase15`` beside it): time, launches over the steady-state run of the forced-
 threshold scheduler (the slice's main path; K4r's over the reservations
 phase's three rounds; K1a's over phase 14's three rounds; K5's and K6's
 over phase 15's three rounds, K5's time that of one chain of 256
@@ -292,14 +310,34 @@ PAIR_OPS = dict(
 )
 
 
+def filter_ops(cfg, requests, alloc) -> int:
+    """The int32 operations of the Filter over every pair of the pods
+    ``requests`` (p, R) and the nodes ``alloc`` (n, R): over the pod's
+    nonzero requests and the node's thresholded allocatable dims
+    (PAIR_OPS)."""
+    import torch
+
+    from koordinator_tpu_torch.kernels.select_candidates import (
+        _config_vector,
+    )
+
+    v = _config_vector(cfg)[0].tolist()
+    thr = torch.tensor([t > 0 for t in v[R + 2:2 * R + 2]],
+                       device=alloc.device)
+    o = PAIR_OPS
+    p, n = requests.shape[0], alloc.shape[0]
+    return (p * n * o["pair"]
+            + n * int((requests != 0).sum()) * o["fit_dim"]
+            + p * int(((alloc > 0) & thr).sum()) * o["thr_dim"])
+
+
 def pair_ops(cfg, requests, alloc, feasible) -> int:
     """The int32 operations that Filter + Score + ranking must do over the
     pairs of the pods ``requests`` (p, R) and the nodes ``alloc`` (n, R),
     ``feasible`` (p, n) marking the pairs that pass the filter: the filter
-    on every pair, over the pod's nonzero requests and the node's
-    thresholded allocatable dims; the score and the ranking on the
-    feasible pairs, each plugin only when its weight is not 0 and over the
-    dims it weighs (PAIR_OPS)."""
+    on every pair (filter_ops); the score and the ranking on the feasible
+    pairs, each plugin only when its weight is not 0 and over the dims it
+    weighs (PAIR_OPS)."""
     import torch
 
     from koordinator_tpu_torch.kernels.select_candidates import (
@@ -308,16 +346,13 @@ def pair_ops(cfg, requests, alloc, feasible) -> int:
 
     v = _config_vector(cfg)[0].tolist()
     dev = alloc.device
-    thr = torch.tensor([t > 0 for t in v[R + 2:2 * R + 2]], device=dev)
     fp_w = torch.tensor([w != 0 for w in v[2 * R + 2:3 * R + 2]],
                         device=dev)
     la_dims = sum(w != 0 for w in v[:R])
     la_dw, la_pw, fp_pw, sc_pw = v[R], v[R + 1], v[5 * R + 2], v[5 * R + 3]
     o = PAIR_OPS
-    p, n = feasible.shape
-    ops = (p * n * o["pair"]
-           + n * int((requests != 0).sum()) * o["fit_dim"]
-           + p * int(((alloc > 0) & thr).sum()) * o["thr_dim"])
+    p = feasible.shape[0]
+    ops = filter_ops(cfg, requests, alloc)
     per = torch.full((p,), o["rank"], dtype=torch.int64, device=dev)
     if la_pw:
         per += o["la"] + la_dims * o["la_dim"]
@@ -595,6 +630,7 @@ def quota_setup(pods, device, seed: int = 0):
 def plain_path():
     """Route the solvers through the kernels' plain versions on any device
     (the wrappers would launch the kernels on CUDA tensors)."""
+    from koordinator_tpu_torch.kernels import explain_counts as k7
     from koordinator_tpu_torch.kernels import greedy_scan, prefix_accept
     from koordinator_tpu_torch.kernels import refresh_candidates as k2
     from koordinator_tpu_torch.kernels import round_fit_choose
@@ -604,18 +640,19 @@ def plain_path():
 
     saved = (ba.select_candidates_kernel, ba.refresh_candidates_kernel,
              ba.round_fit_choose, ba.round_prefix_accept,
-             greedy_scan.greedy_scan_kernel)
+             greedy_scan.greedy_scan_kernel, k7.explain_counts)
     ba.select_candidates_kernel = k1.select_candidates_plain
     ba.refresh_candidates_kernel = k2.refresh_candidates_plain
     ba.round_fit_choose = round_fit_choose.round_fit_choose_plain
     ba.round_prefix_accept = prefix_accept.round_prefix_accept_plain
     greedy_scan.greedy_scan_kernel = assignment.greedy_assign_plain
+    k7.explain_counts = k7.explain_counts_plain
     try:
         yield
     finally:
         (ba.select_candidates_kernel, ba.refresh_candidates_kernel,
          ba.round_fit_choose, ba.round_prefix_accept,
-         greedy_scan.greedy_scan_kernel) = saved
+         greedy_scan.greedy_scan_kernel, k7.explain_counts) = saved
 
 
 @contextlib.contextmanager
@@ -1849,9 +1886,15 @@ def phase_steady(device, n_nodes: int = 10_240, n_pods: int = 50_000,
     once per propose/accept round (as often as K3a).  K3b is held against
     its plain version on every round of the forced scheduler's cold solve
     (phase_quota_rounds) and K4 on its last round's rescue (phase_rescue).
-    Returns (schedulers, the forced scheduler's launches over the whole
-    run, the round records, K4's numbers at the rescue, K3b's at the cold
-    solve's first round)."""
+    Every round's Diagnose runs K7 and is checked against the plain path
+    (checked_diagnose), its failures equal across the schedulers field by
+    field; K7 is held against its plain version on the forced scheduler's
+    last steady round's failed rows.  Returns (schedulers, the forced
+    scheduler's launches over the whole run, the round records, K4's
+    numbers at the rescue, K3b's at the cold solve's first round, K7's at
+    the last steady round)."""
+    import dataclasses
+
     from koordinator_tpu_torch.kernels import build
 
     nodes, pods, leaf_max = steady_specs(3, n_nodes, n_pods)
@@ -1861,7 +1904,8 @@ def phase_steady(device, n_nodes: int = 10_240, n_pods: int = 50_000,
     enqueued = {}
     totals = {kname: 0 for kname in build.LAUNCHES}
     binds_by = {name: {} for name in scheds}
-    records = []
+    records, dlog = [], []
+    k7_call = None
     for rnd in range(1 + steady_rounds):
         if rnd > 0:
             refreshed, new = steady_delta(rng, nodes, rnd, n_arrivals)
@@ -1873,14 +1917,22 @@ def phase_steady(device, n_nodes: int = 10_240, n_pods: int = 50_000,
         results = {}
         for name, sched in scheds.items():
             log: list = []
+            n_diag = len(dlog)
             build.reset_launch_counts()
-            with solve_probe(log, device):
+            with solve_probe(log, device), checked_diagnose(dlog):
                 sync(device)
                 t0 = time.perf_counter()
                 res = sched.schedule_round()
                 sync(device)
                 wall = time.perf_counter() - t0
             launches = dict(build.LAUNCHES)
+            diag = diagnose_fields(dlog[n_diag:])
+            # the round's wall without the check's plain counts
+            wall -= diag["diagnose_check_s"]
+            check(launches["explain_counts"] == (1 if res.failures else 0),
+                  f"round {rnd}, {name}: Diagnose launched K7")
+            if name == "forced" and rnd == steady_rounds:
+                k7_call = dlog[-1]["call"]
             if name == "forced":
                 for kname, count in launches.items():
                     totals[kname] += count
@@ -1905,16 +1957,20 @@ def phase_steady(device, n_nodes: int = 10_240, n_pods: int = 50_000,
                 k3a=launches["round_fit_choose"],
                 k3b=launches["segmented_prefix_accept"],
                 k4=launches["greedy_scan"], binds=len(res.assignments),
-                rescued=res.rescued, failed=len(res.failures)))
+                rescued=res.rescued, failed=len(res.failures),
+                k7=launches["explain_counts"], **diag))
             emit("steady_round", **records[-1])
             check(records[-1]["k3b"] == records[-1]["k3a"],
                   f"round {rnd}, {name}: one K3b launch a propose/accept "
                   "round")
         first = results["defaults"]
+        first_failures = {n: dataclasses.asdict(d)
+                          for n, d in first.failures.items()}
         for name, res in results.items():
             check(res.assignments == first.assignments,
                   f"round {rnd}: {name} binds equal the defaults'")
-            check(set(res.failures) == set(first.failures),
+            check({n: dataclasses.asdict(d) for n, d in res.failures.items()}
+                  == first_failures,
                   f"round {rnd}: {name} failures equal the defaults'")
         check(len(first.assignments) > 0, f"round {rnd} bound pods")
     forced = [r for r in records if r["scheduler"] == "forced"]
@@ -1946,10 +2002,12 @@ def phase_steady(device, n_nodes: int = 10_240, n_pods: int = 50_000,
             if not sched.quota_tree.children[qname]:
                 check(bool((q.used[CPU] <= q.max[CPU])),
                       f"{name}: {qname} used within its max")
+    check(k7_call is not None, "the last steady round ran K7")
+    k7 = held_k7(device, k7_call, "at phase 9's last steady round")
     emit("steady", nodes=n_nodes, pods=n_pods, rounds=1 + steady_rounds,
          arrivals=n_arrivals, forced_launches=totals,
          backlog=len(scheds["defaults"].pending))
-    return scheds, totals, records, rescue, k3b
+    return scheds, totals, records, rescue, k3b, k7
 
 
 def phase_small(device, scheds: dict, rounds: int = 3,
@@ -1987,7 +2045,7 @@ def phase_small(device, scheds: dict, rounds: int = 3,
         check(launches["greedy_scan"] > 0, "K4 launched on a small round")
         check(kr.assignments == pr.assignments,
               f"small round {rnd}: binds equal the plain path's")
-        check(set(kr.failures) == set(pr.failures),
+        check(failure_docs(kr) == failure_docs(pr),
               f"small round {rnd}: failures equal the plain path's")
         check(max_abs_err(kern.snapshot.state.node_requested,
                           plain.snapshot.state.node_requested) == 0,
@@ -3287,8 +3345,10 @@ def phase_gke(device, n_nodes: int = GKE_NODES, n_pods: int = 50_000,
     their reservation's node, the node accounting equal to the bound pods
     and reservations) and phase 9's (each leaf's cpu used within its max).
     Every kernel is held against its plain version at the phase's shapes
-    (gke_k1, gke_k3a, phase_quota_rounds, gke_k2, gke_k4, rsv_case).
-    Returns the kernels' numbers by name and the launches by round."""
+    (gke_k1, gke_k3a, phase_quota_rounds, gke_k2, gke_k4, rsv_case; K7 on
+    the last steady round's failed rows), and every round's Diagnose
+    against the plain path (checked_diagnose).  Returns the kernels'
+    numbers by name and the launches by round."""
     from koordinator_tpu_torch.kernels import build
     from koordinator_tpu_torch.scheduler.scheduler import Scheduler
     from koordinator_tpu_torch.scheduler.snapshot import ClusterSnapshot
@@ -3306,7 +3366,8 @@ def phase_gke(device, n_nodes: int = GKE_NODES, n_pods: int = 50_000,
     sched.enqueue_many(pods)
     setup_s = time.perf_counter() - t_start
     rng = np.random.default_rng(41)
-    numbers, records, solves, refreshes = {}, [], {}, []
+    numbers, records, solves, refreshes, dlog = {}, [], {}, [], []
+    k7_call = None
     for rnd in range(2 + steady_rounds):
         if 0 < rnd <= steady_rounds:
             refreshed, new = steady_delta(rng, nodes, rnd, n_arrivals)
@@ -3319,15 +3380,22 @@ def phase_gke(device, n_nodes: int = GKE_NODES, n_pods: int = 50_000,
                 sched.add_reservation(spec)
             sched.enqueue_many(owner_pods(rng, 0, n_owners))
         log, rlog, plog = [], [], []
+        n_diag = len(dlog)
         build.reset_launch_counts()
         with solve_probe(log, device), refresh_probe(rlog), \
-                prepass_probe(plog, device):
+                prepass_probe(plog, device), checked_diagnose(dlog):
             sync(device)
             t0 = time.perf_counter()
             res = sched.schedule_round()
             sync(device)
             wall = time.perf_counter() - t0
         launches = dict(build.LAUNCHES)
+        diag = diagnose_fields(dlog[n_diag:])
+        wall -= diag["diagnose_check_s"]
+        check(launches["explain_counts"] == (1 if res.failures else 0),
+              f"phase 12 round {rnd}: Diagnose launched K7")
+        if rnd == steady_rounds:
+            k7_call = dlog[-1]["call"]
         solves[rnd] = log
         refreshes += rlog
         rec = dict(round=rnd, path=sched.last_solve_path,
@@ -3338,7 +3406,7 @@ def phase_gke(device, n_nodes: int = GKE_NODES, n_pods: int = 50_000,
                    solve_ms=[s["ms"] for s in log if s["solver"] == "batch"],
                    rescue_ms=[s["ms"] for s in log if s["solver"] == "greedy"],
                    prepass_ms=[s["ms"] for s in plog],
-                   launches=launches)
+                   launches=launches, **diag)
         rec.update(reservation_checks(sched, res, f"phase 12 round {rnd}"))
         for qname, q in sched.quota_tree.nodes.items():
             if not sched.quota_tree.children[qname]:
@@ -3386,6 +3454,9 @@ def phase_gke(device, n_nodes: int = GKE_NODES, n_pods: int = 50_000,
                    s["match"], s["quota"])
     k4r["in_round_ms"] = s["ms"]
     numbers["reservation_scan"] = k4r
+    check(k7_call is not None, "phase 12's last steady round ran K7")
+    numbers["explain_counts"] = held_k7(
+        device, k7_call, "at phase 12's last steady round")
     for name, out in numbers.items():
         emit("gke_kernel", name=name, **{
             key: val for key, val in out.items()
@@ -3396,7 +3467,8 @@ def phase_gke(device, n_nodes: int = GKE_NODES, n_pods: int = 50_000,
          seconds=time.perf_counter() - t_start,
          rounds=[{key: r[key] for key in (
              "round", "path", "pods", "binds", "assigned_fraction", "wall_s",
-             "solve_ms", "rescue_ms", "prepass_ms")} for r in records])
+             "solve_ms", "rescue_ms", "prepass_ms", "diagnose_ms",
+             "diagnose_parts_ms", "k7_rows")} for r in records])
     return numbers, [r["launches"] for r in records]
 
 
@@ -3548,8 +3620,9 @@ def phase_gangs(device, n_nodes: int = 10_240, n_pods: int = 50_000,
     propose/accept round of round 1's solve) and K4 (round 1's whole
     rescue, with its quota state) are held against their plain versions
     on the inputs round 1's first passes launch them on: each batch with
-    PreEnqueue's mask applied (gang_solve).  Returns (the round records,
-    the held kernels' numbers by kernel name)."""
+    PreEnqueue's mask applied (gang_solve); every round's Diagnose runs K7
+    and is checked against the plain path (checked_diagnose).  Returns
+    (the round records, the held kernels' numbers by kernel name)."""
     from koordinator_tpu_torch.kernels import build
     from koordinator_tpu_torch.scheduler.scheduler import (
         GangRecord,
@@ -3570,7 +3643,7 @@ def phase_gangs(device, n_nodes: int = 10_240, n_pods: int = 50_000,
         sched.register_gang(GangRecord(name=name, min_member=mm, group=group))
     sched.enqueue_many(pods)
     rng = np.random.default_rng(61)
-    records, solves = [], {}
+    records, solves, dlog = [], {}, []
     for rnd, t in enumerate(GANG_TIMES):
         now[0] = t
         if rnd == 1:
@@ -3581,14 +3654,19 @@ def phase_gangs(device, n_nodes: int = 10_240, n_pods: int = 50_000,
                                                group=group))
             sched.enqueue_many(new_pods)
         log: list = []
+        n_diag = len(dlog)
         build.reset_launch_counts()
-        with solve_probe(log, device):
+        with solve_probe(log, device), checked_diagnose(dlog):
             sync(device)
             t0 = time.perf_counter()
             res = sched.schedule_round()
             sync(device)
             wall = time.perf_counter() - t0
         launches = dict(build.LAUNCHES)
+        diag = diagnose_fields(dlog[n_diag:])
+        wall -= diag["diagnose_check_s"]
+        check(launches["explain_counts"] == (1 if res.failures else 0),
+              f"phase 13 round {rnd}: Diagnose launched K7")
         solves[rnd] = log
         rec = dict(round=rnd, t=t, path=sched.last_solve_path,
                    pods=res.round_pods, binds=len(res.assignments),
@@ -3600,7 +3678,7 @@ def phase_gangs(device, n_nodes: int = 10_240, n_pods: int = 50_000,
                    rejected=sum(1 for g in sched.gangs.values()
                                 if g.rejected),
                    held_out=len(sched._last_gang_rejected_names),
-                   launches=launches)
+                   launches=launches, **diag)
         rec.update(gang_checks(sched, f"phase 13 round {rnd}"))
         records.append(rec)
         emit("gang_round", **rec)
@@ -3644,7 +3722,8 @@ def phase_gangs(device, n_nodes: int = 10_240, n_pods: int = 50_000,
          seconds=time.perf_counter() - t_start,
          rounds=[{key: r[key] for key in (
              "round", "t", "pods", "binds", "rescued", "wall_s", "solve_ms",
-             "rescue_ms", "gangs_placed", "rejected", "held_out")}
+             "rescue_ms", "gangs_placed", "rejected", "held_out",
+             "diagnose_ms", "diagnose_parts_ms", "k7_rows")}
              for r in records])
     k3b = {key: k3b[key] for key in ("max_abs_err", "ms", "device_ms",
                                      "plain_ms", "bound_ms", "bound_by")}
@@ -3822,7 +3901,7 @@ def phase_approx(device, n_nodes: int = 10_240, n_pods: int = 50_000,
           "the chunked cold round selected on K1a alone")
     res_a = solves[0][1]
     check(res_c.assignments == res_a.assignments
-          and set(res_c.failures) == set(res_a.failures),
+          and failure_docs(res_c) == failure_docs(res_a),
           "the chunked cold round binds as the approx one")
     del chunked
     # K1a at the cold round's shape, K1 beside it on the same inputs
@@ -4687,9 +4766,12 @@ def phase_preemption(device, n_nodes: int = 10_240,
     every PDB's budget is its start less the evictions it covered.  Every
     K5 chain and preempt_one call of the rounds and the K6 call are held
     against their plain versions on their recorded inputs; K5 launches once
-    a chain and once a preempt_one.  ``one_quota``, the K6 record of
-    phase_preempt_edges' one quota of 50,000 pods, is printed beside round
-    3's.  Returns (K5's and K6's kernel entries, the round records)."""
+    a chain and once a preempt_one.  Every round's Diagnose runs K7 and is
+    checked against the plain path (checked_diagnose), and K7 is held
+    against its plain version on round 1's failed rows.  ``one_quota``,
+    the K6 record of phase_preempt_edges' one quota of 50,000 pods, is
+    printed beside round 3's.  Returns (K5's and K6's kernel entries, the
+    round records, K7's numbers at round 1)."""
     from koordinator_tpu_torch.kernels import build
     from koordinator_tpu_torch.kernels import overuse_revoke as k6
     from koordinator_tpu_torch.kernels import preemption as k5
@@ -4771,7 +4853,7 @@ def phase_preemption(device, n_nodes: int = 10_240,
     sched._run_preemption = timed_post
     smod.preempt_chain, smod.preempt_one = rec_chain, rec_one
     orv.select_overuse_victims = rec_sel
-    records, launches = [], {}
+    records, launches, dlog = [], {}, []
     try:
         for rnd, t in enumerate(PREEMPT_TIMES):
             now[0] = t
@@ -4787,13 +4869,20 @@ def phase_preemption(device, n_nodes: int = 10_240,
             n_chains, n_ones = len(chains), len(ones)
             post_ms.clear()
             nominated_before = set(sched.nominations)
+            n_diag = len(dlog)
             build.reset_launch_counts()
-            sync(device)
-            t1 = time.perf_counter()
-            res = sched.schedule_round()
-            sync(device)
-            wall = time.perf_counter() - t1
+            with checked_diagnose(dlog):
+                sync(device)
+                t1 = time.perf_counter()
+                res = sched.schedule_round()
+                sync(device)
+                wall = time.perf_counter() - t1
             launches[rnd] = dict(build.LAUNCHES)
+            diag = diagnose_fields(dlog[n_diag:])
+            wall -= diag["diagnose_check_s"]
+            check(launches[rnd]["explain_counts"]
+                  == (1 if res.failures else 0),
+                  f"phase 15 round {rnd}: Diagnose launched K7")
             round_chains = [int(a[2].shape[0]) for a, _ in chains[n_chains:]]
             k5_calls = len(round_chains) + len(ones) - n_ones
             rec = dict(
@@ -4808,7 +4897,8 @@ def phase_preemption(device, n_nodes: int = 10_240,
                 revoked=len(revoked) - n_revoked, chains=round_chains,
                 k5_calls=k5_calls,
                 launches={k: launches[rnd][k] for k in (
-                    "victim_select", "overuse_revoke")})
+                    "victim_select", "overuse_revoke", "explain_counts")},
+                **diag)
             check(launches[rnd]["victim_select"] == k5_calls,
                   f"round {rnd} launched K5 once a chain and once a "
                   "preempt_one")
@@ -4826,6 +4916,9 @@ def phase_preemption(device, n_nodes: int = 10_240,
     check(records[1]["nominated_binds"] > 0, "round 2 bound nominations")
     check(launches[2]["overuse_revoke"] > 0 and records[2]["revoked"] > 0,
           "round 3 ran K6 and revoked")
+    check(dlog[0]["call"] is not None, "round 1's Diagnose ran K7")
+    k7 = held_k7(device, dlog[0]["call"], "at phase 15's round 1")
+    k7["launches"] = sum(r["explain_counts"] for r in launches.values())
 
     # every chain and preempt_one call against the plain versions
     chain_errs, chain_plain_ms = [], []
@@ -4907,7 +5000,7 @@ def phase_preemption(device, n_nodes: int = 10_240,
              "dims_mean", "busiest_walk_max")}),
          k6=dict(k6_entry, **{k: b6[k] for k in ("bytes", "ops")}),
          seconds=time.perf_counter() - t_start)
-    return [k5_entry, k6_entry], records
+    return [k5_entry, k6_entry], records, k7
 
 
 def preempt_checks(sched, start_budgets, labels, evicted, revoked,
@@ -4935,6 +5028,264 @@ def preempt_checks(sched, start_budgets, labels, evicted, revoked,
     return dict(standing_nominations=len(sched.nominations),
                 bound=len(sched.bound))
 
+
+
+# -- K7: the Diagnose phase's reject-reason count ------------------------------
+
+#: int32 operations of K7's attribution of a (pod, node) pair beyond the
+#: Filter's: the first failing reason chosen (2) and counted (1)
+EXPLAIN_PAIR_OPS = 3
+
+
+def clone_state(state):
+    """A copy of ``state`` that later rounds cannot write."""
+    import dataclasses
+
+    return state.replace(**{f.name: getattr(state, f.name).clone()
+                            for f in dataclasses.fields(state)})
+
+
+@contextlib.contextmanager
+def checked_diagnose(log: list):
+    """Hold every round's Diagnose against the plain path: the round runs
+    it as it would (K7 on the card), timed; then K7's counts are held
+    against its plain version on the same inputs, exactly, and the plain
+    failures derived from the plain counts (``diagnosis_from_counts`` and
+    the post-solve quota blame, as ``Scheduler._diagnose`` states them)
+    must equal the round's ``result.failures`` field by field
+    (``dataclasses.asdict``).  ``log`` gets a record a Diagnose: its host
+    ms and those of its parts (``last_diagnose_parts_s``), the seconds the
+    check took (to take off the round's wall), K7's calls, the rows of
+    the last and its inputs (a copy of the state, made after the timed
+    run)."""
+    import dataclasses
+
+    from koordinator_tpu_torch.kernels import explain_counts as k7
+    from koordinator_tpu_torch.ops import explain as ex
+    from koordinator_tpu_torch.quota.admission import quota_admission_mask
+    from koordinator_tpu_torch.scheduler.diagnosis import (
+        diagnosis_from_counts,
+    )
+    from koordinator_tpu_torch.scheduler.scheduler import Scheduler
+
+    real_diagnose, real_counts = Scheduler._diagnose, ex.explain_counts
+
+    def diagnose(self, pods, batch, a, quota, new_quota, placed_gangs, now,
+                 result):
+        calls = []
+        fail_rows = [i for i, pod in enumerate(pods)
+                     if int(a[i]) < 0 and pod.name not in result.assignments]
+
+        def kernel(state, small, cfg):
+            out = real_counts(state, small, cfg)
+            calls.append(((state, small, cfg), out))
+            return out
+
+        ex.explain_counts = kernel
+        try:
+            real_diagnose(self, pods, batch, a, quota, new_quota,
+                          placed_gangs, now, result)
+        finally:
+            ex.explain_counts = real_counts
+        t0 = time.perf_counter()
+        check(len(calls) == (1 if self.explain and fail_rows else 0),
+              "Diagnose counted once a round with a failure")
+        err = 0
+        if calls:
+            (state, small, cfg), (c, f) = calls[0]
+            calls[0] = ((clone_state(state), small, cfg), (c, f))
+            pc, pf = k7.explain_counts_plain(state, small, cfg)
+            err = max(max_abs_err(c, pc), max_abs_err(f, pf))
+            check(err == 0, "K7 equals its plain version in the round")
+            admitted = None
+            if quota is not None:
+                admitted = quota_admission_mask(
+                    new_quota if new_quota is not None else quota,
+                    batch.requests, batch.quota_id,
+                    batch.non_preemptible).cpu().numpy()
+            pc, pf = pc.cpu().numpy(), pf.cpu().numpy()
+            total_nodes = len(self.snapshot.node_index)
+            want, got = {}, {}
+            for j, i in enumerate(fail_rows):
+                d = diagnosis_from_counts(pc[j], int(pf[j]), total_nodes)
+                if (admitted is not None and not admitted[i]
+                        and d.feasible_nodes > 0):
+                    d.reason_counts["quota"] = d.feasible_nodes
+                    d = dataclasses.replace(d, quota_rejected=True,
+                                            feasible_nodes=0)
+                name = pods[i].name
+                want[name] = dataclasses.asdict(d)
+                got[name] = dataclasses.asdict(result.failures[name])
+            check(got == want, "the round's failures equal the plain "
+                  "path's, field by field")
+        log.append(dict(
+            diagnose_ms=self.last_diagnose_s * 1e3,
+            parts_ms={k: v * 1e3
+                      for k, v in self.last_diagnose_parts_s.items()},
+            check_s=time.perf_counter() - t0,
+            failed=len(fail_rows), k7_calls=len(calls), max_abs_err=err,
+            rows=int(calls[-1][0][1].valid.sum()) if calls else 0,
+            call=calls[-1][0] if calls else None))
+
+    Scheduler._diagnose = diagnose
+    try:
+        yield
+    finally:
+        Scheduler._diagnose = real_diagnose
+
+
+def failure_docs(result) -> dict:
+    """A round's failures, each diagnosis as a dict of its fields."""
+    import dataclasses
+
+    return {n: dataclasses.asdict(d) for n, d in result.failures.items()}
+
+
+def diagnose_fields(entries: list) -> dict:
+    """A round's Diagnose records (checked_diagnose) as round-record
+    fields."""
+    parts: dict[str, float] = {}
+    for e in entries:
+        for k, v in e["parts_ms"].items():
+            parts[k] = parts.get(k, 0.0) + v
+    return dict(diagnose_ms=sum(e["diagnose_ms"] for e in entries),
+                diagnose_parts_ms=parts,
+                k7_rows=sum(e["rows"] for e in entries),
+                diagnose_check_s=sum(e["check_s"] for e in entries))
+
+
+def k7_bound(state, pods, cfg) -> dict:
+    """K7's bound: the Filter over every (valid pod, node row) pair
+    (filter_ops over the valid nodes) and each pair's reason chosen and
+    counted (EXPLAIN_PAIR_OPS), against the bytes it must move once: the
+    node rows' allocatable, requested and threshold usage, validity and
+    class; the pods' requests, estimates, validity and selector rows (or
+    dense mask); the (P, 16) counts and (P,) feasible out."""
+    p_valid = int(pods.valid.sum())
+    n, p = state.capacity, pods.capacity
+    ops = (filter_ops(cfg, pods.requests[pods.valid],
+                      state.node_allocatable[state.node_valid])
+           + p_valid * n * EXPLAIN_PAIR_OPS)
+    mask = (pods.selector_mask if pods.selector_mask is not None
+            else pods.feasible)
+    nbytes = (3 * n * R * 4 + n + 4 * n + 2 * p * R * 4 + p + mask.numel()
+              + p * 17 * 4)
+    bound_ms, by = bound(nbytes, ops)
+    return dict(bound_ms=bound_ms, bound_by=by, ops=ops, bytes=nbytes)
+
+
+def held_k7(device, call, label: str, reps: int = 5) -> dict:
+    """K7 against its plain version on a recorded call (state, pods, cfg),
+    exactly; its wrapper's time, its count kernel's device time and the
+    node-row packing's apart, the plain version's time and the bound."""
+    from koordinator_tpu_torch.kernels import explain_counts as k7
+
+    state, pods, cfg = call
+    got = k7.explain_counts(state, pods, cfg)
+    sync(device)
+    t0 = time.perf_counter()
+    want = k7.explain_counts_plain(state, pods, cfg)
+    sync(device)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+    check(err == 0, f"K7 equals its plain version {label}")
+    ms = timed_ms(lambda: k7.explain_counts(state, pods, cfg), device,
+                  reps=reps)
+    dev = device_ms_by_kernel(lambda: k7.explain_counts(state, pods, cfg),
+                              ("explain_counts_kernel", "pack_node_rows",
+                               "pack_selector_words"), device)
+    out = dict(label=label, rows=int(pods.valid.sum()),
+               capacity=pods.capacity, nodes=state.capacity,
+               classes=(None if pods.selector_mask is None
+                        else pods.selector_mask.shape[1]),
+               max_abs_err=err, ms=ms,
+               device_ms=dev["explain_counts_kernel"],
+               pack_ms=sum(v or 0.0 for k, v in dev.items()
+                           if k != "explain_counts_kernel") or None,
+               plain_ms=plain_ms, library_ms=None,
+               **k7_bound(state, pods, cfg))
+    emit("k7", **out)
+    return out
+
+
+def k7_partition(counts, feasible, pods, n: int) -> bool:
+    """A valid pod's node rows counted once each (feasible + the node
+    reasons == N); invalid pod rows all zero."""
+    from koordinator_tpu_torch.ops.explain import REASON_QUOTA
+
+    total = feasible.long() + counts[:, :REASON_QUOTA].long().sum(1)
+    valid = pods.valid
+    return bool((total[valid] == n).all()) and bool(
+        (total[~valid] == 0).all()) and bool(
+        (counts[:, REASON_QUOTA:] == 0).all())
+
+
+def phase_explain_edges(device) -> None:
+    """K7 against its plain version on its edges: one pod; 45 pods over
+    1,000 nodes (no multiple of a warp's pods, a CTA's or a tile's); 65
+    selector classes (two words); a dense mask; the aggregated thresholds
+    and every scoring term; requests of 0 against a negative free; every
+    node infeasible; padded node rows; invalid pod rows."""
+    import torch
+
+    from koordinator_tpu_torch.kernels import explain_counts as k7
+    from koordinator_tpu_torch.kernels.select_candidates import _pod_rows
+
+    def dev(a):
+        return to_dev(a, device)
+
+    cases = []
+    # rows cut to the pods' own count (a batch pads to 64 rows at least)
+    st, pods = random_problem(71, 10_240, 1, device, "classes")
+    cases.append(("one_pod", st, _pod_rows(pods, 0, 1), "default"))
+    st, pods = random_problem(72, 1_000, 45, device, "classes")
+    cases.append(("45_pods_1000_nodes", st, _pod_rows(pods, 0, 45),
+                  "default"))
+    st, pods = class_problem(73, 4_096, 2_048, 65, device)
+    cases.append(("c65", st, pods, "default"))
+    st, pods = random_problem(74, 3_000, 512, device, "dense")
+    cases.append(("dense", st, pods, "default"))
+    st, pods = random_problem(75, 4_096, 1_024, device, "classes")
+    cases.append(("agg", st, pods, "agg"))
+    cases.append(("everything", st, pods, "everything"))
+    # a third of the nodes with requested over allocatable on memory, 40%
+    # of the pods requesting no memory
+    rng = np.random.default_rng(76)
+    st, pods = random_problem(76, 4_096, 1_024, device, "classes")
+    requested = st.node_requested.cpu().numpy().copy()
+    over = rng.random(4_096) < 0.3
+    requested[over, MEM] = st.node_allocatable.cpu().numpy()[over, MEM] + 1
+    req = pods.requests.cpu().numpy().copy()
+    req[rng.random(pods.capacity) < 0.4, MEM] = 0
+    cases.append(("zero_request_negative_free",
+                  st.replace(node_requested=dev(requested)),
+                  pods.replace(requests=dev(req)), "default"))
+    big = req.copy()
+    big[:, CPU] = 1 << 24
+    cases.append(("all_infeasible", st, pods.replace(requests=dev(big)),
+                  "default"))
+    nv = np.ones(4_096, bool)
+    nv[3_000:] = False
+    pv = rng.random(pods.capacity) < 0.7
+    cases.append(("padded_nodes_invalid_pods",
+                  st.replace(node_valid=dev(nv)),
+                  pods.replace(valid=dev(pv)), "default"))
+    out = []
+    for label, st, pods, variant in cases:
+        cfg = scoring_config(variant, device)
+        got = k7.explain_counts(st, pods, cfg)
+        want = k7.explain_counts_plain(st, pods, cfg)
+        err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+        check(err == 0, f"K7 equals its plain version ({label})")
+        check(k7_partition(got[0], got[1], pods, st.capacity),
+              f"K7 counts every node row once ({label})")
+        if label == "all_infeasible":
+            check(int(got[1].sum()) == 0, "no node feasible")
+        out.append(dict(case=label, pods=pods.capacity,
+                        nodes=st.capacity, max_abs_err=err,
+                        feasible=int(got[1].sum()),
+                        counted=int(torch.sum(got[0], dtype=torch.int64))))
+    emit("explain_edges", cases=out)
 
 
 def ptxas_summary(path: str) -> list[dict]:
@@ -4977,7 +5328,8 @@ PTXAS_ENTRIES = {"select_candidates": ("select_candidates_kernel", 20),
                  "greedy_scan": ("greedy_scan_kernel", 8),
                  "victim_select": ("preempt_chain_kernel", 1),
                  "overuse_revoke": ("overuse_revoke_kernel", 1),
-                 "overuse_keys": ("overuse_keys_kernel", 1)}
+                 "overuse_keys": ("overuse_keys_kernel", 1),
+                 "explain_counts": ("explain_counts_kernel", 3)}
 
 
 def phase_ptxas(path: str) -> None:
@@ -5088,7 +5440,8 @@ def main() -> int:
     k4_1000 = phase_greedy(device)
     phase_greedy_edges(device)
     phase_step_edges(device)
-    scheds, totals, _, k4, k3b = phase_steady(device)
+    phase_explain_edges(device)
+    scheds, totals, steady_records, k4, k3b, k7 = phase_steady(device)
     phase_small(device, scheds)
     del scheds
     k4r, k4r_launches = phase_reservations(device)
@@ -5102,7 +5455,8 @@ def main() -> int:
     with watchdog(K5_PHASE_LIMIT_S, "phase_preempt_edges"):
         one_quota = phase_preempt_edges(device)
     with watchdog(K5_PHASE_LIMIT_S, "phase 15 (preemption)"):
-        k5_k6, _ = phase_preemption(device, one_quota=one_quota)
+        k5_k6, preempt_records, k7_15 = phase_preemption(
+            device, one_quota=one_quota)
     kernels[1:1] = [dict(
         name="refresh_candidates", route="cuda",
         source=CSRC + "refresh_candidates.cu",
@@ -5180,6 +5534,34 @@ def main() -> int:
     # K5 on phase 15's first full chain, K6 on its round 3; their launches
     # over phase 15's three rounds
     kernels += k5_k6
+    # K7 at phase 9's last steady round, its launches over the forced
+    # scheduler's rounds; at phase 12's last steady round and phase 15's
+    # round 1 beside it with their phases' launches
+    k7_keys = ("max_abs_err", "ms", "device_ms", "pack_ms", "plain_ms",
+               "bound_ms", "bound_by", "rows", "nodes", "classes")
+    kernels.append(dict(
+        name="explain_counts", route="cuda",
+        source=CSRC + "explain_counts.cu",
+        replaces="koordinator_tpu/ops/explain.py:83",
+        launches=totals["explain_counts"], library_ms=None,
+        **{k: k7[k] for k in k7_keys},
+        phase12=dict(
+            launches=sum(r["explain_counts"] for r in gke_launches),
+            library_ms=None,
+            **{k: gke["explain_counts"][k] for k in k7_keys}),
+        phase13=dict(launches=sum(r["launches"]["explain_counts"]
+                                  for r in gang_rounds)),
+        phase15=dict(library_ms=None,
+                     **{k: k7_15[k] for k in k7_keys + ("launches",)})))
+    emit("diagnose", note="the Diagnose phase's host ms a round, its parts "
+         "(counts: the quota mask, K7 and the copy back; diagnoses; the "
+         "gang WaitTime machine; explanations), and the rows K7 counted",
+         phase9=[dict(round=r["round"], ms=r["diagnose_ms"],
+                      parts_ms=r["diagnose_parts_ms"], rows=r["k7_rows"])
+                 for r in steady_records if r["scheduler"] == "forced"],
+         phase15=[dict(round=r["round"], ms=r["diagnose_ms"],
+                       parts_ms=r["diagnose_parts_ms"], rows=r["k7_rows"])
+                  for r in preempt_records])
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,1 +1,1 @@
-"""Resource model of the port (numpy only)."""
+"""Resource model and CRD objects of the port (no tensors)."""

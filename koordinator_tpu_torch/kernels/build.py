@@ -194,6 +194,16 @@ _SIGNATURES = {
         _P, _P, _P, _P, _I,              # scratch: the CTAs' own budgets and quota (or null), partial keys, node order, arrivals; grid
         _P,                              # stream
     ],
+    "koord_explain_counts": [
+        _P, _P, _P, _P, _P, _P,          # node alloc/requested/usage/base/valid/class
+        _P, _P, _P,                      # pod requests/estimates/valid
+        _P, _I, _P, _P,                  # selector mask (P, C) + C, its words' scratch (P, W), dense mask (P, N)
+        _P, _I,                          # config int vector + its length
+        _I, _I, _I,                      # P, N, reason columns
+        _P,                              # packed node rows scratch
+        _P, _P,                          # out counts (P, 16), feasible (P,)
+        _P,                              # stream
+    ],
     "koord_overuse_keys": [
         _P, _P, _P, _P, _P, _P,          # bound quota, priority, valid, non-preemptible, PDB, budgets (or null)
         _I, _I, _I,                      # B, V, Q
@@ -216,6 +226,7 @@ _SCRATCH = {
     "koord_select_candidates_scratch_bytes": [_I],      # N
     "koord_select_candidates_ctas_per_sm": [_I],        # 0 K1, 1 K1a int32, 2 K1a 64-bit
     "koord_refresh_candidates_scratch_bytes": [_I],     # D
+    "koord_explain_counts_scratch_bytes": [_I],         # N
     "koord_greedy_scan_scratch_bytes": [_I, _I, _I],    # N, Q, chain depth
     "koord_reservation_scan_scratch_bytes": [_I, _I, _I],  # N, Q, chain depth
     "koord_reservation_scan_nodes_per_cta": [_I],       # N
@@ -261,7 +272,7 @@ LAUNCHES = {"select_candidates": 0, "select_candidates_approx": 0,
             "refresh_candidates": 0,
             "round_fit_choose": 0, "segmented_prefix_accept": 0,
             "greedy_scan": 0, "reservation_scan": 0,
-            "victim_select": 0, "overuse_revoke": 0}
+            "victim_select": 0, "overuse_revoke": 0, "explain_counts": 0}
 
 
 def reset_launch_counts() -> None:

@@ -1,0 +1,269 @@
+"""ScheduleExplanation persistence and the workload audit trail (port of
+``koordinator_tpu/scheduler/explanation.py``).
+
+The reference turns per-cycle Diagnosis state into durable artifacts two
+ways: an async diagnosis dump queue that renders ScheduleExplanation CRs
+(``frameworkext/schedule_diagnosis.go:44-108``: DumpDiagnosis enqueues to
+``diagnosisQueue`` with worker fan-out, blocking mode for tests), and the
+workload auditor ring that records every scheduling attempt per pod/gang
+(``frameworkext/workloadauditor/workload_auditor.go``). Here the queue
+feeds an :class:`ExplanationStore` (the CR registry stand-in) and
+:class:`WorkloadAuditor` keeps bounded per-workload event rings; a round's
+placement explanations are kept in an :class:`ExplanationRing`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from collections import OrderedDict, deque
+from typing import Optional
+
+from koordinator_tpu_torch.api.crds import ScheduleExplanation
+from koordinator_tpu_torch.scheduler.diagnosis import PodDiagnosis
+
+
+# ---- placement explanations (the reject-reason counts) ---------------------
+
+
+@dataclasses.dataclass
+class PlacementExplanation:
+    """One pod's reject-reason breakdown from a scheduling round.
+
+    Counts come from the reject-reason count
+    (``ops/explain.explain_counts``) plus the host-attributed pod-level
+    gates (quota, gang barrier, degraded suspension); ``round`` is the
+    scheduler's ``round_seq`` and ``trace_id`` the pod's trace (None: the
+    port traces no pods yet)."""
+
+    pod: str
+    round: int
+    total_nodes: int
+    feasible_nodes: int
+    #: reason name -> node count, keyed by ops/explain.REASON_NAMES;
+    #: only nonzero reasons are retained
+    reasons: dict[str, int]
+    trace_id: Optional[str] = None
+    quota: Optional[str] = None
+    gang: Optional[str] = None
+    update_time: float = 0.0
+
+    #: pod-level gates outrank node-count reasons in top_reason(): when
+    #: quota admission (or the gang barrier / degraded suspension) held a
+    #: pod back, it IS the attributed cause — the node-level counts are
+    #: context, not the verdict
+    _GATE_REASONS = ("quota", "gang_barrier", "degraded_suspended")
+
+    def top_reason(self) -> Optional[str]:
+        """The attributed cause: a pod-level gate when one fired, else
+        the reason that eliminated the most nodes (None if none)."""
+        if not self.reasons:
+            return None
+        for gate in self._GATE_REASONS:
+            if self.reasons.get(gate, 0) > 0:
+                return gate
+        return max(self.reasons.items(), key=lambda kv: (kv[1], kv[0]))[0]
+
+    def summary(self) -> str:
+        """"0/10240 nodes feasible: 9812 fit_gpu, 401 quota, 27 ..."."""
+        head = f"{self.feasible_nodes}/{self.total_nodes} nodes feasible"
+        parts = [f"{count} {name}" for name, count in
+                 sorted(self.reasons.items(), key=lambda kv: (-kv[1], kv[0]))
+                 if count > 0]
+        return head + (": " + ", ".join(parts) if parts else "")
+
+    def to_doc(self) -> dict:
+        doc = dataclasses.asdict(self)
+        doc["summary"] = self.summary()
+        doc["top_reason"] = self.top_reason()
+        return doc
+
+
+class ExplanationRing:
+    """Bounded pod-keyed ring of the latest :class:`PlacementExplanation`
+    per pod — the retention layer behind ``/debug/explain/<pod>``.
+
+    Re-recording a pod refreshes its recency; the oldest pods fall off
+    once ``capacity`` distinct pods are held (a years-long scheduler must
+    not leak one entry per pod name ever seen)."""
+
+    def __init__(self, capacity: int = 4096, clock=time.time):
+        self.capacity = capacity
+        self.clock = clock
+        self._lock = threading.Lock()
+        self._ring: OrderedDict[str, PlacementExplanation] = OrderedDict()
+
+    def record(self, explanation: PlacementExplanation) -> None:
+        if not explanation.update_time:
+            explanation.update_time = self.clock()
+        with self._lock:
+            self._ring.pop(explanation.pod, None)
+            self._ring[explanation.pod] = explanation
+            while len(self._ring) > self.capacity:
+                self._ring.popitem(last=False)
+
+    def get(self, pod: str) -> Optional[PlacementExplanation]:
+        with self._lock:
+            return self._ring.get(pod)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._ring)
+
+
+class ExplanationStore:
+    """Persists diagnosis results as ScheduleExplanation objects.
+
+    ``blocking=False`` mirrors the reference's default async dump: record()
+    enqueues and a drain (the worker) writes CRs; ``blocking=True`` writes
+    through immediately (dumpDiagnosisBlocking). Capacity-bounded both in
+    queue depth (diagnosisQueueSize=1000) and retained CRs.
+    """
+
+    def __init__(self, capacity: int = 1024, queue_size: int = 1000,
+                 blocking: bool = False, clock=time.time):
+        self.capacity = capacity
+        self.queue_size = queue_size
+        self.blocking = blocking
+        self.clock = clock
+        self._lock = threading.Lock()
+        self._queue: deque[ScheduleExplanation] = deque()
+        self._store: OrderedDict[str, ScheduleExplanation] = OrderedDict()
+        self.dropped = 0
+
+    # -- producer side (scheduler Diagnose phase) ---------------------------
+
+    def record(self, pod_name: str, diagnosis: PodDiagnosis,
+               namespace: str = "default", uid: str = "") -> None:
+        offers = {}
+        if diagnosis.preempt_node is not None:
+            offers[diagnosis.preempt_node] = (
+                "fits after preempting ["
+                + ", ".join(diagnosis.preempt_victims) + "]")
+        explanation = ScheduleExplanation(
+            pod_uid=uid or pod_name,
+            pod_namespace=namespace,
+            pod_name=pod_name,
+            reasons=(diagnosis.message(),),
+            node_offers=offers,
+            update_time=self.clock(),
+        )
+        with self._lock:
+            if self.blocking:
+                self._write(explanation)
+                return
+            if len(self._queue) >= self.queue_size:
+                self.dropped += 1  # queue full: drop, never block scheduling
+                return
+            self._queue.append(explanation)
+
+    def delete(self, pod_name: str) -> None:
+        """Pod scheduled (or removed): its explanation is stale — purge the
+        store AND any queued-but-undrained entry, or a later drain would
+        resurrect a failure explanation for a bound pod."""
+        with self._lock:
+            self._store.pop(pod_name, None)
+            if any(e.pod_name == pod_name for e in self._queue):
+                self._queue = deque(
+                    e for e in self._queue if e.pod_name != pod_name)
+
+    # -- worker side --------------------------------------------------------
+
+    def drain(self, max_items: int | None = None) -> int:
+        """Apply queued explanations to the store (the async worker)."""
+        n = 0
+        with self._lock:
+            while self._queue and (max_items is None or n < max_items):
+                self._write(self._queue.popleft())
+                n += 1
+        return n
+
+    def _write(self, explanation: ScheduleExplanation) -> None:
+        self._store.pop(explanation.pod_name, None)
+        self._store[explanation.pod_name] = explanation
+        while len(self._store) > self.capacity:
+            self._store.popitem(last=False)
+
+    # -- query side ---------------------------------------------------------
+
+    def get(self, pod_name: str) -> Optional[ScheduleExplanation]:
+        with self._lock:
+            return self._store.get(pod_name)
+
+    def list(self) -> list[ScheduleExplanation]:
+        with self._lock:
+            return list(self._store.values())
+
+
+# ---- workload auditor ------------------------------------------------------
+
+RECORD_SCHEDULE_FAILED = "ScheduleFailed"
+RECORD_SCHEDULE_SUCCESS = "ScheduleSuccess"
+RECORD_GATED = "Gated"
+RECORD_ATTEMPT = "Attempt"
+
+
+@dataclasses.dataclass(frozen=True)
+class AuditEvent:
+    timestamp: float
+    record_type: str
+    message: str = ""
+
+
+class WorkloadAuditor:
+    """Bounded per-workload (pod or gang group) scheduling-lifecycle rings
+    (workloadauditor.workloadAuditorImpl: per-record locking, attempts
+    counter, gating transitions)."""
+
+    def __init__(self, enabled: bool = True, ring_size: int = 32,
+                 clock=time.time):
+        self.enabled = enabled
+        self.ring_size = ring_size
+        self.clock = clock
+        self._lock = threading.Lock()
+        self._records: dict[str, deque[AuditEvent]] = {}
+        self._attempts: dict[str, int] = {}
+        self._gated: dict[str, bool] = {}
+
+    def _ring(self, key: str) -> deque[AuditEvent]:
+        return self._records.setdefault(key, deque(maxlen=self.ring_size))
+
+    def record(self, key: str, record_type: str, message: str = "") -> None:
+        if not self.enabled:
+            return
+        with self._lock:
+            self._ring(key).append(
+                AuditEvent(self.clock(), record_type, message))
+
+    def record_attempt(self, key: str) -> None:
+        if not self.enabled:
+            return
+        with self._lock:
+            self._attempts[key] = self._attempts.get(key, 0) + 1
+            self._ring(key).append(AuditEvent(self.clock(), RECORD_ATTEMPT))
+
+    def record_gating(self, key: str, gated: bool) -> None:
+        """Only gating *transitions* are recorded (RecordPodGating)."""
+        if not self.enabled:
+            return
+        with self._lock:
+            if self._gated.get(key) == gated:
+                return
+            self._gated[key] = gated
+            self._ring(key).append(AuditEvent(
+                self.clock(), RECORD_GATED, "gated" if gated else "ungated"))
+
+    def delete(self, key: str) -> None:
+        with self._lock:
+            self._records.pop(key, None)
+            self._attempts.pop(key, None)
+            self._gated.pop(key, None)
+
+    def attempts(self, key: str) -> int:
+        with self._lock:
+            return self._attempts.get(key, 0)
+
+    def events(self, key: str) -> list[AuditEvent]:
+        with self._lock:
+            return list(self._records.get(key, ()))

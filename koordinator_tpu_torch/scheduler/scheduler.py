@@ -47,10 +47,17 @@ One round, as the JAX ``Scheduler`` runs it with its defaults:
    solve already charged its vector); every other pod is recorded in the
    ``bound`` registry, charges the quota tree's ``used`` and goes to
    ``bind_fn``;
-7. the gang WaitTime machine (Permit's timeout): a gang with a failed
-   member and none placed this round starts its wait at its first such
-   round and is rejected once ``wait_time_sec`` has passed since; a gang
-   with a member placed clears its wait.
+7. Diagnose: a :class:`PodDiagnosis` for every failed pod in
+   ``result.failures``, from one reject-reason count over the compacted
+   failed rows (``ops/explain.py`` ``explain_counts``, K7) or, with
+   ``explain=False``, a host recompute a pod; a pod the post-solve quota
+   does not admit is blamed on the quota when some nodes were otherwise
+   feasible.  Then the gang WaitTime machine (Permit's timeout): a gang
+   with a failed member and none placed this round starts its wait at its
+   first such round and is rejected once ``wait_time_sec`` has passed
+   since; a gang with a member placed clears its wait.  With ``explain``,
+   each unplaced user pod's :class:`PlacementExplanation` goes to
+   ``explain_ring`` (:meth:`Scheduler.pod_explanation`).
 
 Around them, when enabled: the Nominated phase (after the tick) binds the
 pods an earlier round's preemption nominated, each re-checked on its
@@ -64,7 +71,10 @@ preempts for the round's failed pods, highest priority first, up to
 ``preempt_one``, runs of single pods through ``preempt_chain`` in chunks of
 ``preempt_chunk`` (K5), the victims evicted through ``preempt_fn`` and their
 PDBs charged, each preemptor's request assumed on its node and quota and
-recorded in ``result.nominations``.
+recorded in ``result.nominations`` and on its diagnosis.  After PostFilter
+the failed pods' diagnoses persist to ``explanations`` (an
+``ExplanationStore``), and ``auditor`` (a ``WorkloadAuditor``) records each
+workload's attempts, failures, binds and reservation transitions.
 
 Removing a bound pod (:meth:`Scheduler.delete_pod`,
 :meth:`Scheduler.remove_bound_pod`) returns what it drew from a
@@ -78,13 +88,13 @@ labels its latency metric ``greedy``).
 
 Left out of this reduced shell, and kept by the JAX scheduler: gangs with
 network-topology requirements (``register_gang`` refuses them: the
-topology planner waits for ``ops/network_topology.py``), explanations, the
-auditor's per-workload attempts and Diagnose's per-reason counts (failures
-carry a short reason; the nominations are in ``result.nominations``), hints
-and their dense masks, the fine-grained CPU and device allocators (and so
+topology planner waits for ``ops/network_topology.py``), hints and their
+dense masks, the fine-grained CPU and device allocators (and so
 ``add_bound_pod``'s ``resource_status``), forecast and quality modes,
-degraded mode, tenancy, the solve mesh, and the journey, timeline and
-metrics hooks.
+degraded mode (so no pod is held back as ``degraded_suspended``), tenancy,
+the solve mesh, pod traces (``pod_trace_id`` is None, as in JAX without
+``trace_pods``), the flight recorder, and the journey, timeline and
+metrics hooks (among them the explain rollup's gauges).
 """
 
 from __future__ import annotations
@@ -96,6 +106,7 @@ import numpy as np
 import torch
 
 from koordinator_tpu_torch.ops import batch_assign as ba
+from koordinator_tpu_torch.ops import explain as ex
 from koordinator_tpu_torch.ops import scoring
 from koordinator_tpu_torch.ops.assignment import (
     ScoringConfig,
@@ -115,6 +126,15 @@ from koordinator_tpu_torch.quota.admission import (
     quota_admission_mask,
 )
 from koordinator_tpu_torch.quota.tree import UNBOUNDED, QuotaTree
+from koordinator_tpu_torch.scheduler.diagnosis import (
+    PodDiagnosis,
+    diagnosis_from_counts,
+    explain_pod,
+)
+from koordinator_tpu_torch.scheduler.explanation import (
+    ExplanationRing,
+    PlacementExplanation,
+)
 from koordinator_tpu_torch.scheduler.reservations import (
     ReservationCache,
     ReservationPhase,
@@ -210,7 +230,7 @@ class GangRecord:
 @dataclasses.dataclass
 class SchedulingResult:
     assignments: dict[str, str]   # pod -> node
-    failures: dict[str, str]      # pod -> short reason
+    failures: dict[str, PodDiagnosis]   # pod -> why
     round_pods: int = 0
     #: pods the greedy rescue pass placed (batch rounds only)
     rescued: int = 0
@@ -231,7 +251,8 @@ class Scheduler:
                  batch_solver_threshold: int = 1024,
                  incremental_solve: bool = True, device=None,
                  clock=time.monotonic, enable_preemption: bool | None = None,
-                 preempt_fn=None):
+                 preempt_fn=None, explanations=None, auditor=None,
+                 explain: bool = True):
         if device is not None and torch.device(device) != snapshot.device:
             raise ValueError(f"device {device} differs from the snapshot's "
                              f"{snapshot.device}")
@@ -314,6 +335,31 @@ class Scheduler:
         self.preempt_chunk = 256
         #: the quota overuse revoke controller (enable_overuse_revoke)
         self.overuse_revoke = None
+
+        # -- diagnosis and explanations --
+        #: rounds run so far (the explanations' ``round``)
+        self.round_seq = 0
+        #: when False, Diagnose recomputes each failed pod on the host, and
+        #: no explanation is kept
+        self.explain = explain
+        #: explanation.ExplanationStore: failures persist as
+        #: ScheduleExplanation CRs (schedule_diagnosis.go DumpDiagnosis)
+        self.explanations = explanations
+        #: explanation.WorkloadAuditor: per-pod/gang lifecycle records
+        self.auditor = auditor
+        #: bounded pod-keyed retention of the latest explanations
+        self.explain_ring = ExplanationRing()
+        #: {top reason -> pod count} of the last round's explanations
+        self._last_unschedulable_top: dict[str, int] = {}
+        #: pods degraded mode held back (not ported: always empty)
+        self._last_suspended_names: list[str] = []
+        #: host seconds of the last round's Diagnose phase, and of its
+        #: parts: "counts" (the quota admission mask, the reject-reason
+        #: count and its copy to the host), "diagnoses" (a PodDiagnosis a
+        #: failed pod), "gang_wait" (the WaitTime machine) and
+        #: "explanations" (the round's PlacementExplanations)
+        self.last_diagnose_s = 0.0
+        self.last_diagnose_parts_s: dict[str, float] = {}
 
     # -- registration -----------------------------------------------------------
 
@@ -478,11 +524,16 @@ class Scheduler:
     def _reservation_tick(self, now: float) -> None:
         """Expire reservations; move Pending ones toward Available (pinned
         node: directly, after a fit check; else queue a reserve-pod)."""
-        self.reservations.fail_stale_instances(self.snapshot)
+        for name in self.reservations.fail_stale_instances(self.snapshot):
+            if self.auditor is not None:
+                self.auditor.record(name, "ReservationFailed",
+                                    "node instance gone")
         for name in self.reservations.expire_tick(now, self.snapshot):
             # a Pending reservation that expired drops its reserve-pod too
             if self.pending.pop(RSV_POD_PREFIX + name, None) is not None:
                 self._pending_rev += 1
+            if self.auditor is not None:
+                self.auditor.record(name, "ReservationExpired", "")
         # terminal specs are settled: purge them
         self.reservations.gc()
         for spec in self.reservations.pending():
@@ -594,6 +645,10 @@ class Scheduler:
         self.reservations.make_available(rname, node, self.snapshot, now=now,
                                          charge=False)
         result.assignments[pod.name] = node
+        if self.explanations is not None:
+            self.explanations.delete(pod.name)
+        if self.auditor is not None:
+            self.auditor.record(pod.name, "ReservationAvailable", node)
 
     def _active_pods(self) -> list[PodSpec]:
         """PreEnqueue: skip the pods of rejected gangs."""
@@ -779,7 +834,9 @@ class Scheduler:
     # -- the round ----------------------------------------------------------
 
     def schedule_round(self) -> SchedulingResult:
-        """Solve the current pending queue; reserve, bind."""
+        """Solve the current pending queue; reserve, bind, diagnose."""
+        self.round_seq += 1
+        self._last_unschedulable_top = {}
         result = SchedulingResult({}, {}, 0)
         self.last_dirty_node_frac = 0.0
         self.last_dirty_pod_frac = 0.0
@@ -800,7 +857,17 @@ class Scheduler:
             self.overuse_revoke.revoke_once()
         pods = self._active_pods()
         if not pods:
+            # a queue held out whole still explains itself
+            if self.explain:
+                self._record_round_explanations(
+                    [], result, [], set(), len(self.snapshot.node_index))
             return result
+        if self.auditor is not None:
+            # one attempt a workload key a round: a gang is one attempt;
+            # reserve-pods are not workloads
+            for key in {pod.gang or pod.name for pod in pods
+                        if not pod.name.startswith(RSV_POD_PREFIX)}:
+                self.auditor.record_attempt(key)
         gangs, gang_index = self._build_gang_info(pods)
         quota, quota_index = self._build_quota()
         batch = self._build_batch(pods, gang_index, quota_index)
@@ -870,27 +937,95 @@ class Scheduler:
                         placed_gangs.add(pod.gang)
         self._commit_binds(binds, result)
 
+        self._diagnose(pods, batch, a, quota, new_quota, placed_gangs, now,
+                       result)
+        if self.enable_preemption and result.failures:
+            self._run_preemption(pods, batch, result)
+        if self.explanations is not None:
+            # persist after PostFilter, so nominations land on the CR (the
+            # binds cleared theirs in _commit_binds)
+            for pod in pods:
+                if pod.name.startswith(RSV_POD_PREFIX):
+                    # an unplaced reserve-pod retries next round; it is not
+                    # a user pod
+                    continue
+                diag = result.failures.get(pod.name)
+                if diag is not None:
+                    self.explanations.record(pod.name, diag)
+                    if self.auditor is not None:
+                        self.auditor.record(pod.gang or pod.name,
+                                            "ScheduleFailed", diag.message())
+        return result
+
+    def _diagnose(self, pods: list[PodSpec], batch: PodBatch, a: np.ndarray,
+                  quota, new_quota, placed_gangs: set[str], now: float,
+                  result: SchedulingResult) -> None:
+        """Diagnose: a :class:`PodDiagnosis` for every failed pod, then the
+        gang WaitTime machine and, with ``explain``, the round's
+        explanations.  The diagnoses come from ONE reject-reason count
+        over the compacted failed rows (only (F, NUM_REASONS) comes back
+        to the host), or with ``explain=False`` from a host recompute a
+        pod."""
+        t0 = time.perf_counter()
+        admitted = None
+        if quota is not None:
+            # blame against the POST-solve quota: a pod that lost the
+            # headroom to this round's placements failed because of quota,
+            # though the pre-solve admission passed it.  Only when nodes
+            # were otherwise feasible: a pod that failed on capacity or
+            # affinity keeps its real reason
+            diag_quota = new_quota if new_quota is not None else quota
+            admitted = quota_admission_mask(
+                diag_quota, batch.requests, batch.quota_id,
+                batch.non_preemptible).cpu().numpy()
         # a pod in assignments was bound by the reservation pre-pass (its
         # row left the batch before the solve)
         fail_rows = [i for i, pod in enumerate(pods)
                      if int(a[i]) < 0 and pod.name not in result.assignments]
+        counts = feas = None
+        row_pos: dict[int, int] = {}
+        if self.explain and fail_rows:
+            fmask = np.zeros(batch.capacity, bool)
+            fmask[fail_rows] = True
+            small, idx = batch.compact(fmask)
+            c_dev, f_dev = ex.explain_counts(self.snapshot.state, small,
+                                             self.config)
+            counts, feas = c_dev.cpu().numpy(), f_dev.cpu().numpy()
+            row_pos = {int(r): j for j, r in enumerate(idx)}
+        t_counts = time.perf_counter()
+        total_nodes = len(self.snapshot.node_index)
         failed_gangs: set[str] = set()
-        if fail_rows:
-            admitted = None
-            if new_quota is not None:
-                admitted = quota_admission_mask(
-                    new_quota, batch.requests, batch.quota_id,
-                    batch.non_preemptible).cpu().numpy()
-            for i in fail_rows:
-                result.failures[pods[i].name] = (
-                    "quota" if admitted is not None and not admitted[i]
-                    else "no feasible node")
-                if pods[i].gang:
-                    failed_gangs.add(pods[i].gang)
+        for i in fail_rows:
+            pod = pods[i]
+            if counts is not None:
+                j = row_pos[i]
+                diag = diagnosis_from_counts(counts[j], int(feas[j]),
+                                             total_nodes, quota_admitted=True)
+            else:
+                diag = explain_pod(self.snapshot.state, batch, self.config,
+                                   i, quota_admitted=True)
+            if (admitted is not None and not admitted[i]
+                    and diag.feasible_nodes > 0):
+                # nodes were available but the quota (as of this round's
+                # placements) says no: quota is the cause
+                if diag.reason_counts is not None:
+                    diag.reason_counts["quota"] = diag.feasible_nodes
+                diag = dataclasses.replace(diag, quota_rejected=True,
+                                           feasible_nodes=0)
+            result.failures[pod.name] = diag
+            if pod.gang:
+                failed_gangs.add(pod.gang)
+        t_diagnoses = time.perf_counter()
         self._gang_wait_time(placed_gangs, failed_gangs, now)
-        if self.enable_preemption and result.failures:
-            self._run_preemption(pods, batch, result)
-        return result
+        t_gang = time.perf_counter()
+        if self.explain:
+            self._record_round_explanations(pods, result, fail_rows,
+                                            failed_gangs, total_nodes)
+        t_end = time.perf_counter()
+        self.last_diagnose_s = t_end - t0
+        self.last_diagnose_parts_s = {
+            "counts": t_counts - t0, "diagnoses": t_diagnoses - t_counts,
+            "gang_wait": t_gang - t_diagnoses, "explanations": t_end - t_gang}
 
     def _gang_wait_time(self, placed: set[str], failed: set[str],
                         now: float) -> None:
@@ -1084,6 +1219,13 @@ class Scheduler:
                 q.used = q.used + total
                 if non_preemptible:
                     q.non_preemptible_used = q.non_preemptible_used + total
+        for pod, node in binds:
+            # a bound pod's explanation is stale
+            if self.explanations is not None:
+                self.explanations.delete(pod.name)
+            if self.auditor is not None:
+                self.auditor.record(pod.gang or pod.name, "ScheduleSuccess",
+                                    node)
         if self.bind_fn is not None:
             for pod, node in binds:
                 self.bind_fn(pod.name, node)
@@ -1431,3 +1573,125 @@ class Scheduler:
                 self.preempt_fn(vname, p.name)
         self._nomination_assume(p, node_name)
         result.nominations[p.name] = (node_name, victim_names)
+        diag = result.failures.get(p.name)
+        if diag is not None:
+            diag.preempt_node = node_name
+            diag.preempt_victims = victim_names
+
+    # -- placement explanations ----------------------------------------------
+
+    def _record_round_explanations(
+        self, pods, result: SchedulingResult, fail_rows: list[int],
+        failed_gangs: set[str], total_nodes: int,
+    ) -> None:
+        """A :class:`PlacementExplanation` for every pod the round left
+        unplaced (the solve's failures, from their diagnoses, and the
+        pods of rejected gangs) into ``explain_ring``, and the round's
+        {top reason -> pods} summary."""
+        explanations: list[PlacementExplanation] = []
+        for i in fail_rows:
+            pod = pods[i]
+            if pod.name.startswith(RSV_POD_PREFIX):
+                continue   # reserve-pods are not user workloads
+            diag = result.failures.get(pod.name)
+            if diag is None:
+                continue
+            # node_invalid counts the padded state rows too: the served
+            # explanation partitions the live nodes only
+            reasons = {name: count
+                       for name, count in (diag.reason_counts or {}).items()
+                       if count > 0 and name != "node_invalid"}
+            feasible = diag.feasible_nodes
+            if (pod.gang is not None and pod.gang in failed_gangs
+                    and feasible > 0):
+                # nodes were feasible one by one; the gang barrier
+                # (minMember, rollback) held the placement back
+                reasons["gang_barrier"] = feasible
+                feasible = 0
+            explanations.append(PlacementExplanation(
+                pod=pod.name, round=self.round_seq,
+                total_nodes=total_nodes, feasible_nodes=feasible,
+                reasons=reasons, trace_id=self.pod_trace_id(pod.name),
+                quota=pod.quota if diag.quota_rejected else None,
+                gang=pod.gang))
+        for name in self._last_suspended_names:
+            explanations.append(PlacementExplanation(
+                pod=name, round=self.round_seq, total_nodes=total_nodes,
+                feasible_nodes=0,
+                reasons={"degraded_suspended": total_nodes},
+                trace_id=self.pod_trace_id(name),
+                gang=getattr(self.pending.get(name), "gang", None)))
+        for name in self._last_gang_rejected_names:
+            explanations.append(PlacementExplanation(
+                pod=name, round=self.round_seq, total_nodes=total_nodes,
+                feasible_nodes=0, reasons={"gang_barrier": total_nodes},
+                trace_id=self.pod_trace_id(name),
+                gang=getattr(self.pending.get(name), "gang", None)))
+        top: dict[str, int] = {}
+        for exp in explanations:
+            self.explain_ring.record(exp)
+            reason = exp.top_reason()
+            if reason is not None:
+                top[reason] = top.get(reason, 0) + 1
+        self._last_unschedulable_top = dict(
+            sorted(top.items(), key=lambda kv: (-kv[1], kv[0])))
+
+    def pod_trace_id(self, name: str) -> str | None:
+        """The pod's trace id: None, since the port traces no pods yet (the
+        JAX scheduler's answer without ``trace_pods``)."""
+        return None
+
+    def pod_explanation(self, name: str) -> PlacementExplanation | None:
+        """Latest retained :class:`PlacementExplanation` of a pod."""
+        return self.explain_ring.get(name)
+
+    def explain_candidates(self, name: str, k: int = 5) -> list[dict] | None:
+        """Per-term score decomposition (``ops/explain.decompose_scores``)
+        of a pending pod's top-k feasible nodes, or a bound pod's node,
+        against the current state; None for an unknown pod."""
+        pod = self.pending.get(name)
+        bound = self.bound.get(name)
+        if pod is None and bound is None:
+            return None
+        self.snapshot.flush()
+        state = self.snapshot.state
+
+        def decompose(batch, node_rows: np.ndarray) -> list[dict]:
+            cand = torch.from_numpy(
+                node_rows[None, :].astype(np.int32)).to(self.device)
+            terms = {t: v[0].cpu().numpy()
+                     for t, v in ex.decompose_scores(
+                         state, batch, self.config, cand).items()}
+            return [
+                {"node": self.snapshot.node_name(int(r)) or str(int(r)),
+                 "score": int(terms["total"][j]),
+                 "terms": {t: int(v[j]) for t, v in terms.items()
+                           if t != "total"}}
+                for j, r in enumerate(node_rows)
+            ]
+
+        if pod is not None:
+            batch = PodBatch.build(
+                pod.requests[None].astype(np.int32),
+                priority=np.array([pod.priority], np.int32),
+                feasible=self.snapshot.feasibility_row(pod)[None],
+                node_capacity=self.snapshot.capacity, capacity=16,
+                device=self.device)
+            scores, feasible = score_pods(state, batch, self.config)
+            row = scores[0].cpu().numpy()
+            masked = np.where(feasible[0].cpu().numpy(), row, -1)
+            order = np.argsort(-masked, kind="stable")[:max(k, 1)]
+            order = order[masked[order] >= 0]
+            if order.size == 0:
+                return []
+            return decompose(batch, order)
+        row_idx = self.snapshot.node_index.get(bound.node)
+        if row_idx is None:
+            return []
+        batch = PodBatch.build(
+            bound.requests[None].astype(np.int32),
+            node_capacity=self.snapshot.capacity, capacity=16,
+            device=self.device)
+        out = decompose(batch, np.array([row_idx], np.int32))
+        out[0]["winner"] = True
+        return out

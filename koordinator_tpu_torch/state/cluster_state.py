@@ -212,6 +212,15 @@ class PodBatch:
         nc = torch.clamp(state.node_class, max=c - 1).long()
         return self.selector_mask[:, nc] & in_range[None, :]
 
+    def feasible_row(self, state: ClusterState, idx) -> torch.Tensor:
+        """(N,) feasibility of one pod (cheap in the factored form)."""
+        if self.feasible is not None:
+            return self.feasible[idx]
+        c = self.selector_mask.shape[1]
+        in_range = state.node_class < c
+        nc = torch.clamp(state.node_class, max=c - 1).long()
+        return self.selector_mask[idx][nc] & in_range
+
     def compact(self, keep, min_capacity: int = 32
                 ) -> tuple["PodBatch", np.ndarray]:
         """(small_batch, kept_indices): gather the ``keep`` rows into a new

@@ -8,9 +8,13 @@ problem that chip_smoke.py drives) once to warm up, then once under
 ``torch.profiler`` with CPU and CUDA activities.  With ``--steady`` the
 profiled round is a steady-state one instead: chip_smoke.py's phase 9 setup
 (the flagship cluster behind the 16-leaf quota tree, the dirty threshold at
-1.0), a cold round and one steady round to warm up, then a steady round
-after a usage refresh of 1% of the nodes and 500 arrivals.  Prints JSON
-lines:
+1.0), a cold round and one steady round to warm up, STEADY_TIMED steady
+rounds timed without the profiler (a ``steady_walls`` line: each round's
+wall, failures and the Diagnose phase's host ms and its parts), then a
+steady round after a usage refresh of 1% of the nodes and 500 arrivals.
+``--root DIR`` takes the port and chip_smoke.py from another checkout:
+run parent, tree, tree, parent in one call to compare two commits'
+rounds.  Prints JSON lines:
 
 - ``round``: the profiled round's wall time, the summed device time of every
   kernel and copy, and the device's idle share (1 - device / wall);
@@ -78,6 +82,10 @@ import subprocess
 import sys
 import time
 
+
+#: with --steady: steady rounds timed without the profiler before the
+#: profiled one
+STEADY_TIMED = 3
 
 #: one-change copies of the kernel sources, each isolating one cause of
 #: K1's or K4's time: (name, [(file under csrc/, old text, new text)])
@@ -1003,8 +1011,8 @@ def main() -> int:
                     metavar="PREFIX",
                     help="with --kernels: time the one-change variants too "
                     "(those whose name starts with PREFIX)")
-    ap.add_argument("--root", help="with --kernels: the checkout whose "
-                    "port (and chip_smoke.py) to time")
+    ap.add_argument("--root", help="the checkout whose port (and "
+                    "chip_smoke.py) to time")
     ap.add_argument("--shapes", action="store_true",
                     help="record input shapes; split index_add_'s device "
                     "time by them")
@@ -1018,10 +1026,10 @@ def main() -> int:
     args = ap.parse_args()
     if args.steps:
         return step_times(args)
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
+        os.chdir(args.root)
     if args.kernels or args.preempt:
-        if args.root:
-            sys.path.insert(0, os.path.abspath(args.root))
-            os.chdir(args.root)
         return preempt_times(args) if args.preempt else kernel_times(args)
     from torch.profiler import ProfilerActivity, profile
 
@@ -1057,6 +1065,21 @@ def main() -> int:
 
         run()                                   # cold round
         run()                                   # warm-up steady round
+        # unprofiled steady rounds: their walls, and Diagnose's host ms
+        # where the port has the phase
+        walls = []
+        for _ in range(STEADY_TIMED):
+            result, wall, _ = run()
+            walls.append(dict(
+                wall_s=wall, failed=len(result.failures),
+                diagnose_ms=(sched.last_diagnose_s * 1e3
+                             if hasattr(sched, "last_diagnose_s") else None),
+                diagnose_parts_ms={
+                    k: v * 1e3 for k, v in getattr(
+                        sched, "last_diagnose_parts_s", {}).items()}))
+        print(json.dumps({"steady_walls": walls,
+                          "nvidia_smi": chip_smoke.smi_name_power()}),
+              flush=True)
     else:
         def run():
             result, _sched, wall, log, _pods, _nodes = chip_smoke.run_round(
@@ -1070,8 +1093,10 @@ def main() -> int:
     wrapped = {}
     for name in ("_active_pods", "_build_quota", "_build_batch",
                  "_dispatch_batch_incremental", "_finish_batch_incremental",
-                 "_commit_binds"):
-        real = getattr(sched_mod.Scheduler, name)
+                 "_commit_binds", "_diagnose"):
+        real = getattr(sched_mod.Scheduler, name, None)
+        if real is None:
+            continue                    # a port without the phase
         wrapped[name] = real
 
         def timed(self, *a, _real=real, _name=name, **kw):

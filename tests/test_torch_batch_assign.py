@@ -329,12 +329,15 @@ def test_cpu_wrappers_launch_nothing_and_other_devices_raise():
                   torch.zeros(1, dtype=torch.int32), None)
     q = torch.zeros((1, 10), dtype=torch.int32)
     select_overuse_victims(sched, q + 3_000, q, q == 0)
+    from koordinator_tpu_torch.ops.explain import explain_counts
+
+    explain_counts(ts, tp, port(config(), "ScoringConfig"))
     assert build.LAUNCHES == {"select_candidates": 0,
                               "select_candidates_approx": 0,
                               "refresh_candidates": 0, "round_fit_choose": 0,
                               "segmented_prefix_accept": 0, "greedy_scan": 0,
                               "reservation_scan": 0, "victim_select": 0,
-                              "overuse_revoke": 0}
+                              "overuse_revoke": 0, "explain_counts": 0}
     meta = dict(device="meta")
     key = torch.empty((4, 8), dtype=torch.int32, **meta)
     with pytest.raises(ValueError, match="no kernel for device"):
@@ -350,6 +353,17 @@ def test_cpu_wrappers_launch_nothing_and_other_devices_raise():
             torch.zeros((4, 10), dtype=torch.int32, **meta),
             torch.zeros(4, dtype=torch.int64), torch.zeros(4, dtype=torch.bool),
             3)
+    from koordinator_tpu_torch.ops.assignment import ScoringConfig
+    from koordinator_tpu_torch.state.cluster_state import (
+        ClusterState,
+        PodBatch,
+    )
+
+    with pytest.raises(ValueError, match="no kernel for device"):
+        explain_counts(ClusterState.zeros(8, device="meta"),
+                       PodBatch.build(np.zeros((2, 10), np.int32),
+                                      node_capacity=8, device="meta"),
+                       ScoringConfig.default("meta"))
 
 
 def test_kernel_sources_carry_their_note_and_build_lazily():
@@ -361,9 +375,10 @@ def test_kernel_sources_carry_their_note_and_build_lazily():
 
     srcs = build.sources()
     assert sorted(os.path.basename(s) for s in srcs) == [
-        "greedy_scan.cu", "overuse_revoke.cu", "refresh_candidates.cu",
-        "round_fit_choose.cu", "segmented_prefix_accept.cu",
-        "select_candidates.cu", "victim_select.cu"]
+        "explain_counts.cu", "greedy_scan.cu", "overuse_revoke.cu",
+        "refresh_candidates.cu", "round_fit_choose.cu",
+        "segmented_prefix_accept.cu", "select_candidates.cu",
+        "victim_select.cu"]
     for path in srcs:
         head = open(path).read().split("#include")[0]
         assert re.search(r"koordinator_tpu/\w+/\w+\.py:\d+", head), path

@@ -6,7 +6,9 @@ reservation opening, then owner pods through the reservation pre-pass;
 then a cold and an incremental round in the wide key regime, at a capacity
 of 40,960 with 70 node classes; then a gang round and two rounds under
 ``cand_method="approx"``; then a preemption round, its nominations' binds
-and a quota overuse revoke)."""
+and a quota overuse revoke; then a round whose Diagnose phase counts the
+reject reasons, keeps an explanation, writes a ScheduleExplanation and
+audit records, and a bound pod's score decomposition)."""
 
 import os
 import re
@@ -24,8 +26,8 @@ import torch
 torch.set_num_threads(2)
 import koordinator_tpu_torch
 from koordinator_tpu_torch import convert
-from koordinator_tpu_torch.kernels import build, greedy_scan, prefix_accept, refresh_candidates, round_fit_choose, select_candidates
-from koordinator_tpu_torch.ops import batch_assign, gang
+from koordinator_tpu_torch.kernels import build, explain_counts, greedy_scan, prefix_accept, refresh_candidates, round_fit_choose, select_candidates
+from koordinator_tpu_torch.ops import batch_assign, explain, gang
 from koordinator_tpu_torch.quota.tree import QuotaTree
 from koordinator_tpu_torch.scheduler.scheduler import Scheduler
 from koordinator_tpu_torch.scheduler.snapshot import ClusterSnapshot, NodeSpec, PodSpec
@@ -170,6 +172,22 @@ pre.schedule_round()
 now[0] = 10.0
 pre.schedule_round()
 assert revoked
+# Diagnose with the reject-reason counts, into an explanation, a
+# ScheduleExplanation store and an auditor; a bound pod's score terms
+from koordinator_tpu_torch.scheduler.explanation import ExplanationStore, WorkloadAuditor
+pre.explanations, pre.auditor = ExplanationStore(blocking=True), WorkloadAuditor()
+assert pre.explain
+big = np.zeros(10, np.int32)
+big[0], big[1] = 900000, 1024
+pre.enqueue(PodSpec(name="too-big", requests=big))
+res = pre.schedule_round()
+assert res.failures["too-big"].reason_counts["fit_cpu"] == 4
+assert res.failures["too-big"].reason_counts["node_invalid"] == 4
+assert pre.pod_explanation("too-big").top_reason() == "fit_cpu"
+assert pre.explanations.get("too-big") is not None
+assert pre.auditor.attempts("too-big") == 1
+assert pre.explain_candidates(sorted(pre.bound)[0])[0]["winner"]
+assert pre.explain_candidates("too-big") == []
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "koordinator_tpu"))
 print("LOADED", bad)
@@ -199,6 +217,11 @@ def _sources():
         path = os.path.join(REPO, script)
         if os.path.exists(path):
             yield path
+    probes = os.path.join(REPO, "probes")
+    if os.path.isdir(probes):
+        for name in sorted(os.listdir(probes)):
+            if name.endswith(".py"):
+                yield os.path.join(probes, name)
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),

@@ -13,7 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_parity import R, quota_trees, set_torch_threads
+from tests.torch_parity import (
+    R,
+    failure_docs,
+    quota_trees,
+    set_torch_threads,
+)
 
 set_torch_threads()
 
@@ -94,7 +99,7 @@ def _enqueue(jsched, tsched, pods):
 
 def _assert_round_equal(jr, tr, jsched, tsched):
     assert tr.assignments == jr.assignments
-    assert set(tr.failures) == set(jr.failures)
+    assert failure_docs(tr) == failure_docs(jr)
     assert tr.round_pods == jr.round_pods
     assert tsched.last_solver == jsched.last_solver
     assert np.array_equal(np.asarray(jsched.snapshot.state.node_requested),

@@ -114,7 +114,7 @@ def test_batch_engine_with_gangs_and_quota_contention():
     assert tw.p.last_solve_path == "full_gang"
     assert all(f"g{i}" in res.assignments for i in range(3))
     assert sum(f"q{i}" in res.assignments for i in range(4)) == 2
-    assert all(res.failures[f] == "quota" for f in res.failures)
+    assert all(res.failures[f].quota_rejected for f in res.failures)
 
 
 def test_rescue_places_surplus_members_of_satisfied_gang():

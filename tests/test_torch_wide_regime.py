@@ -29,6 +29,7 @@ from tests.torch_parity import (
     R,
     assert_same_fields,
     config,
+    failure_docs,
     port,
     problem,
     quota_trees,
@@ -340,7 +341,7 @@ def test_scheduler_matches_jax_at_40960_nodes():
             nodes(hit)
         jr, tr = jsched.schedule_round(), tsched.schedule_round()
         assert tr.assignments == jr.assignments, f"round {rnd}"
-        assert set(tr.failures) == set(jr.failures), f"round {rnd}"
+        assert failure_docs(tr) == failure_docs(jr), f"round {rnd}"
         assert jsched.last_solver == "batch"
         assert tsched.last_solve_path == jsched.last_solve_path
         assert np.array_equal(

@@ -8,6 +8,8 @@ imported inside the functions, never at module scope.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -42,6 +44,13 @@ def assert_same_fields(jax_obj, torch_obj, kind: str) -> None:
         assert want[name].shape == got[name].shape, name
         assert np.array_equal(want[name], got[name]), (
             f"{kind}.{name} differs")
+
+
+def failure_docs(result) -> dict:
+    """A scheduling round's failures, each diagnosis as a dict of its
+    fields (equal across the two packages field by field)."""
+    return {name: dataclasses.asdict(diag)
+            for name, diag in result.failures.items()}
 
 
 def config(variant: str = "default"):
