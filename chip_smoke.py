@@ -183,7 +183,13 @@ and phase 12's last steady rounds' failed rows and on phase 15's round 1;
 ``explain_edges`` (before phase 9) holds it on one pod, 45 pods over
 1,000 nodes, 65 selector classes, a dense mask, the aggregated thresholds
 and every scoring term, requests of 0 against a negative free, every node
-infeasible, and padded node rows with invalid pods.  Phase 10's and 14's
+infeasible, and padded node rows with invalid pods, and (for the
+tiled design) on mixed requested-dimension sets in a warp, requests and
+thresholds on all 10 dimensions, requests of 0 everywhere, one pod over
+65,536 nodes, and grids of 1 and 3 CTAs forced through ``GridCap``
+(ranges crossing blocks, a field past its 8-bit limit without its
+flush); ``held_k7``'s lines carry K7's launch plan (``plan``: grid,
+resident CTAs) and ``ptxas`` its CTAs an SM.  Phase 10's and 14's
 failures are compared field by field too; the plain path (``plain_path``)
 takes K7's plain version.
 
@@ -474,10 +480,12 @@ def timed_ms(fn, device, reps: int = 3, warmup: int = 1) -> float:
 
 
 def device_ms_by_kernel(fn, names, device, reps: int = 2) -> dict:
-    """Mean device milliseconds a call of ``fn`` spends in the kernels
-    whose profiler keys contain each of ``names``, from a torch.profiler
-    trace of ``reps`` calls after one untraced; None for a name with no
-    device time (off the card, or no device time in the trace)."""
+    """Mean device milliseconds a launch of the kernels whose profiler
+    keys contain each of ``names`` (each launched once a call of ``fn``),
+    from a torch.profiler trace of ``reps`` calls after one untraced,
+    over the launches the trace holds (a trace can miss some: the mean is
+    not halved by a lost one); None for a name with no device time (off
+    the card, or no device time in the trace)."""
     import torch
 
     if torch.device(device).type != "cuda":
@@ -491,13 +499,20 @@ def device_ms_by_kernel(fn, names, device, reps: int = 2) -> dict:
             fn()
         torch.cuda.synchronize()
     total = dict.fromkeys(names, 0.0)
+    seen = dict.fromkeys(names, 0)
     for e in prof.key_averages():
         for name in names:
             if name in e.key:
                 total[name] += float(getattr(
                     e, "self_device_time_total",
                     getattr(e, "self_cuda_time_total", 0.0)))
-    return {n: (t / 1e3 / reps if t > 0 else None) for n, t in total.items()}
+                seen[name] += int(e.count)
+    for name in names:
+        if 0 < seen[name] != reps:
+            print(f"device_ms_by_kernel: {seen[name]} launches of {name} "
+                  f"in a trace of {reps} calls", file=sys.stderr, flush=True)
+    return {n: (t / 1e3 / seen[n] if t > 0 else None)
+            for n, t in total.items()}
 
 
 def max_abs_err(a, b) -> int:
@@ -578,6 +593,11 @@ def scoring_config(variant: str, device):
             fitplus_most_allocated=vec(torch.bool, cpu=True),
             fitplus_resource_weights=vec(cpu=2, mem=1, gpu=3),
             fitplus_plugin_weight=scalar(3))
+    elif variant == "all_ten":
+        # a usage threshold on every dimension
+        cfg = cfg.replace(usage_thresholds=torch.tensor(
+            [65, 95, 40, 50, 60, 70, 80, 85, 90, 55], dtype=torch.int32,
+            device=device))
     elif variant == "everything":
         # every term on, a negative LoadAware weight among them
         cfg = cfg.replace(
@@ -5174,14 +5194,41 @@ def k7_bound(state, pods, cfg) -> dict:
     return dict(bound_ms=bound_ms, bound_by=by, ops=ops, bytes=nbytes)
 
 
+def k7_launch_plan(pods, n: int, label: str) -> dict | None:
+    """K7's last launch held to its plan: the pod bound the kernel found
+    is the last valid pod row + 1, and each CTA's recorded range is
+    explain_plan's on the grid launched.  The plan (the CTAs the card
+    holds at once, grid, blocks, tiles, pairs); None off the card."""
+    import torch
+
+    from koordinator_tpu_torch.kernels import explain_counts as k7
+
+    if pods.requests.device.type != "cuda":
+        return None
+    launch = k7.LAST_LAUNCH
+    rec = launch["record"].cpu().numpy()
+    valid = torch.nonzero(pods.valid).flatten()
+    p_eff = int(valid[-1]) + 1 if valid.numel() else 0
+    check(int(rec[0]) == p_eff, f"K7 found the last valid pod ({label})")
+    plan = k7.explain_plan(p_eff, n, launch["grid"])
+    check(np.array_equal(rec[1::2], plan["start"])
+          and np.array_equal(rec[2::2], plan["stop"]),
+          f"K7's CTAs walked explain_plan's ranges ({label})")
+    return dict(resident=launch["resident"], grid=launch["grid"],
+                blocks=plan["blocks"], tiles=plan["tiles"],
+                work=plan["work"])
+
+
 def held_k7(device, call, label: str, reps: int = 5) -> dict:
     """K7 against its plain version on a recorded call (state, pods, cfg),
-    exactly; its wrapper's time, its count kernel's device time and the
-    node-row packing's apart, the plain version's time and the bound."""
+    exactly, and its launch held to its plan (k7_launch_plan); its
+    wrapper's time, its count kernel's device time and the node-column
+    packing's apart, the plain version's time, the bound and the plan."""
     from koordinator_tpu_torch.kernels import explain_counts as k7
 
     state, pods, cfg = call
     got = k7.explain_counts(state, pods, cfg)
+    plan = k7_launch_plan(pods, state.capacity, label)
     sync(device)
     t0 = time.perf_counter()
     want = k7.explain_counts_plain(state, pods, cfg)
@@ -5192,7 +5239,7 @@ def held_k7(device, call, label: str, reps: int = 5) -> dict:
     ms = timed_ms(lambda: k7.explain_counts(state, pods, cfg), device,
                   reps=reps)
     dev = device_ms_by_kernel(lambda: k7.explain_counts(state, pods, cfg),
-                              ("explain_counts_kernel", "pack_node_rows",
+                              ("explain_counts_kernel", "pack_explain_columns",
                                "pack_selector_words"), device)
     out = dict(label=label, rows=int(pods.valid.sum()),
                capacity=pods.capacity, nodes=state.capacity,
@@ -5202,7 +5249,7 @@ def held_k7(device, call, label: str, reps: int = 5) -> dict:
                device_ms=dev["explain_counts_kernel"],
                pack_ms=sum(v or 0.0 for k, v in dev.items()
                            if k != "explain_counts_kernel") or None,
-               plain_ms=plain_ms, library_ms=None,
+               plain_ms=plain_ms, library_ms=None, plan=plan,
                **k7_bound(state, pods, cfg))
     emit("k7", **out)
     return out
@@ -5220,14 +5267,69 @@ def k7_partition(counts, feasible, pods, n: int) -> bool:
         (counts[:, REASON_QUOTA:] == 0).all())
 
 
+def dims_problem(seed: int, n_nodes: int, n_pods: int, device,
+                 p_request: float = 0.5):
+    """(ClusterState, PodBatch) with every dimension allocatable on most
+    nodes and each pod requesting each dimension with probability
+    ``p_request`` (so the pods of one warp and one CTA request different
+    sets), 8 selector classes."""
+    from koordinator_tpu_torch.state.cluster_state import ClusterState, PodBatch
+
+    rng = np.random.default_rng(seed)
+    alloc = rng.integers(1_000, 64_000, (n_nodes, R)).astype(np.int32)
+    alloc[rng.random((n_nodes, R)) < 0.05] = 0
+    usage = (alloc * rng.random((n_nodes, R)) * 0.9).astype(np.int32)
+    requested = (alloc * rng.random((n_nodes, R)) * 0.9).astype(np.int32)
+    node_class = rng.integers(0, 9, n_nodes).astype(np.int32)
+    req = rng.integers(1, 12_000, (n_pods, R)).astype(np.int32)
+    req[rng.random((n_pods, R)) >= p_request] = 0
+    state = ClusterState.from_arrays(alloc, requested=requested, usage=usage,
+                                     agg_usage=usage, capacity=n_nodes,
+                                     node_class=node_class, device=device)
+    pods = PodBatch.build(
+        req, node_capacity=n_nodes, device=device,
+        selector_mask=rng.random((n_pods, 8)) < 0.8, class_capacity=8)
+    return state, pods
+
+
+class GridCap:
+    """The kernel library with K7's resident CTAs reported as ``grid``, so
+    that the wrapper launches that grid (every other call passes
+    through)."""
+
+    def __init__(self, lib, grid: int):
+        self._lib, self._grid = lib, grid
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def koord_explain_counts_resident(self, c, dense, cfg, cfg_len):
+        return self._grid
+
+
+#: the most selector classes K7 tables a warp at a time
+#: (csrc/explain_counts.cu kTableClasses): the edges at it and one past
+K7_TABLE_CLASSES = 4_094
+
+
 def phase_explain_edges(device) -> None:
     """K7 against its plain version on its edges: one pod; 45 pods over
     1,000 nodes (no multiple of a warp's pods, a CTA's or a tile's); 65
     selector classes (two words); a dense mask; the aggregated thresholds
     and every scoring term; requests of 0 against a negative free; every
-    node infeasible; padded node rows; invalid pod rows."""
+    node infeasible; padded node rows; invalid pod rows; 4,094 and 4,095
+    classes (the largest tabled selector and the first past it); pods of
+    one warp and CTA requesting different dimension sets; pods requesting
+    all 10; thresholds on all 10; requests of 0 on every dimension; 100
+    pods over 5,001 nodes on a grid of 3 CTAs (ranges that cross blocks
+    mid-block and end mid-tile); one pod over 65,536 nodes; one pod over
+    20,000 nodes that all fail on cpu on a grid of 1 (a lane's 8-bit field
+    would reach 625 without its flush every kFlushTiles tiles), and 100
+    pods so on the same grid (a flush at each block's change).  Each
+    launch is held to its plan (k7_launch_plan)."""
     import torch
 
+    from koordinator_tpu_torch.kernels import build
     from koordinator_tpu_torch.kernels import explain_counts as k7
     from koordinator_tpu_torch.kernels.select_candidates import _pod_rows
 
@@ -5243,6 +5345,10 @@ def phase_explain_edges(device) -> None:
                   "default"))
     st, pods = class_problem(73, 4_096, 2_048, 65, device)
     cases.append(("c65", st, pods, "default"))
+    st, pods = class_problem(86, 2_048, 512, K7_TABLE_CLASSES, device)
+    cases.append(("c4094_tabled", st, pods, "default"))
+    st, pods = class_problem(87, 2_048, 512, K7_TABLE_CLASSES + 1, device)
+    cases.append(("c4095_past_the_table", st, pods, "default"))
     st, pods = random_problem(74, 3_000, 512, device, "dense")
     cases.append(("dense", st, pods, "default"))
     st, pods = random_problem(75, 4_096, 1_024, device, "classes")
@@ -5270,10 +5376,40 @@ def phase_explain_edges(device) -> None:
     cases.append(("padded_nodes_invalid_pods",
                   st.replace(node_valid=dev(nv)),
                   pods.replace(valid=dev(pv)), "default"))
+    st, pods = dims_problem(77, 3_001, 256, device)
+    cases.append(("mixed_dims_in_a_warp", st, pods, "default"))
+    cases.append(("thresholds_on_all_ten", st, pods, "all_ten"))
+    st, pods = dims_problem(78, 3_001, 256, device, p_request=1.0)
+    cases.append(("requests_on_all_ten", st, pods, "all_ten"))
+    cases.append(("zero_requests_everywhere", st,
+                  pods.replace(requests=torch.zeros_like(pods.requests)),
+                  "all_ten"))
+    st, pods = random_problem(79, 5_001, 100, device, "classes")
+    cases.append(("grid_3_mid_block", st, _pod_rows(pods, 0, 100), "default",
+                  3))
+    st, pods = random_problem(80, 65_536, 1, device, "classes")
+    cases.append(("one_pod_65536_nodes", st, _pod_rows(pods, 0, 1),
+                  "default"))
+    st, pods = random_problem(85, 20_000, 100, device, "classes")
+    big = pods.requests.cpu().numpy().copy()
+    big[:, CPU] = 1 << 24
+    pods = pods.replace(requests=dev(big))
+    cases.append(("flush_one_pod_grid_1", st, _pod_rows(pods, 0, 1),
+                  "default", 1))
+    cases.append(("flush_100_pods_grid_1", st, _pod_rows(pods, 0, 100),
+                  "default", 1))
     out = []
-    for label, st, pods, variant in cases:
+    real_lib = build.lib
+    for label, st, pods, variant, *grid in cases:
         cfg = scoring_config(variant, device)
-        got = k7.explain_counts(st, pods, cfg)
+        if grid and torch.device(device).type == "cuda":
+            capped = GridCap(real_lib(), grid[0])
+            build.lib = lambda: capped
+        try:
+            got = k7.explain_counts(st, pods, cfg)
+        finally:
+            build.lib = real_lib
+        plan = k7_launch_plan(pods, st.capacity, label)
         want = k7.explain_counts_plain(st, pods, cfg)
         err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
         check(err == 0, f"K7 equals its plain version ({label})")
@@ -5281,10 +5417,18 @@ def phase_explain_edges(device) -> None:
               f"K7 counts every node row once ({label})")
         if label == "all_infeasible":
             check(int(got[1].sum()) == 0, "no node feasible")
+        if label.startswith("flush_"):
+            n_valid = int(st.node_valid.sum())
+            fit_cpu = got[0][pods.valid, 1 + CPU]
+            check(bool((fit_cpu == n_valid).all()),
+                  f"every node counted on cpu past a field's limit ({label})")
+        if plan is not None and grid:
+            check(plan["grid"] == grid[0], f"K7 ran on the grid asked ({label})")
         out.append(dict(case=label, pods=pods.capacity,
                         nodes=st.capacity, max_abs_err=err,
                         feasible=int(got[1].sum()),
-                        counted=int(torch.sum(got[0], dtype=torch.int64))))
+                        counted=int(torch.sum(got[0], dtype=torch.int64)),
+                        grid=None if plan is None else plan["grid"]))
     emit("explain_edges", cases=out)
 
 
@@ -5321,7 +5465,8 @@ def ptxas_summary(path: str) -> list[dict]:
 #: the exact and the 64-bit in both key regimes; K2
 #: in eight: all but the last; K4 and K4r in eight: the node columns in
 #: shared or global memory, without or with reservations, one selector
-#: word or many)
+#: word or many; K7 in four: one selector word, many tabled, many past
+#: the table, a dense mask, and its node-column pack)
 PTXAS_ENTRIES = {"select_candidates": ("select_candidates_kernel", 20),
                  "refresh_candidates": ("refresh_candidates_kernel", 8),
                  "segmented_prefix_accept": ("round_accept_kernel", 1),
@@ -5329,7 +5474,8 @@ PTXAS_ENTRIES = {"select_candidates": ("select_candidates_kernel", 20),
                  "victim_select": ("preempt_chain_kernel", 1),
                  "overuse_revoke": ("overuse_revoke_kernel", 1),
                  "overuse_keys": ("overuse_keys_kernel", 1),
-                 "explain_counts": ("explain_counts_kernel", 3)}
+                 "explain_counts": ("explain_counts_kernel", 4),
+                 "explain_pack": ("pack_explain_columns", 1)}
 
 
 def phase_ptxas(path: str) -> None:
@@ -5355,6 +5501,23 @@ def phase_ptxas(path: str) -> None:
             for i, name in enumerate(("k1", "k1a_int32", "k1a_64bit"))}
     check(ctas["k1a_int32"] > 0 and ctas["k1a_int32"] == ctas["k1"],
           f"K1a's int32 instance reaches K1's CTAs an SM ({ctas})")
+    # K7's CTAs an SM by instance (a selector of 8 classes, of 512 tabled,
+    # of one past the table; a dense mask) at the default config's two
+    # thresholded dims, and at ten
+    import torch
+
+    from koordinator_tpu_torch.kernels.select_candidates import _config_vector
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dims, variant in ((2, "default"), (10, "all_ten")):
+        cfgv = _config_vector(scoring_config(variant, "cuda"))[0]
+        for name, c, dense in (("k7_sel1", 8, 0),
+                               ("k7_sel_many", K7_TABLE_CLASSES + 1, 0),
+                               ("k7_dense", 1, 1),
+                               ("k7_sel_table", 512, 0)):
+            ctas[f"{name}_thr{dims}"] = lib.koord_explain_counts_resident(
+                c, dense, build.ptr(cfgv), cfgv.numel()) // sms
+            check(ctas[f"{name}_thr{dims}"] > 0, f"{name} fits an SM")
     emit("ptxas", ctas_per_sm=ctas, kernels=[dict(
         kernel=e["kernel"], entry=e["entry"], registers=e.get("registers"),
         spill_stores=e.get("spill_stores"), spill_loads=e.get("spill_loads"),
@@ -5374,13 +5537,19 @@ def phase_ptxas(path: str) -> None:
 #: K4r's step before their redesign (K4 at phase 8's 1,000 pods, K4r at
 #: phase 11's pre-pass), from profile_torch_round.py --kernels in turns;
 #: ``6aa9629`` K5's two launches a preemptor and K6's walk a pod a step
-#: (chip_smoke.py's phases 15 and preempt_edges, as PERF.md records them)
+#: (chip_smoke.py's phases 15 and preempt_edges, as PERF.md records them);
+#: ``51debd0`` K7's second design (a ballot a reason over all 10 dims)
 EARLIER_MS = [
     ("victim_select (phase 15 chain of 256)", "6aa9629",
      [7.33, 7.47, 7.297]),
     ("overuse_revoke (phase 15 round 3)", "6aa9629", [0.969, 1.10, 1.248]),
     ("overuse_revoke (one quota of 50,000 pods)", "6aa9629",
      [14.70, 15.01]),
+    ("explain_counts (phase 9 last steady round)", "51debd0",
+     [3.811, 3.855, 3.979]),
+    ("explain_counts (phase 12 last steady round)", "51debd0",
+     [17.456, 17.460, 17.543]),
+    ("explain_counts (phase 15 round 1)", "51debd0", [0.461, 0.469, 0.736]),
     ("select_candidates", "e9fcd1c", [25.41, 25.56, 25.51]),
     ("select_candidates", "30c463b", [8.84]),
     ("greedy_scan (rescue)", "e9fcd1c", [24.32]),
@@ -5505,7 +5674,14 @@ def main() -> int:
             ms=k5_k6[0]["ms"], device_ms=k5_k6[0]["device_ms"]),
         "overuse_revoke (phase 15 round 3)": dict(ms=k5_k6[1]["ms"]),
         "overuse_revoke (one quota of 50,000 pods)": dict(
-            ms=one_quota["ms"])}
+            ms=one_quota["ms"]),
+        "explain_counts (phase 9 last steady round)": dict(
+            ms=k7["ms"], device_ms=k7["device_ms"]),
+        "explain_counts (phase 12 last steady round)": dict(
+            ms=gke["explain_counts"]["ms"],
+            device_ms=gke["explain_counts"]["device_ms"]),
+        "explain_counts (phase 15 round 1)": dict(
+            ms=k7_15["ms"], device_ms=k7_15["device_ms"])}
     emit("earlier_design", note="earlier times as PERF.md records them, "
          "each labelled with its commit, beside this run's at the same "
          "shapes", kernels=[
@@ -5538,7 +5714,7 @@ def main() -> int:
     # scheduler's rounds; at phase 12's last steady round and phase 15's
     # round 1 beside it with their phases' launches
     k7_keys = ("max_abs_err", "ms", "device_ms", "pack_ms", "plain_ms",
-               "bound_ms", "bound_by", "rows", "nodes", "classes")
+               "bound_ms", "bound_by", "rows", "nodes", "classes", "plan")
     kernels.append(dict(
         name="explain_counts", route="cuda",
         source=CSRC + "explain_counts.cu",
@@ -5554,8 +5730,10 @@ def main() -> int:
         phase15=dict(library_ms=None,
                      **{k: k7_15[k] for k in k7_keys + ("launches",)})))
     emit("diagnose", note="the Diagnose phase's host ms a round, its parts "
-         "(counts: the quota mask, K7 and the copy back; diagnoses; the "
-         "gang WaitTime machine; explanations), and the rows K7 counted",
+         "(quota_mask: the post-solve quota mask; compact: the failed rows "
+         "and their compacted batch; k7: K7 and the copy back; diagnoses; "
+         "gang_wait: the WaitTime machine; explanations), and the rows K7 "
+         "counted",
          phase9=[dict(round=r["round"], ms=r["diagnose_ms"],
                       parts_ms=r["diagnose_parts_ms"], rows=r["k7_rows"])
                  for r in steady_records if r["scheduler"] == "forced"],

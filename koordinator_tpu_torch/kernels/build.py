@@ -200,8 +200,9 @@ _SIGNATURES = {
         _P, _I, _P, _P,                  # selector mask (P, C) + C, its words' scratch (P, W), dense mask (P, N)
         _P, _I,                          # config int vector + its length
         _I, _I, _I,                      # P, N, reason columns
-        _P,                              # packed node rows scratch
+        _P,                              # scratch: node columns
         _P, _P,                          # out counts (P, 16), feasible (P,)
+        _I, _P,                          # grid (explain_grid), out record: pod bound, CTA ranges
         _P,                              # stream
     ],
     "koord_overuse_keys": [
@@ -221,12 +222,13 @@ _SIGNATURES = {
 
 #: exported C functions that size a kernel's global scratch, in bytes (K3b's
 #: in int32 words), K1's and K1a's CTAs an SM, K4r's nodes per CTA and
-#: launch plan, and K5's grid
+#: launch plan, K5's grid and the CTAs of K7 the card holds at once
 _SCRATCH = {
     "koord_select_candidates_scratch_bytes": [_I],      # N
     "koord_select_candidates_ctas_per_sm": [_I],        # 0 K1, 1 K1a int32, 2 K1a 64-bit
     "koord_refresh_candidates_scratch_bytes": [_I],     # D
     "koord_explain_counts_scratch_bytes": [_I],         # N
+    "koord_explain_counts_resident": [_I, _I, _P, _I],  # C, dense, config vector + its length
     "koord_greedy_scan_scratch_bytes": [_I, _I, _I],    # N, Q, chain depth
     "koord_reservation_scan_scratch_bytes": [_I, _I, _I],  # N, Q, chain depth
     "koord_reservation_scan_nodes_per_cta": [_I],       # N

@@ -114,6 +114,7 @@
 
 #include <type_traits>
 
+#include "koord_mbarrier.cuh"
 #include "koord_score.cuh"
 
 namespace cg = cooperative_groups;
@@ -150,38 +151,6 @@ __device__ __forceinline__ int score_row(
                   : feas_t[static_cast<long long>(n) * P + p] != 0);
   // (a padding row past N is invalid, so feas_t is read only below N)
   return score;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
 }
 
 __device__ __forceinline__ void cluster_arrive() {

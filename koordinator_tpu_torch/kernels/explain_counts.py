@@ -13,14 +13,21 @@ intermediate.  The rows are independent, so every chunking gives the same
 bits too.
 
 The kernel judges fit, the usage threshold and the selector exactly as K1
-does (``csrc/koord_score.cuh``: the packed node rows' free capacity and
+does (``csrc/koord_score.cuh``: ``node_dim_terms``' free capacity and
 threshold terms, ``SelRow``), attributes each (pod, node) pair to its first
 failing reason, and counts the pairs in registers: nothing of (P, N) is
-written to device memory.
+written to device memory.  :func:`explain_grid` is its grid, the CTAs the
+card holds at once (as the library reports them for the instance it
+takes) or fewer, and :func:`explain_plan` its work: the (32-pod block,
+128-row tile) pairs up to the last valid pod, cut in even contiguous
+ranges over the grid.  The kernel records the pod bound it found and each
+CTA's range (:data:`LAST_LAUNCH`), so a check on the card holds the plan
+against the kernel's own walk.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from koordinator_tpu_torch.api.resources import NUM_RESOURCE_DIMS
@@ -40,6 +47,40 @@ from koordinator_tpu_torch.state.cluster_state import ClusterState, PodBatch
 #: (chunk, N) elements the plain version holds in one intermediate when no
 #: chunk is given
 PLAIN_CHUNK_ELEMENTS = 1 << 26
+
+#: the kernel's pods a CTA (a block) and node rows a tile
+#: (csrc/explain_counts.cu kPodsPerCta, kTile)
+PODS_PER_CTA = 32
+TILE = 128
+
+#: the last launch on the card: ``resident`` and ``grid`` (explain_grid's),
+#: and ``record``, the kernel's int64 record on the device: the last valid
+#: pod's row + 1, then each CTA's [start, stop) of (block, tile) pairs
+LAST_LAUNCH: dict = {}
+
+
+def explain_grid(p_rows: int, n_nodes: int, resident: int) -> int:
+    """K7's grid over ``p_rows`` pod rows and ``n_nodes`` node rows with
+    ``resident`` CTAs the card holds at once: no more CTAs than it holds
+    or than there are (block, tile) pairs."""
+    return max(1, min(resident, -(-max(p_rows, 0) // PODS_PER_CTA)
+                      * -(-max(n_nodes, 1) // TILE)))
+
+
+def explain_plan(p_rows: int, n_nodes: int, grid: int) -> dict:
+    """K7's work over the pod rows up to the last valid one (``p_rows``:
+    the kernel finds that bound on the card) and ``n_nodes`` node rows on
+    ``grid`` CTAs: the (block, tile) pairs block-major (pair w is block
+    w // tiles, tile w % tiles), and each CTA's range [start, stop):
+    ``work // grid`` pairs each, one more for the first ``work % grid``."""
+    blocks = -(-max(p_rows, 0) // PODS_PER_CTA)
+    tiles = -(-max(n_nodes, 1) // TILE)
+    work = blocks * tiles
+    g = np.arange(grid, dtype=np.int64)
+    per, rem = divmod(work, grid)
+    start = g * per + np.minimum(g, rem)
+    return dict(blocks=blocks, tiles=tiles, work=work, grid=grid,
+                start=start, stop=start + per + (g < rem))
 
 
 def plain_chunk(n_nodes: int) -> int:
@@ -145,8 +186,18 @@ def explain_counts(state: ClusterState, pods: PodBatch, cfg
     if p == 0:
         return counts, feasible
     lib = build.lib()
-    rows = torch.empty(lib.koord_explain_counts_scratch_bytes(n),
-                       dtype=torch.uint8, device=dev)
+    # (the library picks the instance and asks its occupancy once a
+    # device, instance and thresholded-dim count)
+    resident = int(lib.koord_explain_counts_resident(
+        c, int(dense is not None), build.ptr(cfgv), cfgv.numel()))
+    if resident < 1:
+        raise RuntimeError("explain_counts: no CTA fits an SM")
+    grid = explain_grid(p, n, resident)
+    scratch = torch.empty(lib.koord_explain_counts_scratch_bytes(n),
+                          dtype=torch.uint8, device=dev)
+    record = torch.empty(1 + 2 * grid, dtype=torch.int64, device=dev)
+    LAST_LAUNCH.clear()
+    LAST_LAUNCH.update(resident=resident, grid=grid, record=record)
     words = (None if sel is None else
              torch.empty((p, -(-c // 64)), dtype=torch.int64, device=dev))
     err = lib.koord_explain_counts(
@@ -156,8 +207,8 @@ def explain_counts(state: ClusterState, pods: PodBatch, cfg
         build.ptr(pods.requests), build.ptr(est), build.ptr(pods.valid),
         build.ptr(sel), c, build.ptr(words), build.ptr(dense),
         build.ptr(cfgv), cfgv.numel(), p, n, NUM_REASONS,
-        build.ptr(rows), build.ptr(counts), build.ptr(feasible),
-        build.stream_of(counts))
+        build.ptr(scratch), build.ptr(counts), build.ptr(feasible),
+        grid, build.ptr(record), build.stream_of(counts))
     build.check(err, "explain_counts")
     build.LAUNCHES["explain_counts"] += 1
     return counts, feasible

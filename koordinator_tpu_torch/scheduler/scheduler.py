@@ -354,10 +354,11 @@ class Scheduler:
         #: pods degraded mode held back (not ported: always empty)
         self._last_suspended_names: list[str] = []
         #: host seconds of the last round's Diagnose phase, and of its
-        #: parts: "counts" (the quota admission mask, the reject-reason
-        #: count and its copy to the host), "diagnoses" (a PodDiagnosis a
-        #: failed pod), "gang_wait" (the WaitTime machine) and
-        #: "explanations" (the round's PlacementExplanations)
+        #: parts: "quota_mask" (the post-solve quota admission mask),
+        #: "compact" (the failed rows and their compacted batch), "k7"
+        #: (the reject-reason count and its copy to the host), "diagnoses"
+        #: (a PodDiagnosis a failed pod), "gang_wait" (the WaitTime
+        #: machine) and "explanations" (the round's PlacementExplanations)
         self.last_diagnose_s = 0.0
         self.last_diagnose_parts_s: dict[str, float] = {}
 
@@ -978,20 +979,23 @@ class Scheduler:
             admitted = quota_admission_mask(
                 diag_quota, batch.requests, batch.quota_id,
                 batch.non_preemptible).cpu().numpy()
+        t_quota = time.perf_counter()
         # a pod in assignments was bound by the reservation pre-pass (its
         # row left the batch before the solve)
         fail_rows = [i for i, pod in enumerate(pods)
                      if int(a[i]) < 0 and pod.name not in result.assignments]
-        counts = feas = None
+        counts = feas = small = None
         row_pos: dict[int, int] = {}
         if self.explain and fail_rows:
             fmask = np.zeros(batch.capacity, bool)
             fmask[fail_rows] = True
             small, idx = batch.compact(fmask)
+            row_pos = {int(r): j for j, r in enumerate(idx)}
+        t_compact = time.perf_counter()
+        if small is not None:
             c_dev, f_dev = ex.explain_counts(self.snapshot.state, small,
                                              self.config)
             counts, feas = c_dev.cpu().numpy(), f_dev.cpu().numpy()
-            row_pos = {int(r): j for j, r in enumerate(idx)}
         t_counts = time.perf_counter()
         total_nodes = len(self.snapshot.node_index)
         failed_gangs: set[str] = set()
@@ -1024,7 +1028,8 @@ class Scheduler:
         t_end = time.perf_counter()
         self.last_diagnose_s = t_end - t0
         self.last_diagnose_parts_s = {
-            "counts": t_counts - t0, "diagnoses": t_diagnoses - t_counts,
+            "quota_mask": t_quota - t0, "compact": t_compact - t_quota,
+            "k7": t_counts - t_compact, "diagnoses": t_diagnoses - t_counts,
             "gang_wait": t_gang - t_diagnoses, "explanations": t_end - t_gang}
 
     def _gang_wait_time(self, placed: set[str], failed: set[str],

@@ -211,3 +211,100 @@ def test_decompose_scores_equals_jax(variant):
     scores, _ = score_pods(ts, tp, tc)
     assert torch.equal(got["total"],
                        torch.gather(scores, 1, torch.from_numpy(cand).long()))
+
+
+# -- K7's launch plan (kernels/explain_counts.py explain_plan) ---------------
+
+PLAN_PODS = [1, 31, 32, 33, 1_200, 17_941, 1 << 20]
+PLAN_NODES = [1, 127, 128, 129, 10_240, 65_536]
+PLAN_RESIDENT = [132, 264, 396, 528]
+
+
+def kernel_constants() -> dict:
+    """The ``constexpr int`` constants of ``csrc/explain_counts.cu`` that
+    are integer arithmetic over its own earlier ones (those built on
+    ``koord_score.cuh``'s are left out)."""
+    import re
+    from pathlib import Path
+
+    from koordinator_tpu_torch.kernels import explain_counts as k7
+
+    src = (Path(k7.__file__).parent / "csrc" / "explain_counts.cu").read_text()
+    env: dict = {}
+    for name, expr in re.findall(r"constexpr int (k\w+) = ([\w\s+*/()-]+);",
+                                 src):
+        try:
+            env[name] = eval(expr.replace("/", "//"), {}, dict(env))
+        except NameError:
+            pass
+    return env
+
+
+def test_plan_takes_the_kernels_block_and_tile():
+    """explain_plan's pods a block and rows a tile are the kernel's."""
+    from koordinator_tpu_torch.kernels import explain_counts as k7
+
+    kc = kernel_constants()
+    assert (k7.PODS_PER_CTA, k7.TILE) == (kc["kPodsPerCta"], kc["kTile"])
+
+
+@pytest.mark.parametrize("n_nodes", PLAN_NODES)
+@pytest.mark.parametrize("p_rows", PLAN_PODS)
+def test_plan_covers_every_block_tile_once(p_rows, n_nodes):
+    """K7's plan over 132-528 resident CTAs: the grid sized on the batch's
+    power-of-two capacity, the work on the rows up to the last valid pod;
+    every (32-pod block, 128-row tile) pair in exactly one CTA's range
+    (pair w is block w // tiles, tile w % tiles), the ranges even within
+    one pair, the grid no larger than the card holds at once."""
+    from koordinator_tpu_torch.kernels import explain_counts as k7
+
+    capacity = max(32, 1 << (p_rows - 1).bit_length())
+    blocks, tiles = -(-p_rows // 32), -(-n_nodes // 128)
+    for resident in PLAN_RESIDENT:
+        grid = k7.explain_grid(capacity, n_nodes, resident)
+        assert 1 <= grid <= resident
+        assert grid == min(resident, -(-capacity // 32) * tiles)
+        plan = k7.explain_plan(p_rows, n_nodes, grid)
+        assert (plan["blocks"], plan["tiles"]) == (blocks, tiles)
+        assert plan["work"] == blocks * tiles
+        start, stop = plan["start"], plan["stop"]
+        assert len(start) == grid
+        seen = np.zeros(plan["work"], np.int8)
+        for a, b in zip(start, stop):
+            seen[a:b] += 1
+        assert (seen == 1).all()
+        # each pair decodes to one (block, tile) and back
+        busy = stop > start
+        w = np.concatenate([start[busy], stop[busy] - 1])
+        blk, tile = np.divmod(w, tiles)
+        assert (blk < blocks).all() and (blk * tiles + tile == w).all()
+        sizes = stop - start
+        assert sizes.max() - sizes.min() <= 1
+        assert sizes.min() >= 1 or plan["work"] < grid
+
+
+@pytest.mark.parametrize("n_nodes", [20_000, 65_536, 1 << 20])
+def test_plan_flush_keeps_every_field_under_its_limit(n_nodes):
+    """The kernel's flush rule (its kFlushTiles, kSteps and kFieldLimit)
+    on a CTA's whole range (a grid of 1, every tile of every block): a
+    flush at each block's change and after kFlushTiles tiles; a lane adds
+    at most 1 to one 8-bit field a pod per step, kSteps steps a tile, so
+    the steps between two flushes stay within the field, and the warp's
+    sum of one field (32 lanes, even and odd bytes as 16-bit fields)
+    under 2^16."""
+    from koordinator_tpu_torch.kernels import explain_counts as k7
+
+    kc = kernel_constants()
+    steps, flush, limit = kc["kSteps"], kc["kFlushTiles"], kc["kFieldLimit"]
+    assert steps == kc["kTile"] // 32 and limit < 256
+    assert 32 * limit < 1 << 16
+    plan = k7.explain_plan(65, n_nodes, 1)
+    assert (plan["start"][0], plan["stop"][0]) == (0, plan["work"])
+    since, most, blk = 0, 0, -1
+    for w in range(plan["work"]):
+        b = w // plan["tiles"]
+        if b != blk or since == flush:
+            since, blk = 0, b
+        since += 1
+        most = max(most, since)
+    assert most * steps <= limit
