@@ -170,7 +170,38 @@ first failure:
    65,536 nodes, 4,096 PDBs, one quota of 50,000 pods, hopeless quotas
    with and without a PDB-blocked pod, K6's walk stopping at lane 0, lane
    31 and past the end).  Both phases run under a watchdog: past
-   K5_PHASE_LIMIT_S seconds the run ends with code 4 and a message.
+   K5_PHASE_LIMIT_S seconds the run ends with code 4 and a message;
+16. topology gangs, cpusets and GPUs (``phase_topology``): the flagship
+   cluster under a spine/block/node tree (16 spines x 20 blocks x 32
+   nodes in snapshot row order, T = 10,577), every node a CPU topology
+   (2 NUMA nodes, 2 threads a core, its cpu in whole CPUs) in the
+   Scheduler's ``cpu_manager``, 1,024 nodes with 8 GPUs in 2 groups of 4
+   (allocatable gpu 800) in its ``device_manager``; the 50,000-pod
+   backlog with 2,048 LSR pods of 1-8 whole cores, 512 GPU pods (half
+   whole, half shared) and 128 topology PodGroups of 8-32 members (64
+   gathering at the block layer, 16 of them with a node-layer multiple of
+   2, and 64 at the spine layer).  Round 1 cold; round 2 after deletes of
+   a quarter of the bound LSR and GPU pods, with 1,000 arrivals and 16
+   more topology gangs; round 3 on a fresh scheduler restored through
+   ``add_bound_pod(resource_status=...)`` from round 2's bound pods (its
+   managers must equal the live ones), with 1,000 arrivals.  After each
+   round: no overcommit, the accounting equal to the bound pods, every
+   gang all-or-nothing and every placed topology gang inside one node of
+   its gather layer, no cpu referenced twice, no device over-granted,
+   each LSR cpuset its whole cores and each GPU pod's minors its request;
+   K8 once a round over all the round's topology gangs, and every round's
+   Diagnose (K7 on the dense mask) checked against the plain path.  K8
+   is held against its plain version on round 1's first 16 gangs and
+   timed there and on each round's whole call; each round prints the
+   planner's host ms a gang, ``_allocate_fine_grained``'s ms a bind and
+   ``take_cpus``' and ``allocate_on_node``'s ms a call, and a
+   ``topology_programs`` line the slice's torch-op programs' ms a call.
+   Before it ``offer_slots_edges``: K8 against its plain version on
+   thresholds off, thresholds running past the members, a node that fits
+   nothing, ``node_valid`` false, negative requests, wrapping sums, P =
+   16 and 65,536 (one gang of 65,536 explicit rows), gangs of 0-300
+   members across the kernel's stage boundaries, 24 gangs a launch, and
+   the planner's plan on a state whose capacity exceeds the tree's.
 
 The Diagnose phase (K7, ``explain_counts``): every round of phases 9, 12,
 13 and 15 runs with the Scheduler's default ``explain=True``, and
@@ -196,13 +227,15 @@ takes K7's plain version.
 The line before the last is ``nvidia-smi``'s name and power limit; the last
 is ``{"ok": true, "device": {...}}``.  Before them a ``diagnose`` line
 gives the Diagnose phase's host ms a round at phases 9 (the forced
-scheduler) and 15, and one JSON line lists the ten kernels (K7's at phase
+scheduler), 15 and 16, and one JSON line lists the eleven kernels (K7's at phase
 9's last steady round, its launches over the forced scheduler's rounds,
 with ``phase12``, ``phase13`` and ``phase15`` beside it): time, launches over the steady-state run of the forced-
 threshold scheduler (the slice's main path; K4r's over the reservations
 phase's three rounds; K1a's over phase 14's three rounds; K5's and K6's
 over phase 15's three rounds, K5's time that of one chain of 256
-preemptors beside ``ms_per_preemptor``), bound, plain
+preemptors beside ``ms_per_preemptor``; K8's over phase 16's three
+rounds, its time that of round 1's first 16 gangs, each round's whole
+call beside under ``phase16_rounds``), bound, plain
 and library time, under ``phase12`` the same at phase 12's shapes with
 its launches over phase 12's four rounds, and under ``phase13`` the
 launches over phase 13's three rounds, with K1's, K3b's and K4's numbers
@@ -2000,10 +2033,12 @@ def phase_steady(device, n_nodes: int = 10_240, n_pods: int = 50_000,
     for kname, count in totals.items():
         # K4r runs only where reservations exist (phase_reservations), K1a
         # only under an approx candidate method (phase_approx), K5 and K6
-        # only with preemption and the overuse revoke on (phase_preemption)
+        # only with preemption and the overuse revoke on (phase_preemption),
+        # K8 only with topology gangs (phase_topology)
         check(count > 0 or kname in ("reservation_scan",
                                      "select_candidates_approx",
-                                     "victim_select", "overuse_revoke"),
+                                     "victim_select", "overuse_revoke",
+                                     "offer_slots"),
               f"{kname} launched on the steady-state path")
     by_name = {p.name: p for p in pods}
     by_name.update(enqueued)
@@ -5432,6 +5467,684 @@ def phase_explain_edges(device) -> None:
     emit("explain_edges", cases=out)
 
 
+# -- phase 16: network-topology gangs, NUMA cpusets and GPUs (K8) -------------
+
+TOPO_SPINES, TOPO_BLOCKS, TOPO_PER_BLOCK = 16, 20, 32
+N_GPU_NODES = 1_024
+N_LSR_PODS = 2_048
+N_GPU_PODS = 512
+N_TOPO_GANGS = 128       # half gather at the block layer, half at the spine
+N_TOPO_MULTIPLE = 16     # block gangs with a node-layer multiple of 2
+N_TOPO_ARRIVALS = 1_000
+N_LATE_TOPO_GANGS = 16
+#: round 1's gangs whose K8 counts are held against the plain version
+K8_HELD_GANGS = 16
+GPU_DIM, GPU_MEM_DIM = 3, 4
+QOS_LSR = 3
+LAYER_SPINE, LAYER_BLOCK = 1, 2
+#: int32 operations of one row of K8's walk: a compare and an AND a
+#: dimension for the fit, and for a thresholded dimension the estimate's
+#: add, the x100 multiply-add and the compare and AND
+K8_ROW_OPS = dict(fit_dim=2, thr_dim=4)
+
+
+def topo_gang_pods(rng, gangs_at: list, start: int, sizes):
+    """PodSpecs of topology gangs: gang ``name`` of ``size`` members at
+    flagship pod shapes, all at its first member's priority."""
+    from koordinator_tpu_torch.scheduler.snapshot import PodSpec
+
+    out = []
+    for (name, _req), size in zip(gangs_at, sizes):
+        prio = int(rng.integers(3000, 9999))
+        for k in range(int(size)):
+            req = np.zeros(R, np.int32)
+            req[CPU] = rng.integers(100, 4_000)
+            req[MEM] = rng.integers(128, 8_192)
+            out.append(PodSpec(name=f"{name}-{k}", requests=req,
+                               priority=prio, gang=name,
+                               creation=float(start + len(out))))
+    return out
+
+
+def topo_gangs(rng, prefix: str, count: int, n_multiple: int,
+               lo: int = 8, hi: int = 32):
+    """``count`` (name, TopologyRequirements kwargs) gangs and their sizes:
+    the first half gather at the block layer (the first ``n_multiple`` of
+    them with a node-layer pod-count multiple of 2, and an even size), the
+    rest at the spine layer; desired slots = the member count."""
+    gangs, sizes = [], []
+    for g in range(count):
+        size = int(rng.integers(lo, hi + 1))
+        layer = LAYER_BLOCK if g < count // 2 else LAYER_SPINE
+        req = dict(must_gather_layer=layer)
+        if g < n_multiple:
+            size += size % 2
+            req["layer_multiples"] = (1, 1, 1, 2)
+        req["desired_slots"] = size
+        gangs.append((f"{prefix}-{g}", req))
+        sizes.append(size)
+    return gangs, sizes
+
+
+def special_pods(rng, names: list[str], kind: str):
+    """LSR pods of 1-8 whole cores, or GPU pods: half whole (gpu 100 or
+    200), half shared (gpu 25-50 with 4-16 GiB of gpu memory)."""
+    from koordinator_tpu_torch.scheduler.snapshot import PodSpec
+
+    out = []
+    for j, name in enumerate(names):
+        req = np.zeros(R, np.int32)
+        req[MEM] = rng.integers(128, 8_192)
+        qos = 0
+        if kind == "lsr":
+            req[CPU] = int(rng.integers(1, 9)) * 1_000
+            qos = QOS_LSR
+        else:
+            req[CPU] = rng.integers(500, 4_000)
+            if j % 2 == 0:
+                req[GPU_DIM] = int(rng.choice([100, 200]))
+            else:
+                req[GPU_DIM] = rng.integers(25, 51)
+                req[GPU_MEM_DIM] = rng.integers(4_096, 16_385)
+        out.append(PodSpec(name=name, requests=req, qos=qos,
+                           priority=int(rng.integers(3000, 9999)),
+                           creation=float(j)))
+    return out
+
+
+def topology_specs(seed: int = 16, n_nodes: int = 10_240,
+                   n_pods: int = 50_000, spines: int = TOPO_SPINES,
+                   blocks: int = TOPO_BLOCKS,
+                   per_block: int = TOPO_PER_BLOCK,
+                   n_gpu_nodes: int = N_GPU_NODES, n_lsr: int = N_LSR_PODS,
+                   n_gpu: int = N_GPU_PODS, n_gangs: int = N_TOPO_GANGS,
+                   n_multiple: int = N_TOPO_MULTIPLE):
+    """Phase 16's cluster and backlog: the flagship nodes in snapshot row
+    order under a spine/block/node tree (node i under block i // per_block
+    and spine i // (blocks x per_block)), every node's CPU topology (2 NUMA
+    nodes, 2 threads a core, its cpu capacity in whole CPUs), ``n_gpu_nodes``
+    nodes with 8 GPUs in 2 groups of 4 (allocatable gpu 800); the flagship
+    backlog with ``n_lsr`` LSR pods, ``n_gpu`` GPU pods and ``n_gangs``
+    topology gangs of 8-32 members in place of plain pods.  Returns (nodes,
+    pods, tree paths, gpu node rows, gangs, gang sizes)."""
+    nodes, pods = main_path_specs(seed, n_nodes, n_pods)
+    check(spines * blocks * per_block == n_nodes, "the tree spans the nodes")
+    rng = np.random.default_rng(seed + 1)
+    gpu_rows = np.arange(n_gpu_nodes) * (n_nodes // n_gpu_nodes)
+    for i in gpu_rows:
+        nodes[i].allocatable[GPU_DIM] = 800
+        nodes[i].allocatable[GPU_MEM_DIM] = 8 * 81_920
+    paths = [[f"spine-{i // (blocks * per_block)}",
+              f"block-{i // per_block}", nodes[i].name]
+             for i in range(n_nodes)]
+    gangs, sizes = topo_gangs(rng, "tg", n_gangs, n_multiple)
+    n_gang_pods = int(sum(sizes))
+    keep = n_pods - n_lsr - n_gpu - n_gang_pods
+    check(keep > 0, "the backlog holds the special pods")
+    order = rng.permutation(n_pods)
+    plain = [pods[j] for j in sorted(order[:keep])]
+    lsr = special_pods(rng, [f"lsr-{j}" for j in range(n_lsr)], "lsr")
+    gpu = special_pods(rng, [f"gpu-{j}" for j in range(n_gpu)], "gpu")
+    members = topo_gang_pods(rng, gangs, n_pods, sizes)
+    return (nodes, plain + lsr + gpu + members, paths, gpu_rows, gangs,
+            sizes)
+
+
+def topology_managers(nodes, gpu_rows, device):
+    """(CPUManager, DeviceManager) with every node's CPU topology and the
+    GPU nodes' 8 GPUs (2 groups of 4, 80 GiB each) registered."""
+    from koordinator_tpu_torch.ops.numa import CPUTopology
+    from koordinator_tpu_torch.scheduler.cpu_manager import CPUManager
+    from koordinator_tpu_torch.scheduler.device_manager import DeviceManager
+
+    cm, dm = CPUManager(device=device), DeviceManager(device=device)
+    for spec in nodes:
+        n = int(spec.allocatable[CPU]) // 1_000
+        core = np.arange(n) // 2
+        numa = (core >= (n // 2 + 1) // 2).astype(np.int32)
+        cm.register_node(spec.name, CPUTopology.build(
+            core, numa, np.zeros(n, np.int32), device=device))
+    names = [nodes[i].name for i in gpu_rows]
+    dm.register("gpu", names, [[{"core": 100, "memory": 81_920,
+                                 "group": j // 4} for j in range(8)]
+                               for _ in names])
+    return cm, dm
+
+
+def topology_scheduler(nodes, paths, gpu_rows, device, n_nodes: int):
+    from koordinator_tpu_torch.ops.network_topology import TopologyTree
+    from koordinator_tpu_torch.scheduler.scheduler import Scheduler
+    from koordinator_tpu_torch.scheduler.snapshot import ClusterSnapshot
+
+    snap = ClusterSnapshot(capacity=n_nodes, device=device)
+    for spec in nodes:
+        snap.upsert_node(spec)
+    tree = TopologyTree(["spine", "block", "node"])
+    for path in paths:
+        tree.add_node(path)
+    cm, dm = topology_managers(nodes, gpu_rows, device)
+    return Scheduler(snap, device=device,
+                     topology_tree=tree.build(capacity=n_nodes, device=device),
+                     cpu_manager=cm, device_manager=dm)
+
+
+def register_topo_gangs(sched, gangs, sizes) -> None:
+    from koordinator_tpu_torch.ops.network_topology import TopologyRequirements
+    from koordinator_tpu_torch.scheduler.scheduler import GangRecord
+
+    for (name, req), size in zip(gangs, sizes):
+        sched.register_gang(GangRecord(
+            name=name, min_member=int(size),
+            topology=TopologyRequirements(**req)))
+
+
+@contextlib.contextmanager
+def placement_probe(log: dict, device):
+    """Log K8's calls (inputs and output) and time each
+    ``_allocate_fine_grained`` bind, ``take_cpus`` and ``allocate_on_node``
+    call (host clock, synchronised after each: every one ends in a copy to
+    the host anyway)."""
+    from koordinator_tpu_torch.ops import network_topology as nt
+    from koordinator_tpu_torch.scheduler import cpu_manager as cmod
+    from koordinator_tpu_torch.scheduler import device_manager as dmod
+    from koordinator_tpu_torch.scheduler.scheduler import Scheduler
+
+    real = (nt.offer_slots, Scheduler._allocate_fine_grained,
+            cmod.take_cpus, dmod.allocate_on_node)
+
+    def timer(fn, key):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync(device)
+            log.setdefault(key, []).append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    def k8(*args):
+        # the state as the call saw it: the round writes it afterwards
+        state = clone_state(args[0])
+        out = real[0](*args)
+        log.setdefault("k8_calls", []).append(((state,) + args[1:], out))
+        return out
+
+    nt.offer_slots = k8
+    Scheduler._allocate_fine_grained = timer(real[1], "bind_s")
+    cmod.take_cpus = timer(real[2], "take_cpus_s")
+    dmod.allocate_on_node = timer(real[3], "allocate_on_node_s")
+    try:
+        yield
+    finally:
+        (nt.offer_slots, Scheduler._allocate_fine_grained, cmod.take_cpus,
+         dmod.allocate_on_node) = real
+
+
+def k8_bound(args, slots) -> dict:
+    """K8's bound: each valid (gang, node) pair's rows up to its first
+    failure (min(slots + 1, P), what this run's data needs), each row R
+    fit compares and the thresholded dims' terms (K8_ROW_OPS), against the
+    bytes it must move once: the node table (allocatable, requested, the
+    threshold's usage), the member rows and their estimates, the (G, N)
+    validity in and the (G, N) counts out."""
+    import torch
+
+    state, requests, offsets, p_rows, node_valid, cfg = args
+    n = state.capacity
+    rows = torch.clamp(slots.to(torch.int64) + 1, max=p_rows)
+    rows = int(torch.where(node_valid, rows, 0).sum())
+    thr = 0
+    if cfg is not None:
+        t = (cfg.agg_usage_thresholds
+             if bool(torch.any(cfg.agg_usage_thresholds > 0))
+             else cfg.usage_thresholds)
+        thr = int((t > 0).sum())
+    ops = rows * (R * K8_ROW_OPS["fit_dim"] + thr * K8_ROW_OPS["thr_dim"])
+    g = node_valid.shape[0]
+    nbytes = 3 * n * R * 4 + 2 * requests.numel() * 4 + g * n + g * n * 4
+    bound_ms, by = bound(nbytes, ops)
+    return dict(bound_ms=bound_ms, bound_by=by, ops=ops, bytes=nbytes,
+                rows_walked=rows)
+
+
+def held_k8(device, args, label: str, reps: int = 5) -> dict:
+    """K8 against its plain version on a recorded call, exactly; its
+    wrapper's time (CUDA events), its kernel's device time, the plain
+    version's time and the bound."""
+    from koordinator_tpu_torch.kernels import offer_slots as k8
+
+    got = k8.offer_slots(*args)
+    sync(device)
+    t0 = time.perf_counter()
+    want = k8.offer_slots_plain(*args)
+    sync(device)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max_abs_err(got, want)
+    check(err == 0, f"K8 equals its plain version {label}")
+    ms = timed_ms(lambda: k8.offer_slots(*args), device, reps=reps)
+    dev = device_ms_by_kernel(lambda: k8.offer_slots(*args),
+                              ("offer_slots_kernel",), device)
+    out = dict(label=label, gangs=int(args[4].shape[0]),
+               member_rows=int(args[1].shape[0]), p_rows=int(args[3]),
+               nodes=int(args[0].capacity), max_abs_err=err, ms=ms,
+               device_ms=dev["offer_slots_kernel"], plain_ms=plain_ms,
+               library_ms=None, **k8_bound(args, got))
+    emit("k8", **out)
+    return out
+
+
+def k8_subset(args, gangs: int):
+    """A recorded K8 call cut to its first ``gangs`` gangs."""
+    state, requests, offsets, p_rows, node_valid, cfg = args
+    offs = [int(v) for v in offsets][: gangs + 1]
+    return (state, requests[: offs[-1]].contiguous(), offs, p_rows,
+            node_valid[:gangs].contiguous(), cfg)
+
+
+def topology_checks(sched, gangs_req: dict, paths, label: str) -> dict:
+    """No node over its allocatable, the node accounting equal to the
+    bound pods' requests, every gang all-or-nothing and every placed
+    topology gang inside one topology node of its gather layer; every
+    cpu referenced at most once (exclusive cpusets), every device's free
+    core and memory at least 0; an LSR pod's cpuset holds its whole cores,
+    a GPU pod's minors cover its request."""
+    st = sched.snapshot.state
+    requested = st.node_requested.cpu().numpy().astype(np.int64)
+    alloc = st.node_allocatable.cpu().numpy().astype(np.int64)
+    check(bool((requested <= alloc).all()), f"{label}: no overcommit")
+    expect = np.zeros_like(requested)
+    placed: dict[str, list[str]] = {}
+    for bp in sched.bound.values():
+        expect[sched.snapshot.node_index[bp.node]] += bp.requests
+        if bp.pod.gang is not None:
+            placed.setdefault(bp.pod.gang, []).append(bp.node)
+    check(np.array_equal(expect, requested),
+          f"{label}: accounting = sum of bound pods")
+    row_path = {p[-1]: p for p in paths}
+    for name, on in placed.items():
+        rec = sched.gangs[name]
+        check(len(on) >= rec.min_member, f"{label}: gang {name} "
+              f"all-or-nothing ({len(on)} of {rec.min_member})")
+        layer = gangs_req[name]["must_gather_layer"]
+        check(len({row_path[n][layer - 1] for n in on}) == 1,
+              f"{label}: gang {name} gathered in one topology node")
+    for name, st_ in sched.cpu_manager._nodes.items():
+        check(bool((st_.ref_count <= st_.max_ref).all()),
+              f"{label}: {name}'s cpus referenced at most max_ref times")
+    dev = sched.device_manager.state("gpu")
+    check(bool((dev.free >= 0).all()), f"{label}: no device over-granted")
+    pinned = gpus = 0
+    for pod_name, bp in sched.bound.items():
+        status = sched.resource_status.get(pod_name, {})
+        if "resource-status" in status:
+            cores = int(bp.requests[CPU]) // 1_000
+            check(len(status["resource-status"]["cpuset"].split(",")) ==
+                  cores, f"{label}: {pod_name}'s cpuset holds its cores")
+            pinned += 1
+        if "device-allocated" in status:
+            gpu = int(bp.requests[GPU_DIM])
+            minors = status["device-allocated"]["gpu"]
+            check(len(minors) == (-(-gpu // 100) if gpu > 100 else 1),
+                  f"{label}: {pod_name}'s minors cover its request")
+            gpus += 1
+    lsr = sum(1 for bp in sched.bound.values() if bp.pod.qos == QOS_LSR)
+    gpu_pods = sum(1 for bp in sched.bound.values()
+                   if int(bp.requests[GPU_DIM]) > 0)
+    return dict(topo_gangs_placed=sum(
+        1 for g in placed if g in gangs_req), lsr_bound=lsr,
+        lsr_pinned=pinned, gpu_bound=gpu_pods, gpu_with_minors=gpus)
+
+
+def manager_view(sched) -> dict:
+    """The CPU and device managers' state as plain values: reference
+    counts and allocations a node, the device tensors, rows and each
+    pod's annotation."""
+    cm, dm = sched.cpu_manager, sched.device_manager
+    return dict(
+        cpus={name: (st.ref_count.tolist(),
+                     {k: v.cpus for k, v in st.allocations.items()})
+              for name, st in cm._nodes.items()},
+        devices={t: (st.free.cpu().numpy().tolist(), dm._node_rows[t])
+                 for t, st in dm._state.items()},
+        annotations={k: dm.device_allocated_annotation(k[1], k[0])
+                     for k in dm._allocs})
+
+
+def topology_programs(device, sched, call, reps: int = 10) -> dict:
+    """This slice's torch-op programs, ms a call on the card (CUDA events;
+    the host clock on the CPU): the tree's aggregation, multiples,
+    candidates and ranking on round 1's first gang's offer slots, the
+    member feasibility of one gang, one take_cpus and one allocate_on_node
+    on a registered node, and one device commit."""
+    import torch
+
+    from koordinator_tpu_torch.ops import deviceshare as ds
+    from koordinator_tpu_torch.ops import network_topology as nt
+    from koordinator_tpu_torch.ops import numa
+
+    topo = sched.topology_tree
+    slots = call[1][0]
+    zeros = torch.zeros_like(slots)
+    mults = torch.tensor([1, 1, 1, 2], dtype=torch.int32, device=device)
+    agg = nt.aggregate_tree(topo, slots, zeros, zeros)
+    t_slots = nt.constrain_multiples(topo, agg[0], mults)
+    cand, _ = nt.eligible_candidates(topo, t_slots, 16, LAYER_BLOCK)
+    name = next(iter(sched.cpu_manager._nodes))
+    cst = sched.cpu_manager.node(name)
+    ref = torch.from_numpy(cst.ref_count).to(device)
+    dev = sched.device_manager.state("gpu")
+    sel, _ = ds.allocate_on_node(dev, 0, 2, 100, 0)
+    out = dict(
+        aggregate_tree=timed_ms(lambda: nt.aggregate_tree(
+            topo, slots, zeros, zeros), device, reps),
+        constrain_multiples=timed_ms(lambda: nt.constrain_multiples(
+            topo, agg[0], mults), device, reps),
+        eligible_candidates=timed_ms(lambda: nt.eligible_candidates(
+            topo, t_slots, 16, LAYER_BLOCK), device, reps),
+        rank_candidates=timed_ms(lambda: nt.rank_candidates(
+            topo, cand, t_slots, agg[1], agg[2]), device, reps),
+        take_cpus=timed_ms(lambda: numa.take_cpus(
+            cst.topology, ref, 1, 4, banned=None), device, reps),
+        allocate_on_node=timed_ms(lambda: ds.allocate_on_node(
+            dev, 0, 0, 50, 4_096), device, reps),
+        commit_allocation=timed_ms(lambda: ds.commit_allocation(
+            dev, 0, sel, 100, 0), device, reps))
+    emit("topology_programs", note="ms a call of this slice's torch-op "
+         "programs on round 1's inputs", **out)
+    return out
+
+
+def phase_topology(device, n_nodes: int = 10_240, n_pods: int = 50_000,
+                   n_arrivals: int = N_TOPO_ARRIVALS, **spec_kw):
+    """Phase 16: network-topology gangs, NUMA cpusets and GPU device share
+    through the Scheduler at the flagship width (topology_specs).  Round 1
+    cold; round 2 after deletes of a quarter of the bound LSR and GPU pods
+    and ``n_arrivals`` arrivals with 16 more topology gangs; round 3 on a
+    fresh scheduler restored through add_bound_pod(resource_status=...)
+    from round 2's bound pods (its managers must equal the live ones),
+    then one round of ``n_arrivals`` arrivals with 16 more topology gangs.
+    K8 launches once a round; every round's Diagnose runs K7 on the dense
+    mask and is checked against the plain path (checked_diagnose).  K8 is
+    held against its plain version on round 1's first K8_HELD_GANGS gangs
+    and timed there and on the round's whole call.  Returns (the round
+    records, K8's held numbers, the launches over the three rounds)."""
+    import torch
+
+    from koordinator_tpu_torch.kernels import build
+    from koordinator_tpu_torch.kernels import offer_slots as k8
+
+    # (on the CPU, where nothing launches, the launch counts go unchecked)
+    on_card = torch.device(device).type == "cuda"
+    t_start = time.perf_counter()
+    nodes, pods, paths, gpu_rows, gangs, sizes = topology_specs(
+        16, n_nodes, n_pods, **spec_kw)
+    gangs_req = dict(gangs)
+    registered = [(gangs, sizes)]
+    sched = topology_scheduler(nodes, paths, gpu_rows, device, n_nodes)
+    register_topo_gangs(sched, gangs, sizes)
+    sched.enqueue_many(pods)
+    setup_s = time.perf_counter() - t_start
+    rng = np.random.default_rng(161)
+    records, dlog = [], []
+    totals = dict.fromkeys(build.LAUNCHES, 0)
+    first_call = None
+    n_late = max(2, min(N_LATE_TOPO_GANGS, spec_kw.get("n_gangs",
+                                                       N_TOPO_GANGS) // 8))
+    for rnd in range(3):
+        deleted = 0
+        if rnd == 1:
+            fine = sorted(n for n, bp in sched.bound.items()
+                          if bp.pod.qos == QOS_LSR
+                          or int(bp.requests[GPU_DIM]) > 0)
+            gone = rng.choice(len(fine), len(fine) // 4, replace=False)
+            for i in sorted(gone):
+                sched.delete_pod(fine[i])
+            deleted = len(gone)
+        if rnd == 2:
+            # a fresh scheduler restored from the live one's bound pods
+            live = sched
+            t0 = time.perf_counter()
+            sched = topology_scheduler(nodes, paths, gpu_rows, device,
+                                       n_nodes)
+            for g, sz in registered:   # the PodGroups' informer replay
+                register_topo_gangs(sched, g, sz)
+            with_status = [bp for bp in live.bound.values()
+                           if bp.name in live.resource_status]
+            sched.add_bound_pods([bp for bp in live.bound.values()
+                                  if bp.name not in live.resource_status])
+            for bp in with_status:
+                sched.add_bound_pod(bp, resource_status=dict(
+                    live.resource_status[bp.name]))
+            restore_s = time.perf_counter() - t0
+            check(manager_view(sched) == manager_view(live),
+                  "phase 16: the restored managers equal the live ones")
+            check(sched.resource_status == live.resource_status,
+                  "phase 16: the restored resource_status equals the live")
+            del live
+        if rnd >= 1:
+            late, late_sizes = topo_gangs(rng, f"tg-r{rnd}", n_late,
+                                          n_late // 4, 8, 16)
+            register_topo_gangs(sched, late, late_sizes)
+            registered.append((late, late_sizes))
+            gangs_req.update(dict(late))
+            members = topo_gang_pods(rng, late, 10**6 * rnd, late_sizes)
+            n_lsr = n_arrivals // 25
+            n_gpu = n_arrivals // 100
+            n_plain = n_arrivals - n_lsr - n_gpu - len(members)
+            sched.enqueue_many(
+                arrivals(rng, 10**6 * rnd, n_plain)
+                + special_pods(rng, [f"lsr-r{rnd}-{j}" for j in range(n_lsr)],
+                               "lsr")
+                + special_pods(rng, [f"gpu-r{rnd}-{j}" for j in range(n_gpu)],
+                               "gpu")
+                + members)
+        log: dict = {}
+        n_diag = len(dlog)
+        build.reset_launch_counts()
+        with placement_probe(log, device), checked_diagnose(dlog):
+            sync(device)
+            t0 = time.perf_counter()
+            res = sched.schedule_round()
+            sync(device)
+            wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        for k, v in launches.items():
+            totals[k] += v
+        diag = diagnose_fields(dlog[n_diag:])
+        wall -= diag["diagnose_check_s"]
+        parts = dict(sched.last_topology_parts_s)
+        calls = log.get("k8_calls", [])
+        check(len(calls) == 1 and (launches["offer_slots"] == 1
+                                   or not on_card),
+              f"phase 16 round {rnd}: one K8 launch over the round's gangs")
+        check(launches["explain_counts"] == (1 if res.failures else 0)
+              or not on_card, f"phase 16 round {rnd}: Diagnose launched K7")
+        if rnd == 0:
+            first_call = calls[0]
+            for kname in ("select_candidates", "round_fit_choose",
+                          "segmented_prefix_accept"):
+                check(launches[kname] > 0 or not on_card,
+                      f"{kname} launched on phase 16 round 0")
+        args, slots = calls[0]
+        k8_ms = timed_ms(lambda a=args: k8.offer_slots(*a), device, reps=3)
+        k8_dev = device_ms_by_kernel(lambda a=args: k8.offer_slots(*a),
+                                     ("offer_slots_kernel",), device)
+        gangs_planned = int(parts.get("gangs", 0))
+        rec = dict(
+            round=rnd, path=sched.last_solve_path, pods=res.round_pods,
+            binds=len(res.assignments), failed=len(res.failures),
+            deleted=deleted, wall_s=wall, launches=launches,
+            k8=dict(gangs=int(args[4].shape[0]), ms=k8_ms,
+                    device_ms=k8_dev["offer_slots_kernel"],
+                    launches=launches["offer_slots"],
+                    **k8_bound(args, slots)),
+            planner_ms_per_gang=(parts.get("plans", 0.0) * 1e3
+                                 / max(gangs_planned, 1)),
+            topology_parts_ms={k: v * 1e3 for k, v in parts.items()
+                               if k != "gangs"},
+            gangs_planned=gangs_planned,
+            bind_ms=_per_call_ms(log.get("bind_s")),
+            take_cpus_ms=_per_call_ms(log.get("take_cpus_s")),
+            allocate_on_node_ms=_per_call_ms(log.get("allocate_on_node_s")),
+            **diag)
+        if rnd == 2:
+            rec["restore_s"] = restore_s
+        rec.update(topology_checks(sched, gangs_req, paths,
+                                   f"phase 16 round {rnd}"))
+        records.append(rec)
+        emit("topology_round", **{k: v for k, v in rec.items()
+                                  if k != "diagnose_check_s"})
+        check(len(res.assignments) > 0, f"phase 16 round {rnd} bound pods")
+    check(records[0]["topo_gangs_placed"] > 0, "phase 16 placed topology "
+          "gangs")
+    check(records[0]["lsr_pinned"] > 0 and records[0]["gpu_with_minors"] > 0,
+          "phase 16 pinned cpusets and granted device minors")
+    held = held_k8(device, k8_subset(first_call[0], K8_HELD_GANGS),
+                   f"on phase 16 round 1's first {K8_HELD_GANGS} gangs")
+    programs = topology_programs(device, sched, first_call)
+    seconds = time.perf_counter() - t_start
+    emit("topology", nodes=n_nodes, backlog=n_pods, setup_s=setup_s,
+         seconds=seconds, k8_held=held, programs_ms=programs,
+         rounds=[{k: r[k] for k in ("round", "path", "binds", "failed",
+                                    "wall_s", "topo_gangs_placed")}
+                 for r in records])
+    return records, held, totals
+
+
+def _per_call_ms(times) -> dict | None:
+    if not times:
+        return None
+    a = np.asarray(times) * 1e3
+    return dict(calls=len(a), mean=float(a.mean()), max=float(a.max()))
+
+
+def k8_edge_state(device, n_nodes: int, seed: int, tight: bool = False,
+                  capacity: int | None = None):
+    """A random ClusterState on the card for K8's edges (phase 5's node
+    shapes); ``tight``: node 0 fits nothing (its requested over its
+    allocatable) and node 1 sits at the cpu threshold's edge."""
+    from koordinator_tpu_torch.state.cluster_state import ClusterState
+
+    rng = np.random.default_rng(seed)
+    alloc = np.zeros((n_nodes, R), np.int32)
+    alloc[:, CPU] = rng.integers(8_000, 64_000, n_nodes)
+    alloc[:, MEM] = rng.integers(16_384, 262_144, n_nodes)
+    usage = (alloc * rng.random((n_nodes, R)) * 0.5).astype(np.int32)
+    agg = (alloc * rng.random((n_nodes, R)) * 0.6).astype(np.int32)
+    requested = (alloc * rng.random((n_nodes, R)) * 0.4).astype(np.int32)
+    if tight:
+        requested[0] = alloc[0] + 1
+        alloc[1, CPU], usage[1, CPU] = 10_000, 6_300
+    return ClusterState.from_arrays(alloc, requested=requested, usage=usage,
+                                    agg_usage=agg,
+                                    capacity=capacity or n_nodes,
+                                    device=device)
+
+
+def k8_edge_gangs(rng, sizes, negative: bool = False, wrap: bool = False):
+    """(member rows (S, R), offsets) of gangs of ``sizes`` members at
+    flagship pod shapes; ``negative`` puts negative requests in, ``wrap``
+    requests near 2**30 whose sums wrap int32."""
+    rows = []
+    for m in sizes:
+        req = np.zeros((m, R), np.int32)
+        req[:, CPU] = rng.integers(0, 4_000, m)
+        req[:, MEM] = rng.integers(0, 8_192, m)
+        if negative and m:
+            req[rng.integers(0, m, max(1, m // 8)), CPU] = -3_000
+        if wrap and m:
+            req[:, CPU] = rng.integers(2**29, 2**30, m)
+        rows.append(req)
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(int).tolist()
+    return np.concatenate(rows) if rows else np.zeros((0, R), np.int32), \
+        offsets
+
+
+def phase_offer_slots_edges(device, n_nodes: int = 10_240,
+                            p_rows: int = 65_536) -> None:
+    """K8 against its plain version, exactly, on its edges: thresholds off
+    (no config, and a config with none set), thresholds running past the
+    members (the instantaneous and the aggregated policy), a node that
+    fits nothing, node_valid false on a third of the pairs, negative
+    requests, sums that wrap int32, P = 16 (every row a member) and P =
+    65,536 (one gang of 65,536 explicit rows, 512 stages), gangs of 0,
+    1, 127, 128, 129 and 300 members (stage boundaries), 24 gangs in one
+    launch over 10,240 nodes (P = 65,536, and P = 8,192 with negative and
+    wrapping requests), and the planner on a state whose capacity is
+    larger than the tree's (K8's plan equal to the plain version's)."""
+    import torch
+
+    from koordinator_tpu_torch.kernels import offer_slots as k8
+    from koordinator_tpu_torch.ops import network_topology as nt
+
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(88)
+    base = scoring_config("default", device)
+    cfgs = {"no_config": None,
+            "thresholds_off": base.replace(
+                usage_thresholds=torch.zeros(R, dtype=torch.int32,
+                                             device=device)),
+            "instantaneous": base,
+            "aggregated": scoring_config("agg", device)}
+    cases = []
+    state = k8_edge_state(device, n_nodes, 1, tight=True)
+    sizes = [0, 1, 127, 128, 129, 300] + list(rng.integers(8, 33, 18))
+    short = max(p_rows // 8, 1_024)
+    for label, kw, p in (("mixed", {}, p_rows),
+                         ("negative", dict(negative=True), short),
+                         ("wrap", dict(wrap=True), short)):
+        req, offs = k8_edge_gangs(rng, sizes, **kw)
+        valid = torch.from_numpy(rng.random((len(sizes), n_nodes)) < 0.67
+                                 ).to(device)
+        cases.append((f"{label}_24_gangs_p{p}", state, req, offs, p, valid))
+    req, offs = k8_edge_gangs(rng, [16, 5, 0, 16])
+    cases.append(("p16", state, req, offs, 16,
+                  torch.ones((4, n_nodes), dtype=torch.bool, device=device)))
+    small = k8_edge_state(device, n_nodes // 10, 2, tight=True)
+    req, offs = k8_edge_gangs(rng, [p_rows])
+    req[1_000:, :] = 0
+    req[rng.integers(0, 1_000, 50), CPU] = -1_000
+    cases.append((f"p{p_rows}_explicit", small, req, offs, p_rows,
+                  torch.ones((1, n_nodes // 10), dtype=torch.bool,
+                             device=device)))
+    results = []
+    for name, st, req, offs, p_rows, valid in cases:
+        reqs = torch.from_numpy(req).to(device)
+        for cname, cfg in cfgs.items():
+            args = (st, reqs, offs, p_rows, valid, cfg)
+            got = k8.offer_slots(*args)
+            want = k8.offer_slots_plain(*args)
+            err = max_abs_err(got, want)
+            check(err == 0, f"K8 edge {name} / {cname}")
+            results.append(dict(case=name, config=cname, max_abs_err=err,
+                                past_members=int((got.cpu().numpy() > (
+                                    np.diff(offs))[:, None]).sum())))
+    # the planner on a state padded past the tree: 10,240 tree nodes in a
+    # state of 12,288 rows; K8's plan equals the plain version's
+    tree = nt.TopologyTree(["spine", "block", "node"])
+    for i in range(n_nodes):
+        tree.add_node([f"s{i // 640}", f"b{i // 32}", f"n{i}"])
+    topo = tree.build(device=device)
+    big = k8_edge_state(device, n_nodes, 3, capacity=n_nodes * 6 // 5)
+    _, pods = random_problem(5, n_nodes, 4_096, device)
+    mask = np.zeros(pods.capacity, bool)
+    mask[rng.choice(4_000, 24, replace=False)] = True
+    req_t = nt.TopologyRequirements(desired_slots=24, must_gather_layer=2)
+    real = nt.offer_slots
+    plans = []
+    for fn in (real, lambda *a: k8.offer_slots_plain(*a)):
+        nt.offer_slots = fn
+        try:
+            plans.append(nt.plan_gang_placement(big, pods, mask, topo,
+                                                req_t, cfg=base))
+        finally:
+            nt.offer_slots = real
+    check(np.array_equal(plans[0], plans[1]),
+          "K8's plan equals the plain version's on a padded state")
+    emit("offer_slots_edges", cases=len(results),
+         seconds=time.perf_counter() - t_start,
+         planned=int((plans[0] >= 0).sum()), results=results)
+
+
 def ptxas_summary(path: str) -> list[dict]:
     """Registers, spills and shared memory of every kernel in the
     compiler's -Xptxas -v log (one entry per compiled entry function)."""
@@ -5466,7 +6179,7 @@ def ptxas_summary(path: str) -> list[dict]:
 #: in eight: all but the last; K4 and K4r in eight: the node columns in
 #: shared or global memory, without or with reservations, one selector
 #: word or many; K7 in four: one selector word, many tabled, many past
-#: the table, a dense mask, and its node-column pack)
+#: the table, a dense mask, and its node-column pack; K8 in one)
 PTXAS_ENTRIES = {"select_candidates": ("select_candidates_kernel", 20),
                  "refresh_candidates": ("refresh_candidates_kernel", 8),
                  "segmented_prefix_accept": ("round_accept_kernel", 1),
@@ -5475,7 +6188,8 @@ PTXAS_ENTRIES = {"select_candidates": ("select_candidates_kernel", 20),
                  "overuse_revoke": ("overuse_revoke_kernel", 1),
                  "overuse_keys": ("overuse_keys_kernel", 1),
                  "explain_counts": ("explain_counts_kernel", 4),
-                 "explain_pack": ("pack_explain_columns", 1)}
+                 "explain_pack": ("pack_explain_columns", 1),
+                 "offer_slots": ("offer_slots_kernel", 1)}
 
 
 def phase_ptxas(path: str) -> None:
@@ -5626,6 +6340,8 @@ def main() -> int:
     with watchdog(K5_PHASE_LIMIT_S, "phase 15 (preemption)"):
         k5_k6, preempt_records, k7_15 = phase_preemption(
             device, one_quota=one_quota)
+    phase_offer_slots_edges(device)
+    topo_records, k8, topo_launches = phase_topology(device)
     kernels[1:1] = [dict(
         name="refresh_candidates", route="cuda",
         source=CSRC + "refresh_candidates.cu",
@@ -5729,6 +6445,21 @@ def main() -> int:
                                   for r in gang_rounds)),
         phase15=dict(library_ms=None,
                      **{k: k7_15[k] for k in k7_keys + ("launches",)})))
+    # K8 on phase 16's round 1's first K8_HELD_GANGS gangs; its launches
+    # over phase 16's three rounds (one a round), and its numbers on each
+    # round's whole call beside
+    k8_keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+               "bound_by", "gangs", "member_rows", "p_rows", "nodes",
+               "rows_walked")
+    kernels.append(dict(
+        name="offer_slots", route="cuda", source=CSRC + "offer_slots.cu",
+        replaces="koordinator_tpu/ops/network_topology.py:125",
+        launches=topo_launches["offer_slots"], library_ms=None,
+        **{k: k8[k] for k in k8_keys},
+        phase16_rounds=[dict(round=r["round"], **{
+            k: r["k8"][k] for k in ("gangs", "ms", "device_ms", "launches",
+                                    "bound_ms", "bound_by")})
+            for r in topo_records]))
     emit("diagnose", note="the Diagnose phase's host ms a round, its parts "
          "(quota_mask: the post-solve quota mask; compact: the failed rows "
          "and their compacted batch; k7: K7 and the copy back; diagnoses; "
@@ -5739,7 +6470,10 @@ def main() -> int:
                  for r in steady_records if r["scheduler"] == "forced"],
          phase15=[dict(round=r["round"], ms=r["diagnose_ms"],
                        parts_ms=r["diagnose_parts_ms"], rows=r["k7_rows"])
-                  for r in preempt_records])
+                  for r in preempt_records],
+         phase16=[dict(round=r["round"], ms=r["diagnose_ms"],
+                       parts_ms=r["diagnose_parts_ms"], rows=r["k7_rows"])
+                  for r in topo_records])
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -16,7 +16,10 @@ import torch
 
 from koordinator_tpu_torch.device import resolve_device
 from koordinator_tpu_torch.ops.assignment import ScoringConfig
+from koordinator_tpu_torch.ops.deviceshare import DeviceState
 from koordinator_tpu_torch.ops.gang import GangInfo
+from koordinator_tpu_torch.ops.network_topology import TopologyArrays
+from koordinator_tpu_torch.ops.numa import CPUTopology
 from koordinator_tpu_torch.ops.preemption import ScheduledPods
 from koordinator_tpu_torch.ops.reservation import ReservationSet
 from koordinator_tpu_torch.quota.admission import QuotaDeviceState
@@ -30,6 +33,9 @@ _CLASSES = {
     "GangInfo": GangInfo,
     "ReservationSet": ReservationSet,
     "ScheduledPods": ScheduledPods,
+    "CPUTopology": CPUTopology,
+    "DeviceState": DeviceState,
+    "TopologyArrays": TopologyArrays,
 }
 
 #: field names per carried type (the same in both packages; a field kept

@@ -9,7 +9,9 @@
   same scan with reservations (the scheduler's reservation pre-pass);
 - ``preemption`` (K5): the preemption chain's victim dry runs, node choice
   and commits; ``overuse_revoke`` (K6): the quota overuse revoke's walks;
-- ``explain_counts`` (K7): the Diagnose phase's reject-reason count.
+- ``explain_counts`` (K7): the Diagnose phase's reject-reason count;
+- ``offer_slots`` (K8): the gang offer-slot count of network-topology gang
+  placement.
 
 The Filter + Score of a (pod, node) pair and the candidate ranking are one
 CUDA definition (``csrc/koord_score.cuh``) that K1, K2, K4, K4r and K7

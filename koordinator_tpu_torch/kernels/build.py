@@ -205,6 +205,14 @@ _SIGNATURES = {
         _I, _P,                          # grid (explain_grid), out record: pod bound, CTA ranges
         _P,                              # stream
     ],
+    "koord_offer_slots": [
+        _P, _P, _P, _I,                  # node alloc/requested/base, N
+        _P, _P, _P, _I, _I,              # member requests/estimates (S, R), row offsets (G + 1), G, P
+        _P, _P,                          # node_valid (G, N), a zero request's estimate (R,)
+        _P, _I,                          # config int vector (or null) + its length
+        _P,                              # out slots (G, N)
+        _P,                              # stream
+    ],
     "koord_overuse_keys": [
         _P, _P, _P, _P, _P, _P,          # bound quota, priority, valid, non-preemptible, PDB, budgets (or null)
         _I, _I, _I,                      # B, V, Q
@@ -274,7 +282,8 @@ LAUNCHES = {"select_candidates": 0, "select_candidates_approx": 0,
             "refresh_candidates": 0,
             "round_fit_choose": 0, "segmented_prefix_accept": 0,
             "greedy_scan": 0, "reservation_scan": 0,
-            "victim_select": 0, "overuse_revoke": 0, "explain_counts": 0}
+            "victim_select": 0, "overuse_revoke": 0, "explain_counts": 0,
+            "offer_slots": 0}
 
 
 def reset_launch_counts() -> None:

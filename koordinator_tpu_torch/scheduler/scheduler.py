@@ -86,15 +86,28 @@ names for batch rounds, and ``greedy`` for a round under the threshold
 (the JAX scheduler leaves the attribute as it was on such a round and
 labels its latency metric ``greedy``).
 
-Left out of this reduced shell, and kept by the JAX scheduler: gangs with
-network-topology requirements (``register_gang`` refuses them: the
-topology planner waits for ``ops/network_topology.py``), hints and their
-dense masks, the fine-grained CPU and device allocators (and so
-``add_bound_pod``'s ``resource_status``), forecast and quality modes,
-degraded mode (so no pod is held back as ``degraded_suspended``), tenancy,
-the solve mesh, pod traces (``pod_trace_id`` is None, as in JAX without
-``trace_pods``), the flight recorder, and the journey, timeline and
-metrics hooks (among them the explain rollup's gauges).
+Network topology and the fine-grained allocators, when given: with a
+``topology_tree`` (``ops/network_topology.py`` ``TopologyArrays``), a gang
+whose ``GangRecord.topology`` carries requirements gets a placement plan in
+BatchBuild (``_apply_topology_plans``, FindOneNode parity): one K8 launch
+counts the offer slots of every such gang of the round, the tree programs
+rank the candidates, and each planned member's feasible set is pinned to
+its planned node on a dense (P, N) mask; a gang with no plan is masked out
+of the round.  At every bind, in bind order, an LSR/LSE pod takes an
+exclusive cpuset from ``cpu_manager`` and a pod requesting GPUs takes
+device minors from ``device_manager`` (``_allocate_fine_grained``; the
+annotation payloads land in ``resource_status``, and with the
+``DevicePluginAdaption`` gate the vendor device-plugin annotations);
+releasing a bound pod frees them, and ``add_bound_pod``'s
+``resource_status`` restores them.
+
+Left out of this reduced shell, and kept by the JAX scheduler: hints and
+their dense masks, forecast and quality modes (so the topology planner is
+the baseline one), degraded mode (so no pod is held back as
+``degraded_suspended``), tenancy, the solve mesh, pod traces
+(``pod_trace_id`` is None, as in JAX without ``trace_pods``), the flight
+recorder, and the journey, timeline and metrics hooks (among them the
+explain rollup's gauges).
 """
 
 from __future__ import annotations
@@ -105,6 +118,9 @@ import time
 import numpy as np
 import torch
 
+from koordinator_tpu_torch.api.qos import QoSClass
+from koordinator_tpu_torch.api.resources import ResourceDim
+from koordinator_tpu_torch.features import SCHEDULER_GATES
 from koordinator_tpu_torch.ops import batch_assign as ba
 from koordinator_tpu_torch.ops import explain as ex
 from koordinator_tpu_torch.ops import scoring
@@ -114,6 +130,13 @@ from koordinator_tpu_torch.ops.assignment import (
     score_pods,
 )
 from koordinator_tpu_torch.ops.gang import GangInfo, gang_assign
+from koordinator_tpu_torch.ops.network_topology import (
+    TopologyArrays,
+    TopologyRequirements,
+    gang_offer_slots_many,
+    plan_gang_placement,
+)
+from koordinator_tpu_torch.ops.numa import EXCLUSIVE_PCPU_LEVEL
 from koordinator_tpu_torch.ops.preemption import (
     ScheduledPods,
     preempt_chain,
@@ -126,6 +149,8 @@ from koordinator_tpu_torch.quota.admission import (
     quota_admission_mask,
 )
 from koordinator_tpu_torch.quota.tree import UNBOUNDED, QuotaTree
+from koordinator_tpu_torch.scheduler import device_plugin_adapter as dpa
+from koordinator_tpu_torch.scheduler.cpu_manager import parse_cpuset_bounded
 from koordinator_tpu_torch.scheduler.diagnosis import (
     PodDiagnosis,
     diagnosis_from_counts,
@@ -222,9 +247,8 @@ class GangRecord:
     wait_time_sec: float | None = None
     first_failure: float | None = None
     rejected: bool = False
-    #: network-topology gather requirements (not ported: register_gang
-    #: refuses a record that sets them)
-    topology: object | None = None
+    #: network-topology gather requirements; needs Scheduler.topology_tree
+    topology: TopologyRequirements | None = None
 
 
 @dataclasses.dataclass
@@ -252,7 +276,9 @@ class Scheduler:
                  incremental_solve: bool = True, device=None,
                  clock=time.monotonic, enable_preemption: bool | None = None,
                  preempt_fn=None, explanations=None, auditor=None,
-                 explain: bool = True):
+                 explain: bool = True,
+                 topology_tree: TopologyArrays | None = None,
+                 cpu_manager=None, device_manager=None):
         if device is not None and torch.device(device) != snapshot.device:
             raise ValueError(f"device {device} differs from the snapshot's "
                              f"{snapshot.device}")
@@ -362,13 +388,27 @@ class Scheduler:
         self.last_diagnose_s = 0.0
         self.last_diagnose_parts_s: dict[str, float] = {}
 
+        # -- network topology and the fine-grained allocators --
+        self.topology_tree = topology_tree
+        #: LSR/LSE pods take exclusive cpusets, device requests take minors
+        #: at bind; the annotation payloads surface in resource_status
+        self.cpu_manager = cpu_manager
+        self.device_manager = device_manager
+        #: per-node vendor device-plugin lock annotations (vendors' plugins
+        #: clear them via clear_device_node_lock when they finish a pod)
+        self._device_node_locks: dict[str, dict[str, str]] = {}
+        self.resource_status: dict[str, dict] = {}
+        #: host seconds of the last round's topology plans, by part: "k8"
+        #: (the dense mask and the offer slots of every topology gang, one
+        #: launch), "plans"
+        #: (the tree programs and the host walk, all gangs), "pin" (the
+        #: dense mask's pins); "gangs" counts the gangs planned.  Empty on
+        #: a round without topology gangs
+        self.last_topology_parts_s: dict[str, float] = {}
+
     # -- registration -----------------------------------------------------------
 
     def register_gang(self, record: GangRecord) -> None:
-        if record.topology is not None:
-            raise ValueError(
-                f"gang {record.name!r}: network-topology requirements are "
-                "not ported (ROADMAP A7: ops/network_topology.py)")
         if record.wait_time_sec is None:
             record.wait_time_sec = self.gang_default_timeout_sec
         self.gangs[record.name] = record
@@ -376,11 +416,44 @@ class Scheduler:
     def register_pdb(self, record: PdbRecord) -> None:
         self.pdbs[record.name] = record
 
-    def add_bound_pod(self, pod: BoundPod) -> None:
+    def add_bound_pod(self, pod: BoundPod,
+                      resource_status: dict | None = None) -> None:
         """Seed a pre-existing bound pod (informer replay at startup): its
         request is reserved on its node here and released by
-        :meth:`remove_bound_pod`."""
+        :meth:`remove_bound_pod`.  ``resource_status`` replays the pod's
+        fine-grained annotations ({"resource-status": {"cpuset": "0,1"},
+        "device-allocated": {...}}) into the CPU and device managers, so a
+        restart cannot re-grant pinned cores or in-use device minors."""
         self.add_bound_pods([pod])
+        if resource_status:
+            self._restore_fine_grained(pod, resource_status)
+
+    def _restore_fine_grained(self, pod: BoundPod, status: dict) -> None:
+        """Annotations are persisted external data: a malformed or stale
+        payload (topology changed across restart) skips that pod's restore
+        instead of crashing the informer replay."""
+        rs = status.get("resource-status") or {}
+        cpuset = rs.get("cpuset", "") if isinstance(rs, dict) else ""
+        if cpuset and self.cpu_manager is not None:
+            try:
+                cpus = parse_cpuset_bounded(str(cpuset))
+            except ValueError:
+                cpus = []
+            if cpus and self.cpu_manager.restore(
+                    pod.node, pod.name, cpus,
+                    exclusive_policy=EXCLUSIVE_PCPU_LEVEL):
+                self.resource_status.setdefault(pod.name, {})[
+                    "resource-status"] = rs
+        devices = status.get("device-allocated") or {}
+        if devices and self.device_manager is not None:
+            if self.device_manager.restore(pod.node, pod.name, devices):
+                # serve the re-derived truth, not the raw payload: a
+                # partially restored annotation (unknown types, stale
+                # minors) must not be reported as tracked
+                self.resource_status.setdefault(pod.name, {})[
+                    "device-allocated"] = (
+                        self.device_manager.device_allocated_annotation(
+                            pod.node, pod.name))
 
     def add_bound_pods(self, pods: list[BoundPod]) -> None:
         """:meth:`add_bound_pod` for many pods, their node charges in one
@@ -457,6 +530,10 @@ class Scheduler:
             self._release_bound_capacity(pod)
 
     def _release_bound_capacity(self, bp: BoundPod) -> None:
+        """Shared freeing for a bound pod leaving the cluster (informer
+        delete, eviction, preemption, revoke): fine-grained allocations,
+        then the reservation-aware node unreserve."""
+        self._release_fine_grained(bp.name, bp.node)
         if bp.node not in self.snapshot.node_index:
             return
         if (self.snapshot.node_generation.get(bp.node, 0)
@@ -832,6 +909,75 @@ class Scheduler:
         self._refresh_quota_tree()
         return QuotaDeviceState.from_tree(self.quota_tree, device=self.device)
 
+    def _apply_topology_plans(self, batch: PodBatch,
+                              gang_index: dict[str, int]) -> PodBatch:
+        """FindOneNode parity (``frameworkext/interface.go:120``,
+        ``coscheduling.go:137-144``): a gang with network-topology
+        requirements gets a placement plan up front; each member's feasible
+        set is pinned to its planned node.  A gang whose plan fails is
+        masked out of the round entirely (all-or-nothing at plan level).
+        Every gang plans against the same unpinned batch and state, so one
+        K8 launch counts all their offer slots first."""
+        self.last_topology_parts_s = {}
+        if self.topology_tree is None or not any(
+                self.gangs.get(name) is not None
+                and self.gangs[name].topology is not None
+                for name in gang_index):
+            return batch
+        t0 = time.perf_counter()
+        gang_ids = batch.gang_id.cpu().numpy()
+        valid = batch.valid.cpu().numpy().copy()
+        planned_gangs = []
+        for name, gi in gang_index.items():
+            gang = self.gangs.get(name)
+            if gang is None or gang.topology is None:
+                continue
+            mask = (gang_ids == gi) & valid
+            if mask.any():
+                planned_gangs.append((gang, mask))
+        if not planned_gangs:
+            return batch
+        state = self.snapshot.state
+        # topology pinning needs per-(pod, node) edits: a dense mask (a
+        # copy: the batch cache keeps the unpinned batch)
+        feasible = batch.feasible_rows(state).clone()
+        slots = gang_offer_slots_many(state, batch,
+                                      [m for _, m in planned_gangs],
+                                      self.config, feasible=feasible)
+        t_k8 = time.perf_counter()
+        pin_rows, pin_nodes = [], []
+        for k, (gang, mask) in enumerate(planned_gangs):
+            plan = plan_gang_placement(state, batch, mask, self.topology_tree,
+                                       gang.topology, cfg=self.config,
+                                       slots=slots[k])
+            desired = gang.topology.desired_slots or int(mask.sum())
+            planned = np.flatnonzero(mask & (plan >= 0))
+            if len(planned) < min(desired, int(mask.sum())):
+                # no gather plan at all: the whole gang backs off
+                valid[mask] = False
+                continue
+            # pin planned members; surplus members (pending >
+            # desired_slots) stay unpinned and schedule freely once the
+            # gang is permitted
+            pin_rows.append(planned)
+            pin_nodes.append(plan[planned])
+        t_plans = time.perf_counter()
+        if pin_rows:
+            rows = torch.from_numpy(np.concatenate(pin_rows).astype(
+                np.int64)).to(self.device)
+            cols = torch.from_numpy(np.concatenate(pin_nodes).astype(
+                np.int64)).to(self.device)
+            feasible[rows] = False
+            feasible[rows, cols] = True
+        batch = batch.replace(feasible=feasible,
+                              valid=torch.from_numpy(valid).to(self.device),
+                              selector_mask=None)
+        t_end = time.perf_counter()
+        self.last_topology_parts_s = {
+            "k8": t_k8 - t0, "plans": t_plans - t_k8, "pin": t_end - t_plans,
+            "gangs": len(planned_gangs)}
+        return batch
+
     # -- the round ----------------------------------------------------------
 
     def schedule_round(self) -> SchedulingResult:
@@ -872,6 +1018,7 @@ class Scheduler:
         gangs, gang_index = self._build_gang_info(pods)
         quota, quota_index = self._build_quota()
         batch = self._build_batch(pods, gang_index, quota_index)
+        batch = self._apply_topology_plans(batch, gang_index)
         if len(self.reservations):
             # the batch cache keeps the whole batch; the solve gets the one
             # without the pre-pass's binds
@@ -1225,6 +1372,9 @@ class Scheduler:
                 if non_preemptible:
                     q.non_preemptible_used = q.non_preemptible_used + total
         for pod, node in binds:
+            # per-pod surfaces in bind order: the fine-grained managers
+            # mutate per node and pod
+            self._allocate_fine_grained(pod, node)
             # a bound pod's explanation is stale
             if self.explanations is not None:
                 self.explanations.delete(pod.name)
@@ -1234,6 +1384,86 @@ class Scheduler:
         if self.bind_fn is not None:
             for pod, node in binds:
                 self.bind_fn(pod.name, node)
+
+    # -- fine-grained allocation (nodenumaresource / deviceshare Reserve) -------
+
+    def _allocate_fine_grained(self, pod: PodSpec, node: str) -> None:
+        """Reserve-phase fine-grained allocation (nodenumaresource Reserve:
+        resource_manager.go:357 allocateCPUSet; deviceshare Reserve +
+        PreBind device-allocated annotation).  An allocation that cannot be
+        satisfied degrades to the shared pool / no pinning rather than
+        failing an already-committed bind.  Replaces the pod's
+        ``resource_status`` entry wholesale."""
+        status: dict[str, dict] = {}
+        if (self.cpu_manager is not None
+                and int(pod.qos) in (int(QoSClass.LSR), int(QoSClass.LSE))
+                and self.cpu_manager.node(node) is not None):
+            cores = int(pod.requests[ResourceDim.CPU]) // 1000
+            if cores >= 1:
+                cpus = self.cpu_manager.allocate(
+                    node, pod.name, cores,
+                    exclusive_policy=EXCLUSIVE_PCPU_LEVEL)
+                if cpus is not None:
+                    status["resource-status"] = (
+                        self.cpu_manager.resource_status(node, pod.name))
+        if self.device_manager is not None:
+            gpu = int(pod.requests[ResourceDim.GPU])
+            gpu_mem = int(pod.requests[ResourceDim.GPU_MEMORY])
+            if gpu > 0 and self.device_manager.state("gpu") is not None:
+                minors = self.device_manager.allocate(
+                    "gpu", node, pod.name, gpu, gpu_mem)
+                if minors is not None:
+                    status["device-allocated"] = (
+                        self.device_manager.device_allocated_annotation(
+                            node, pod.name))
+                    self._adapt_device_plugin(pod, node, status)
+        if status:
+            self.resource_status[pod.name] = status
+
+    def _adapt_device_plugin(self, pod: PodSpec, node: str,
+                             status: dict) -> None:
+        """DevicePluginAdaption gate: translate the allocation into vendor
+        device-plugin annotations (device_plugin_adapter.go:100).  An
+        inexpressible allocation records the error on the status instead
+        and skips the vendor dialect; the bind proceeds unpinned."""
+        if not SCHEDULER_GATES.enabled("DevicePluginAdaption"):
+            return
+        spec = self.snapshot.node_specs.get(node)
+        node_labels = spec.labels if spec is not None else {}
+        locks = self._device_node_locks.setdefault(node, {})
+        try:
+            # the adapter's default wall clock, NOT self.clock: the
+            # annotations are UnixNano timestamps read by external vendor
+            # plugins against their own wall clock
+            res = dpa.adapt_for_device_plugin(
+                status["device-allocated"],
+                gpu_vendor=node_labels.get(dpa.LABEL_GPU_VENDOR, ""),
+                gpu_model=node_labels.get(dpa.LABEL_GPU_MODEL, ""),
+                pod_labels=pod.labels, node_annotations=locks)
+        except dpa.AdaptError as e:
+            status["device-plugin"] = {"error": str(e)}
+            return
+        if dpa.LABEL_HAMI_VGPU_NODE in res.pod_labels:
+            res.pod_labels[dpa.LABEL_HAMI_VGPU_NODE] = node
+        locks.update(res.node_annotations)
+        status["device-plugin"] = {
+            "annotations": res.pod_annotations,
+            "labels": res.pod_labels,
+            "node_annotations": dict(res.node_annotations),
+        }
+
+    def clear_device_node_lock(self, node: str, key: str) -> None:
+        """The vendor device plugin finished a pod and removed its node
+        lock annotation (device_plugin_adapter.go: 'will automatically
+        remove it after allocation of a pod')."""
+        self._device_node_locks.get(node, {}).pop(key, None)
+
+    def _release_fine_grained(self, pod_name: str, node: str) -> None:
+        if self.cpu_manager is not None:
+            self.cpu_manager.release(node, pod_name)
+        if self.device_manager is not None:
+            self.device_manager.release(node, pod_name)
+        self.resource_status.pop(pod_name, None)
 
     # -- nominated pods (nominatedNodeName) -------------------------------------
 

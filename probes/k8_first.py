@@ -1,0 +1,34 @@
+"""K8's first check on the card: the build with ptxas's register report
+(chip_smoke.phase_ptxas, K8 among the no-spill entries), K8's edges
+against its plain version (chip_smoke.phase_offer_slots_edges), then phase
+16 (chip_smoke.phase_topology: topology gangs, cpusets and GPUs through
+the Scheduler at the flagship width).  Needs a CUDA device; run from the
+repository's root:
+
+    python3 probes/k8_first.py
+"""
+import os
+import sys
+import time
+
+sys.path.insert(0, os.getcwd())
+
+import chip_smoke as cs
+from koordinator_tpu_torch.kernels import build
+
+t0 = time.time()
+cs.INT32_OPS_PER_S = cs.int32_ops_per_s()
+print(cs.smi_name_power(), flush=True)
+os.makedirs(cs.OUT_DIR, exist_ok=True)
+log = os.path.join(cs.OUT_DIR, "ptxas.txt")
+build.build(force=True, log_path=log)
+build.lib()
+print("build", time.time() - t0, flush=True)
+cs.phase_ptxas(log)
+t1 = time.time()
+cs.phase_offer_slots_edges("cuda")
+print("edges", time.time() - t1, flush=True)
+t1 = time.time()
+cs.phase_topology("cuda")
+print("phase 16", time.time() - t1, flush=True)
+print("seconds", time.time() - t0)

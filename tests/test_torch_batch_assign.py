@@ -332,12 +332,18 @@ def test_cpu_wrappers_launch_nothing_and_other_devices_raise():
     from koordinator_tpu_torch.ops.explain import explain_counts
 
     explain_counts(ts, tp, port(config(), "ScoringConfig"))
+    from koordinator_tpu_torch.kernels.offer_slots import offer_slots
+
+    offer_slots(ts, tp.requests[:3].contiguous(), [0, 3], tp.capacity,
+                torch.ones((1, n), dtype=torch.bool),
+                port(config(), "ScoringConfig"))
     assert build.LAUNCHES == {"select_candidates": 0,
                               "select_candidates_approx": 0,
                               "refresh_candidates": 0, "round_fit_choose": 0,
                               "segmented_prefix_accept": 0, "greedy_scan": 0,
                               "reservation_scan": 0, "victim_select": 0,
-                              "overuse_revoke": 0, "explain_counts": 0}
+                              "overuse_revoke": 0, "explain_counts": 0,
+                              "offer_slots": 0}
     meta = dict(device="meta")
     key = torch.empty((4, 8), dtype=torch.int32, **meta)
     with pytest.raises(ValueError, match="no kernel for device"):
@@ -364,6 +370,10 @@ def test_cpu_wrappers_launch_nothing_and_other_devices_raise():
                        PodBatch.build(np.zeros((2, 10), np.int32),
                                       node_capacity=8, device="meta"),
                        ScoringConfig.default("meta"))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        offer_slots(ClusterState.zeros(8, device="meta"),
+                    torch.empty((0, 10), dtype=torch.int32, **meta), [0, 0],
+                    16, torch.empty((1, 8), dtype=torch.bool, **meta))
 
 
 def test_kernel_sources_carry_their_note_and_build_lazily():
@@ -375,8 +385,8 @@ def test_kernel_sources_carry_their_note_and_build_lazily():
 
     srcs = build.sources()
     assert sorted(os.path.basename(s) for s in srcs) == [
-        "explain_counts.cu", "greedy_scan.cu", "overuse_revoke.cu",
-        "refresh_candidates.cu", "round_fit_choose.cu",
+        "explain_counts.cu", "greedy_scan.cu", "offer_slots.cu",
+        "overuse_revoke.cu", "refresh_candidates.cu", "round_fit_choose.cu",
         "segmented_prefix_accept.cu", "select_candidates.cu",
         "victim_select.cu"]
     for path in srcs:

@@ -8,7 +8,9 @@ of 40,960 with 70 node classes; then a gang round and two rounds under
 ``cand_method="approx"``; then a preemption round, its nominations' binds
 and a quota overuse revoke; then a round whose Diagnose phase counts the
 reject reasons, keeps an explanation, writes a ScheduleExplanation and
-audit records, and a bound pod's score decomposition)."""
+audit records, and a bound pod's score decomposition; then a round with a
+network-topology gang, cpusets and GPUs (the device-plugin gate on), a
+delete and a restore through ``add_bound_pod``'s ``resource_status``)."""
 
 import os
 import re
@@ -188,6 +190,58 @@ assert pre.explanations.get("too-big") is not None
 assert pre.auditor.attempts("too-big") == 1
 assert pre.explain_candidates(sorted(pre.bound)[0])[0]["winner"]
 assert pre.explain_candidates("too-big") == []
+# network-topology gangs, NUMA cpusets and GPU device share: a gang round
+# planned on a spine/block/node tree (K8's plain version), LSR pods taking
+# cpusets and GPU pods taking minors at bind, the device-plugin gate on,
+# a delete, then a restore through add_bound_pod's resource_status
+from koordinator_tpu_torch import features
+from koordinator_tpu_torch.kernels import offer_slots
+from koordinator_tpu_torch.ops import deviceshare, network_topology, numa, select
+from koordinator_tpu_torch.ops.network_topology import TopologyRequirements, TopologyTree
+from koordinator_tpu_torch.ops.numa import CPUTopology
+from koordinator_tpu_torch.scheduler import device_plugin_adapter
+from koordinator_tpu_torch.scheduler.cpu_manager import CPUManager
+from koordinator_tpu_torch.scheduler.device_manager import DeviceManager
+ts = ClusterSnapshot(capacity=16, device="cpu")
+tree = TopologyTree(["spine", "block", "node"])
+cm, dm = CPUManager(device="cpu"), DeviceManager(device="cpu")
+for i in range(12):
+    a = np.zeros(10, np.int32)
+    a[0], a[1], a[3], a[4] = 16000, 65536, 800, 655360
+    ts.upsert_node(NodeSpec(name=f"t{i}", allocatable=a, labels={
+        "node.koordinator.sh/gpu-vendor": "metax"}))
+    tree.add_node([f"s{i // 6}", f"b{i // 3}", f"t{i}"])
+    cm.register_node(f"t{i}", CPUTopology.uniform(
+        sockets=1, numa_per_socket=2, cores_per_numa=4, device="cpu"))
+dm.register("gpu", [f"t{i}" for i in range(12)],
+            [[{"core": 100, "memory": 81920, "group": j // 4}
+              for j in range(8)] for _ in range(12)])
+tsched = Scheduler(ts, device="cpu", batch_solver_threshold=8,
+                   topology_tree=tree.build(capacity=16, device="cpu"),
+                   cpu_manager=cm, device_manager=dm)
+tsched.register_gang(GangRecord(name="tg", min_member=3, topology=TopologyRequirements(
+    desired_slots=3, must_gather_layer=2)))
+features.SCHEDULER_GATES.set("DevicePluginAdaption", True)
+for j in range(12):
+    q = np.zeros(10, np.int32)
+    q[0], q[1] = 2000, 2048
+    if j % 4 == 1:
+        q[3] = 200
+    if j % 4 == 2:
+        q[3], q[4] = 50, 4096
+    tsched.enqueue(PodSpec(name=f"t{j}", requests=q, qos=3 if j % 4 == 3 else 0,
+                           gang="tg" if j < 3 else None))
+res = tsched.schedule_round()
+assert tsched.last_topology_parts_s["gangs"] == 1 and "t0" in res.assignments
+assert any("resource-status" in v for v in tsched.resource_status.values())
+assert any("device-plugin" in v for v in tsched.resource_status.values())
+status = dict(tsched.resource_status)
+gone = sorted(status)[0]
+tsched.delete_pod(gone)
+again = Scheduler(ts, device="cpu", cpu_manager=CPUManager(device="cpu"),
+                  device_manager=DeviceManager(device="cpu"))
+for name, bp in tsched.bound.items():
+    again.add_bound_pod(bp, resource_status=status.get(name))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "koordinator_tpu"))
 print("LOADED", bad)
