@@ -189,19 +189,26 @@ first failure:
    gang all-or-nothing and every placed topology gang inside one node of
    its gather layer, no cpu referenced twice, no device over-granted,
    each LSR cpuset its whole cores and each GPU pod's minors its request;
-   K8 once a round over all the round's topology gangs, and every round's
-   Diagnose (K7 on the dense mask) checked against the plain path.  K8
-   is held against its plain version on round 1's first 16 gangs and
-   timed there and on each round's whole call; each round prints the
+   K8 once a round over all the round's topology gangs (its scan and
+   walk, the gangs' node validity folded in from the dense mask and the
+   member rows), and every round's Diagnose (K7 on the dense mask)
+   checked against the plain path.  Each round's K8 call is held against
+   its plain version and timed (its kernels' device time by name, the
+   step's bound and the walk's alone, ``gang_offer_slots_many`` on the
+   host clock, the round's ``k8`` part), and again on round 1's first 16
+   gangs; each round prints the
    planner's host ms a gang, ``_allocate_fine_grained``'s ms a bind and
    ``take_cpus``' and ``allocate_on_node``'s ms a call, and a
    ``topology_programs`` line the slice's torch-op programs' ms a call.
-   Before it ``offer_slots_edges``: K8 against its plain version on
-   thresholds off, thresholds running past the members, a node that fits
-   nothing, ``node_valid`` false, negative requests, wrapping sums, P =
-   16 and 65,536 (one gang of 65,536 explicit rows), gangs of 0-300
-   members across the kernel's stage boundaries, 24 gangs a launch, and
-   the planner's plan on a state whose capacity exceeds the tree's.
+   Before it ``offer_slots_edges``: K8 against its plain version in both
+   validity modes on thresholds off, thresholds running past the
+   members, a node that fits nothing, the validity false, negative
+   requests, wrapping sums, P = 16 and 65,536 (one gang of 65,536
+   explicit rows), gangs of 0-300 members across the kernel's scan steps
+   and stages, 24 and 40 gangs a call; in the member mode a member
+   feasible nowhere, disjoint feasible sets, the state's node_valid off
+   and padded rows, band requests; 65,600 gangs in one call of each mode;
+   and the planner's plan on a state whose capacity exceeds the tree's.
 
 The Diagnose phase (K7, ``explain_counts``): every round of phases 9, 12,
 13 and 15 runs with the Scheduler's default ``explain=True``, and
@@ -5486,6 +5493,8 @@ LAYER_SPINE, LAYER_BLOCK = 1, 2
 #: dimension for the fit, and for a thresholded dimension the estimate's
 #: add, the x100 multiply-add and the compare and AND
 K8_ROW_OPS = dict(fit_dim=2, thr_dim=4)
+#: K8's kernels, the scan and the walk, as the profiler names them
+K8_KERNELS = ("offer_slots_scan", "offer_slots_walk")
 
 
 def topo_gang_pods(rng, gangs_at: list, start: int, sizes):
@@ -5640,17 +5649,24 @@ def register_topo_gangs(sched, gangs, sizes) -> None:
 
 @contextlib.contextmanager
 def placement_probe(log: dict, device):
-    """Log K8's calls (inputs and output) and time each
-    ``_allocate_fine_grained`` bind, ``take_cpus`` and ``allocate_on_node``
-    call (host clock, synchronised after each: every one ends in a copy to
-    the host anyway)."""
+    """Log K8's calls (``k8_calls``: (args, keywords, output), the state,
+    requests and mask as the call saw them, the mask's pinned member rows
+    put back on leaving) and the scheduler's
+    ``gang_offer_slots_many`` calls around them (``k8_many``: its inputs,
+    to time it again), and time each ``_allocate_fine_grained`` bind,
+    ``take_cpus`` and ``allocate_on_node`` call (host clock, synchronised
+    after each: every one ends in a copy to the host anyway)."""
+    import torch
+
     from koordinator_tpu_torch.ops import network_topology as nt
     from koordinator_tpu_torch.scheduler import cpu_manager as cmod
     from koordinator_tpu_torch.scheduler import device_manager as dmod
+    from koordinator_tpu_torch.scheduler import scheduler as smod
     from koordinator_tpu_torch.scheduler.scheduler import Scheduler
 
-    real = (nt.offer_slots, Scheduler._allocate_fine_grained,
-            cmod.take_cpus, dmod.allocate_on_node)
+    real = (nt.offer_slots, smod.gang_offer_slots_many,
+            Scheduler._allocate_fine_grained, cmod.take_cpus,
+            dmod.allocate_on_node)
 
     def timer(fn, key):
         def wrapped(*a, **kw):
@@ -5661,83 +5677,265 @@ def placement_probe(log: dict, device):
             return out
         return wrapped
 
-    def k8(*args):
-        # the state as the call saw it: the round writes it afterwards
-        state = clone_state(args[0])
-        out = real[0](*args)
-        log.setdefault("k8_calls", []).append(((state,) + args[1:], out))
+    def k8(*args, **kw):
+        # the inputs as the call saw them: the round writes the state, and
+        # pins its members' rows of the mask, afterwards (those rows are
+        # kept here and put back on leaving: a copy of the whole mask
+        # would sit in the round's k8 part)
+        out = real[0](*args, **kw)
+        call = k8_call(args, kw)
+        feas = call[1].get("feasible")
+        if feas is not None:
+            idx = torch.from_numpy(np.unique(np.asarray(
+                call[1]["rows"], np.int64))).to(feas.device)
+            log.setdefault("k8_masks", []).append((feas, idx, feas[idx]))
+        rec_args = (clone_state(args[0]), args[1].clone()) + call[0][2:]
+        log.setdefault("k8_calls", []).append((rec_args, call[1], out))
+        return out
+
+    def many(state, pods, gang_masks, cfg=None, feasible=None):
+        out = real[1](state, pods, gang_masks, cfg, feasible)
+        args, kw, _ = log["k8_calls"][-1]
+        log.setdefault("k8_many", []).append(dict(
+            state=args[0], pods=pods, gang_masks=gang_masks, cfg=cfg,
+            feasible=kw.get("feasible")))
         return out
 
     nt.offer_slots = k8
-    Scheduler._allocate_fine_grained = timer(real[1], "bind_s")
-    cmod.take_cpus = timer(real[2], "take_cpus_s")
-    dmod.allocate_on_node = timer(real[3], "allocate_on_node_s")
+    smod.gang_offer_slots_many = many
+    Scheduler._allocate_fine_grained = timer(real[2], "bind_s")
+    cmod.take_cpus = timer(real[3], "take_cpus_s")
+    dmod.allocate_on_node = timer(real[4], "allocate_on_node_s")
     try:
         yield
     finally:
-        (nt.offer_slots, Scheduler._allocate_fine_grained, cmod.take_cpus,
+        (nt.offer_slots, smod.gang_offer_slots_many,
+         Scheduler._allocate_fine_grained, cmod.take_cpus,
          dmod.allocate_on_node) = real
+        # the masks as K8 read them again: their members' rows back
+        for feas, idx, rows in log.get("k8_masks", []):
+            feas[idx] = rows
 
 
-def k8_bound(args, slots) -> dict:
-    """K8's bound: each valid (gang, node) pair's rows up to its first
-    failure (min(slots + 1, P), what this run's data needs), each row R
-    fit compares and the thresholded dims' terms (K8_ROW_OPS), against the
-    bytes it must move once: the node table (allocatable, requested, the
-    threshold's usage), the member rows and their estimates, the (G, N)
-    validity in and the (G, N) counts out."""
+def k8_call(args, kw) -> tuple:
+    """A K8 call as (state, requests, offsets, p_rows) and its keywords
+    (node_valid, cfg, rows, feasible), whichever were positional."""
+    kw = dict(kw)
+    kw.update(zip(("node_valid", "cfg"), args[4:]))
+    return tuple(args[:4]), kw
+
+
+def k8_run(call, plain: bool = False):
+    from koordinator_tpu_torch.kernels import offer_slots as k8
+
+    args, kw = call
+    return (k8.offer_slots_plain if plain else k8.offer_slots)(*args, **kw)
+
+
+def k8_gangs(call, lo: int, hi: int) -> tuple:
+    """A K8 call cut to its gangs lo..hi-1."""
+    (state, requests, offsets, p_rows), kw = call
+    offs = np.asarray(offsets, np.int64)
+    a, b = int(offs[lo]), int(offs[hi])
+    kw = dict(kw)
+    if kw.get("rows") is not None:
+        kw["rows"] = np.asarray(kw["rows"], np.int64)[a:b]
+    else:
+        requests = requests[a:b].contiguous()
+        kw["node_valid"] = kw["node_valid"][lo:hi].contiguous()
+    return (state, requests, offs[lo:hi + 1] - a, p_rows), kw
+
+
+def k8_valid(call):
+    """(G, N) bool: each gang's node validity as the call defines it."""
     import torch
 
-    state, requests, offsets, p_rows, node_valid, cfg = args
+    (state, _, offsets, _), kw = call
+    if kw.get("rows") is None:
+        return kw["node_valid"]
+    offs = np.asarray(offsets, np.int64)
+    feas = kw["feasible"]
+    rows = np.asarray(kw["rows"], np.int64)[: offs[-1]]
+    gang = np.repeat(np.arange(offs.size - 1), np.diff(offs))
+    shut = torch.zeros((offs.size - 1, feas.shape[1]), dtype=torch.int32,
+                       device=feas.device)
+    if rows.size:
+        shut.index_add_(0, torch.from_numpy(gang).to(feas.device),
+                        (~feas[torch.from_numpy(rows).to(feas.device)]).to(
+                            torch.int32))
+    return state.node_valid[None, :] & (shut == 0)
+
+
+def k8_live_dims(call):
+    """((G,) fit dims, (G,) thresholded estimate dims, (G,) member rows):
+    how many dimensions some member of each gang requests, how many
+    thresholded dimensions some member's band estimate is not 0 on (0
+    without a config), and each gang's member count."""
+    import torch
+
+    from koordinator_tpu_torch.ops import scoring
+
+    (state, requests, offsets, _), kw = call
+    offs = np.asarray(offsets, np.int64)
+    g, s = offs.size - 1, int(offs[-1])
+    dev = requests.device
+    if kw.get("rows") is not None:
+        rows_in = requests[torch.from_numpy(np.asarray(
+            kw["rows"], np.int64)[:s]).to(dev)]
+    else:
+        rows_in = requests[:s]
+    gang = torch.from_numpy(np.repeat(np.arange(g), np.diff(offs))).to(dev)
+
+    def touched(x):
+        seen = torch.zeros((g, R), dtype=torch.int64, device=dev)
+        seen.index_add_(0, gang, (x != 0).to(torch.int64))
+        return seen > 0
+
+    fit = touched(rows_in).sum(dim=1)
+    thr = torch.zeros_like(fit)
+    cfg = kw.get("cfg")
+    if cfg is not None:
+        t = (cfg.agg_usage_thresholds
+             if bool(torch.any(cfg.agg_usage_thresholds > 0))
+             else cfg.usage_thresholds)
+        est = scoring.estimate_pod_usage_by_band(
+            rows_in, cfg.estimator_factors, cfg.estimator_defaults)
+        thr = (touched(est) & (t > 0)[None, :].to(dev)).sum(dim=1)
+    return fit, thr, torch.from_numpy(np.diff(offs)).to(dev)
+
+
+def k8_bound(call, slots) -> dict:
+    """K8's bound, the whole step, at the operations this run's data
+    needs.  For each valid (gang, node) pair: its member rows up to the
+    first failure (min(slots + 1, members)), each tested on the gang's
+    live dimensions only (a fit compare where some member requests the
+    dimension, a threshold's terms where some member's estimate is not 0
+    on a thresholded one: K8_ROW_OPS); the dimensions no member touches
+    tested once a pair; and where a pair fits every member and rows are
+    left, the rows past the members once in closed form (the members'
+    total on the live fit dimensions, a first failure a thresholded
+    dimension; the rare row-by-row cases, where a wrapping sum could jump
+    the threshold, not counted, so the bound stays a floor).  In the
+    member mode, the AND of each member's feasible byte of each node (S x
+    N operations).  Against the bytes it must move once: the node table
+    (allocatable, requested, the threshold's usage), the member rows (and
+    their row indices and the offsets), the validity (the state's (N,) and
+    the members' S x N feasible bytes, or the explicit (G, N)) and the
+    (G, N) counts out.  ``bound_walk_ms`` keeps PR 14's bound of the walk
+    alone (which read a (G, N) validity): every row to the first failure
+    or P (min(slots + 1, P)) at R fit compares and the thresholded
+    dimensions' terms, over the node table, the member rows and their
+    estimates, a (G, N) validity read and the counts."""
+    import torch
+
+    (state, requests, offsets, p_rows), kw = call
     n = state.capacity
-    rows = torch.clamp(slots.to(torch.int64) + 1, max=p_rows)
-    rows = int(torch.where(node_valid, rows, 0).sum())
+    offs = np.asarray(offsets, np.int64)
+    g, s = offs.size - 1, int(offs[-1])
+    valid = k8_valid(call)
+    slots64 = slots.to(torch.int64)
+    walked = torch.where(valid, torch.clamp(slots64 + 1, max=p_rows), 0)
+    rows = int(walked.sum())
+    # the rows a warp of 32 nodes walks: its longest lane's
+    lanes = torch.nn.functional.pad(walked, (0, -n % 32))
+    warp_rows = int(lanes.reshape(g, -1, 32).amax(dim=2).sum()) * 32
     thr = 0
+    cfg = kw.get("cfg")
     if cfg is not None:
         t = (cfg.agg_usage_thresholds
              if bool(torch.any(cfg.agg_usage_thresholds > 0))
              else cfg.usage_thresholds)
         thr = int((t > 0).sum())
-    ops = rows * (R * K8_ROW_OPS["fit_dim"] + thr * K8_ROW_OPS["thr_dim"])
-    g = node_valid.shape[0]
-    nbytes = 3 * n * R * 4 + 2 * requests.numel() * 4 + g * n + g * n * 4
+    fit_ops, thr_ops = K8_ROW_OPS["fit_dim"], K8_ROW_OPS["thr_dim"]
+    # PR 14's walk: every row on every dimension
+    walk_ops = rows * (R * fit_ops + thr * thr_ops)
+    # the step as the data needs it
+    live_fit, live_thr, m = k8_live_dims(call)
+    m = m[:, None].to(slots64.device)
+    member_rows = torch.where(valid, torch.minimum(slots64 + 1, m), 0)
+    pairs = valid.to(torch.int64).sum(dim=1)
+    past = (valid & (slots64 >= m) & (m < p_rows)).to(torch.int64).sum(dim=1)
+    row_ops = live_fit * fit_ops + live_thr * thr_ops
+    const_ops = (R - live_fit) * fit_ops + (thr - live_thr) * thr_ops
+    past_ops = live_fit * fit_ops + thr * thr_ops
+    step_ops = int((member_rows.sum(dim=1) * row_ops + pairs * const_ops
+                    + past * past_ops).sum())
+    table = 3 * n * R * 4
+    walk_bytes = table + 2 * s * R * 4 + g * n + g * n * 4
+    if kw.get("rows") is not None:
+        ops = step_ops + s * n
+        nbytes = table + n + s * R * 4 + s * 4 + (g + 1) * 4 + s * n \
+            + g * n * 4
+    else:
+        ops = step_ops
+        nbytes = table + s * R * 4 + (g + 1) * 4 + g * n + g * n * 4
     bound_ms, by = bound(nbytes, ops)
+    walk_ms, walk_by = bound(walk_bytes, walk_ops)
     return dict(bound_ms=bound_ms, bound_by=by, ops=ops, bytes=nbytes,
-                rows_walked=rows)
+                rows_walked=rows, member_rows_walked=int(member_rows.sum()),
+                warp_lane_rows=warp_rows, bound_walk_ms=walk_ms,
+                bound_walk_by=walk_by)
 
 
-def held_k8(device, args, label: str, reps: int = 5) -> dict:
-    """K8 against its plain version on a recorded call, exactly; its
-    wrapper's time (CUDA events), its kernel's device time, the plain
-    version's time and the bound."""
-    from koordinator_tpu_torch.kernels import offer_slots as k8
+def k8_device_ms(call, device) -> dict:
+    """The step's device ms a call: each of K8's kernels (K8_KERNELS) and
+    their sum (None off the card)."""
+    import torch
 
-    got = k8.offer_slots(*args)
+    by = {}
+    for _ in range(3):   # a trace can lose a call's records; take another
+        by = device_ms_by_kernel(lambda: k8_run(call), K8_KERNELS, device)
+        if all(v is not None for v in by.values()):
+            return dict(device_ms=sum(by.values()), device_ms_by_kernel=by)
+        if torch.device(device).type != "cuda":
+            break
+    return dict(device_ms=None, device_ms_by_kernel=by)
+
+
+def held_k8(device, call, label: str, reps: int = 5) -> dict:
+    """K8 against its plain version on a call, exactly; its wrapper's time
+    (CUDA events), its kernels' device time, the plain version's time and
+    the bound."""
+    got = k8_run(call)
     sync(device)
     t0 = time.perf_counter()
-    want = k8.offer_slots_plain(*args)
+    want = k8_run(call, plain=True)
     sync(device)
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = max_abs_err(got, want)
     check(err == 0, f"K8 equals its plain version {label}")
-    ms = timed_ms(lambda: k8.offer_slots(*args), device, reps=reps)
-    dev = device_ms_by_kernel(lambda: k8.offer_slots(*args),
-                              ("offer_slots_kernel",), device)
-    out = dict(label=label, gangs=int(args[4].shape[0]),
-               member_rows=int(args[1].shape[0]), p_rows=int(args[3]),
-               nodes=int(args[0].capacity), max_abs_err=err, ms=ms,
-               device_ms=dev["offer_slots_kernel"], plain_ms=plain_ms,
-               library_ms=None, **k8_bound(args, got))
+    (state, requests, offsets, p_rows), kw = call
+    out = dict(label=label,
+               mode="members" if kw.get("rows") is not None else "explicit",
+               gangs=len(offsets) - 1, member_rows=int(offsets[-1]),
+               p_rows=int(p_rows), nodes=int(state.capacity),
+               max_abs_err=err,
+               ms=timed_ms(lambda: k8_run(call), device, reps=reps),
+               **k8_device_ms(call, device), plain_ms=plain_ms,
+               library_ms=None, **k8_bound(call, got))
     emit("k8", **out)
     return out
 
 
-def k8_subset(args, gangs: int):
-    """A recorded K8 call cut to its first ``gangs`` gangs."""
-    state, requests, offsets, p_rows, node_valid, cfg = args
-    offs = [int(v) for v in offsets][: gangs + 1]
-    return (state, requests[: offs[-1]].contiguous(), offs, p_rows,
-            node_valid[:gangs].contiguous(), cfg)
+def many_ms(device, rec: dict, reps: int = 5) -> dict:
+    """``gang_offer_slots_many`` on a round's recorded inputs, host clock,
+    synchronised before and after each call: ms a call.  It is given the
+    member masks, as the scheduler gives them, so the CSR's build is
+    timed with the kernel."""
+    from koordinator_tpu_torch.ops import network_topology as nt
+
+    times = []
+    for _ in range(reps + 1):
+        sync(device)
+        t0 = time.perf_counter()
+        nt.gang_offer_slots_many(rec["state"], rec["pods"],
+                                 rec["gang_masks"], rec["cfg"],
+                                 rec["feasible"])
+        sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    times = np.asarray(times[1:])
+    return dict(min=float(times.min()), median=float(np.median(times)),
+                max=float(times.max()))
 
 
 def topology_checks(sched, gangs_req: dict, paths, label: str) -> dict:
@@ -5822,7 +6020,7 @@ def topology_programs(device, sched, call, reps: int = 10) -> dict:
     from koordinator_tpu_torch.ops import numa
 
     topo = sched.topology_tree
-    slots = call[1][0]
+    slots = call[2][0]
     zeros = torch.zeros_like(slots)
     mults = torch.tensor([1, 1, 1, 2], dtype=torch.int32, device=device)
     agg = nt.aggregate_tree(topo, slots, zeros, zeros)
@@ -5862,15 +6060,19 @@ def phase_topology(device, n_nodes: int = 10_240, n_pods: int = 50_000,
     fresh scheduler restored through add_bound_pod(resource_status=...)
     from round 2's bound pods (its managers must equal the live ones),
     then one round of ``n_arrivals`` arrivals with 16 more topology gangs.
-    K8 launches once a round; every round's Diagnose runs K7 on the dense
-    mask and is checked against the plain path (checked_diagnose).  K8 is
-    held against its plain version on round 1's first K8_HELD_GANGS gangs
-    and timed there and on the round's whole call.  Returns (the round
-    records, K8's held numbers, the launches over the three rounds)."""
+    K8 is called once a round (its scan and walk), with the gangs' node
+    validity folded in; every round's Diagnose runs K7 on the dense mask
+    and is checked against the plain path (checked_diagnose).  Each
+    round's K8 call is held against its plain version and timed (the
+    wrapper, its kernels' device time by name, the step's bound and the
+    walk's alone), and ``gang_offer_slots_many`` is timed on the round's
+    recorded inputs on the host clock beside the round's ``k8`` part; K8
+    is held and timed again on round 1's first K8_HELD_GANGS gangs.
+    Returns (the round records, K8's held numbers, the launches over the
+    three rounds)."""
     import torch
 
     from koordinator_tpu_torch.kernels import build
-    from koordinator_tpu_torch.kernels import offer_slots as k8
 
     # (on the CPU, where nothing launches, the launch counts go unchecked)
     on_card = torch.device(device).type == "cuda"
@@ -5953,9 +6155,10 @@ def phase_topology(device, n_nodes: int = 10_240, n_pods: int = 50_000,
         wall -= diag["diagnose_check_s"]
         parts = dict(sched.last_topology_parts_s)
         calls = log.get("k8_calls", [])
-        check(len(calls) == 1 and (launches["offer_slots"] == 1
+        check(len(calls) == 1 and (launches["offer_slots"] == 2
                                    or not on_card),
-              f"phase 16 round {rnd}: one K8 launch over the round's gangs")
+              f"phase 16 round {rnd}: one K8 call (offer_slots_scan, then "
+              "offer_slots_walk) over the round's gangs")
         check(launches["explain_counts"] == (1 if res.failures else 0)
               or not on_card, f"phase 16 round {rnd}: Diagnose launched K7")
         if rnd == 0:
@@ -5964,19 +6167,24 @@ def phase_topology(device, n_nodes: int = 10_240, n_pods: int = 50_000,
                           "segmented_prefix_accept"):
                 check(launches[kname] > 0 or not on_card,
                       f"{kname} launched on phase 16 round 0")
-        args, slots = calls[0]
-        k8_ms = timed_ms(lambda a=args: k8.offer_slots(*a), device, reps=3)
-        k8_dev = device_ms_by_kernel(lambda a=args: k8.offer_slots(*a),
-                                     ("offer_slots_kernel",), device)
+        args, kw, slots = calls[0]
+        check(bool(torch.equal(slots, k8_run((args, kw)))),
+              f"phase 16 round {rnd}: K8 again on the recorded inputs")
+        k8_round = held_k8(device, (args, kw),
+                           f"on phase 16 round {rnd + 1}'s whole call", reps=3)
+        k8_round["many_ms"] = many_ms(device, log["k8_many"][0])
+        k8_round["k8_part_ms"] = parts.get("k8", 0.0) * 1e3
         gangs_planned = int(parts.get("gangs", 0))
         rec = dict(
             round=rnd, path=sched.last_solve_path, pods=res.round_pods,
             binds=len(res.assignments), failed=len(res.failures),
             deleted=deleted, wall_s=wall, launches=launches,
-            k8=dict(gangs=int(args[4].shape[0]), ms=k8_ms,
-                    device_ms=k8_dev["offer_slots_kernel"],
-                    launches=launches["offer_slots"],
-                    **k8_bound(args, slots)),
+            k8=dict(launches=launches["offer_slots"], **{
+                k: k8_round[k] for k in (
+                    "mode", "gangs", "member_rows", "max_abs_err", "ms",
+                    "device_ms", "device_ms_by_kernel", "plain_ms",
+                    "bound_ms", "bound_by", "bound_walk_ms", "rows_walked",
+                    "warp_lane_rows", "many_ms", "k8_part_ms")}),
             planner_ms_per_gang=(parts.get("plans", 0.0) * 1e3
                                  / max(gangs_planned, 1)),
             topology_parts_ms={k: v * 1e3 for k, v in parts.items()
@@ -5998,7 +6206,7 @@ def phase_topology(device, n_nodes: int = 10_240, n_pods: int = 50_000,
           "gangs")
     check(records[0]["lsr_pinned"] > 0 and records[0]["gpu_with_minors"] > 0,
           "phase 16 pinned cpusets and granted device minors")
-    held = held_k8(device, k8_subset(first_call[0], K8_HELD_GANGS),
+    held = held_k8(device, k8_gangs(first_call[:2], 0, K8_HELD_GANGS),
                    f"on phase 16 round 1's first {K8_HELD_GANGS} gangs")
     programs = topology_programs(device, sched, first_call)
     seconds = time.perf_counter() - t_start
@@ -6018,32 +6226,42 @@ def _per_call_ms(times) -> dict | None:
 
 
 def k8_edge_state(device, n_nodes: int, seed: int, tight: bool = False,
-                  capacity: int | None = None):
+                  capacity: int | None = None, wide: bool = False):
     """A random ClusterState on the card for K8's edges (phase 5's node
-    shapes); ``tight``: node 0 fits nothing (its requested over its
-    allocatable) and node 1 sits at the cpu threshold's edge."""
+    shapes; ``wide``: and 0-2,000 of every other dimension); ``tight``:
+    node 0 fits nothing (its requested over its allocatable), node 1 sits
+    at the cpu threshold's edge, and nodes 2 and 3 hold 20,000,000 cpu
+    (their threshold near 2^31, which a steep estimator default's zero
+    rows can jump)."""
     from koordinator_tpu_torch.state.cluster_state import ClusterState
 
     rng = np.random.default_rng(seed)
     alloc = np.zeros((n_nodes, R), np.int32)
     alloc[:, CPU] = rng.integers(8_000, 64_000, n_nodes)
     alloc[:, MEM] = rng.integers(16_384, 262_144, n_nodes)
+    if wide:
+        alloc[:, 2:] = rng.integers(0, 2_000, (n_nodes, R - 2))
     usage = (alloc * rng.random((n_nodes, R)) * 0.5).astype(np.int32)
     agg = (alloc * rng.random((n_nodes, R)) * 0.6).astype(np.int32)
     requested = (alloc * rng.random((n_nodes, R)) * 0.4).astype(np.int32)
     if tight:
         requested[0] = alloc[0] + 1
         alloc[1, CPU], usage[1, CPU] = 10_000, 6_300
+        alloc[2:4, CPU] = 20_000_000
+        usage[2:4, CPU], agg[2:4, CPU] = (1_900_000, 0), (1_900_000, 0)
+        requested[2:4, CPU] = 0
     return ClusterState.from_arrays(alloc, requested=requested, usage=usage,
                                     agg_usage=agg,
                                     capacity=capacity or n_nodes,
                                     device=device)
 
 
-def k8_edge_gangs(rng, sizes, negative: bool = False, wrap: bool = False):
+def k8_edge_gangs(rng, sizes, negative: bool = False, wrap: bool = False,
+                  bands: bool = False):
     """(member rows (S, R), offsets) of gangs of ``sizes`` members at
     flagship pod shapes; ``negative`` puts negative requests in, ``wrap``
-    requests near 2**30 whose sums wrap int32."""
+    requests near 2**30 whose sums wrap int32, ``bands`` batch and mid
+    requests and zero cpu rows (the estimate's band fold and defaults)."""
     rows = []
     for m in sizes:
         req = np.zeros((m, R), np.int32)
@@ -6053,24 +6271,78 @@ def k8_edge_gangs(rng, sizes, negative: bool = False, wrap: bool = False):
             req[rng.integers(0, m, max(1, m // 8)), CPU] = -3_000
         if wrap and m:
             req[:, CPU] = rng.integers(2**29, 2**30, m)
+        if bands and m:
+            for d in range(6, 10):
+                on = rng.random(m) < 0.3
+                req[on, d] = rng.integers(0, 2_000, int(on.sum()))
+            req[rng.random(m) < 0.2, CPU] = 0
         rows.append(req)
     offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(int).tolist()
     return np.concatenate(rows) if rows else np.zeros((0, R), np.int32), \
         offsets
 
 
+def k8_member_case(device, rng, state, p_rows: int, sizes, closed: float):
+    """A member-mode K8 call over ``state``: (P, R) requests (negative and
+    zero-cpu rows among them; the second half with gpu and band requests,
+    the first half cpu and memory alone; its first 1,024 rows small enough
+    that long gangs walk past a stage), a (P, N) feasible mask closed on a
+    ``closed`` share of the pairs (the small rows on almost none), gangs of
+    ``sizes`` distinct rows in ascending order (a gang longer than 32 from
+    the small rows; of the rest, every other from the first half, so that
+    gangs of cpu and memory alone and gangs with more dimensions live
+    alternate); the first gang's second member feasible nowhere and the
+    second gang's two members on disjoint halves of the nodes."""
+    import torch
+
+    n = state.capacity
+    req, _ = k8_edge_gangs(rng, [p_rows], negative=True, bands=True)
+    half = p_rows // 2
+    req[:half, 2:] = 0
+    req[half:, 3] = rng.integers(0, 300, p_rows - half)
+    req[:1_024] //= 40
+    feasible = rng.random((p_rows, n)) >= closed
+    feasible[:1_024] = rng.random((1_024, n)) >= closed / 200
+    rows = []
+    for k, m in enumerate(sizes):
+        pool = 1_024 if m > 32 else half if k % 2 else p_rows
+        rows.append(np.sort(rng.choice(pool, m, replace=False)))
+    feasible[rows[0][1]] = False
+    feasible[rows[1][0], n // 2:] = False
+    feasible[rows[1][1], : n // 2] = False
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    return ((state, torch.from_numpy(req).to(device), offsets, p_rows),
+            dict(rows=np.concatenate(rows),
+                 feasible=torch.from_numpy(feasible).to(device)))
+
+
 def phase_offer_slots_edges(device, n_nodes: int = 10_240,
-                            p_rows: int = 65_536) -> None:
-    """K8 against its plain version, exactly, on its edges: thresholds off
-    (no config, and a config with none set), thresholds running past the
-    members (the instantaneous and the aggregated policy), a node that
-    fits nothing, node_valid false on a third of the pairs, negative
-    requests, sums that wrap int32, P = 16 (every row a member) and P =
-    65,536 (one gang of 65,536 explicit rows, 512 stages), gangs of 0,
-    1, 127, 128, 129 and 300 members (stage boundaries), 24 gangs in one
-    launch over 10,240 nodes (P = 65,536, and P = 8,192 with negative and
-    wrapping requests), and the planner on a state whose capacity is
-    larger than the tree's (K8's plan equal to the plain version's)."""
+                            p_rows: int = 65_536,
+                            many_gangs: int = 65_600) -> None:
+    """K8 against its plain version, exactly, on its edges, in both
+    validity modes: thresholds off (no config, and a config with none
+    set), thresholds running past the members (the instantaneous and the
+    aggregated policy, and one on every dimension), cpu estimator
+    defaults whose zero rows jump a threshold near 2^31 or wrap negative
+    (at P up to 8,192), zero rows starting more than 2^31 below a
+    threshold, a node that fits nothing, the validity false on a
+    third of the pairs, negative requests, sums that wrap int32, P = 16
+    (every row a member) and P = 65,536 (one gang of 65,536 explicit rows,
+    1,024 stages), gangs of 0, 1, 127, 128, 129 and 300 members, 24 gangs
+    in one call over 10,240 nodes (P = 65,536, and P = 8,192 with negative
+    and wrapping requests); in the member mode a member feasible nowhere,
+    members on disjoint halves of the nodes, the state's node_valid off
+    on a tenth of its nodes and padded past them, nodes of every
+    dimension, gangs of cpu and memory alone beside gangs requesting gpu
+    and the bands, zero-cpu requests, gangs of 31-33, 63-65, 130 and 300
+    members (past a scan step and a stage) and more gangs than a CTA's
+    slice; ``many_gangs`` (more
+    than 65,535) gangs of one or two members over 1,024 nodes at P = 4 in
+    one call of each mode (the plain version on its first 64 and last 128
+    gangs); and the planner on a state whose capacity is larger than the
+    tree's (K8's plan equal to the plain version's)."""
+    import dataclasses
+
     import torch
 
     from koordinator_tpu_torch.kernels import offer_slots as k8
@@ -6084,7 +6356,13 @@ def phase_offer_slots_edges(device, n_nodes: int = 10_240,
                 usage_thresholds=torch.zeros(R, dtype=torch.int32,
                                              device=device)),
             "instantaneous": base,
-            "aggregated": scoring_config("agg", device)}
+            "aggregated": scoring_config("agg", device),
+            "all_ten": scoring_config("all_ten", device)}
+    # cpu estimator defaults whose zero rows' x100 estimate climbs 10^9 a
+    # row (walked row by row on nodes 2 and 3) or wraps negative
+    for d in (10_000_000, 30_000_000):
+        cfgs[f"default_{d}"] = base.replace(estimator_defaults=torch.tensor(
+            [d, 200] + [0] * (R - 2), dtype=torch.int32, device=device))
     cases = []
     state = k8_edge_state(device, n_nodes, 1, tight=True)
     sizes = [0, 1, 127, 128, 129, 300] + list(rng.integers(8, 33, 18))
@@ -6095,29 +6373,83 @@ def phase_offer_slots_edges(device, n_nodes: int = 10_240,
         req, offs = k8_edge_gangs(rng, sizes, **kw)
         valid = torch.from_numpy(rng.random((len(sizes), n_nodes)) < 0.67
                                  ).to(device)
-        cases.append((f"{label}_24_gangs_p{p}", state, req, offs, p, valid))
-    req, offs = k8_edge_gangs(rng, [16, 5, 0, 16])
-    cases.append(("p16", state, req, offs, 16,
-                  torch.ones((4, n_nodes), dtype=torch.bool, device=device)))
+        cases.append((f"{label}_24_gangs_p{p}", (
+            (state, torch.from_numpy(req).to(device), offs, p),
+            dict(node_valid=valid))))
+    # P = 16, and a gang of one -20,000,000 cpu request: on nodes 2 and 3
+    # its zero rows start more than 2^31 below the cpu threshold
+    req, offs = k8_edge_gangs(rng, [16, 5, 0, 16, 1])
+    req[-1, :] = 0
+    req[-1, CPU] = -20_000_000
+    cases.append(("p16", ((state, torch.from_numpy(req).to(device), offs,
+                           16),
+                          dict(node_valid=torch.ones(
+                              (5, n_nodes), dtype=torch.bool,
+                              device=device)))))
     small = k8_edge_state(device, n_nodes // 10, 2, tight=True)
     req, offs = k8_edge_gangs(rng, [p_rows])
     req[1_000:, :] = 0
     req[rng.integers(0, 1_000, 50), CPU] = -1_000
-    cases.append((f"p{p_rows}_explicit", small, req, offs, p_rows,
-                  torch.ones((1, n_nodes // 10), dtype=torch.bool,
-                             device=device)))
+    cases.append((f"p{p_rows}_explicit", (
+        (small, torch.from_numpy(req).to(device), offs, p_rows),
+        dict(node_valid=torch.ones((1, n_nodes // 10), dtype=torch.bool,
+                                   device=device)))))
+    # the member mode: the state's node_valid off on a tenth of its nodes
+    # and 2,048 padded rows past them
+    padded = k8_edge_state(device, n_nodes, 4, tight=True,
+                           capacity=n_nodes + 2_048, wide=True)
+    off = padded.node_valid.clone()
+    off[torch.from_numpy(rng.choice(n_nodes, n_nodes // 10,
+                                    replace=False)).to(device)] = False
+    padded = dataclasses.replace(padded, node_valid=off)
+    member_sizes = [2, 2, 0, 1, 31, 32, 33, 63, 64, 65, 130, 300] + list(
+        rng.integers(8, 33, 28))
+    cases.append(("members_40_gangs_p8192", k8_member_case(
+        device, rng, padded, 8_192, member_sizes, 0.03)))
     results = []
-    for name, st, req, offs, p_rows, valid in cases:
-        reqs = torch.from_numpy(req).to(device)
+    for name, call in cases:
         for cname, cfg in cfgs.items():
-            args = (st, reqs, offs, p_rows, valid, cfg)
-            got = k8.offer_slots(*args)
-            want = k8.offer_slots_plain(*args)
+            args, kw = call
+            if cname.startswith("default_") and args[3] > 8_192:
+                continue   # a zero row a step: kept to the shorter cases
+            run = (args, dict(kw, cfg=cfg))
+            got = k8_run(run)
+            want = k8_run(run, plain=True)
             err = max_abs_err(got, want)
             check(err == 0, f"K8 edge {name} / {cname}")
+            sizes_of = np.diff(np.asarray(args[2]))
             results.append(dict(case=name, config=cname, max_abs_err=err,
                                 past_members=int((got.cpu().numpy() > (
-                                    np.diff(offs))[:, None]).sum())))
+                                    sizes_of)[:, None]).sum())))
+    # more gangs than a grid dimension holds: one call of each mode
+    tiny = k8_edge_state(device, 1_024, 5, tight=True)
+    gang_sizes = rng.integers(1, 3, many_gangs)
+    offs = np.concatenate([[0], np.cumsum(gang_sizes)]).astype(np.int64)
+    member_rows = np.concatenate([np.sort(rng.choice(4, m, replace=False))
+                                  for m in gang_sizes])
+    req4, _ = k8_edge_gangs(rng, [4], bands=True)
+    req4 = torch.from_numpy(req4).to(device)
+    many = {
+        "members": ((tiny, req4, offs, 4), dict(
+            rows=member_rows, feasible=torch.from_numpy(
+                rng.random((4, 1_024)) < 0.8).to(device))),
+        "explicit": ((tiny, req4[torch.from_numpy(member_rows).to(device)]
+                      .contiguous(), offs, 4), dict(
+            node_valid=torch.from_numpy(
+                rng.random((many_gangs, 1_024)) < 0.8).to(device)))}
+    for mode, call in many.items():
+        for cname in ("no_config", "instantaneous"):
+            args, kw = call
+            run = (args, dict(kw, cfg=cfgs[cname]))
+            got = k8_run(run)
+            err = 0
+            for lo, hi in ((0, 64), (many_gangs - 128, many_gangs)):
+                want = k8_run(k8_gangs(run, lo, hi), plain=True)
+                err = max(err, max_abs_err(got[lo:hi].contiguous(), want))
+            check(err == 0, f"K8 edge {many_gangs} gangs ({mode}) / {cname}")
+            results.append(dict(case=f"{mode}_{many_gangs}_gangs_p4",
+                                config=cname, max_abs_err=err,
+                                held_gangs=192))
     # the planner on a state padded past the tree: 10,240 tree nodes in a
     # state of 12,288 rows; K8's plan equals the plain version's
     tree = nt.TopologyTree(["spine", "block", "node"])
@@ -6131,7 +6463,7 @@ def phase_offer_slots_edges(device, n_nodes: int = 10_240,
     req_t = nt.TopologyRequirements(desired_slots=24, must_gather_layer=2)
     real = nt.offer_slots
     plans = []
-    for fn in (real, lambda *a: k8.offer_slots_plain(*a)):
+    for fn in (real, k8.offer_slots_plain):
         nt.offer_slots = fn
         try:
             plans.append(nt.plan_gang_placement(big, pods, mask, topo,
@@ -6179,7 +6511,8 @@ def ptxas_summary(path: str) -> list[dict]:
 #: in eight: all but the last; K4 and K4r in eight: the node columns in
 #: shared or global memory, without or with reservations, one selector
 #: word or many; K7 in four: one selector word, many tabled, many past
-#: the table, a dense mask, and its node-column pack; K8 in one)
+#: the table, a dense mask, and its node-column pack; K8's scan and walk
+#: in two each: without and with the threshold test)
 PTXAS_ENTRIES = {"select_candidates": ("select_candidates_kernel", 20),
                  "refresh_candidates": ("refresh_candidates_kernel", 8),
                  "segmented_prefix_accept": ("round_accept_kernel", 1),
@@ -6189,7 +6522,8 @@ PTXAS_ENTRIES = {"select_candidates": ("select_candidates_kernel", 20),
                  "overuse_keys": ("overuse_keys_kernel", 1),
                  "explain_counts": ("explain_counts_kernel", 4),
                  "explain_pack": ("pack_explain_columns", 1),
-                 "offer_slots": ("offer_slots_kernel", 1)}
+                 "offer_slots_scan": ("offer_slots_scan", 2),
+                 "offer_slots_walk": ("offer_slots_walk", 2)}
 
 
 def phase_ptxas(path: str) -> None:
@@ -6252,8 +6586,14 @@ def phase_ptxas(path: str) -> None:
 #: phase 11's pre-pass), from profile_torch_round.py --kernels in turns;
 #: ``6aa9629`` K5's two launches a preemptor and K6's walk a pod a step
 #: (chip_smoke.py's phases 15 and preempt_edges, as PERF.md records them);
-#: ``51debd0`` K7's second design (a ballot a reason over all 10 dims)
+#: ``51debd0`` K7's second design (a ballot a reason over all 10 dims);
+#: ``addfe32`` K8's first design (a CTA a gang and 128 nodes, the node
+#: validity built by torch launches a gang, not counted in its time)
 EARLIER_MS = [
+    ("offer_slots (phase 16 round 1's first 16 gangs, device)", "addfe32",
+     [0.0223, 0.0226]),
+    ("offer_slots (phase 16 round 1's whole call, device)", "addfe32",
+     [0.1359, 0.1361]),
     ("victim_select (phase 15 chain of 256)", "6aa9629",
      [7.33, 7.47, 7.297]),
     ("overuse_revoke (phase 15 round 3)", "6aa9629", [0.969, 1.10, 1.248]),
@@ -6397,7 +6737,12 @@ def main() -> int:
             ms=gke["explain_counts"]["ms"],
             device_ms=gke["explain_counts"]["device_ms"]),
         "explain_counts (phase 15 round 1)": dict(
-            ms=k7_15["ms"], device_ms=k7_15["device_ms"])}
+            ms=k7_15["ms"], device_ms=k7_15["device_ms"]),
+        "offer_slots (phase 16 round 1's first 16 gangs, device)": dict(
+            ms=k8["device_ms"], wrapper_ms=k8["ms"]),
+        "offer_slots (phase 16 round 1's whole call, device)": dict(
+            ms=topo_records[0]["k8"]["device_ms"],
+            wrapper_ms=topo_records[0]["k8"]["ms"])}
     emit("earlier_design", note="earlier times as PERF.md records them, "
          "each labelled with its commit, beside this run's at the same "
          "shapes", kernels=[
@@ -6445,20 +6790,24 @@ def main() -> int:
                                   for r in gang_rounds)),
         phase15=dict(library_ms=None,
                      **{k: k7_15[k] for k in k7_keys + ("launches",)})))
-    # K8 on phase 16's round 1's first K8_HELD_GANGS gangs; its launches
-    # over phase 16's three rounds (one a round), and its numbers on each
-    # round's whole call beside
-    k8_keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
-               "bound_by", "gangs", "member_rows", "p_rows", "nodes",
-               "rows_walked")
+    # K8 (its scan and walk, K8_KERNELS) on phase 16's round 1's first
+    # K8_HELD_GANGS gangs; its launches over phase 16's three rounds (one
+    # call a round, the scan's and the walk's launch), and its numbers on
+    # each round's whole call beside
+    k8_keys = ("max_abs_err", "ms", "device_ms", "device_ms_by_kernel",
+               "plain_ms", "bound_ms", "bound_by", "bound_walk_ms", "mode",
+               "gangs", "member_rows", "p_rows", "nodes", "rows_walked")
     kernels.append(dict(
         name="offer_slots", route="cuda", source=CSRC + "offer_slots.cu",
+        entries=list(K8_KERNELS),
         replaces="koordinator_tpu/ops/network_topology.py:125",
         launches=topo_launches["offer_slots"], library_ms=None,
         **{k: k8[k] for k in k8_keys},
         phase16_rounds=[dict(round=r["round"], **{
-            k: r["k8"][k] for k in ("gangs", "ms", "device_ms", "launches",
-                                    "bound_ms", "bound_by")})
+            k: r["k8"][k] for k in ("gangs", "ms", "device_ms",
+                                    "device_ms_by_kernel", "launches",
+                                    "bound_ms", "bound_by", "bound_walk_ms",
+                                    "plain_ms", "many_ms", "k8_part_ms")})
             for r in topo_records]))
     emit("diagnose", note="the Diagnose phase's host ms a round, its parts "
          "(quota_mask: the post-solve quota mask; compact: the failed rows "

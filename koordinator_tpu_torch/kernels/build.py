@@ -207,9 +207,11 @@ _SIGNATURES = {
     ],
     "koord_offer_slots": [
         _P, _P, _P, _I,                  # node alloc/requested/base, N
-        _P, _P, _P, _I, _I,              # member requests/estimates (S, R), row offsets (G + 1), G, P
-        _P, _P,                          # node_valid (G, N), a zero request's estimate (R,)
+        _P, _P, _P, _I, _I, _I,          # request rows, member rows (or null), offsets (G + 1), G, P, gangs a CTA
+        _P, _P,                          # validity: the state's (N,) with member rows, else (G, N); feasible (P, N) or null
+        _P, _P,                          # estimator factors, defaults (R,)
         _P, _I,                          # config int vector (or null) + its length
+        _P, _P,                          # scratch: cumulative rows (S, 24), totals (G + 1, 24)
         _P,                              # out slots (G, N)
         _P,                              # stream
     ],
@@ -230,7 +232,8 @@ _SIGNATURES = {
 
 #: exported C functions that size a kernel's global scratch, in bytes (K3b's
 #: in int32 words), K1's and K1a's CTAs an SM, K4r's nodes per CTA and
-#: launch plan, K5's grid and the CTAs of K7 the card holds at once
+#: launch plan, K5's grid and the CTAs of K7 and K8's walk the card holds
+#: at once
 _SCRATCH = {
     "koord_select_candidates_scratch_bytes": [_I],      # N
     "koord_select_candidates_ctas_per_sm": [_I],        # 0 K1, 1 K1a int32, 2 K1a 64-bit
@@ -244,6 +247,7 @@ _SCRATCH = {
     "koord_segmented_prefix_accept_scratch_ints": [_L],  # entries
     "koord_preempt_chain_grid": [_I, _I, _I, _I],       # N, B, Q x R, CTAs asked (0: as many as resident)
     "koord_preempt_chain_local_ints": [_I, _I, _I],     # B, Q x R, grid
+    "koord_offer_slots_resident": [_I],                 # thresholds on
 }
 
 

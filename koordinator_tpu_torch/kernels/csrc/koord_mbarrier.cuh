@@ -1,7 +1,8 @@
 // The mbarrier and bulk-copy helpers of the kernels that stage tiles with
-// cp.async.bulk (K1 in select_candidates.cu, K7 in explain_counts.cu): a
-// barrier in this CTA's shared memory, armed with the bytes a phase
-// expects and waited on by parity.
+// cp.async.bulk (K1 in select_candidates.cu, K7 in explain_counts.cu, K8
+// in offer_slots.cu): a barrier in this CTA's shared memory, armed with
+// the bytes a phase expects (or counting its consumers' arrivals) and
+// waited on by parity.
 #pragma once
 
 #include <stdint.h>
@@ -25,6 +26,12 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
           smem_u32(bar)),
       "r"(bytes)
       : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {

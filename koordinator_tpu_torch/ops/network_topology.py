@@ -12,8 +12,9 @@ constrainOfferSlotByPodCountMultiple``, ``:303 searchOfferSlotSatisfiedNodes``,
 ``:353 distributeOfferSlot``; tree built per
 ``frameworkext/networktopology/tree.go:43``).
 
-Split: the offer slots are K8 (``kernels/offer_slots.py``), one launch over
-all of a round's topology gangs (:func:`gang_offer_slots_many`); the tree
+Split: the offer slots are K8 (``kernels/offer_slots.py``), one call over
+all of a round's topology gangs with their node validity folded in
+(:func:`gang_offer_slots_many`); the tree
 aggregation, layer-multiple rounding, candidate eligibility and
 lexicographic ranking are torch ops on the state's device; the recursive
 walk over the *chosen* subtree stays host-side Python, as in JAX: it
@@ -146,32 +147,33 @@ def gang_offer_slots(state: ClusterState, gang_requests: torch.Tensor,
                        [0, p], p, node_valid[None, :].contiguous(), cfg)[0]
 
 
+def member_csr(gang_masks) -> tuple[np.ndarray, np.ndarray]:
+    """(rows, offsets): the CSR of the gangs' member rows that K8 reads,
+    gang k's ``rows[offsets[k]:offsets[k + 1]]``, the set rows of its
+    (P,) bool mask in ascending order."""
+    rows = [np.flatnonzero(np.asarray(m)) for m in gang_masks]
+    offsets = np.zeros(len(rows) + 1, np.int64)
+    offsets[1:] = np.cumsum([len(r) for r in rows])
+    return (np.concatenate(rows) if rows else np.zeros(0, np.int64),
+            offsets)
+
+
 def gang_offer_slots_many(state: ClusterState, pods: PodBatch,
                           gang_masks: list[np.ndarray], cfg=None,
                           feasible: torch.Tensor | None = None
                           ) -> torch.Tensor:
     """(G, N) int32: :func:`gang_candidate_prep`'s offer slots of each
     gang in ``gang_masks`` ((P,) bool member masks over ``pods``' rows),
-    in one K8 launch: each gang's members front-packed in row order, its
-    node validity the state's and every member's feasible nodes
-    (``feasible``: ``pods.feasible_rows(state)``, computed when None)."""
-    dev = state.device
+    in one K8 call over their CSR (:func:`member_csr`): each gang's
+    members front-packed in row order, its node validity the state's and
+    every member's feasible nodes (``feasible``:
+    ``pods.feasible_rows(state)``, computed when None), both folded in the
+    kernel."""
     if feasible is None:
         feasible = pods.feasible_rows(state)
-    member_rows = [np.flatnonzero(np.asarray(m)) for m in gang_masks]
-    offsets = np.zeros(len(member_rows) + 1, np.int64)
-    offsets[1:] = np.cumsum([len(r) for r in member_rows])
-    flat = (np.concatenate(member_rows) if member_rows
-            else np.zeros(0, np.int64))
-    idx = torch.from_numpy(flat.astype(np.int64)).to(dev)
-    requests = pods.requests.index_select(0, idx).contiguous()
-    valid = state.node_valid[None, :].repeat(len(member_rows), 1)
-    for g, rows in enumerate(member_rows):
-        if rows.size:
-            valid[g] &= torch.all(feasible[torch.from_numpy(rows).to(dev)],
-                                  dim=0)
-    return offer_slots(state, requests, offsets.tolist(), pods.capacity,
-                       valid, cfg)
+    rows, offsets = member_csr(gang_masks)
+    return offer_slots(state, pods.requests, offsets, pods.capacity,
+                       cfg=cfg, rows=rows, feasible=feasible)
 
 
 def aggregate_tree(topo: TopologyArrays, offer_slots: torch.Tensor,

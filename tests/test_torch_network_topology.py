@@ -250,3 +250,67 @@ def test_distribute_host_is_the_reference_walk():
                                      existing, root, desired, mults)
                 == tnt._distribute_host(parent, layer, t2n, slots, scores,
                                         existing, root, desired, mults))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_member_csr_is_each_masks_rows(seed):
+    """member_csr, the CSR K8 reads: gang k's rows the set rows of its
+    mask in ascending order, its offsets their running count; empty masks
+    among full ones, and no masks at all."""
+    from koordinator_tpu_torch.ops import network_topology as tnt
+
+    rng = np.random.default_rng(seed)
+    p = 500
+    masks = [rng.random(p) < rng.choice([0.0, 0.01, 0.3])
+             for _ in range(25)]
+    rows, offsets = tnt.member_csr(masks)
+    assert offsets[0] == 0 and offsets.size == len(masks) + 1
+    for k, mask in enumerate(masks):
+        got = rows[offsets[k]:offsets[k + 1]]
+        assert np.array_equal(got, [i for i in range(p) if mask[i]]), k
+    assert offsets[-1] == rows.size == sum(int(m.sum()) for m in masks)
+    empty = tnt.member_csr([])
+    assert empty[0].size == 0 and np.array_equal(empty[1], [0])
+
+
+@pytest.mark.parametrize("dense", [False, True], ids=["classes", "dense"])
+def test_many_by_members_is_each_gangs_prep(dense):
+    """gang_offer_slots_many over the scheduler's member masks, the node
+    validity folded in the call, equals JAX's gang_candidate_prep validity and
+    gang_offer_slots gang by gang: a member whose feasible row is all
+    false, an empty gang and a state padded past the tree."""
+    import jax.numpy as jnp
+
+    from koordinator_tpu.ops import network_topology as jnt
+
+    from koordinator_tpu_torch.ops import network_topology as tnt
+    from tests.torch_parity import config
+
+    rng = np.random.default_rng(70)
+    n, _, _ = tree()
+    state, pods = cluster(3, n, capacity=32, dense=dense)
+    tstate, tpods = port(state, "ClusterState"), port(pods, "PodBatch")
+    gang_id = rng.integers(-1, 8, pods.capacity).astype(np.int32)
+    gang_id[gang_id == 5] = -1      # an empty gang
+    valid = np.asarray(pods.valid)
+    gangs = [3, 0, 5, 7, 1]
+    feasible = np.asarray(pods.feasible_rows(state)).copy()
+    feasible[np.flatnonzero((gang_id == 7) & valid)[0]] = False
+    jcfg = config("default")
+    slots = tnt.gang_offer_slots_many(
+        tstate, tpods, [(gang_id == g) & valid for g in gangs],
+        port(jcfg, "ScoringConfig"), feasible=torch.from_numpy(feasible))
+    for k, g in enumerate(gangs):
+        mask = (gang_id == g) & valid
+        members = np.flatnonzero(mask)
+        node_valid = state.node_valid
+        if members.size:
+            node_valid = node_valid & jnp.all(
+                jnp.asarray(feasible)[members], axis=0)
+        want = jnt.gang_offer_slots(
+            state,
+            jnp.where(jnp.asarray(mask)[:, None], pods.requests, 0)[
+                jnp.asarray(np.argsort(~mask, kind="stable"))],
+            node_valid, jcfg)
+        assert same(want, slots[k]), g
+    assert (slots[3] == 0).all()
