@@ -84,7 +84,12 @@ first failure:
    1,024 reservations); then ``reservation_edges``: every reservation on
    one node, 4,096 records on one CTA (read in place from the wrapper's
    array), mostly exhausted rows, the quota tree, 32,768 nodes (the node
-   columns in the global scratch), and the step's edges: quota leaves
+   columns in the global scratch), negative requests (a third of the
+   pods, with records whose remainder starts above ``reserved`` or below
+   zero: a negative draw raises a remainder; factored behind the quota
+   tree and dense), the INT32_MAX sentinel (K4r's one limit: the wrapper
+   raises where the plain version draws from row 0), and the step's
+   edges: quota leaves
    whose consecutive pods fit one at a time (the next pod, found while
    the current one is scored, is turned away after its charge), nodes
    that tie across the 16 CTAs, and allocate-once and Restricted records
@@ -208,7 +213,25 @@ first failure:
    and stages, 24 and 40 gangs a call; in the member mode a member
    feasible nowhere, disjoint feasible sets, the state's node_valid off
    and padded rows, band requests; 65,600 gangs in one call of each mode;
-   and the planner's plan on a state whose capacity exceeds the tree's.
+   and the planner's plan on a state whose capacity exceeds the tree's;
+17. the round's own gates (``phase_gates``): the flagship nodes with batch
+   allocatable and 50,000 pods (a tenth BE, a tenth on the batch dims),
+   1,024 of them hinted (each excluding 8 nodes, 256 also preferring the
+   16 smallest nodes), on a Scheduler with a started ``SyncBarrier``, a
+   stub elector, a fake clock, ``staleness_threshold_sec`` 5 and a
+   recording ``bind_batch_fn``: a standby round and a closed-barrier
+   round (nothing decided; the profiler's trace holds no device kernel),
+   the hinted round on a dense mask (``full_dense``: K1, K3a, K3b, K4's
+   rescue, K7), a degraded round after the feed stalls (BE and batch pods
+   suspended, the full pass), one still degraded between threshold / 2
+   and the threshold, the exit's cold round (K1) and an incremental round
+   (K2), and a hinted round under the batch threshold (K4 on the dense
+   mask), with arrivals between them.  Then the same rounds with the
+   kernels routed to their plain versions: every round's assignments,
+   ``bind_batch_fn`` payload, failures, suspended names, solve path and
+   node accounting must be equal.  Each round prints its wall, the
+   monitor's ``round_timings`` and the dense mask's host ms; K1 is held
+   and timed on the dense round's batch and on the same pods factored.
 
 The Diagnose phase (K7, ``explain_counts``): every round of phases 9, 12,
 13 and 15 runs with the Scheduler's default ``explain=True``, and
@@ -246,7 +269,8 @@ call beside under ``phase16_rounds``), bound, plain
 and library time, under ``phase12`` the same at phase 12's shapes with
 its launches over phase 12's four rounds, and under ``phase13`` the
 launches over phase 13's three rounds, with K1's, K3b's and K4's numbers
-at its round 1;
+at its round 1, and under ``phase17`` the launches over phase 17's rounds
+(K1's with its dense and factored numbers);
 K4's numbers are those at the steady round's rescue, K3b's at the cold
 solve's first round behind the quota tree, K4r's at round 2's pre-pass,
 K1a's at phase 14's cold round;
@@ -294,8 +318,14 @@ INT32_OPS_PER_S: float | None = None
 INT32_OPS_PER_CLOCK_PER_SM = 64
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, stamped with the seconds since the script
+    started (``elapsed_s``)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - _T0}), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -701,7 +731,16 @@ def plain_path():
     saved = (ba.select_candidates_kernel, ba.refresh_candidates_kernel,
              ba.round_fit_choose, ba.round_prefix_accept,
              greedy_scan.greedy_scan_kernel, k7.explain_counts)
-    ba.select_candidates_kernel = k1.select_candidates_plain
+
+    def k1_plain(state, pods, cfg, k=32, strata=(5, 15), chunk=None,
+                 method="exact"):
+        # rows are independent: any chunking gives the same bits, and
+        # CANDIDATE_CHUNK rows keep a flagship batch's (P, N) terms small
+        return k1.select_candidates_plain(
+            state, pods, cfg, k, strata, chunk=chunk or ba.CANDIDATE_CHUNK,
+            method=method)
+
+    ba.select_candidates_kernel = k1_plain
     ba.refresh_candidates_kernel = k2.refresh_candidates_plain
     ba.round_fit_choose = round_fit_choose.round_fit_choose_plain
     ba.round_prefix_accept = prefix_accept.round_prefix_accept_plain
@@ -2519,7 +2558,83 @@ RSV_EDGES = (
     ("exhausted rows", 1_000, 300, 128, "dense", dict(exhausted=0.6)),
     ("the quota tree", 10_240, 400, 512, "classes", dict(quota=True)),
     ("node columns in the global scratch", 32_768, 200, 256, "classes", {}),
+    ("negative requests", 10_240, 400, 512, "classes",
+     dict(negative=True, quota=True)),
+    ("negative requests, dense", 1_000, 300, 128, "dense",
+     dict(negative=True, on_nodes=list(range(0, 1_000, 40)))),
 )
+
+
+def negative_edge(rng, pods, rsv):
+    """``pods`` with a negative request on a third of them (cpu, and memory
+    on half of those), and ``rsv`` with a negative ``allocated`` on a fifth
+    of its rows (a remainder above ``reserved``) and one past ``reserved``
+    on a tenth (a negative remainder): K4r's negative cases."""
+    import torch
+
+    req = pods.requests.cpu().numpy().copy()
+    neg = rng.random(req.shape[0]) < 0.35
+    req[neg, CPU] = -rng.integers(1, 6_000, int(neg.sum()))
+    two = neg & (rng.random(req.shape[0]) < 0.5)
+    req[two, MEM] = -rng.integers(1, 20_000, int(two.sum()))
+    alloc = rsv.allocated.cpu().numpy().copy()
+    reserved = rsv.reserved.cpu().numpy()
+    up = rng.random(alloc.shape[0]) < 0.2
+    alloc[up, CPU] = -rng.integers(1, 4_000, int(up.sum()))
+    down = ~up & (rng.random(alloc.shape[0]) < 0.1)
+    alloc[down, MEM] = reserved[down, MEM] + 100
+    dev = pods.requests.device
+    return (pods.replace(requests=torch.from_numpy(req).to(dev)),
+            rsv.replace(allocated=torch.from_numpy(alloc).to(dev)))
+
+
+def sentinel_edge(device) -> dict:
+    """K4r's one limit on the card: a pod whose only fitting record, on
+    its chosen node, has a total remainder of exactly 2**31 - 1.  The plain
+    version (the reference's nomination) draws from row 0 of the set, on
+    another node; the wrapper raises ReservationSentinelError."""
+    import torch
+
+    from koordinator_tpu_torch.kernels.greedy_scan import (
+        ReservationSentinelError,
+        reservation_scan_kernel,
+    )
+    from koordinator_tpu_torch.ops.assignment import greedy_scan_plain
+    from koordinator_tpu_torch.ops.reservation import ReservationSet
+    from koordinator_tpu_torch.state.cluster_state import ClusterState, PodBatch
+
+    alloc = np.zeros((2, R), np.int32)
+    alloc[:, CPU], alloc[:, MEM] = 16_000, 65_536
+    requested = np.zeros((2, R), np.int32)
+    requested[:, CPU] = (16_000, 15_000)
+    state = ClusterState.from_arrays(alloc, requested=requested, capacity=2,
+                                     device=device)
+    req = np.zeros((1, R), np.int32)
+    req[0, CPU] = 2_000
+    pods = PodBatch.build(req, node_capacity=2, device=device)
+    reserved = np.zeros((2, R), np.int32)
+    reserved[0, CPU] = 1_000
+    reserved[1, CPU], reserved[1, 2] = 3_000, 2**31 - 1 - 3_000
+    rsv = ReservationSet.build(reserved, np.array([0, 1], np.int32),
+                               device=device)
+    match = torch.zeros((pods.capacity, rsv.capacity), dtype=torch.bool,
+                        device=device)
+    match[0, 1] = True
+    cfg = scoring_config("default", device)
+    cfg = cfg.replace(usage_thresholds=torch.zeros_like(cfg.usage_thresholds),
+                      estimator_defaults=torch.zeros_like(
+                          cfg.estimator_defaults))
+    pa, prc, _, _, _ = greedy_scan_plain(state, pods, cfg, None, rsv, match)
+    check(int(pa[0]) == 1 and int(prc[0]) == 0,
+          "the plain version draws from row 0 at the sentinel")
+    raised = False
+    try:
+        reservation_scan_kernel(state, pods, cfg, rsv, match)
+    except ReservationSentinelError:
+        raised = True
+    check(raised, "K4r raises at the INT32_MAX sentinel")
+    return dict(case="the INT32_MAX sentinel", raised=raised,
+                plain_assignment=int(pa[0]), plain_rsv_choice=int(prc[0]))
 
 
 def quota_state(device, head, checked, chain):
@@ -2697,10 +2812,25 @@ def phase_reservation_edges(device) -> None:
         quota = None
         if opt.get("quota"):
             quota, pods = quota_setup(pods, device, 300 + k)
-        out = rsv_case(device, state, pods, scoring_config("default", device),
-                       rsv, match, quota, reps=2, with_bound=False)
+        if opt.get("negative"):
+            pods, rsv = negative_edge(rng, pods, rsv)
+        cfg = scoring_config("default", device)
+        out = rsv_case(device, state, pods, cfg, rsv, match, quota, reps=2,
+                       with_bound=False)
         check(out["through_reservation"] > 0,
               f"{label}: pods drew from reservations")
+        if opt.get("negative"):
+            # a pod with a negative request drew from a record, raising
+            # its remainder
+            _, rc, _, nr, _ = reservation_scan_kernel(state, pods, cfg, rsv,
+                                                      match, quota)
+            neg = (pods.requests < 0).any(1) & pods.valid & (rc >= 0)
+            rows = rc[neg].long()
+            out["negative_draws"] = int(neg.sum())
+            check(bool(((nr.reserved[rows] - nr.allocated[rows])
+                        > (rsv.reserved[rows] - rsv.allocated[rows]))
+                       .any()),
+                  f"{label}: a negative request raised a remainder")
         cases.append(dict(case=label, **out))
     # the step's edges with reservations: the quota leaves' pairs, and
     # tied nodes whose records are allocate-once, Restricted or Aligned
@@ -2743,6 +2873,7 @@ def phase_reservation_edges(device) -> None:
         cases.append(dict(case=f"step: {case}", **out,
                           through_allocate_once=once,
                           through_restricted=restricted))
+    cases.append(sentinel_edge(device))
     by = {c["case"]: c for c in cases}
     check(by["every reservation on one node"]["most_on_a_node"] >= 40,
           "a node holds more records than a warp")
@@ -6218,6 +6349,339 @@ def phase_topology(device, n_nodes: int = 10_240, n_pods: int = 50_000,
     return records, held, totals
 
 
+# -- phase 17: the round's own gates ------------------------------------------
+
+N_HINTED = 1_024          # hinted pods, each excluding GATE_EXCLUDED nodes
+N_PREFER = 256            # of them, also preferring GATE_PREFERRED nodes
+GATE_EXCLUDED = 8
+GATE_PREFERRED = 16
+GATE_THRESHOLD_S = 5.0    # the staleness watchdog's threshold
+#: arrivals before rounds 3, 4, 5a, 5b and 6 (the last under the batch
+#: threshold)
+GATE_ARRIVALS = (3_000, 2_000, 1_500, 1_500, 300)
+QOS_BE = 1
+BATCH_CPU_DIM, BATCH_MEM_DIM = 6, 7
+
+
+def gate_pods(rng, start: int, count: int):
+    """Pods of the flagship's ranges (main_path_specs): a tenth BE, a
+    tenth requesting the batch dims instead of cpu and memory (koordinator's
+    colocated batch tier), the rest prod."""
+    import dataclasses
+
+    from koordinator_tpu_torch.scheduler.snapshot import PodSpec
+
+    out = []
+    for j in range(count):
+        req = np.zeros(R, np.int32)
+        req[CPU] = rng.integers(100, 4_000)
+        req[MEM] = rng.integers(128, 8_192)
+        kind = j % 10
+        if kind == 5:
+            req[BATCH_CPU_DIM], req[BATCH_MEM_DIM] = req[CPU], req[MEM]
+            req[CPU] = req[MEM] = 0
+        pod = PodSpec(name=f"gate-{start + j}", requests=req,
+                      priority=int(rng.integers(3000, 9999)),
+                      creation=float(start + j))
+        out.append(dataclasses.replace(pod, qos=QOS_BE) if kind == 0
+                   else pod)
+    return out
+
+
+def gate_specs(seed: int = 17, n_nodes: int = 10_240, n_pods: int = 50_000):
+    """main_path_specs' flagship nodes with batch allocatable (a third of
+    cpu and memory, as the node resource controller derives it) and its
+    pods with BE and batch-dimension pods among them."""
+    import dataclasses
+
+    nodes, _ = main_path_specs(seed, n_nodes, 0)
+    out = []
+    for spec in nodes:
+        alloc = spec.allocatable.copy()
+        alloc[BATCH_CPU_DIM] = alloc[CPU] // 3
+        alloc[BATCH_MEM_DIM] = alloc[MEM] // 3
+        out.append(dataclasses.replace(spec, allocatable=alloc))
+    rng = np.random.default_rng(seed + 1)
+    return out, gate_pods(rng, 0, n_pods), rng
+
+
+class GateElector:
+    """A leader elector stub: ``tick()`` says whether this replica leads."""
+
+    def __init__(self):
+        self.leading = False
+
+    def tick(self) -> bool:
+        return self.leading
+
+
+def device_kernel_events(fn, device) -> int | None:
+    """The CUDA kernels a torch.profiler trace of ``fn()`` holds (None off
+    the card)."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        fn()
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def gates_run(device, n_nodes: int, n_pods: int, n_hinted: int,
+              n_prefer: int, arrivals, threshold: int, plain: bool,
+              probe: list | None = None) -> list[dict]:
+    """Phase 17's rounds on one fresh scheduler: a standby round and a
+    closed-barrier round, the hinted dense round, a degraded round, a round
+    still degraded (hysteresis), the exit's cold round and an incremental
+    round, and a hinted round under the batch threshold.  Each record
+    holds what the plain run must equal (assignments, the bind_batch_fn
+    payload, failures, suspended names, solve path, node accounting) and
+    the round's numbers.  ``plain``: the kernels routed to their plain
+    versions.  ``probe`` (a list) gets the dense round's solves."""
+    import dataclasses
+
+    from koordinator_tpu_torch.kernels import build
+    from koordinator_tpu_torch.scheduler.barrier import SyncBarrier
+    from koordinator_tpu_torch.scheduler.hints import (
+        PodHint,
+        SchedulingHints,
+    )
+    from koordinator_tpu_torch.scheduler.scheduler import Scheduler
+    from koordinator_tpu_torch.scheduler.snapshot import ClusterSnapshot
+
+    nodes, pods, rng = gate_specs(17, n_nodes, n_pods)
+    snap = ClusterSnapshot(capacity=n_nodes, device=device)
+    for spec in nodes:
+        snap.upsert_node(spec)
+    clock, version, seen = [0.0], [0], [0]
+
+    def mark():
+        version[0] += 1
+        return version[0]
+
+    barrier = SyncBarrier(mark, lambda: seen[0])
+    barrier.start()
+    hints = SchedulingHints(snap)
+    elector = GateElector()
+    payloads: list = []
+    sched = Scheduler(snap, device=device, hints=hints, barrier=barrier,
+                      elector=elector, bind_batch_fn=payloads.append,
+                      staleness_threshold_sec=GATE_THRESHOLD_S,
+                      clock=lambda: clock[0])
+    sched.batch_solver_threshold = threshold
+    # the forced threshold (phase 9's): the exit's second round refreshes
+    # the cache whatever its dirty fractions
+    sched.incremental_dirty_threshold = 1.0
+    sched.enqueue_many(pods)
+    names = [f"node-{i}" for i in range(n_nodes)]
+    # the preferred nodes are the smallest by cpu: the pods preferring
+    # them crowd them, so the dense round rescues and fails some
+    by_cpu = np.argsort([spec.allocatable[CPU] for spec in nodes],
+                        kind="stable")
+    preferred = {names[i] for i in by_cpu[:GATE_PREFERRED]}
+    hinted = rng.choice(n_pods, n_hinted, replace=False)
+    for k, j in enumerate(hinted):
+        hints.set_hint(pods[int(j)].name, PodHint(
+            excluded_nodes=set(rng.choice(names, GATE_EXCLUDED,
+                                          replace=False)),
+            preferred_nodes=set(preferred) if k < n_prefer else set()))
+    records = []
+    routed = plain_path() if plain else contextlib.nullcontext()
+
+    def one(label: str, at: float, sync_at: float | None = None,
+            gated: bool = False):
+        if sync_at is not None:
+            clock[0] = sync_at
+            sched.note_sync_event()
+        clock[0] = at
+        build.reset_launch_counts()
+        n_payloads = len(payloads)
+        log: list = []
+        out = {}
+
+        def go():
+            with solve_probe(log, device):
+                sync(device)
+                t0 = time.perf_counter()
+                out["res"] = sched.schedule_round()
+                sync(device)
+                out["wall"] = time.perf_counter() - t0
+
+        kernels = (device_kernel_events(go, device) if gated and not plain
+                   else go())
+        res = out["res"]
+        if probe is not None and label == "dense":
+            probe.extend(log)
+        rec = dict(
+            round=label, path=(sched.last_solve_path if not gated
+                               else None),
+            wall_s=out["wall"], pods=res.round_pods,
+            binds=len(res.assignments), failed=len(res.failures),
+            rescued=res.rescued, degraded=sched.degraded,
+            suspended=sched.last_suspended,
+            launches={k: v for k, v in build.LAUNCHES.items() if v},
+            round_timings_ms={k: v * 1e3 for k, v in
+                              sched.monitor.round_timings.items()},
+            solve_ms=[e["ms"] for e in log if e["solver"] == "batch"],
+            rescue_ms=[e["ms"] for e in log if e["solver"] == "greedy"],
+            dense_mask_ms=(sched.last_dense_mask_s * 1e3
+                           if label in ("dense", "hinted_greedy") else None),
+            diagnose_ms=sched.last_diagnose_s * 1e3,
+            pending=len(sched.pending), device_kernels=kernels,
+            held=dict(
+                assignments=dict(res.assignments),
+                payload=[[tuple(x) for x in call]
+                         for call in payloads[n_payloads:]],
+                failures={n: dataclasses.asdict(d)
+                          for n, d in res.failures.items()},
+                suspended=list(sched._last_suspended_names),
+                path=sched.last_solve_path,
+                node_requested=sched.snapshot.state.node_requested.cpu()
+                .numpy().copy()))
+        records.append(rec)
+        return res
+
+    with routed:
+        one("standby", 1.0, sync_at=0.0, gated=True)
+        elector.leading = True
+        one("barrier_closed", 1.5, gated=True)
+        seen[0] = version[0]
+        one("dense", 2.0, sync_at=2.0)
+        for j in hinted:
+            hints.clear(pods[int(j)].name)
+        start = n_pods
+        for rnd, (label, at, sync_at) in enumerate((
+                ("degraded", 10.0, None),
+                ("hysteresis", 14.0, 11.0),
+                ("exit_cold", 16.0, 15.0),
+                ("incremental", 17.0, 16.5))):
+            sched.enqueue_many(gate_pods(rng, start, arrivals[rnd]))
+            start += arrivals[rnd]
+            one(label, at, sync_at=sync_at)
+        late = gate_pods(rng, start, arrivals[4])
+        sched.enqueue_many(late)
+        for pod in late[: max(arrivals[4] // 5, 1)]:
+            hints.set_hint(pod.name, PodHint(excluded_nodes=set(
+                rng.choice(names, GATE_EXCLUDED, replace=False))))
+        one("hinted_greedy", 18.0, sync_at=17.5)
+    return records
+
+
+def phase_gates(device, n_nodes: int = 10_240, n_pods: int = 50_000,
+                n_hinted: int = N_HINTED, n_prefer: int = N_PREFER,
+                arrivals=GATE_ARRIVALS, threshold: int = 1_024):
+    """Phase 17 (the round's gates at the flagship width): its rounds on
+    the kernels, then again with the kernels routed to their plain
+    versions; every round's assignments, bind_batch_fn payload, failures,
+    suspended names, solve path and node accounting must be equal.  The
+    gated rounds launch nothing (the profiler's trace holds no device
+    kernel); the dense round launches K1, K3a, K3b, K4 (the rescue) and K7
+    on the dense mask; the degraded rounds suspend BE and batch-dimension
+    pods and solve full-pass; the exit runs a cold round (K1) and an
+    incremental one (K2); the last hinted round runs K4 on the dense mask.
+    Then K1 on the dense round's batch against its plain version, and
+    beside it on the same pods with the factored mask.  Returns (the
+    kernel run's records, the phase's launches, K1's dense and factored
+    numbers)."""
+    import torch
+
+    probe: list = []
+    t0 = time.perf_counter()
+    got = gates_run(device, n_nodes, n_pods, n_hinted, n_prefer, arrivals,
+                    threshold, plain=False, probe=probe)
+    kernel_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = gates_run(device, n_nodes, n_pods, n_hinted, n_prefer, arrivals,
+                     threshold, plain=True)
+    plain_s = time.perf_counter() - t0
+    on_card = torch.device(device).type == "cuda"
+    for g, w in zip(got, want, strict=True):
+        label = g["round"]
+        gh, wh = g.pop("held"), w.pop("held")
+        for key in ("assignments", "payload", "failures", "suspended",
+                    "path"):
+            check(gh[key] == wh[key],
+                  f"phase 17 {label}: {key} equal the plain run's")
+        check(np.array_equal(gh["node_requested"], wh["node_requested"]),
+              f"phase 17 {label}: node accounting equals the plain run's")
+        check(gh["payload"] == ([list(gh["assignments"].items())]
+                                if gh["assignments"] else []),
+              f"phase 17 {label}: bind_batch_fn took the round's binds")
+    by = {r["round"]: r for r in got}
+    for label in ("standby", "barrier_closed"):
+        r = by[label]
+        check(r["binds"] == 0 and not r["launches"] and not r["path"]
+              and not r["round_timings_ms"],
+              f"phase 17 {label}: nothing decided, nothing launched")
+        if on_card:
+            check(r["device_kernels"] == 0,
+                  f"phase 17 {label}: the trace holds no device kernel")
+    dense = by["dense"]
+    check(dense["path"] == "full_dense", "phase 17: the hinted round is "
+          "full_dense")
+    check(dense["binds"] > 0 and dense["failed"] > 0,
+          "phase 17: the dense round bound pods and failed some")
+    for label in ("degraded", "hysteresis"):
+        check(by[label]["path"] == "degraded" and by[label]["degraded"],
+              f"phase 17 {label}: degraded, full pass")
+        check(by[label]["suspended"] > 0, f"phase 17 {label}: suspended")
+    check(by["exit_cold"]["path"] == "full_cold"
+          and not by["exit_cold"]["degraded"]
+          and by["exit_cold"]["suspended"] == 0,
+          "phase 17: the exit re-warms the cache cold")
+    check(by["incremental"]["path"] == "incremental",
+          "phase 17: the round after the exit refreshes the cache")
+    check(by["hinted_greedy"]["path"] == "greedy",
+          "phase 17: the last hinted round is under the batch threshold")
+    if on_card:
+        for label, kernels in (
+                ("dense", ("select_candidates", "round_fit_choose",
+                           "segmented_prefix_accept", "greedy_scan",
+                           "explain_counts")),
+                ("degraded", ("select_candidates",)),
+                ("exit_cold", ("select_candidates",)),
+                ("incremental", ("refresh_candidates",)),
+                ("hinted_greedy", ("greedy_scan",))):
+            for k in kernels:
+                check(by[label]["launches"].get(k, 0) > 0,
+                      f"phase 17 {label}: {k} launched")
+    launches: dict = {}
+    for r in got:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    # K1 on the dense round's batch, and on the same pods factored
+    batch_solves = [e for e in probe if e["solver"] == "batch"]
+    check(bool(batch_solves), "phase 17: the dense round's solve was logged")
+    solve = batch_solves[0]
+    cfg, state, pods = solve["cfg"], solve["state"], solve["batch"]
+    k1_dense = held_k1(device, state, pods, cfg, "exact",
+                       where="on phase 17's dense mask")
+    k1_dense.pop("out")
+    k1_dense.update(k1_bound(state, pods, cfg))
+    c = 8
+    factored = pods.replace(
+        feasible=None,
+        selector_mask=torch.ones((pods.capacity, c), dtype=torch.bool,
+                                 device=pods.requests.device))
+    k1_fact = held_k1(device, state, factored, cfg, "exact",
+                      where="on phase 17's pods, factored")
+    k1_fact.pop("out")
+    k1_fact.update(k1_bound(state, factored, cfg))
+    for r in got:
+        emit("gate_round", **r)
+    emit("gates", nodes=n_nodes, pods=n_pods, hinted=n_hinted,
+         preferring=n_prefer, kernel_run_s=kernel_s, plain_run_s=plain_s,
+         launches=launches, k1_dense=k1_dense, k1_factored=k1_fact)
+    return got, launches, dict(dense=k1_dense, factored=k1_fact)
+
+
 def _per_call_ms(times) -> dict | None:
     if not times:
         return None
@@ -6682,6 +7146,7 @@ def main() -> int:
             device, one_quota=one_quota)
     phase_offer_slots_edges(device)
     topo_records, k8, topo_launches = phase_topology(device)
+    gate_records, gate_launches, gate_k1 = phase_gates(device)
     kernels[1:1] = [dict(
         name="refresh_candidates", route="cuda",
         source=CSRC + "refresh_candidates.cu",
@@ -6809,6 +7274,18 @@ def main() -> int:
                                     "bound_ms", "bound_by", "bound_walk_ms",
                                     "plain_ms", "many_ms", "k8_part_ms")})
             for r in topo_records]))
+    # phase 17 (the round's gates): its launches beside each kernel's, and
+    # K1 on its dense round's batch beside the same pods factored
+    for entry in kernels:
+        n17 = gate_launches.get(entry["name"], 0)
+        if n17:
+            entry["phase17"] = dict(launches=n17)
+    k1_entry = next(e for e in kernels if e["name"] == "select_candidates")
+    k1_entry.setdefault("phase17", {}).update(
+        dense={k: gate_k1["dense"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+        factored={k: gate_k1["factored"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
     emit("diagnose", note="the Diagnose phase's host ms a round, its parts "
          "(quota_mask: the post-solve quota mask; compact: the failed rows "
          "and their compacted batch; k7: K7 and the copy back; diagnoses; "

@@ -92,11 +92,17 @@
 // A pod that quota rejects, or that no node takes, changes no reservation
 // either, so K4's admission skip holds.  The rows live in shared memory
 // beside the node columns when they fit there, else they stay in the
-// wrapper's global array (the same records, updated in place).  The
-// wrapper checks that every remainder is non-negative and sums below
-// 2^31 - 1 and that no request is negative: the remainders then only
-// shrink, and the nomination never meets the reference's INT32_MAX
-// sentinel.
+// wrapper's global array (the same records, updated in place).
+// Negative requests are taken as the reference takes them: a draw of a
+// negative amount lowers ``allocated``, so a remainder may rise above
+// ``reserved`` (or start outside [0, reserved]); the live flag is recomputed
+// on every dim after each draw, and the total remainder is summed in
+// wrapping int32 as the reference sums it.  The one case not taken: a
+// nomination whose fitting records' totals are all exactly INT32_MAX,
+// where the reference's argmin falls on its INT32_MAX sentinel and names
+// row 0 of the set, whatever node it is on.  The kernel writes
+// kRsvSentinel into that pod's reservation choice instead of drawing, and
+// the wrapper raises.
 
 #include <cooperative_groups.h>
 
@@ -130,6 +136,8 @@ constexpr int kRsvOnce = 1;        // flags: allocate-once
 constexpr int kRsvRestricted = 2;  // flags: Restricted policy
 constexpr int kRsvLive = 4;        // flags: a remainder is left (the
                                    // kernel keeps it)
+constexpr int kRsvSentinel = -2;   // out_rsv: the nomination met the
+                                   // reference's INT32_MAX sentinel
 
 __device__ __forceinline__ long long warp_max(long long v) {
 #pragma unroll
@@ -686,6 +694,14 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
               }
             }
             key = warp_min(key);
+            if (key != LLONG_MAX && (key >> 32) == 0x7FFFFFFFll) {
+              // every fitting record's total is INT32_MAX, the reference's
+              // own sentinel: its argmin then names row 0 of the set, on
+              // whatever node.  Reported for the wrapper to raise on; no
+              // draw
+              if (lane == 0) ra.out_rsv[idx] = kRsvSentinel;
+              key = LLONG_MAX;
+            }
             // allocate_from_reservation: draw min(request, remainder) per
             // dim, charge the node the spill
             if (key != LLONG_MAX) {

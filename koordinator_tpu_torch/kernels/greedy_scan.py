@@ -35,6 +35,15 @@ RSV_INTS = 2 * NUM_RESOURCE_DIMS + 3
 #: (csrc/greedy_scan.cu kWin)
 SCAN_WINDOW = 256
 _ONCE, _RESTRICTED = 1, 2
+#: K4r's reservation choice where a nomination met the reference's
+#: INT32_MAX sentinel (csrc/greedy_scan.cu kRsvSentinel)
+RSV_SENTINEL = -2
+
+
+class ReservationSentinelError(ValueError):
+    """K4r's one limit: every fitting record on a pod's chosen node has a
+    total remainder of exactly 2**31 - 1 (int32, wrapping), where the
+    reference's nomination falls on its own INT32_MAX sentinel."""
 
 
 def _scan_args(state: ClusterState, pods: PodBatch, cfg: ScoringConfig,
@@ -160,11 +169,13 @@ def reservation_scan_kernel(state: ClusterState, pods: PodBatch,
     """K4r's wrapper: (assignments, rsv_choice, new_state, new_rsv,
     new_quota) as :func:`greedy_scan_plain` returns them with ``rsv``.
 
-    On the card it raises unless every placed reservation row's remainder
-    is non-negative with a total below 2**31 - 1 and no valid pod requests
-    a negative amount: then the remainders only shrink through the scan
-    (what the kernel's nomination relies on).  The inputs are not
-    modified."""
+    Negative requests and remainders outside [0, reserved] are taken as
+    the plain version takes them.  On the card it raises
+    :class:`ReservationSentinelError` where a nomination meets the
+    reference's INT32_MAX sentinel: every fitting record on the chosen
+    node has a total remainder (summed in wrapping int32) of exactly
+    2**31 - 1, and the reference's argmin then names row 0 of the set,
+    whatever node that row is on.  The inputs are not modified."""
     if build.on_cpu(state.node_allocatable, pods.requests,
                     cfg.usage_thresholds, rsv.reserved, match,
                     None if quota is None else quota.headroom):
@@ -180,14 +191,6 @@ def reservation_scan_kernel(state: ClusterState, pods: PodBatch,
     lib = build.lib()
     records, perm, vmax = reservation_records(
         rsv, n, lib.koord_reservation_scan_nodes_per_cta(n))
-    rem = records[:, :r].to(torch.int64) - records[:, r:2 * r]
-    bad = ((rem < 0).any() | (rem.sum(1) >= 2**31 - 1).any()
-           | ((pods.requests < 0).any(1) & pods.valid).any())
-    if bool(bad):
-        raise ValueError(
-            "reservation_scan: the kernel takes remainders in "
-            "[0, reserved] summing below 2**31 - 1 and non-negative "
-            "requests")
     launch, assignments, new_state, new_quota = _scan_args(
         state, pods, cfg, quota, lib.koord_reservation_scan_scratch_bytes)
     rsv_choice = torch.full((p,), -1, dtype=torch.int32,
@@ -202,6 +205,11 @@ def reservation_scan_kernel(state: ClusterState, pods: PodBatch,
         build.ptr(rsv_choice), build.stream_of(assignments))
     build.check(err, "reservation_scan")
     build.LAUNCHES["reservation_scan"] += 1
+    if bool((rsv_choice == RSV_SENTINEL).any()):
+        raise ReservationSentinelError(
+            "reservation_scan: a nomination met the reference's INT32_MAX "
+            "sentinel (every fitting record on the chosen node has a total "
+            "remainder of 2**31 - 1)")
     allocated = rsv.allocated.clone()
     allocated[perm] = records[:, r:2 * r]
     return (assignments, rsv_choice, new_state,
@@ -242,7 +250,8 @@ def greedy_scan_mirror(state: ClusterState, pods: PodBatch,
       by node): a node fits through a record when a matched record of its
       range fits the pod; the nomination re-tests the chosen node's range
       and takes the smallest total remainder, the lowest record (row) on
-      ties.
+      ties; a nomination at the INT32_MAX sentinel raises
+      :class:`ReservationSentinelError`, as the kernel's wrapper does.
     ``trace``, when given, gets ``headroom``: the (headroom, min_headroom)
     before the scan and after each charge of the quota, ``resumed``: how
     many speculated pods the re-check turned away, and ``rose``: how many
@@ -353,6 +362,9 @@ def greedy_scan_mirror(state: ClusterState, pods: PodBatch,
                 if cand:
                     total = (reserved - allocated).sum(-1).to(torch.int32)
                     j = min(cand, key=lambda c: (int(total[c]), c))
+                    if int(total[j]) == 2**31 - 1:
+                        raise ReservationSentinelError(
+                            "the nomination met the INT32_MAX sentinel")
                     rem = reserved[j] - allocated[j]
                     take = torch.minimum(req, rem)
                     allocated[j] = (reserved[j] if int(flags[j]) & _ONCE

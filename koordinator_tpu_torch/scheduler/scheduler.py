@@ -82,7 +82,9 @@ reservation to that reservation and frees only the rest of its request;
 removing or expiring a reservation returns its remainder to the node.
 
 ``last_solve_path`` names the path of the last round: the JAX scheduler's
-names for batch rounds, and ``greedy`` for a round under the threshold
+names for batch rounds (``full_gang``, ``full_dense``, ``degraded``,
+``disabled``, or the cache's), and ``greedy`` for a round under the
+threshold
 (the JAX scheduler leaves the attribute as it was on such a round and
 labels its latency metric ``greedy``).
 
@@ -101,13 +103,31 @@ annotation payloads land in ``resource_status``, and with the
 releasing a bound pod frees them, and ``add_bound_pod``'s
 ``resource_status`` restores them.
 
-Left out of this reduced shell, and kept by the JAX scheduler: hints and
-their dense masks, forecast and quality modes (so the topology planner is
-the baseline one), degraded mode (so no pod is held back as
-``degraded_suspended``), tenancy, the solve mesh, pod traces
-(``pod_trace_id`` is None, as in JAX without ``trace_pods``), the flight
-recorder, and the journey, timeline and metrics hooks (among them the
-explain rollup's gauges).
+The round's own gates, before any of the above: a leader ``elector``
+whose ``tick()`` is false makes the round decide nothing (``last_result``
+becomes the empty result), and so does a startup ``barrier`` not yet
+passed (``last_result`` stays); then the staleness watchdog flips degraded
+mode from the sync feed's age (``snapshot.mark_sync``, through
+:meth:`Scheduler.note_sync_event`): past ``staleness_threshold_sec`` the
+rounds suspend BE and batch/mid-dimension pods in PreEnqueue (explained as
+``degraded_suspended``) and solve full-pass (``degraded``) without the
+candidate cache, until the feed's age is back at or under
+``staleness_exit_sec`` (default threshold / 2).  With ``hints``
+(:class:`~koordinator_tpu_torch.scheduler.hints.SchedulingHints`), a round
+in which any pod is hinted solves over a dense (P, N) mask, its hinted rows
+edited (``full_dense``), not cached.  ``monitor`` times each phase
+(Reservations, Nominated, QuotaRevoke, PreEnqueue, BatchBuild, Solve,
+Reserve, Bind, Diagnose, PostFilter) into ``round_timings``; ``faults``'
+``on_solve()`` runs at the start of Solve; ``bind_batch_fn``, when set,
+takes the round's main bind set as one list in bind order instead of
+``bind_fn``'s calls.
+
+Left out of this reduced shell, and kept by the JAX scheduler: forecast and
+quality modes (so the topology planner is the baseline one), tenancy, the
+solve mesh, the debug service, pod traces (``pod_trace_id`` is None, as in
+JAX without ``trace_pods``), the flight recorder, and the journey,
+timeline, tracing and metrics hooks (among them the monitor's, the
+watchdog's gauges and the explain rollup's).
 """
 
 from __future__ import annotations
@@ -119,7 +139,11 @@ import numpy as np
 import torch
 
 from koordinator_tpu_torch.api.qos import QoSClass
-from koordinator_tpu_torch.api.resources import ResourceDim
+from koordinator_tpu_torch.api.resources import (
+    BATCH_DIMS,
+    MID_DIMS,
+    ResourceDim,
+)
 from koordinator_tpu_torch.features import SCHEDULER_GATES
 from koordinator_tpu_torch.ops import batch_assign as ba
 from koordinator_tpu_torch.ops import explain as ex
@@ -160,6 +184,7 @@ from koordinator_tpu_torch.scheduler.explanation import (
     ExplanationRing,
     PlacementExplanation,
 )
+from koordinator_tpu_torch.scheduler.monitor import SchedulerMonitor
 from koordinator_tpu_torch.scheduler.reservations import (
     ReservationCache,
     ReservationPhase,
@@ -278,7 +303,11 @@ class Scheduler:
                  preempt_fn=None, explanations=None, auditor=None,
                  explain: bool = True,
                  topology_tree: TopologyArrays | None = None,
-                 cpu_manager=None, device_manager=None):
+                 cpu_manager=None, device_manager=None, bind_batch_fn=None,
+                 monitor: SchedulerMonitor | None = None, barrier=None,
+                 hints=None, elector=None,
+                 staleness_threshold_sec: float | None = None,
+                 staleness_exit_sec: float | None = None, faults=None):
         if device is not None and torch.device(device) != snapshot.device:
             raise ValueError(f"device {device} differs from the snapshot's "
                              f"{snapshot.device}")
@@ -288,6 +317,27 @@ class Scheduler:
                        else ScoringConfig.default(self.device))
         self.quota_tree = quota_tree
         self.bind_fn = bind_fn
+        #: batched bind sink: each round's whole bind set arrives as ONE
+        #: call ([(pod, node), ...] in bind order); a round with both set
+        #: calls bind_batch_fn only (the pre-pass's and the nominations'
+        #: binds go to bind_fn, as in the JAX scheduler)
+        self.bind_batch_fn = bind_batch_fn
+        #: per-round phase timing (SchedulerMonitor)
+        self.monitor = monitor or SchedulerMonitor()
+        #: startup sync barrier (barrier.SyncBarrier): rounds decide
+        #: nothing until the informer replays past it
+        self.barrier = barrier
+        #: scheduling hints (hints.SchedulingHints): per-pod mask edits; a
+        #: round with a hinted pod solves over a dense (P, N) mask
+        self.hints = hints
+        #: leader elector: a round decides nothing unless ``tick()`` says
+        #: this replica leads
+        self.elector = elector
+        #: chaos seam: ``faults.on_solve()`` runs at the start of the Solve
+        #: phase when set
+        self.faults = faults
+        #: the last deciding round's result (the standby's empty one)
+        self.last_result = SchedulingResult({}, {}, 0)
         self.gang_passes = gang_passes
         #: CoschedulingArgs.DefaultTimeout: WaitTime for gangs that don't
         #: set their own
@@ -322,6 +372,9 @@ class Scheduler:
         #: host arrays and name -> row / spec maps of the last batch build,
         #: for row-level reuse and the candidate cache's row mapping
         self._batch_host: dict | None = None
+        #: host seconds of the last hinted round's dense (P, N) mask: the
+        #: class rows' expansion and the hints' edits
+        self.last_dense_mask_s = 0.0
 
         # -- incremental delta-driven solve (gangless batch rounds) --
         self.incremental_solve = incremental_solve
@@ -333,7 +386,8 @@ class Scheduler:
         self.cand_method = "auto"
         self._cand_cache: dict | None = None
         #: which path the last round took: full_cold | incremental |
-        #: full_fallback | disabled (batch rounds), greedy, or none
+        #: full_fallback | full_gang | full_dense | degraded | disabled
+        #: (batch rounds), greedy, or none
         self.last_solve_path = "none"
         #: the dirty node and pod fractions the last round's cache saw
         self.last_dirty_node_frac = 0.0
@@ -377,7 +431,7 @@ class Scheduler:
         self.explain_ring = ExplanationRing()
         #: {top reason -> pod count} of the last round's explanations
         self._last_unschedulable_top: dict[str, int] = {}
-        #: pods degraded mode held back (not ported: always empty)
+        #: pods degraded mode held back last round (user pods only)
         self._last_suspended_names: list[str] = []
         #: host seconds of the last round's Diagnose phase, and of its
         #: parts: "quota_mask" (the post-solve quota admission mask),
@@ -405,6 +459,23 @@ class Scheduler:
         #: dense mask's pins); "gangs" counts the gangs planned.  Empty on
         #: a round without topology gangs
         self.last_topology_parts_s: dict[str, float] = {}
+
+        # -- snapshot-staleness watchdog / degraded mode --
+        #: seconds the sync feed may be silent before rounds flip into
+        #: degraded mode; None disables the watchdog.  Degraded rounds
+        #: suspend BE and batch/mid-dimension admission (those pools derive
+        #: from the stale usage reports) and drop the candidate cache,
+        #: solving full-pass until the feed re-warms
+        self.staleness_threshold_sec = staleness_threshold_sec
+        #: hysteresis: leave degraded only once the feed's age is back at
+        #: or under this (default threshold / 2)
+        self.staleness_exit_sec = staleness_exit_sec
+        self.degraded = False
+        self.degraded_since: float | None = None
+        self.degraded_entries = 0
+        #: pods held out of the last round by degraded-mode suspension
+        self.last_suspended = 0
+        self._last_staleness_s: float | None = None
 
     # -- registration -----------------------------------------------------------
 
@@ -728,9 +799,54 @@ class Scheduler:
         if self.auditor is not None:
             self.auditor.record(pod.name, "ReservationAvailable", node)
 
+    # -- snapshot-staleness watchdog ----------------------------------------
+
+    def note_sync_event(self) -> None:
+        """An informer/sync event was applied: the state feed is alive."""
+        self.snapshot.mark_sync(self.clock())
+
+    def _staleness_tick(self, now: float) -> None:
+        """Flip degraded mode on or off from the sync feed's age, at round
+        start: enter past the threshold, leave at or under the exit age
+        (hysteresis).  Both flips drop the candidate cache (built from
+        untrusted deltas; re-warmed on exit)."""
+        threshold = self.staleness_threshold_sec
+        age = self.snapshot.staleness(now)
+        self._last_staleness_s = age
+        if threshold is None or age is None:
+            # the watchdog is off, or no feed has spoken yet
+            return
+        if not self.degraded and age > threshold:
+            self.degraded = True
+            self.degraded_since = now
+            self.degraded_entries += 1
+            self._cand_cache = None
+        elif self.degraded:
+            exit_thr = (self.staleness_exit_sec
+                        if self.staleness_exit_sec is not None
+                        else threshold / 2.0)
+            if age <= exit_thr:
+                self.degraded = False
+                self.degraded_since = None
+                self._cand_cache = None
+
+    def _suspended_while_degraded(self, pod: PodSpec) -> bool:
+        """Admission suspended for this pod while degraded: BE pods and any
+        pod requesting a batch or mid dimension (pools derived from the
+        stale usage reports).  Prod pods and reserve-pods keep
+        scheduling."""
+        if pod.name.startswith(RSV_POD_PREFIX):
+            return False
+        if int(pod.qos) == int(QoSClass.BE):
+            return True
+        return any(int(pod.requests[d]) > 0 for d in (*BATCH_DIMS, *MID_DIMS))
+
     def _active_pods(self) -> list[PodSpec]:
-        """PreEnqueue: skip the pods of rejected gangs."""
+        """PreEnqueue: skip the pods of rejected gangs; while degraded, hold
+        back BE and batch/mid-dimension pods."""
         out = []
+        suspended = 0
+        self._last_suspended_names = []
         self._last_gang_rejected_names = []
         for pod in self.pending.values():
             if pod.gang is not None:
@@ -739,7 +855,13 @@ class Scheduler:
                     if not pod.name.startswith(RSV_POD_PREFIX):
                         self._last_gang_rejected_names.append(pod.name)
                     continue
+            if self.degraded and self._suspended_while_degraded(pod):
+                suspended += 1
+                if not pod.name.startswith(RSV_POD_PREFIX):
+                    self._last_suspended_names.append(pod.name)
+                continue
             out.append(pod)
+        self.last_suspended = suspended
         out.sort(key=lambda p: (-p.priority, p.creation, p.name))
         return out
 
@@ -765,6 +887,13 @@ class Scheduler:
 
     def _build_batch(self, pods: list[PodSpec], gang_index: dict[str, int],
                      quota_index: dict[str, int]) -> PodBatch:
+        """The round's pod batch: a factored (P, C) selector mask, or a
+        dense (P, N) feasible mask when a pod carries a hint (its excluded
+        and preferred nodes edit its row).  A hinted batch is built whole
+        each round and is neither cached nor kept as ``_batch_host`` (the
+        candidate cache's row map reads the last factored build)."""
+        hinted = self.hints is not None and any(
+            self.hints.has_hint(pod.name) for pod in pods)
         # cache key: everything that feeds the batch tensors.  _pending_rev
         # covers pod contents (mutations go through enqueue/dequeue), the
         # name tuple the active set (gang rejection too), capacity
@@ -777,7 +906,8 @@ class Scheduler:
             self.snapshot.capacity,
             self.snapshot.class_count,
         )
-        if self._batch_cache is not None and self._batch_cache[0] == key:
+        if (not hinted and self._batch_cache is not None
+                and self._batch_cache[0] == key):
             return self._batch_cache[1]
         p = len(pods)
         dims = self.snapshot.dims
@@ -812,7 +942,7 @@ class Scheduler:
         # unchanged: they parameterise row CONTENT (a row copied under
         # another gang index would carry a stale gang id)
         c_cap = self.snapshot.class_capacity
-        prev = self._batch_host
+        prev = self._batch_host if not hinted else None
         reuse_ok = (
             prev is not None
             and prev["gang_index"] == gang_index
@@ -870,6 +1000,9 @@ class Scheduler:
             non_preemptible=non_preempt, selector_mask=sel,
             class_capacity=c_cap, node_capacity=self.snapshot.capacity,
             capacity=cap, rot_id=rot, device=self.device)
+        self.batch_rebuilds += 1
+        if hinted:
+            return self._hinted_batch(pods, batch)
         self._batch_cache = (key, batch)
         self._batch_host = {
             "row_of": {pod.name: i for i, pod in enumerate(pods)},
@@ -883,8 +1016,28 @@ class Scheduler:
             "class_count": self.snapshot.class_count,
             "dims": dims,
         }
-        self.batch_rebuilds += 1
         return batch
+
+    def _hinted_batch(self, pods: list[PodSpec],
+                      batch: PodBatch) -> PodBatch:
+        """The dense (P, N) form of a hinted round's batch: every pod's
+        class row expanded over the live nodes on the device (the bits of
+        ``snapshot.feasibility_row``: the snapshot is flushed, so the valid
+        rows are the live ones), then the hinted rows edited on the host
+        (excluded nodes off; restricted to the preferred ones when any of
+        them is feasible) and written back."""
+        t0 = time.perf_counter()
+        state = self.snapshot.state
+        feasible = batch.feasible_rows(state) & state.node_valid[None, :]
+        rows = [i for i, pod in enumerate(pods)
+                if self.hints.has_hint(pod.name)]
+        idx = torch.tensor(rows, dtype=torch.long, device=self.device)
+        edited = feasible[idx].cpu().numpy()
+        for j, i in enumerate(rows):
+            edited[j] = self.hints.apply_to_mask(pods[i].name, edited[j])
+        feasible[idx] = torch.from_numpy(edited).to(self.device)
+        self.last_dense_mask_s = time.perf_counter() - t0
+        return batch.replace(feasible=feasible, selector_mask=None)
 
     def _refresh_quota_tree(self) -> None:
         """A leaf quota's request is its admitted usage plus its pending
@@ -981,28 +1134,50 @@ class Scheduler:
     # -- the round ----------------------------------------------------------
 
     def schedule_round(self) -> SchedulingResult:
-        """Solve the current pending queue; reserve, bind, diagnose."""
+        """Solve the current pending queue; reserve, bind, diagnose.
+
+        The gates come first, before the clock is read: a standby replica
+        (``elector.tick()`` false) decides nothing and its ``last_result``
+        is the empty result; a closed startup ``barrier`` decides nothing
+        and leaves ``last_result`` as it was.  Then the staleness watchdog
+        (degraded mode), and the phases, each timed by ``monitor``."""
         self.round_seq += 1
+        self.monitor.start_round()
         self._last_unschedulable_top = {}
-        result = SchedulingResult({}, {}, 0)
         self.last_dirty_node_frac = 0.0
         self.last_dirty_pod_frac = 0.0
-        self.snapshot.flush()
+        result = SchedulingResult({}, {}, 0)
+        if self.elector is not None and not self.elector.tick():
+            # standby: keep syncing, decide nothing
+            self.last_result = result
+            return result
+        if self.barrier is not None and not self.barrier.check():
+            # a stale cache after a restart: refuse to decide until the
+            # informer replays past the barrier
+            return result
         now = self.clock()
+        self._staleness_tick(now)
+        self.last_result = result
+        monitor = self.monitor
         if len(self.reservations):
-            # the pinned fit check reads the flushed device rows
-            self._reservation_tick(now)
+            with monitor.phase("Reservations"):
+                # the pinned fit check reads the flushed device rows
+                self.snapshot.flush()
+                self._reservation_tick(now)
         if self.nominations:
-            # Nominated: earlier rounds' preemptors bind on their nodes
-            self.snapshot.flush()
-            self._resolve_nominations(result)
+            with monitor.phase("Nominated"):
+                # earlier rounds' preemptors bind on their nodes
+                self.snapshot.flush()
+                self._resolve_nominations(result)
         if self.overuse_revoke is not None and self.quota_tree is not None:
-            # QuotaRevoke: after the nominations (their released charges
-            # must not trigger evictions), before the solve (the freed
-            # headroom admits this round), on a fresh runtime
-            self._refresh_quota_tree()
-            self.overuse_revoke.revoke_once()
-        pods = self._active_pods()
+            with monitor.phase("QuotaRevoke"):
+                # after the nominations (their released charges must not
+                # trigger evictions), before the solve (the freed headroom
+                # admits this round), on a fresh runtime
+                self._refresh_quota_tree()
+                self.overuse_revoke.revoke_once()
+        with monitor.phase("PreEnqueue"):
+            pods = self._active_pods()
         if not pods:
             # a queue held out whole still explains itself
             if self.explain:
@@ -1015,80 +1190,75 @@ class Scheduler:
             for key in {pod.gang or pod.name for pod in pods
                         if not pod.name.startswith(RSV_POD_PREFIX)}:
                 self.auditor.record_attempt(key)
-        gangs, gang_index = self._build_gang_info(pods)
-        quota, quota_index = self._build_quota()
-        batch = self._build_batch(pods, gang_index, quota_index)
-        batch = self._apply_topology_plans(batch, gang_index)
-        if len(self.reservations):
-            # the batch cache keeps the whole batch; the solve gets the one
-            # without the pre-pass's binds
-            batch, quota = self._reservation_prepass(pods, batch, quota,
-                                                     result)
-        solver = ("batch" if len(pods) >= self.batch_solver_threshold
-                  else "greedy")
-        self.last_solver = solver
-        # the incremental path takes every gangless batch round with a
-        # factored selector mask (every batch round of this shell has one);
-        # a round with a gang keeps gang_assign's full path
-        use_inc = (solver == "batch" and self.incremental_solve
-                   and not gang_index and batch.selector_mask is not None)
-        if use_inc:
-            assignments, new_state, new_quota = (
-                self._solve_batch_incremental(pods, batch, quota))
-        else:
-            self.last_solve_path = (
-                "greedy" if solver == "greedy"
-                else "full_gang" if gang_index else "disabled")
-            assignments, new_state, new_quota = gang_assign(
-                self.snapshot.state, batch, self.config, gangs, quota,
-                passes=self.gang_passes, solver=solver)
+        with monitor.phase("BatchBuild"):
+            self.snapshot.flush()
+            gangs, gang_index = self._build_gang_info(pods)
+            quota, quota_index = self._build_quota()
+            batch = self._build_batch(pods, gang_index, quota_index)
+            batch = self._apply_topology_plans(batch, gang_index)
 
-        a = assignments.cpu().numpy()
-        leftover = batch.valid.cpu().numpy() & (a < 0)
-        if solver == "batch" and bool(leftover[: len(pods)].any()):
-            # exact rescue over the compacted leftovers: the batch engine's
-            # top-k/round approximation may fail pods a greedy scan places.
-            # Rolled-back gangs come back whole; the surplus members of a
-            # gang already satisfied this round rescue as gangless pods
-            # (its min_member is met), so the rescue's pre-enqueue and
-            # rollback cannot strand them
-            ga = batch.gang_id.cpu().numpy()
-            placed = np.bincount(ga[(ga >= 0) & (a >= 0)],
-                                 minlength=gangs.capacity)
-            satisfied = placed >= gangs.min_member.cpu().numpy()
-            rescue_gid = np.where(
-                (ga >= 0) & satisfied[np.maximum(ga, 0)], -1, ga)
-            small, idx = batch.replace(
-                gang_id=torch.from_numpy(rescue_gid.astype(np.int32)).to(
-                    self.device)).compact(leftover)
-            r_small, new_state, new_quota = gang_assign(
-                new_state, small, self.config, gangs, new_quota,
-                passes=self.gang_passes, solver="greedy")
-            r = r_small.cpu().numpy()[: len(idx)]
-            result.rescued = int((r >= 0).sum())
-            a = a.copy()
-            a[idx] = np.where(a[idx] >= 0, a[idx], r)
+        with monitor.phase("Solve"):
+            if self.faults is not None:
+                self.faults.on_solve()
+            if len(self.reservations):
+                # the batch cache keeps the whole batch; the solve gets the
+                # one without the pre-pass's binds
+                batch, quota = self._reservation_prepass(pods, batch, quota,
+                                                         result)
+            solver = ("batch" if len(pods) >= self.batch_solver_threshold
+                      else "greedy")
+            self.last_solver = solver
+            # the incremental path takes every gangless batch round with a
+            # factored selector mask; a round with a gang, a dense mask
+            # (hints, topology pins) or in degraded mode (its cache was
+            # built from a stalled feed) keeps gang_assign's full path
+            use_inc = (solver == "batch" and self.incremental_solve
+                       and not self.degraded and not gang_index
+                       and batch.selector_mask is not None)
+            if use_inc:
+                assignments, new_state, new_quota = (
+                    self._solve_batch_incremental(pods, batch, quota))
+            else:
+                self.last_solve_path = (
+                    "greedy" if solver == "greedy"
+                    else "full_gang" if gang_index
+                    else "full_dense" if batch.selector_mask is None
+                    else "degraded" if self.degraded
+                    else "disabled")
+                assignments, new_state, new_quota = gang_assign(
+                    self.snapshot.state, batch, self.config, gangs, quota,
+                    passes=self.gang_passes, solver=solver)
+
+            a = assignments.cpu().numpy()
+            leftover = batch.valid.cpu().numpy() & (a < 0)
+            if solver == "batch" and bool(leftover[: len(pods)].any()):
+                a, new_state, new_quota = self._rescue(
+                    batch, gangs, a, leftover, new_state, new_quota, result)
         result.round_pods = len(pods)
-        self.snapshot.adopt_state(new_state,
-                                  changed_rows=np.unique(a[a >= 0]))
+        with monitor.phase("Reserve"):
+            self.snapshot.adopt_state(new_state,
+                                      changed_rows=np.unique(a[a >= 0]))
 
-        placed_gangs: set[str] = set()
-        binds = []
-        for i, pod in enumerate(pods):
-            if int(a[i]) >= 0:
-                node = self.snapshot.node_name(int(a[i]))
-                if pod.name.startswith(RSV_POD_PREFIX):
-                    self._commit_reserve_pod(pod, node, result, now)
-                else:
-                    binds.append((pod, node))
-                    if pod.gang:
-                        placed_gangs.add(pod.gang)
-        self._commit_binds(binds, result)
+        with monitor.phase("Bind"):
+            placed_gangs: set[str] = set()
+            binds = []
+            for i, pod in enumerate(pods):
+                if int(a[i]) >= 0:
+                    node = self.snapshot.node_name(int(a[i]))
+                    if pod.name.startswith(RSV_POD_PREFIX):
+                        self._commit_reserve_pod(pod, node, result, now)
+                    else:
+                        binds.append((pod, node))
+                        if pod.gang:
+                            placed_gangs.add(pod.gang)
+            self._commit_binds(binds, result, batch_sink=True)
 
-        self._diagnose(pods, batch, a, quota, new_quota, placed_gangs, now,
-                       result)
+        with monitor.phase("Diagnose"):
+            self._diagnose(pods, batch, a, quota, new_quota, placed_gangs,
+                           now, result)
         if self.enable_preemption and result.failures:
-            self._run_preemption(pods, batch, result)
+            with monitor.phase("PostFilter"):
+                self._run_preemption(pods, batch, result)
         if self.explanations is not None:
             # persist after PostFilter, so nominations land on the CR (the
             # binds cleared theirs in _commit_binds)
@@ -1104,6 +1274,33 @@ class Scheduler:
                         self.auditor.record(pod.gang or pod.name,
                                             "ScheduleFailed", diag.message())
         return result
+
+    def _rescue(self, batch: PodBatch, gangs: GangInfo, a: np.ndarray,
+                leftover: np.ndarray, new_state, new_quota,
+                result: SchedulingResult):
+        """The exact rescue over the compacted leftovers: the batch
+        engine's top-k/round approximation may fail pods a greedy scan
+        places.  Rolled-back gangs come back whole; the surplus members of
+        a gang already satisfied this round rescue as gangless pods (its
+        min_member is met), so the rescue's pre-enqueue and rollback cannot
+        strand them.  Returns (assignments, new_state, new_quota)."""
+        ga = batch.gang_id.cpu().numpy()
+        placed = np.bincount(ga[(ga >= 0) & (a >= 0)],
+                             minlength=gangs.capacity)
+        satisfied = placed >= gangs.min_member.cpu().numpy()
+        rescue_gid = np.where(
+            (ga >= 0) & satisfied[np.maximum(ga, 0)], -1, ga)
+        small, idx = batch.replace(
+            gang_id=torch.from_numpy(rescue_gid.astype(np.int32)).to(
+                self.device)).compact(leftover)
+        r_small, new_state, new_quota = gang_assign(
+            new_state, small, self.config, gangs, new_quota,
+            passes=self.gang_passes, solver="greedy")
+        r = r_small.cpu().numpy()[: len(idx)]
+        result.rescued = int((r >= 0).sum())
+        a = a.copy()
+        a[idx] = np.where(a[idx] >= 0, a[idx], r)
+        return a, new_state, new_quota
 
     def _diagnose(self, pods: list[PodSpec], batch: PodBatch, a: np.ndarray,
                   quota, new_quota, placed_gangs: set[str], now: float,
@@ -1340,13 +1537,16 @@ class Scheduler:
         return torch.from_numpy(a_np).to(self.device), state, quota
 
     def _commit_binds(self, binds, result: SchedulingResult,
-                      reservations=None, charge_quota: bool = True) -> None:
+                      reservations=None, charge_quota: bool = True,
+                      batch_sink: bool = False) -> None:
         """Record the binds in the result and the ``bound`` registry, charge
         each quota's ``used`` once per (quota, non-preemptible) group, then
-        call ``bind_fn`` per pod.  ``reservations`` gives each bind's
-        (reservation, drawn vector, reservation generation) when the
-        pre-pass made it; ``charge_quota=False`` converts nominations, whose
-        quota charge is already on the tree."""
+        call ``bind_fn`` per pod, or with ``batch_sink`` (the round's main
+        bind set) ``bind_batch_fn`` once with the whole list when it is set.
+        ``reservations`` gives each bind's (reservation, drawn vector,
+        reservation generation) when the pre-pass made it;
+        ``charge_quota=False`` converts nominations, whose quota charge is
+        already on the tree."""
         gen = self.snapshot.node_generation
         for k, (pod, node) in enumerate(binds):
             result.assignments[pod.name] = node
@@ -1381,7 +1581,10 @@ class Scheduler:
             if self.auditor is not None:
                 self.auditor.record(pod.gang or pod.name, "ScheduleSuccess",
                                     node)
-        if self.bind_fn is not None:
+        if batch_sink and self.bind_batch_fn is not None:
+            if binds:
+                self.bind_batch_fn([(pod.name, node) for pod, node in binds])
+        elif self.bind_fn is not None:
             for pod, node in binds:
                 self.bind_fn(pod.name, node)
 

@@ -95,6 +95,22 @@ class ClusterSnapshot:
         self._class_sigs: list[tuple] = []
         #: (live rows, their class ids), rebuilt after a node upsert/remove
         self._row_classes: tuple[np.ndarray, np.ndarray] | None = None
+        #: clock time of the last applied sync event (delta/heartbeat) from
+        #: whatever informer feeds this snapshot; None until the feed first
+        #: speaks.  The scheduler's staleness watchdog reads its AGE: a
+        #: stalled feed means every usage- and batch-allocatable-derived
+        #: row here is untrustworthy
+        self.last_sync_time: float | None = None
+
+    def mark_sync(self, now: float) -> None:
+        """Stamp feed liveness (monotonic under the writer's clock)."""
+        self.last_sync_time = now
+
+    def staleness(self, now: float) -> float | None:
+        """Seconds since the feed last spoke; None before first contact."""
+        if self.last_sync_time is None:
+            return None
+        return max(0.0, now - self.last_sync_time)
 
     @property
     def class_capacity(self) -> int:

@@ -10,7 +10,9 @@ and a quota overuse revoke; then a round whose Diagnose phase counts the
 reject reasons, keeps an explanation, writes a ScheduleExplanation and
 audit records, and a bound pod's score decomposition; then a round with a
 network-topology gang, cpusets and GPUs (the device-plugin gate on), a
-delete and a restore through ``add_bound_pod``'s ``resource_status``)."""
+delete and a restore through ``add_bound_pod``'s ``resource_status``; then
+the round's gates: a standby round, a closed barrier, a hinted round on a
+dense mask and a degraded round)."""
 
 import os
 import re
@@ -242,10 +244,67 @@ again = Scheduler(ts, device="cpu", cpu_manager=CPUManager(device="cpu"),
                   device_manager=DeviceManager(device="cpu"))
 for name, bp in tsched.bound.items():
     again.add_bound_pod(bp, resource_status=status.get(name))
+# the round's gates: a standby round, a closed barrier, a hinted round on a
+# dense mask (the batch threshold crossed) into bind_batch_fn, then a
+# degraded round suspending BE and batch-dimension pods, timed by a monitor
+from koordinator_tpu_torch.scheduler.barrier import SyncBarrier
+from koordinator_tpu_torch.scheduler.hints import PodHint, SchedulingHints
+from koordinator_tpu_torch.scheduler.monitor import SchedulerMonitor
+gsnap = ClusterSnapshot(capacity=32, device="cpu")
+for i in range(20):
+    a = np.zeros(10, np.int32)
+    a[0], a[1], a[6], a[7] = 32000, 65536, 8000, 8192
+    gsnap.upsert_node(NodeSpec(name=f"h{i}", allocatable=a))
+clock, seen, leads = [0.0], [0], [False]
+barrier = SyncBarrier(lambda: 1, lambda: seen[0])
+barrier.start()
+hints = SchedulingHints(gsnap)
+class Elector:
+    def tick(self):
+        return leads[0]
+batches = []
+gs = Scheduler(gsnap, device="cpu", hints=hints, barrier=barrier,
+               elector=Elector(), monitor=SchedulerMonitor(),
+               bind_batch_fn=batches.append, staleness_threshold_sec=5.0,
+               clock=lambda: clock[0], batch_solver_threshold=16)
+gs.note_sync_event()
+for j in range(40):
+    q = np.zeros(10, np.int32)
+    q[0], q[1] = rng.integers(100, 4000), rng.integers(128, 8192)
+    gs.enqueue(PodSpec(name=f"hp{j}", requests=q, priority=int(j % 5)))
+hints.set_hint("hp1", PodHint(excluded_nodes={"h0", "h1"}))
+hints.set_hint("hp2", PodHint(preferred_nodes={"h3"}))
+assert not gs.schedule_round().assignments and gs.round_seq == 1
+leads[0] = True
+assert not gs.schedule_round().assignments
+seen[0] = 1
+res = gs.schedule_round()
+assert gs.last_solve_path == "full_dense" and res.assignments["hp2"] == "h3"
+assert len(batches) == 1 and "Solve" in gs.monitor.round_timings
+hints.clear("hp1")
+hints.clear("hp2")
+clock[0] = 9.0
+for j in range(40, 80):
+    q = np.zeros(10, np.int32)
+    q[0], q[1] = rng.integers(100, 4000), rng.integers(128, 8192)
+    if j % 4 == 0:
+        q[6] = 500
+    gs.enqueue(PodSpec(name=f"hp{j}", requests=q, qos=1 if j % 4 == 1 else 0))
+res = gs.schedule_round()
+assert gs.degraded and gs.last_solve_path == "degraded"
+assert gs.last_suspended == 20 and len(gs._last_suspended_names) == 20
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "koordinator_tpu"))
 print("LOADED", bad)
 """
+
+
+def test_the_gates_modules_are_checked():
+    """The round gates' modules are among the sources the import-line
+    check reads."""
+    names = {os.path.relpath(p, REPO) for p in _sources()}
+    for mod in ("barrier", "hints", "monitor"):
+        assert f"koordinator_tpu_torch/scheduler/{mod}.py" in names
 
 
 def test_port_runs_a_round_without_jax():

@@ -773,3 +773,98 @@ def test_quota_rejection_is_final_within_a_scan(seed, mode, variant, rows,
         for h, mh in trace["headroom"]])
     assert bool((admitted[0] & ~admitted[-1]).any())  # the quota binds
     assert not bool((~admitted[:-1] & admitted[1:]).any())
+
+
+# -- negative requests through K4r's step ------------------------------------
+
+
+def _negative_case(seed, mode, variant, rows, few):
+    """``_step_case`` with negative requests on a third of the pods (one
+    or two dims each, as deep as the rows' reserved vectors) and records
+    whose remainder starts above ``reserved`` (a negative ``allocated``)
+    or below zero: a draw then raises a remainder where the scan runs."""
+    import jax.numpy as jnp
+
+    from koordinator_tpu.ops.reservation import ReservationSet
+
+    state, pods, cfg, rsv, match, quota, tquota = _step_case(
+        seed, mode, variant, rows, few)
+    rng = np.random.default_rng(seed + 4000)
+    req = np.asarray(pods.requests).copy()
+    neg = rng.random(req.shape[0]) < 0.35
+    req[neg, CPU] = -rng.integers(1, 6_000, int(neg.sum()))
+    two = neg & (rng.random(req.shape[0]) < 0.5)
+    req[two, MEM] = -rng.integers(1, 20_000, int(two.sum()))
+    pods = pods.replace(requests=jnp.asarray(req))
+    alloc = np.asarray(rsv.allocated).copy()
+    n_rows = alloc.shape[0]
+    up = rng.random(n_rows) < 0.2
+    alloc[up, CPU] = -rng.integers(1, 4_000, int(up.sum()))
+    down = ~up & (rng.random(n_rows) < 0.1)
+    alloc[down, MEM] = np.asarray(rsv.reserved)[down, MEM] + 100
+    rsv = ReservationSet(
+        valid=rsv.valid, node_idx=rsv.node_idx, reserved=rsv.reserved,
+        allocated=jnp.asarray(alloc), allocate_once=rsv.allocate_once,
+        restricted=rsv.restricted)
+    return state, pods, cfg, rsv, match, quota, tquota
+
+
+@pytest.mark.parametrize("seed,mode,variant,rows,few", STEP_SWEEPS[:3])
+def test_step_model_takes_negative_requests(seed, mode, variant, rows, few):
+    """K4r's step as the kernel orders it takes pods with negative requests
+    and records whose remainder lies outside [0, reserved] exactly: the
+    mirror, ``greedy_scan_plain`` and the JAX package's
+    ``reservation_greedy_assign`` give the same assignments, reservation
+    choices, node accounting, reservations and quota, and some negative
+    pod draws from a record (its remainder rises past ``reserved``)."""
+    from koordinator_tpu_torch.kernels.greedy_scan import greedy_scan_mirror
+    from koordinator_tpu_torch.ops.assignment import greedy_scan_plain
+
+    state, pods, cfg, rsv, match, quota, tquota = _negative_case(
+        seed, mode, variant, rows, few)
+    want = assert_scan_parity(state, pods, cfg, rsv, match, quota, tquota)
+    ts, tp, tc, tr = both(state, pods, cfg, rsv)
+    m = torch.from_numpy(match)
+    plain = greedy_scan_plain(ts, tp, tc, tquota, tr, m)
+    trace = {}
+    got = greedy_scan_mirror(ts, tp, tc, tquota, tr, m, trace=trace)
+    for ref in (want, plain):
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        assert torch.equal(got[2].node_requested, ref[2].node_requested)
+        assert torch.equal(got[3].allocated, ref[3].allocated)
+        assert torch.equal(got[4].headroom, ref[4].headroom)
+        assert torch.equal(got[4].min_headroom, ref[4].min_headroom)
+    neg = (tp.requests < 0).any(1) & tp.valid
+    drew = got[1] >= 0
+    assert bool((neg & drew).any())
+    rows = got[1][neg & drew].long()
+    before = tr.reserved[rows] - tr.allocated[rows]
+    after = got[3].reserved[rows] - got[3].allocated[rows]
+    assert bool((after > before).any())
+    assert trace["rose"] >= 1
+
+
+def test_step_model_raises_at_the_int32_max_sentinel():
+    """The one case K4r does not take: every fitting record on the chosen
+    node has a total remainder of exactly 2**31 - 1, where the reference's
+    argmin lands on its own INT32_MAX sentinel and names row 0 of the set
+    (here a row on another node).  The mirror raises, as the kernel's
+    wrapper does."""
+    from koordinator_tpu_torch.kernels.greedy_scan import (
+        ReservationSentinelError,
+        greedy_scan_mirror,
+    )
+
+    state = mk_state([16_000, 16_000], requested_cpus=[16_000, 15_000])
+    pods = mk_pods([2_000], state, mem=0)
+    big = np.zeros(R, np.int32)
+    big[CPU], big[2] = 3_000, 2**31 - 1 - 3_000
+    rsv = rsv_set(np.stack([vec(1_000, 0), big]), [0, 1])
+    match = match_of(pods, rsv, at=(0, 1))
+    got = assert_scan_parity(state, pods, quiet_cfg(), rsv, match)
+    # the reference: the pod goes to node 1 through row 1, and draws from
+    # row 0 on node 0
+    assert int(got[0][0]) == 1 and int(got[1][0]) == 0
+    ts, tp, tc, tr = both(state, pods, quiet_cfg(), rsv)
+    with pytest.raises(ReservationSentinelError):
+        greedy_scan_mirror(ts, tp, tc, None, tr, torch.from_numpy(match))

@@ -461,3 +461,39 @@ def test_seeded_reservation_trace(path):
     assert drew > 0
     if path == "batch":
         assert tw.p.last_solver == "batch"
+
+
+@pytest.mark.parametrize("path", ["greedy", "batch"])
+def test_owner_pod_with_a_negative_request(path):
+    """An owner pod requesting a negative amount on one dimension, matched
+    to an Available reservation, goes through the reservation pre-pass (K4r
+    on the card) as the JAX scheduler sends it: the binds, the
+    reservations' allocations (the remainder rising past ``reserved`` on
+    the negative dimension) and the quota, round by round, equal."""
+    kw = {"batch_solver_threshold": 4} if path == "batch" else {}
+    tw = Twin([node("n1", cpu=10_000), node("n2", cpu=10_000),
+               node("n3", cpu=6_000)], quota=True, **kw)
+    tw.reservation(name="rsv-a", cpu=6_000, mem=4_096)
+    tw.reservation(name="rsv-b", node="n3", cpu=3_000, mem=2_048,
+                   owners=[{"app": "db"}])
+    tw.round()
+    tw.t = 5.0
+    neg = pod("web-neg", cpu=2_000, mem=1_024, labels={"app": "web"},
+              quota="qa")
+    neg["requests"][MEM] = -3_000
+    db = pod("db-neg", cpu=-500, mem=512, labels={"app": "db"}, quota="qb")
+    tw.enqueue(neg, db, pod("web-2", cpu=1_000, labels={"app": "web"}),
+               *[pod(f"filler-{j}", cpu=500, mem=256) for j in range(6)])
+    res = tw.round()
+    assert tw.p.bound["web-neg"].reservation == "rsv-a"
+    assert tw.p.bound["db-neg"].reservation == "rsv-b"
+    spec = tw.p.reservations.get("rsv-a")
+    assert spec.allocated[MEM] < 0 < spec.requests[MEM] - spec.allocated[MEM]
+    assert "web-neg" in res.assignments
+    tw.t = 10.0
+    tw.enqueue(pod("web-3", cpu=4_000, mem=6_000, labels={"app": "web"},
+                   quota="qa"))
+    tw.round()
+    tw.both("delete_pod", "web-neg")
+    tw.enqueue(pod("web-4", cpu=1_500, mem=2_000, labels={"app": "web"}))
+    tw.round()
