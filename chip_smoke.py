@@ -231,7 +231,33 @@ first failure:
    ``bind_batch_fn`` payload, failures, suspended names, solve path and
    node accounting must be equal.  Each round prints its wall, the
    monitor's ``round_timings`` and the dense mask's host ms; K1 is held
-   and timed on the dense round's batch and on the same pods factored.
+   and timed on the dense round's batch and on the same pods factored;
+18. the observability hooks (``phase_observability``): phase 9's setup
+   (the flagship nodes, 50,000 pods, 80% in 16 leaf quotas) on a
+   Scheduler with the staleness watchdog on a fake clock: a cold round,
+   two steady rounds (a 1% usage refresh and 500 arrivals stamped with
+   ``arrival_ts`` each) and a degraded round (the feed silent past the
+   threshold; a tenth of its arrivals BE), run in turns with every hook
+   off (``trace_pods`` off, the timeline recorder and the journey ledger
+   switched off), on (pod traces, an in-memory exporter on the tracer,
+   the recorder and the ledger on) and off again when the 45 s budget
+   allows.  The binds, the solve paths and the kernels' launches must be
+   equal round by round across the runs; every run's flight records
+   (one a round, placed and failed the results', the degraded round
+   dumped ``degraded`` and a round over 1 s ``slow``), the watchdog's
+   gauges, the solve-path counter and the unschedulable rollup are
+   checked; the hooks-on run's spans (one ``scheduler.round`` a round
+   with a ``phase.*`` child a ``round_timings`` key, a
+   ``scheduler.enqueue`` span a pod, a ``scheduler.bind`` span a bind,
+   each bound pod's trace annotation), timeline cycles (one a round, the
+   attribution summing to 1, ``device_busy_s`` above 0) and journey (an
+   e2e a bind) too.  The ``observability`` line gives each round's wall
+   in each run and the hooks' cost, Solve's wall against its time
+   blocked on results, the timeline's idle share and critical cause, the
+   span count, the journey's e2e p50/p99 by QoS, and the synchronising
+   calls inside one steady round's Solve (counted under
+   ``torch.cuda.set_sync_debug_mode("warn")``) with their top five call
+   sites.
 
 The Diagnose phase (K7, ``explain_counts``): every round of phases 9, 12,
 13 and 15 runs with the Scheduler's default ``explain=True``, and
@@ -270,7 +296,8 @@ and library time, under ``phase12`` the same at phase 12's shapes with
 its launches over phase 12's four rounds, and under ``phase13`` the
 launches over phase 13's three rounds, with K1's, K3b's and K4's numbers
 at its round 1, and under ``phase17`` the launches over phase 17's rounds
-(K1's with its dense and factored numbers);
+(K1's with its dense and factored numbers), and under ``phase18`` the
+launches over phase 18's hooks-on run;
 K4's numbers are those at the steady round's rescue, K3b's at the cold
 solve's first round behind the quota tree, K4r's at round 2's pre-pass,
 K1a's at phase 14's cold round;
@@ -6682,6 +6709,380 @@ def phase_gates(device, n_nodes: int = 10_240, n_pods: int = 50_000,
     return got, launches, dict(dense=k1_dense, factored=k1_fact)
 
 
+#: phase 18: the staleness watchdog's threshold on its fake clock, the
+#: arrivals before each steady and the degraded round, the phase's budget
+OBS_THRESHOLD_S = 5.0
+OBS_ARRIVALS = 500
+OBS_BE_EVERY = 10          # a tenth of the degraded round's arrivals BE
+OBS_BUDGET_S = 45.0
+#: phase 18's rounds and their fake-clock times; the degraded round's
+#: feed last spoke at t = 3
+OBS_ROUNDS = (("cold", 1.0), ("steady_1", 2.0), ("steady_2", 3.0),
+              ("degraded", 3.0 + OBS_THRESHOLD_S + 1.0))
+
+
+def obs_arrivals(rng, start: int, count: int, be_every: int = 0):
+    """``arrivals``' pods stamped with the ingest wall clock
+    (``arrival_ts``, which no decision reads), every ``be_every``-th BE."""
+    import dataclasses
+
+    stamp = time.time()
+    return [dataclasses.replace(
+        p, arrival_ts=stamp,
+        qos=QOS_BE if be_every and k % be_every == 0 else p.qos)
+        for k, p in enumerate(arrivals(rng, start, count))]
+
+
+def obs_counter(counter) -> dict:
+    return {tuple(sorted(lbl.items())): v for lbl, v in counter.items()}
+
+
+def obs_run(device, specs, hooks: bool, n_arrivals: int,
+            threshold: int | None) -> dict:
+    """Phase 18's rounds on one fresh scheduler: a cold round, two steady
+    rounds (a 1% usage refresh and ``n_arrivals`` stamped arrivals each)
+    and a degraded round (the feed silent past the threshold on the fake
+    clock).  ``hooks``: pod traces, an in-memory exporter on the tracer,
+    the timeline recorder and the journey ledger on; else all off.  Every
+    run checks the flight records, the watchdog's gauges, the solve-path
+    counter and the unschedulable rollup against the rounds; a run with
+    the hooks on also checks the spans, the timeline cycles and the
+    journey.  Returns the records, the scheduler and what the hooks
+    showed."""
+    from koordinator_tpu_torch import journey, metrics, timeline, tracing
+    from koordinator_tpu_torch.kernels import build
+    from koordinator_tpu_torch.scheduler.scheduler import Scheduler
+    from koordinator_tpu_torch.scheduler.snapshot import ClusterSnapshot
+
+    nodes0, pods, leaf_max = specs
+    nodes = list(nodes0)      # usage_refresh replaces entries
+    # the scheduler's series start at zero, as in a process of its own
+    # (the gauges are process-wide: an earlier scheduler's last value
+    # would stand until this one's first transition)
+    metrics.SCHEDULER.reset_for_tests()
+    # the kill switches; switching the ledger off clears it, so an
+    # enabled run starts empty
+    timeline.RECORDER.set_enabled(False)
+    journey.LEDGER.set_enabled(False)
+    timeline.RECORDER.set_enabled(hooks)
+    journey.LEDGER.set_enabled(hooks)
+    exporter = tracing.InMemoryExporter()
+    if hooks:
+        tracing.TRACER.add_exporter(exporter)
+    t0 = time.perf_counter()
+    clock = [0.0]
+    snap = ClusterSnapshot(capacity=len(nodes), device=device)
+    for spec in nodes:
+        snap.upsert_node(spec)
+    sched = Scheduler(snap, quota_tree=steady_tree(nodes, leaf_max),
+                      device=device, trace_pods=hooks,
+                      staleness_threshold_sec=OBS_THRESHOLD_S,
+                      clock=lambda: clock[0])
+    if threshold is not None:
+        sched.batch_solver_threshold = threshold
+    # phase 9's forced threshold: every steady round refreshes the cache
+    sched.incremental_dirty_threshold = 1.0
+    sched.note_sync_event()
+    sched.enqueue_many(pods)
+    setup_s = time.perf_counter() - t0
+    # the round's explanations as the scheduler records them (the ring
+    # keeps only the latest 4,096 pods)
+    explained = [0]
+    ring_record = sched.explain_ring.record
+
+    def record(exp):
+        explained[0] += exp.top_reason() is not None
+        ring_record(exp)
+
+    sched.explain_ring.record = record
+    rng = np.random.default_rng(18)
+    enqueued, stamped = len(pods), set()
+    start = 0
+    records, cycles, timings = [], [], []
+    binds_all: dict = {}
+    for label, at in OBS_ROUNDS:
+        new = []
+        if label.startswith("steady"):
+            for spec in usage_refresh(rng, nodes, len(nodes) // 100):
+                snap.upsert_node(spec)
+            new = obs_arrivals(rng, start, n_arrivals)
+            clock[0] = at
+            sched.note_sync_event()
+        elif label == "degraded":
+            # no sync event since t = 3: past the threshold
+            new = obs_arrivals(rng, start, n_arrivals, OBS_BE_EVERY)
+        clock[0] = at
+        start += len(new)
+        enqueued += len(new)
+        stamped.update(p.name for p in new)
+        sched.enqueue_many(new)
+        paths0 = obs_counter(metrics.incremental_solve_total)
+        trans0 = obs_counter(metrics.degraded_transitions_total)
+        build.reset_launch_counts()
+        explained[0] = 0
+        sync(device)
+        t1 = time.perf_counter()
+        res = sched.schedule_round()
+        sync(device)
+        wall = time.perf_counter() - t1
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        binds_all.update(res.assignments)
+        timings.append(dict(sched.monitor.round_timings))
+        rec = dict(
+            round=label, wall_s=wall, path=sched.last_solve_path,
+            solver=sched.last_solver, pods=res.round_pods,
+            binds=len(res.assignments), failed=len(res.failures),
+            rescued=res.rescued, degraded=sched.degraded,
+            suspended=sched.last_suspended, launches=launches,
+            solve_wall_s=timings[-1].get("Solve", 0.0),
+            solve_device_s=sched._solve_device_s,
+            round_timings_ms={k: v * 1e3 for k, v in timings[-1].items()},
+            assignments=dict(res.assignments))
+        records.append(rec)
+        # the watchdog's gauges follow it
+        check(metrics.degraded_suspended_pods.value()
+              == float(sched.last_suspended),
+              f"phase 18 {label}: degraded_suspended_pods = last_suspended")
+        check(metrics.degraded_mode.value() == float(sched.degraded),
+              f"phase 18 {label}: degraded_mode follows the watchdog")
+        trans = obs_counter(metrics.degraded_transitions_total)
+        entered = (trans.get((("phase", "enter"),), 0.0)
+                   - trans0.get((("phase", "enter"),), 0.0))
+        check(entered == (1.0 if label == "degraded" else 0.0)
+              and trans.get((("phase", "exit"),), 0.0)
+              == trans0.get((("phase", "exit"),), 0.0),
+              f"phase 18 {label}: degraded_transitions_total follows the "
+              "watchdog")
+        check(sched.degraded == (label == "degraded"),
+              f"phase 18 {label}: degraded only past the threshold")
+        # the solve-path counter: one increment, on the round's path
+        paths = obs_counter(metrics.incremental_solve_total)
+        moved = {k[0][1]: v - paths0.get(k, 0.0) for k, v in paths.items()
+                 if v != paths0.get(k, 0.0)}
+        check(moved == ({sched.last_solve_path: 1.0}
+                        if sched.last_solver == "batch" else {}),
+              f"phase 18 {label}: incremental_solve_total follows "
+              f"last_solve_path ({moved})")
+        # the unschedulable rollup: one top reason an explained pod
+        check(sum(v for _, v in metrics.unschedulable_pods.items())
+              == explained[0], f"phase 18 {label}: unschedulable_pods sums "
+              "to the explained pods")
+        rec["explained"] = explained[0]
+        if hooks:
+            docs = timeline.RECORDER.cycles(limit=1)
+            check(bool(docs) and docs[0]["cycle"] == sched.round_seq,
+                  f"phase 18 {label}: the round closed a timeline cycle")
+            doc = docs[0]
+            check(abs(sum(doc["attribution"].values()) - 1.0) <= 1e-6,
+                  f"phase 18 {label}: the attribution sums to 1")
+            check(0.0 <= doc["device_idle_fraction"] <= 1.0,
+                  f"phase 18 {label}: device_idle_fraction in [0, 1]")
+            check(doc["device_busy_s"] > 0.0,
+                  f"phase 18 {label}: device_busy_s > 0 on a solving round")
+            cycles.append(dict(
+                round=label, device_idle_fraction=doc["device_idle_fraction"],
+                device_busy_s=doc["device_busy_s"],
+                critical_cause=doc["critical_cause"],
+                critical_seconds=doc["critical_seconds"],
+                wall_s=doc["wall_s"],
+                attribution={k: v for k, v in doc["attribution"].items()
+                             if v > 0}))
+    run_s = time.perf_counter() - t0
+    # the flight recorder: one record a round, its counts the results'
+    fr = sched.flight_recorder
+    recs = list(fr.records)
+    check(len(recs) == len(OBS_ROUNDS), "phase 18: a flight record a round")
+    for r, rec in zip(recs, records):
+        check(r.placed == rec["binds"] and r.failed == rec["failed"],
+              f"phase 18 {rec['round']}: the record's placed and failed")
+        want = ("slow" if r.duration_s > fr.slow_threshold_s
+                else "degraded" if r.degraded else None)
+        check(r.dump_reason == want, f"phase 18 {rec['round']}: dumped as "
+              f"{want} ({r.dump_reason}, {r.duration_s:.3f} s)")
+        rec["dump_reason"] = r.dump_reason
+    out = dict(records=records, sched=sched, setup_s=setup_s, run_s=run_s,
+               cycles=cycles, binds=binds_all)
+    if hooks:
+        tracing.TRACER.remove_exporter(exporter)
+        spans = exporter.spans
+        rounds = [s for s in spans if s.name == "scheduler.round"]
+        check(len(rounds) == len(OBS_ROUNDS),
+              "phase 18: one scheduler.round span a round")
+        for s, rt in zip(rounds, timings):
+            kids = sorted(c.name[len("phase."):] for c in spans
+                          if c.parent_id == s.span_id
+                          and c.name.startswith("phase."))
+            check(kids == sorted(rt), f"phase 18 round {s.attributes}: "
+                  "phase spans = round_timings' keys")
+        n_enq = sum(1 for s in spans if s.name == "scheduler.enqueue")
+        n_bind = sum(1 for s in spans if s.name == "scheduler.bind")
+        check(n_enq == enqueued, "phase 18: a scheduler.enqueue span a pod")
+        check(n_bind == len(binds_all),
+              "phase 18: a scheduler.bind span a bind")
+        check(all(tracing.TRACE_ANNOTATION
+                  in sched.resource_status.get(n, {}) for n in binds_all),
+              "phase 18: every bound pod carries the trace annotation")
+        series = journey.LEDGER.report()["series"]
+        e2e = sum(r["count"] for r in series if r["stage"] == "e2e")
+        ingest = sum(r["count"] for r in series if r["stage"] == "ingest")
+        check(e2e == len(binds_all), "phase 18: a journey a bind")
+        check(ingest == sum(1 for n in binds_all if n in stamped),
+              "phase 18: an ingest stage a bind of a stamped arrival")
+        out.update(spans=len(spans), enqueue_spans=n_enq, bind_spans=n_bind,
+                   journey_e2e={str(r["qos"]): dict(
+                       count=r["count"], p50_s=r["p50_s"], p99_s=r["p99_s"])
+                       for r in series if r["stage"] == "e2e"})
+    timeline.RECORDER.set_enabled(True)
+    journey.LEDGER.set_enabled(True)
+    return out
+
+
+def obs_sync_count(device, sched, specs, n_arrivals: int) -> dict | None:
+    """The synchronising calls inside one steady round's Solve phase, on
+    ``sched`` after its degraded round: the feed heals (the exit's cold
+    round re-warms the cache), then a steady round whose Solve runs under
+    ``torch.cuda.set_sync_debug_mode("warn")``; the caught warnings
+    counted by call site.  None off the card."""
+    import collections
+    import warnings
+
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return None
+    nodes = list(specs[0])
+    now = sched.clock() + 1.0
+    sched.clock = lambda: now
+    sched.note_sync_event()
+    sched.schedule_round()
+    rng = np.random.default_rng(180)
+    for spec in usage_refresh(rng, nodes, len(nodes) // 100):
+        sched.snapshot.upsert_node(spec)
+    sched.enqueue_many(obs_arrivals(rng, 10**6, n_arrivals))
+    real = sched.monitor.phase
+    caught: list = []
+
+    @contextlib.contextmanager
+    def phase(name, carry_s=0.0):
+        if name != "Solve":
+            with real(name, carry_s):
+                yield
+            return
+        with real(name, carry_s):
+            with warnings.catch_warnings(record=True) as got:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    yield
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            caught.extend(got)
+
+    sched.monitor.phase = phase
+    try:
+        sched.schedule_round()
+    finally:
+        del sched.monitor.phase
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in syncs)
+    return dict(path=sched.last_solve_path, count=len(syncs),
+                top_sites=sites.most_common(5), sites=len(sites))
+
+
+def phase_observability(device, n_nodes: int = 10_240, n_pods: int = 50_000,
+                        n_arrivals: int = OBS_ARRIVALS,
+                        threshold: int | None = None,
+                        budget_s: float = OBS_BUDGET_S):
+    """Phase 18 (the observability hooks at the flagship width): phase 9's
+    setup behind the 16-leaf quota tree, a cold round, two steady rounds
+    and a degraded round, in turns with every hook off (no pod traces,
+    the timeline recorder and the journey ledger switched off), on, and
+    off again when the budget allows.  The binds and the kernels' launch
+    counts must be equal round by round across the runs; each run's checks
+    are obs_run's.  Then the synchronising calls of one steady round's
+    Solve (obs_sync_count).  Returns (the runs, the phase's launches: the
+    hooks-on run's)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    specs = steady_specs(3, n_nodes, n_pods)
+    specs_s = time.perf_counter() - t_phase
+    runs = [("off", obs_run(device, specs, False, n_arrivals, threshold))]
+    runs.append(("on", obs_run(device, specs, True, n_arrivals, threshold)))
+    elapsed = time.perf_counter() - t_phase
+    third = elapsed + runs[0][1]["run_s"] * 1.5 < budget_s * 0.8
+    if third:
+        runs.append(("off", obs_run(device, specs, False, n_arrivals,
+                                    threshold)))
+    base = runs[0][1]["records"]
+    for name, run in runs[1:]:
+        for a, b in zip(base, run["records"], strict=True):
+            check(a["assignments"] == b["assignments"],
+                  f"phase 18 {a['round']}: the {name} run binds as the first")
+            check(a["launches"] == b["launches"],
+                  f"phase 18 {a['round']}: the {name} run launches as the "
+                  "first")
+            check(a["path"] == b["path"],
+                  f"phase 18 {a['round']}: the {name} run's path")
+    on = runs[1][1]
+    by = {r["round"]: r for r in on["records"]}
+    check(by["cold"]["path"] == "full_cold", "phase 18: the cold round")
+    check(by["steady_2"]["path"] == "incremental"
+          and by["steady_1"]["path"] == "incremental",
+          "phase 18: the steady rounds refresh the cache")
+    check(by["degraded"]["path"] == "degraded"
+          and by["degraded"]["suspended"] > 0,
+          "phase 18: the degraded round suspends BE pods, full pass")
+    launches: dict = {}
+    for r in on["records"]:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    if torch.device(device).type == "cuda":
+        for k in ("select_candidates", "refresh_candidates",
+                  "round_fit_choose", "segmented_prefix_accept",
+                  "greedy_scan", "explain_counts"):
+            check(launches.get(k, 0) > 0, f"phase 18: {k} launched")
+    syncs = obs_sync_count(device, runs[-1][1]["sched"], specs, n_arrivals)
+    phase_s = time.perf_counter() - t_phase
+    offs = [run["records"] for name, run in runs if name == "off"]
+    rounds = []
+    for k, r in enumerate(on["records"]):
+        off_walls = [recs[k]["wall_s"] for recs in offs]
+        # the hooks' cost by phase: the on run's phase less the offs' mean
+        by_phase = {
+            p: v - sum(recs[k]["round_timings_ms"].get(p, 0.0)
+                       for recs in offs) / len(offs)
+            for p, v in r["round_timings_ms"].items()}
+        rounds.append(dict(
+            round=r["round"], path=r["path"], pods=r["pods"],
+            binds=r["binds"], failed=r["failed"], suspended=r["suspended"],
+            dump_reason=r["dump_reason"],
+            wall_s={"off": off_walls, "on": r["wall_s"]},
+            hooks_ms=(r["wall_s"] - sum(off_walls) / len(off_walls)) * 1e3,
+            hooks_ms_by_phase=by_phase,
+            solve_wall_ms=r["solve_wall_s"] * 1e3,
+            solve_device_ms=r["solve_device_s"] * 1e3,
+            round_timings_ms=r["round_timings_ms"],
+            launches=r["launches"],
+            timeline=on["cycles"][k]))
+    off_setup = [run["setup_s"] for name, run in runs if name == "off"]
+    emit("observability", nodes=n_nodes, pods=n_pods, arrivals=n_arrivals,
+         runs=[name for name, _ in runs], third_run=third,
+         setup_s={"specs": specs_s,
+                  "runs": [run["setup_s"] for _, run in runs]},
+         enqueue_hooks_ms=(on["setup_s"] - sum(off_setup) / len(off_setup))
+         * 1e3,
+         run_s=[run["run_s"] for _, run in runs], rounds=rounds,
+         spans=on["spans"], enqueue_spans=on["enqueue_spans"],
+         bind_spans=on["bind_spans"], journey_e2e=on["journey_e2e"],
+         syncs_in_steady_solve=syncs, phase_s=phase_s, budget_s=budget_s)
+    check(phase_s <= budget_s, f"phase 18 within {budget_s} s ({phase_s:.1f})")
+    for _, run in runs:
+        run.pop("sched")
+    return runs, launches
+
+
 def _per_call_ms(times) -> dict | None:
     if not times:
         return None
@@ -7147,6 +7548,7 @@ def main() -> int:
     phase_offer_slots_edges(device)
     topo_records, k8, topo_launches = phase_topology(device)
     gate_records, gate_launches, gate_k1 = phase_gates(device)
+    _, obs_launches = phase_observability(device)
     kernels[1:1] = [dict(
         name="refresh_candidates", route="cuda",
         source=CSRC + "refresh_candidates.cu",
@@ -7280,6 +7682,11 @@ def main() -> int:
         n17 = gate_launches.get(entry["name"], 0)
         if n17:
             entry["phase17"] = dict(launches=n17)
+    # phase 18 (the observability hooks): the hooks-on run's launches
+    for entry in kernels:
+        n18 = obs_launches.get(entry["name"], 0)
+        if n18:
+            entry["phase18"] = dict(launches=n18)
     k1_entry = next(e for e in kernels if e["name"] == "select_candidates")
     k1_entry.setdefault("phase17", {}).update(
         dense={k: gate_k1["dense"][k] for k in (

@@ -4,12 +4,14 @@ of ``koordinator_tpu/scheduler/monitor.py``).
 Equivalent of ``frameworkext/scheduler_monitor.go:44-100`` — records how long
 each scheduling phase takes, keeps a rolling history, and flags phases that
 exceed the configured timeout.  ``start_round()``/``round_timings`` expose
-the CURRENT round's per-phase wall times.
+the CURRENT round's per-phase wall times for the flight recorder.
 
-Left out until the port has its observability copies: the JAX monitor's
-hooks into ``metrics`` (the ``scheduling_duration_seconds`` histogram and
-its trace-id exemplar), ``timeline`` (a phase segment) and ``tracing`` (a
-span a phase under the round span).
+Each phase is also a ``phase.<name>`` trace span (a child of the round span
+the scheduler opens, only when a trace is active), a timeline segment
+(timed on ``time.perf_counter``, its cause from ``timeline.PHASE_CAUSES``)
+and an observation of the ``scheduling_duration_seconds`` histogram
+(label ``phase``, and ``tenant`` when set) with the round's trace id as
+its exemplar; Solve also feeds ``solver_batch_duration_seconds``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import contextlib
 import logging
 import time
 from collections import defaultdict, deque
+
+from koordinator_tpu_torch import metrics, timeline, tracing
 
 logger = logging.getLogger("koordinator_tpu_torch.scheduler")
 
@@ -31,10 +35,10 @@ class SchedulerMonitor:
             lambda: deque(maxlen=history))
         self.slow_rounds = 0
         #: per-phase wall times of the round in flight (reset by
-        #: start_round)
+        #: start_round; the flight recorder snapshots it at round end)
         self.round_timings: dict[str, float] = {}
-        #: tenancy identity: kept for the JAX monitor's interface; it
-        #: labels the metrics the port does not have yet
+        #: tenancy identity: when set, every phase observation also
+        #: carries a {tenant=...} label
         self.tenant = ""
 
     def start_round(self) -> None:
@@ -46,14 +50,40 @@ class SchedulerMonitor:
     def phase(self, name: str, carry_s: float = 0.0):
         """Time one phase; ``carry_s`` folds wall time measured outside
         this context into the phase's one observation."""
+        # a phase span only under an active trace (the scheduler's round
+        # span): standalone monitor users pay nothing
+        ctx = tracing.current_context()
+        span_cm = (tracing.TRACER.span(f"phase.{name}") if ctx is not None
+                   else contextlib.nullcontext())
+        # the timeline segment is timed on perf_counter, not self.clock
+        # (which tests may fake): cycle windows clip by real monotonic time
+        tl_start = (time.perf_counter() if timeline.RECORDER.enabled
+                    else 0.0)
         start = self.clock()
         try:
-            yield
+            with span_cm:
+                yield
         finally:
+            if timeline.RECORDER.enabled:
+                timeline.RECORDER.add(
+                    tl_start, time.perf_counter(),
+                    timeline.PHASE_CAUSES.get(name, "host_other"),
+                    f"phase.{name}", self.tenant)
             elapsed = self.clock() - start + carry_s
             self.phase_history[name].append(elapsed)
             self.round_timings[name] = (
                 self.round_timings.get(name, 0.0) + elapsed)
+            # the exemplar links this observation to the round's trace
+            exemplar = ({"trace_id": ctx.trace_id} if ctx is not None
+                        else None)
+            labels = {"phase": name}
+            if self.tenant:
+                labels["tenant"] = self.tenant
+            metrics.scheduling_latency.observe(
+                elapsed, labels=labels, exemplar=exemplar)
+            if name == "Solve":
+                metrics.solver_batch_latency.observe(
+                    elapsed, exemplar=exemplar)
             if elapsed > self.timeout_sec:
                 self.slow_rounds += 1
                 logger.warning(

@@ -122,12 +122,34 @@ Reserve, Bind, Diagnose, PostFilter) into ``round_timings``; ``faults``'
 takes the round's main bind set as one list in bind order instead of
 ``bind_fn``'s calls.
 
+Observability, as the JAX scheduler has it: each round runs in a
+``scheduler.round`` span with a ``phase.<name>`` child a phase; with
+``trace_pods`` (or under a caller's active trace) every enqueued user pod
+gets a ``scheduler.enqueue`` span and, at its bind, a ``scheduler.bind``
+span and the trace annotation in ``resource_status`` (``pod_trace_id``,
+the explanations' ``trace_id``).  A round past the gates leaves a
+``RoundRecord`` in ``flight_recorder`` (a ring of ``flight_ring_size``;
+slow and degraded rounds dump) and, with the timeline recorder on, one
+timeline cycle: the monitor's phase segments, the solve's dispatch, and
+the blocking copies of its results (``_block_timed``: ``device_block``,
+``device_busy``).  The journey ledger stamps each pod's enqueue (and its
+``arrival_ts``) and records its stages at the bind.  The metrics:
+``pods_enqueued_total``, ``pending_pods``, the watchdog's
+``state_staleness_seconds``, ``degraded_mode``,
+``degraded_transitions_total`` and ``degraded_suspended_pods``,
+``solver_batch_padding_waste``, ``incremental_solve_rounds_total{path}``,
+``incremental_dirty_fraction{kind}``, ``incremental_dirty_pods``,
+``solver_device_duration_seconds{path}``, the monitor's
+``scheduling_duration_seconds{phase}`` and
+``solver_batch_duration_seconds``, the explain rollup's
+``unschedulable_pods{reason}`` and ``filter_reject_fraction{reason}``,
+and ``capacity_slack{dim}``.  The hooks never feed a decision: the binds
+are the same with every hook off.
+
 Left out of this reduced shell, and kept by the JAX scheduler: forecast and
 quality modes (so the topology planner is the baseline one), tenancy, the
-solve mesh, the debug service, pod traces (``pod_trace_id`` is None, as in
-JAX without ``trace_pods``), the flight recorder, and the journey,
-timeline, tracing and metrics hooks (among them the monitor's, the
-watchdog's gauges and the explain rollup's).
+solve mesh, the debug service and the introspection gauges
+(``solver_device_bytes``, the shard counts, the recompile accounting).
 """
 
 from __future__ import annotations
@@ -138,6 +160,7 @@ import time
 import numpy as np
 import torch
 
+from koordinator_tpu_torch import journey, metrics, timeline, tracing
 from koordinator_tpu_torch.api.qos import QoSClass
 from koordinator_tpu_torch.api.resources import (
     BATCH_DIMS,
@@ -183,6 +206,10 @@ from koordinator_tpu_torch.scheduler.diagnosis import (
 from koordinator_tpu_torch.scheduler.explanation import (
     ExplanationRing,
     PlacementExplanation,
+)
+from koordinator_tpu_torch.scheduler.flight_recorder import (
+    FlightRecorder,
+    RoundRecord,
 )
 from koordinator_tpu_torch.scheduler.monitor import SchedulerMonitor
 from koordinator_tpu_torch.scheduler.reservations import (
@@ -307,7 +334,8 @@ class Scheduler:
                  monitor: SchedulerMonitor | None = None, barrier=None,
                  hints=None, elector=None,
                  staleness_threshold_sec: float | None = None,
-                 staleness_exit_sec: float | None = None, faults=None):
+                 staleness_exit_sec: float | None = None, faults=None,
+                 trace_pods: bool = False, flight_ring_size: int = 256):
         if device is not None and torch.device(device) != snapshot.device:
             raise ValueError(f"device {device} differs from the snapshot's "
                              f"{snapshot.device}")
@@ -477,6 +505,37 @@ class Scheduler:
         self.last_suspended = 0
         self._last_staleness_s: float | None = None
 
+        # -- tracing, the round flight recorder, the timeline and journey --
+        #: trace every enqueued pod (a root span a pod) even without a
+        #: propagated context; off by default: per-pod spans are O(P) host
+        #: work a round.  A caller's active TraceContext always traces its
+        #: pod
+        self.trace_pods = trace_pods
+        #: live trace context a pending pod (its enqueue span), popped when
+        #: the pod binds (the bind span parents to it) or leaves
+        self.pod_traces: dict[str, tracing.TraceContext] = {}
+        #: bounded pod name -> trace_id registry that survives the bind
+        self._pod_trace_ids: dict[str, str] = {}
+        #: one RoundRecord a round past the gates; slow and degraded ones
+        #: dump to the log
+        self.flight_recorder = FlightRecorder(
+            capacity=flight_ring_size,
+            slow_threshold_s=self.monitor.timeout_sec)
+        #: the round's time blocked on solve results (_block_timed)
+        self._solve_device_s = 0.0
+        #: the round's first dispatch edge (the timeline's device-busy
+        #: start), consumed by the first block edge
+        self._tl_device_t0: float | None = None
+        #: the Solve phase's dispatch start (the timeline's dispatch
+        #: segment)
+        self._dispatch_t0 = 0.0
+        #: the round got past the gates: it leaves a flight record, a
+        #: timeline cycle and the introspection gauges
+        self._round_recordable = False
+        #: the journey ledger's solve edge; None outside a round, so a bind
+        #: made outside one stamps its own commit edge
+        self._journey_round_t0: float | None = None
+
     # -- registration -----------------------------------------------------------
 
     def register_gang(self, record: GangRecord) -> None:
@@ -557,8 +616,41 @@ class Scheduler:
     # -- queue ----------------------------------------------------------------
 
     def enqueue(self, pod: PodSpec) -> None:
+        # arrivals: only NEW names count (a resync replaying a pending pod
+        # is no arrival), and the journey's enqueue stamp is the first
+        if pod.name not in self.pending:
+            metrics.pods_enqueued_total.inc()
+            if journey.LEDGER.enabled:
+                journey.LEDGER.note_enqueue(pod.name, pod.arrival_ts)
         self.pending[pod.name] = pod
         self._pending_rev += 1
+        # the pod's trace starts (or joins the caller's) here; reserve-pods
+        # are placement vehicles, not workloads, and stay untraced
+        ctx = tracing.current_context()
+        if ((ctx is not None or self.trace_pods)
+                and not pod.name.startswith(RSV_POD_PREFIX)):
+            sp = tracing.TRACER.start_span(
+                "scheduler.enqueue", service="scheduler", parent=ctx,
+                attributes={"pod": pod.name,
+                            "priority": int(pod.priority)})
+            sp.end()
+            self.pod_traces[pod.name] = sp.context()
+            self._register_pod_trace(pod.name, sp.trace_id)
+
+    def _register_pod_trace(self, name: str, trace_id: str) -> None:
+        """Bounded name -> trace_id map: survives the bind, trimmed
+        oldest-first past 8,192 names."""
+        ids = self._pod_trace_ids
+        ids.pop(name, None)          # a re-enqueue refreshes recency
+        ids[name] = trace_id
+        if len(ids) > 8192:
+            for key in list(ids)[: len(ids) // 2]:
+                del ids[key]
+
+    def pod_trace_id(self, name: str) -> str | None:
+        """The most recent trace_id recorded for a pod (None when it was
+        never traced)."""
+        return self._pod_trace_ids.get(name)
 
     def enqueue_many(self, pods: list[PodSpec]) -> None:
         for pod in pods:
@@ -568,8 +660,10 @@ class Scheduler:
         # a deleted nominated preemptor releases its assumed node and quota
         # charge, and must not pin a later pod of the same name
         pod = self.pending.pop(pod_name, None)
+        self.pod_traces.pop(pod_name, None)
         if pod is not None:
             self._pending_rev += 1
+            journey.LEDGER.forget(pod_name)
         if pod_name in self.nominations and pod is not None:
             self._nomination_release(pod)
         else:
@@ -816,11 +910,14 @@ class Scheduler:
         if threshold is None or age is None:
             # the watchdog is off, or no feed has spoken yet
             return
+        metrics.state_staleness_seconds.set(age)
         if not self.degraded and age > threshold:
             self.degraded = True
             self.degraded_since = now
             self.degraded_entries += 1
             self._cand_cache = None
+            metrics.degraded_mode.set(1.0)
+            metrics.degraded_transitions_total.inc(labels={"phase": "enter"})
         elif self.degraded:
             exit_thr = (self.staleness_exit_sec
                         if self.staleness_exit_sec is not None
@@ -829,6 +926,9 @@ class Scheduler:
                 self.degraded = False
                 self.degraded_since = None
                 self._cand_cache = None
+                metrics.degraded_mode.set(0.0)
+                metrics.degraded_transitions_total.inc(
+                    labels={"phase": "exit"})
 
     def _suspended_while_degraded(self, pod: PodSpec) -> bool:
         """Admission suspended for this pod while degraded: BE pods and any
@@ -862,6 +962,7 @@ class Scheduler:
                 continue
             out.append(pod)
         self.last_suspended = suspended
+        metrics.degraded_suspended_pods.set(float(suspended))
         out.sort(key=lambda p: (-p.priority, p.creation, p.name))
         return out
 
@@ -1133,19 +1234,139 @@ class Scheduler:
 
     # -- the round ----------------------------------------------------------
 
+    def _round_begin(self) -> None:
+        """Reset the per-round accumulators."""
+        self.round_seq += 1
+        self.monitor.start_round()
+        self._last_unschedulable_top = {}
+        self.last_dirty_node_frac = 0.0
+        self.last_dirty_pod_frac = 0.0
+        self._solve_device_s = 0.0
+        self._tl_device_t0 = None
+        self._round_recordable = False
+        #: the journey ledger's queue_wait / solve split: set here, read by
+        #: the bind commits, cleared when the round returns
+        self._journey_round_t0 = time.perf_counter()
+
+    def _current_path(self) -> str:
+        return (self.last_solve_path
+                if self.last_solver == "batch" else "greedy")
+
     def schedule_round(self) -> SchedulingResult:
         """Solve the current pending queue; reserve, bind, diagnose.
+
+        Every round runs inside a ``scheduler.round`` span (a child of the
+        caller's trace when one is active) whose attributes double as the
+        round's flight record; a round that got past the gates lands in the
+        flight recorder's ring (slow and degraded ones dump), republishes
+        ``capacity_slack`` and, with the timeline on, closes a timeline
+        cycle whose critical path is annotated on its record.
 
         The gates come first, before the clock is read: a standby replica
         (``elector.tick()`` false) decides nothing and its ``last_result``
         is the empty result; a closed startup ``barrier`` decides nothing
         and leaves ``last_result`` as it was.  Then the staleness watchdog
         (degraded mode), and the phases, each timed by ``monitor``."""
-        self.round_seq += 1
-        self.monitor.start_round()
-        self._last_unschedulable_top = {}
-        self.last_dirty_node_frac = 0.0
-        self.last_dirty_pod_frac = 0.0
+        self._round_begin()
+        start_wall = time.time()
+        t0 = time.perf_counter()
+        with tracing.TRACER.span(
+                "scheduler.round", service="scheduler",
+                attributes={"round": self.round_seq}) as span:
+            try:
+                result = self._round()
+            finally:
+                self._journey_round_t0 = None
+            duration = time.perf_counter() - t0
+            path = self._current_path()
+            if not self._round_recordable:
+                # a gated round: last_solver and last_solve_path are the
+                # last deciding round's, and no solve ran
+                span.set_attributes({"gated": True})
+            else:
+                span.set_attributes({
+                    "solver": self.last_solver,
+                    "solve_path": path,
+                    "pods": result.round_pods,
+                    "placed": len(result.assignments),
+                    "failed": len(result.failures),
+                    "suspended": self.last_suspended,
+                    "degraded": self.degraded,
+                    "staleness_s": self._last_staleness_s,
+                    "dirty_node_frac": self.last_dirty_node_frac,
+                    "dirty_pod_frac": self.last_dirty_pod_frac,
+                    "solve_wall_s": self.monitor.round_timings.get(
+                        "Solve", 0.0),
+                    "solve_device_s": self._solve_device_s,
+                })
+        if self._round_recordable:
+            self._round_flight_record(result, span.trace_id, start_wall,
+                                      duration, path)
+            self._publish_round_introspection()
+            if timeline.RECORDER.enabled:
+                # the scheduler's round is its timeline cycle
+                doc = timeline.RECORDER.finish_cycle(
+                    self.round_seq, t0, time.perf_counter(), mode="round")
+                if doc is not None:
+                    self.flight_recorder.annotate_round(
+                        self.round_seq, "", cycle_seq=doc["cycle"],
+                        cycle_critical_cause=doc["critical_cause"],
+                        cycle_critical_seconds=doc["critical_seconds"])
+        return result
+
+    def _round_flight_record(self, result: SchedulingResult, trace_id: str,
+                             start_wall: float, duration: float,
+                             path: str) -> None:
+        self.flight_recorder.record(RoundRecord(
+            round=self.round_seq,
+            trace_id=trace_id,
+            start_time=start_wall,
+            duration_s=duration,
+            solver=self.last_solver,
+            solve_path=path,
+            pods=result.round_pods,
+            placed=len(result.assignments),
+            failed=len(result.failures),
+            suspended=self.last_suspended,
+            degraded=self.degraded,
+            staleness_s=self._last_staleness_s,
+            dirty_node_frac=self.last_dirty_node_frac,
+            dirty_pod_frac=self.last_dirty_pod_frac,
+            solve_wall_s=self.monitor.round_timings.get("Solve", 0.0),
+            solve_device_s=self._solve_device_s,
+            phase_s=dict(self.monitor.round_timings),
+            sheds_total=metrics.solve_deadline_shed_total.value(),
+            top_unschedulable=dict(self._last_unschedulable_top),
+        ))
+
+    def _publish_round_introspection(self) -> None:
+        """``capacity_slack{dim}``: each dimension's free share of the live
+        nodes' allocatable (1.0 where none is allocatable), the headroom
+        beside the round's fit_<dim> rejections; with ``explain`` only.
+        The two masked sums accumulate in float32 (a 10,000-node sum of
+        int32 quantities overflows int32)."""
+        if not self.explain:
+            return
+        st = self.snapshot.state
+        valid = st.node_valid[:, None]
+        free_sum = torch.where(
+            valid, st.node_allocatable - st.node_requested, 0).to(
+                torch.float32).sum(dim=0).cpu().numpy()
+        alloc_sum = torch.where(valid, st.node_allocatable, 0).to(
+            torch.float32).sum(dim=0).cpu().numpy()
+        for dim in ResourceDim:
+            total = float(alloc_sum[dim])
+            metrics.capacity_slack.set(
+                (float(free_sum[dim]) / total) if total > 0 else 1.0,
+                labels={"dim": dim.name.lower()})
+
+    def _round(self) -> SchedulingResult:
+        """The round inside its span: the gates, then the phases."""
+        # the backlog at the round's start, before the gates, so one
+        # building behind a closed barrier shows (reserve-pods excluded)
+        metrics.pending_pods.set(float(sum(
+            1 for name in self.pending
+            if not name.startswith(RSV_POD_PREFIX))))
         result = SchedulingResult({}, {}, 0)
         if self.elector is not None and not self.elector.tick():
             # standby: keep syncing, decide nothing
@@ -1156,6 +1377,8 @@ class Scheduler:
             # informer replays past the barrier
             return result
         now = self.clock()
+        # past the gates: the round belongs in the flight recorder
+        self._round_recordable = True
         self._staleness_tick(now)
         self.last_result = result
         monitor = self.monitor
@@ -1196,8 +1419,14 @@ class Scheduler:
             quota, quota_index = self._build_quota()
             batch = self._build_batch(pods, gang_index, quota_index)
             batch = self._apply_topology_plans(batch, gang_index)
+            # the share of the padded pod rows no pod occupies
+            metrics.solver_batch_padding_waste.set(
+                1.0 - len(pods) / max(batch.capacity, 1))
 
         with monitor.phase("Solve"):
+            # the dispatch: the fault seam, the pre-pass and the solve's
+            # launches, up to the first blocking copy of its results
+            self._dispatch_t0 = time.perf_counter()
             if self.faults is not None:
                 self.faults.on_solve()
             if len(self.reservations):
@@ -1225,16 +1454,28 @@ class Scheduler:
                     else "full_dense" if batch.selector_mask is None
                     else "degraded" if self.degraded
                     else "disabled")
+                if solver == "batch":
+                    metrics.incremental_solve_total.inc(
+                        labels={"path": self.last_solve_path})
                 assignments, new_state, new_quota = gang_assign(
                     self.snapshot.state, batch, self.config, gangs, quota,
                     passes=self.gang_passes, solver=solver)
+                self._dispatch_done()
 
-            a = assignments.cpu().numpy()
+            a = self._block_timed(assignments)
             leftover = batch.valid.cpu().numpy() & (a < 0)
             if solver == "batch" and bool(leftover[: len(pods)].any()):
                 a, new_state, new_quota = self._rescue(
                     batch, gangs, a, leftover, new_state, new_quota, result)
         result.round_pods = len(pods)
+        # the Solve phase's time blocked on its results (its wall is the
+        # monitor's)
+        metrics.solver_device_latency.observe(
+            self._solve_device_s,
+            labels={"path": (self.last_solve_path if solver == "batch"
+                             else "greedy")},
+            exemplar=({"trace_id": tracing.current_trace_id()}
+                      if tracing.current_context() is not None else None))
         with monitor.phase("Reserve"):
             self.snapshot.adopt_state(new_state,
                                       changed_rows=np.unique(a[a >= 0]))
@@ -1273,7 +1514,41 @@ class Scheduler:
                     if self.auditor is not None:
                         self.auditor.record(pod.gang or pod.name,
                                             "ScheduleFailed", diag.message())
+        # the backlog after the binds
+        metrics.pending_pods.set(float(len(self.pending)))
         return result
+
+    def _dispatch_done(self) -> None:
+        """The solve's dispatch ended: its ``dispatch`` timeline segment
+        from the Solve phase's start, which is also the round's first
+        dispatch edge (the device-busy span's start)."""
+        if timeline.RECORDER.enabled:
+            timeline.RECORDER.add(self._dispatch_t0, time.perf_counter(),
+                                  "dispatch", "round.dispatch", "")
+            if self._tl_device_t0 is None:
+                self._tl_device_t0 = self._dispatch_t0
+
+    def _block_timed(self, value: torch.Tensor) -> np.ndarray:
+        """Copy a solve result to the host: the point where the host waits
+        for the device (the copy synchronises; no other synchronisation is
+        added).  The wait adds to the round's device-time share
+        (``_solve_device_s``) and, with the timeline on, is a
+        ``device_block`` segment, with a ``device_busy`` one from the
+        round's dispatch edge (or, with none pending, from its own
+        start)."""
+        t0 = time.perf_counter()
+        out = value.cpu().numpy()
+        t1 = time.perf_counter()
+        self._solve_device_s += t1 - t0
+        if timeline.RECORDER.enabled:
+            # the segment names are the reference's labels
+            timeline.RECORDER.add(t0, t1, "device_block",
+                                  "block_until_ready", "")
+            busy_t0 = self._tl_device_t0
+            timeline.RECORDER.add(busy_t0 if busy_t0 is not None else t0,
+                                  t1, timeline.DEVICE_BUSY, "solve", "")
+            self._tl_device_t0 = None
+        return out
 
     def _rescue(self, batch: PodBatch, gangs: GangInfo, a: np.ndarray,
                 leftover: np.ndarray, new_state, new_quota,
@@ -1296,7 +1571,7 @@ class Scheduler:
         r_small, new_state, new_quota = gang_assign(
             new_state, small, self.config, gangs, new_quota,
             passes=self.gang_passes, solver="greedy")
-        r = r_small.cpu().numpy()[: len(idx)]
+        r = self._block_timed(r_small)[: len(idx)]
         result.rescued = int((r >= 0).sum())
         a = a.copy()
         a[idx] = np.where(a[idx] >= 0, a[idx], r)
@@ -1409,8 +1684,9 @@ class Scheduler:
                                  batch: PodBatch, quota):
         """The incremental solve, dispatch then finish: returns
         (assignments, new_state, new_quota) like gang_assign."""
-        return self._finish_batch_incremental(
-            self._dispatch_batch_incremental(pods, batch, quota))
+        ctx = self._dispatch_batch_incremental(pods, batch, quota)
+        self._dispatch_done()
+        return self._finish_batch_incremental(ctx)
 
     def _dispatch_batch_incremental(self, pods: list[PodSpec],
                                     batch: PodBatch, quota) -> dict:
@@ -1470,6 +1746,11 @@ class Scheduler:
                 meta["cache"], dev(map_rows), dev(map_ok), dev(dirty_np))
             dirty_pods = changed | touch.cpu().numpy()
             pod_frac = float(dirty_pods.sum()) / max(len(pods), 1)
+            metrics.incremental_dirty_fraction.set(
+                node_frac, labels={"kind": "nodes"})
+            metrics.incremental_dirty_fraction.set(
+                pod_frac, labels={"kind": "pods"})
+            metrics.incremental_dirty_pods.set(float(dirty_pods.sum()))
             self.last_dirty_node_frac = node_frac
             self.last_dirty_pod_frac = pod_frac
             if max(node_frac, pod_frac) <= self.incremental_dirty_threshold:
@@ -1490,6 +1771,7 @@ class Scheduler:
         if cache is None:
             cache = ba.CandidateCache(*self._select(snap.state, batch, k,
                                                     method))
+        metrics.incremental_solve_total.inc(labels={"path": path})
         # the batch build already made this round's name -> row and spec
         # maps for its own row reuse: share them
         host = self._batch_host
@@ -1515,7 +1797,7 @@ class Scheduler:
         Returns (assignments, new_state, new_quota) like gang_assign."""
         batch = ctx["batch"]
         state, quota, est_accum = ctx["state"], ctx["quota"], ctx["est_accum"]
-        a_np = ctx["a"].cpu().numpy()
+        a_np = self._block_timed(ctx["a"])
         valid = batch.valid.cpu().numpy()
         try:
             for _ in range(1, self.gang_passes):
@@ -1526,7 +1808,7 @@ class Scheduler:
                 a2, state, quota, est_accum = ba.assign_followup_pass(
                     state, est_accum, small, quota, self.config, k=ctx["k"],
                     method=ctx["method"])
-                a2_np = a2.cpu().numpy()[: len(idx)]
+                a2_np = self._block_timed(a2)[: len(idx)]
                 placed = a2_np >= 0
                 if not placed.any():
                     break
@@ -1546,7 +1828,10 @@ class Scheduler:
         ``reservations`` gives each bind's (reservation, drawn vector,
         reservation generation) when the pre-pass made it;
         ``charge_quota=False`` converts nominations, whose quota charge is
-        already on the tree."""
+        already on the tree.  A traced pod gets its ``scheduler.bind`` span
+        (its annotation in ``resource_status``), and the journey ledger
+        records the binds' stages in one pass."""
+        commit_t0 = time.perf_counter()
         gen = self.snapshot.node_generation
         for k, (pod, node) in enumerate(binds):
             result.assignments[pod.name] = node
@@ -1575,6 +1860,21 @@ class Scheduler:
             # per-pod surfaces in bind order: the fine-grained managers
             # mutate per node and pod
             self._allocate_fine_grained(pod, node)
+            # the bind in the pod's trace (parented to its enqueue span,
+            # linked to the round's trace by attribute) and the annotation
+            # the bound pod object carries; after _allocate_fine_grained,
+            # which replaces the pod's resource_status entry
+            ctx = self.pod_traces.pop(pod.name, None)
+            if ctx is not None:
+                sp = tracing.TRACER.start_span(
+                    "scheduler.bind", service="scheduler", parent=ctx,
+                    attributes={"pod": pod.name, "node": node,
+                                "round": self.round_seq,
+                                "round_trace_id":
+                                    tracing.current_trace_id()})
+                sp.end()
+                self.resource_status.setdefault(pod.name, {})[
+                    tracing.TRACE_ANNOTATION] = sp.context().to_annotation()
             # a bound pod's explanation is stale
             if self.explanations is not None:
                 self.explanations.delete(pod.name)
@@ -1587,6 +1887,15 @@ class Scheduler:
         elif self.bind_fn is not None:
             for pod, node in binds:
                 self.bind_fn(pod.name, node)
+        # pure observation, after every decision and charge above: the
+        # ledger off binds the same
+        if journey.LEDGER.enabled and binds:
+            round_t0 = self._journey_round_t0
+            journey.LEDGER.record_bind_batch(
+                "", [pod for pod, _node in binds],
+                round_start_perf=(round_t0 if round_t0 is not None
+                                  else commit_t0),
+                commit_perf=commit_t0)
 
     # -- fine-grained allocation (nodenumaresource / deviceshare Reserve) -------
 
@@ -2023,9 +2332,11 @@ class Scheduler:
         failed_gangs: set[str], total_nodes: int,
     ) -> None:
         """A :class:`PlacementExplanation` for every pod the round left
-        unplaced (the solve's failures, from their diagnoses, and the
-        pods of rejected gangs) into ``explain_ring``, and the round's
-        {top reason -> pods} summary."""
+        unplaced (the solve's failures, from their diagnoses, the
+        degraded-suspended pods and the pods of rejected gangs) into
+        ``explain_ring``, the round's {top reason -> pods} summary, and the
+        rollups ``unschedulable_pods{reason}`` (top reason a pod) and
+        ``filter_reject_fraction{reason}``."""
         explanations: list[PlacementExplanation] = []
         for i in fail_rows:
             pod = pods[i]
@@ -2066,18 +2377,25 @@ class Scheduler:
                 trace_id=self.pod_trace_id(name),
                 gang=getattr(self.pending.get(name), "gang", None)))
         top: dict[str, int] = {}
+        reason_sums: dict[str, int] = {}
         for exp in explanations:
             self.explain_ring.record(exp)
             reason = exp.top_reason()
             if reason is not None:
                 top[reason] = top.get(reason, 0) + 1
+            for name, count in exp.reasons.items():
+                reason_sums[name] = reason_sums.get(name, 0) + count
         self._last_unschedulable_top = dict(
             sorted(top.items(), key=lambda kv: (-kv[1], kv[0])))
-
-    def pod_trace_id(self, name: str) -> str | None:
-        """The pod's trace id: None, since the port traces no pods yet (the
-        JAX scheduler's answer without ``trace_pods``)."""
-        return None
+        # every reason republished each round, so a cleared one reads 0
+        for name in ex.REASON_NAMES:
+            metrics.unschedulable_pods.set(
+                float(top.get(name, 0)), labels={"reason": name})
+        if explanations and total_nodes:
+            denom = len(explanations) * total_nodes
+            for name, total in reason_sums.items():
+                metrics.filter_reject_fraction.observe(
+                    total / denom, labels={"reason": name})
 
     def pod_explanation(self, name: str) -> PlacementExplanation | None:
         """Latest retained :class:`PlacementExplanation` of a pod."""

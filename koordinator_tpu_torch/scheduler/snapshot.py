@@ -60,6 +60,10 @@ class PodSpec:
     #: pod.spec.preemptionPolicy: "Never" opts out of preempting others
     #: (PodEligibleToPreemptOthers, elasticquota/preempt.go:62)
     preemption_policy: str = "PreemptLowerPriority"
+    #: manager-side ingest wall clock (the journey ledger's arrival stamp);
+    #: 0.0 when none rode in.  Never read by the solve or the pending sort
+    #: key (that is ``creation``), so it cannot change a decision
+    arrival_ts: float = 0.0
 
 
 class ClusterSnapshot:

@@ -12,7 +12,9 @@ audit records, and a bound pod's score decomposition; then a round with a
 network-topology gang, cpusets and GPUs (the device-plugin gate on), a
 delete and a restore through ``add_bound_pod``'s ``resource_status``; then
 the round's gates: a standby round, a closed barrier, a hinted round on a
-dense mask and a degraded round)."""
+dense mask and a degraded round; then a round with every observability hook
+on: traced pods, an exporter on the tracer, the timeline recorder and the
+journey ledger, a flight record and the metrics' exposition)."""
 
 import os
 import re
@@ -293,6 +295,33 @@ for j in range(40, 80):
 res = gs.schedule_round()
 assert gs.degraded and gs.last_solve_path == "degraded"
 assert gs.last_suspended == 20 and len(gs._last_suspended_names) == 20
+# every observability hook on: traced pods with arrival stamps, an exporter
+# on the tracer, the timeline recorder and the journey ledger
+from koordinator_tpu_torch import journey, metrics, timeline, tracing
+from koordinator_tpu_torch.scheduler import flight_recorder
+timeline.RECORDER.set_enabled(True)
+journey.LEDGER.set_enabled(True)
+col = tracing.InMemoryExporter()
+tracing.TRACER.add_exporter(col)
+osnap = ClusterSnapshot(capacity=16, device="cpu")
+for i in range(12):
+    a = np.zeros(10, np.int32)
+    a[0], a[1] = rng.integers(8000, 64000), rng.integers(16384, 262144)
+    osnap.upsert_node(NodeSpec(name=f"o{i}", allocatable=a))
+ots = Scheduler(osnap, device="cpu", trace_pods=True, flight_ring_size=4,
+                batch_solver_threshold=8)
+for j in range(20):
+    q = np.zeros(10, np.int32)
+    q[0], q[1] = rng.integers(100, 4000), rng.integers(128, 8192)
+    ots.enqueue(PodSpec(name=f"o{j}", requests=q, arrival_ts=1e9 + j))
+res = ots.schedule_round()
+assert col.find(name="scheduler.round") and len(col.find(
+    name="scheduler.bind")) == len(res.assignments) > 0
+assert ots.flight_recorder.last().placed == len(res.assignments)
+assert timeline.RECORDER.cycles()[0]["cycle"] == ots.round_seq
+assert any(r["stage"] == "ingest" for r in journey.LEDGER.report()["series"])
+assert "koord_scheduler_pending_pods" in metrics.expose_all(openmetrics=True)
+assert ots.pod_trace_id("o0") is not None
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "koordinator_tpu"))
 print("LOADED", bad)
@@ -305,6 +334,15 @@ def test_the_gates_modules_are_checked():
     names = {os.path.relpath(p, REPO) for p in _sources()}
     for mod in ("barrier", "hints", "monitor"):
         assert f"koordinator_tpu_torch/scheduler/{mod}.py" in names
+
+
+def test_the_observability_modules_are_checked():
+    """The observability copies are among the sources the import-line check
+    reads."""
+    names = {os.path.relpath(p, REPO) for p in _sources()}
+    for mod in ("metrics", "tracing", "timeline", "journey",
+                "scheduler/flight_recorder"):
+        assert f"koordinator_tpu_torch/{mod}.py" in names
 
 
 def test_port_runs_a_round_without_jax():

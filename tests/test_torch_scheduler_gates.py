@@ -111,6 +111,10 @@ class GateTwin(PlacementTwin):
         """An informer event reached both schedulers at the twin's time."""
         self.both("note_sync_event")
 
+    @staticmethod
+    def explanation_docs(sched) -> list[dict]:
+        return [e.to_doc() for e in sched.explain_ring._ring.values()]
+
     def check(self, jr, tr):
         super().check(jr, tr)
         j, p = self.j, self.p
@@ -122,8 +126,7 @@ class GateTwin(PlacementTwin):
         assert p._last_suspended_names == j._last_suspended_names
         assert p._last_gang_rejected_names == j._last_gang_rejected_names
         assert p._last_staleness_s == j._last_staleness_s
-        assert ([e.to_doc() for e in p.explain_ring._ring.values()]
-                == [e.to_doc() for e in j.explain_ring._ring.values()])
+        assert self.explanation_docs(p) == self.explanation_docs(j)
         assert p._last_unschedulable_top == j._last_unschedulable_top
         assert p.last_result.assignments == j.last_result.assignments
         assert (sorted(p.last_result.failures)

@@ -239,3 +239,31 @@ def with_quota_ids(pods, seed: int):
 def set_torch_threads() -> None:
     """The suites run under several workers: keep torch's pool small."""
     torch.set_num_threads(2)
+
+
+def reset_observability(enabled: bool = True) -> None:
+    """Zero both packages' process-wide observability state: every metric
+    registry's values, the timeline recorder's segments and cycles, the
+    journey ledger's stamps and sketches, and the tracers' rings and
+    in-memory exporters; the recorder and the ledger left ``enabled``.
+    ``tests/conftest.py`` resets only the JAX package's registries and
+    recorder, after each test, so the port's suites call this before and
+    after theirs."""
+    from koordinator_tpu import journey as jj
+    from koordinator_tpu import metrics as jm
+    from koordinator_tpu import timeline as jtl
+    from koordinator_tpu import tracing as jt
+
+    from koordinator_tpu_torch import journey, metrics, timeline, tracing
+
+    for m, tl, jl, tr in ((metrics, timeline, journey, tracing),
+                          (jm, jtl, jj, jt)):
+        m.reset_all_for_tests()
+        tl.RECORDER.set_enabled(enabled)
+        tl.RECORDER.reset_for_tests()
+        jl.LEDGER.set_enabled(enabled)
+        jl.LEDGER.reset_for_tests()
+        for exporter in list(tr.TRACER._exporters):
+            if isinstance(exporter, tr.InMemoryExporter):
+                tr.TRACER.remove_exporter(exporter)
+        tr.TRACER.ring.clear()
