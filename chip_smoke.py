@@ -257,7 +257,24 @@ first failure:
    span count, the journey's e2e p50/p99 by QoS, and the synchronising
    calls inside one steady round's Solve (counted under
    ``torch.cuda.set_sync_debug_mode("warn")``) with their top five call
-   sites.
+   sites;
+19. the transport (``phase_wire``): a ``StateSyncService`` on a unix-socket
+   ``RpcServer`` holds the main path's 10,240 nodes and 50,000 pods; a
+   Scheduler on the card bootstraps from it through ``StateSyncClient``
+   and ``SchedulerBinding`` and solves a cold round through
+   ``solve_remote``; a burst of live pushes follows (2,000 pod adds, 1,000
+   removes of bound pods, 200 node usage refreshes, the last 20 nodes
+   drained, removed and upserted again); a fresh Scheduler bootstraps from
+   the snapshot after it, takes the live one's bound pods and rotation ids,
+   and the two run the next round through ``solve_remote`` with equal
+   assignments, failure messages, nominations and node accounting; then a
+   round through ``solve_remote`` while a thread pushes 500 pod adds and
+   100 usage refreshes.  The ``wire`` line gives each bootstrap's seconds
+   and bytes, the churn's apply rate, each round's ``solve_remote`` wall
+   beside its in-process wall (the flight record's) and their difference
+   (the wire's share), the pushes applied before and during the last
+   round, the launches of K1, K2, K3a, K3b and K4 in the phase, and the
+   card's name and power limit.
 
 The Diagnose phase (K7, ``explain_counts``): every round of phases 9, 12,
 13 and 15 runs with the Scheduler's default ``explain=True``, and
@@ -296,8 +313,9 @@ and library time, under ``phase12`` the same at phase 12's shapes with
 its launches over phase 12's four rounds, and under ``phase13`` the
 launches over phase 13's three rounds, with K1's, K3b's and K4's numbers
 at its round 1, and under ``phase17`` the launches over phase 17's rounds
-(K1's with its dense and factored numbers), and under ``phase18`` the
-launches over phase 18's hooks-on run;
+(K1's with its dense and factored numbers), under ``phase18`` the
+launches over phase 18's hooks-on run, and under ``phase19`` the launches
+over phase 19's rounds;
 K4's numbers are those at the steady round's rescue, K3b's at the cold
 solve's first round behind the quota tree, K4r's at round 2's pre-pass,
 K1a's at phase 14's cold round;
@@ -581,8 +599,9 @@ def device_ms_by_kernel(fn, names, device, reps: int = 2) -> dict:
     keys contain each of ``names`` (each launched once a call of ``fn``),
     from a torch.profiler trace of ``reps`` calls after one untraced,
     over the launches the trace holds (a trace can miss some: the mean is
-    not halved by a lost one); None for a name with no device time (off
-    the card, or no device time in the trace)."""
+    not halved by a lost one), traced again (three traces at most) while
+    the trace holds no device time for any of them; None for a name with
+    no device time (off the card, or none in the last trace)."""
     import torch
 
     if torch.device(device).type != "cuda":
@@ -591,19 +610,25 @@ def device_ms_by_kernel(fn, names, device, reps: int = 2) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = dict.fromkeys(names, 0.0)
-    seen = dict.fromkeys(names, 0)
-    for e in prof.key_averages():
-        for name in names:
-            if name in e.key:
-                total[name] += float(getattr(
-                    e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0.0)))
-                seen[name] += int(e.count)
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = dict.fromkeys(names, 0.0)
+        seen = dict.fromkeys(names, 0)
+        for e in prof.key_averages():
+            for name in names:
+                if name in e.key:
+                    total[name] += float(getattr(
+                        e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0)))
+                    seen[name] += int(e.count)
+        if any(total.values()):
+            break
+        # a trace now and then holds no kernel record at all: trace again
+        print(f"device_ms_by_kernel: no device time for {list(names)} in "
+              f"trace {attempt + 1}", file=sys.stderr, flush=True)
     for name in names:
         if 0 < seen[name] != reps:
             print(f"device_ms_by_kernel: {seen[name]} launches of {name} "
@@ -1669,16 +1694,21 @@ def admitted_rows(pods, quota, assignments) -> list[int]:
 
 
 def phase_rescue(device, solve: dict, reps: int = 3, label: str = "rescue",
-                 what: str = "a steady round's rescue"):
+                 what: str = "a steady round's rescue",
+                 rows: int | None = None):
     """K4 at the main path's shape: the greedy rescue's whole input (a
     steady round's: the compacted quota-blocked leftovers over 10,240
-    nodes behind the 16-leaf tree), kernel against plain version:
-    assignments, node accounting and every quota field equal."""
+    nodes behind the 16-leaf tree), or its first ``rows`` rows with the
+    same quota state, kernel against plain version: assignments, node
+    accounting and every quota field equal."""
     from koordinator_tpu_torch.kernels.greedy_scan import greedy_scan_kernel
+    from koordinator_tpu_torch.kernels.select_candidates import _pod_rows
     from koordinator_tpu_torch.ops.assignment import greedy_assign_plain
 
     state, pods, cfg, quota = (solve["state"], solve["batch"], solve["cfg"],
                                solve["quota"])
+    if rows is not None and rows < pods.capacity:
+        pods = _pod_rows(pods, 0, rows)
     check(quota is not None, "the rescue's quota was recorded")
     a, st, q = greedy_scan_kernel(state, pods, cfg, quota)
     sync(device)
@@ -3225,6 +3255,9 @@ GKE_PLAIN_CHUNK = 1_024
 #: phase 12's K4 edge without the quota state: the first rows of a rescue
 #: batch, every one scanned over the 65,536 nodes
 GKE_K4_ROWS = 1_024
+#: the rows of phase 12's last steady rescue that K4 is held on with the
+#: quota state (the whole rescue's plain loop took 41-57 s of the run)
+GKE_K4_RESCUE_ROWS = 4_096
 #: the K2 edge past the earlier wide design's 46-bit list value: 2^26 node
 #: rows (a 26-bit tie-break) and 2^20 + 32 dirty columns (21 bits)
 K2_LONG_NODES = 2**26
@@ -3411,10 +3444,11 @@ def gke_k2(device, args: tuple, reps: int = 10) -> dict:
 
 def gke_k4(device, solve: dict, reps: int = 3) -> dict:
     """K4 on a phase 12 rescue batch against its plain version, with its
-    bound: the whole batch with its quota state, as the steady round gave
-    it (65,536 nodes, 8 selector words a pod; quota rejects most of these
-    pods); and, as an edge, its first GKE_K4_ROWS rows without the quota
-    state (``unquoted``: every pod scanned over the 65,536 nodes)."""
+    bound: the batch's first GKE_K4_RESCUE_ROWS rows with its quota state,
+    as the steady round gave it (65,536 nodes, 8 selector words a pod;
+    quota rejects most of these pods; phase 9 holds a whole rescue); and,
+    as an edge, its first GKE_K4_ROWS rows without the quota state
+    (``unquoted``: every pod scanned over the 65,536 nodes)."""
     from koordinator_tpu_torch.kernels.greedy_scan import greedy_scan_kernel
     from koordinator_tpu_torch.kernels.select_candidates import _pod_rows
     from koordinator_tpu_torch.ops.assignment import greedy_assign_plain
@@ -3422,7 +3456,8 @@ def gke_k4(device, solve: dict, reps: int = 3) -> dict:
     state, cfg = solve["state"], solve["cfg"]
     out = {}
     for label, pods, quota in (
-            ("rescue", solve["batch"], solve["quota"]),
+            ("rescue", _pod_rows(solve["batch"], 0, GKE_K4_RESCUE_ROWS),
+             solve["quota"]),
             ("unquoted", _pod_rows(solve["batch"], 0, GKE_K4_ROWS), None)):
         a, st, q = greedy_scan_kernel(state, pods, cfg, quota)
         sync(device)
@@ -3700,6 +3735,9 @@ N_GANG_PODS = 10_000
 N_GANGS = 512
 N_GROUPED = 64           # gangs in gang groups of 2-4
 N_INCOMPLETE = 16        # PodGroups whose min_member exceeds their members
+#: the rows of round 1's rescue that K4 is held on with the quota state
+#: (the whole rescue's plain loop took 46-63 s of the run)
+GANG_K4_ROWS = 4_096
 N_NEW_GANGS = 32         # PodGroups arriving at t = 300 s
 GANG_TIMES = (0.0, 300.0, 601.0)
 
@@ -3935,7 +3973,8 @@ def phase_gangs(device, n_nodes: int = 10_240, n_pods: int = 50_000,
     rescue = gang_solve(next(s for s in solves[0]
                              if s["solver"] == "greedy"))
     k4 = phase_rescue(device, rescue, label="gang_rescue",
-                      what="phase 13's round 1 rescue")
+                      what="phase 13's round 1 rescue",
+                      rows=GANG_K4_ROWS)
     emit("gangs", nodes=n_nodes, backlog=n_pods, gang_pods=n_gang_pods,
          gangs=len(gangs), grouped=N_GROUPED, incomplete=N_INCOMPLETE,
          pre_enqueue_held_out=held_out, k1=k1, k3b_first_round=k3b, k4=k4,
@@ -7083,6 +7122,328 @@ def phase_observability(device, n_nodes: int = 10_240, n_pods: int = 50_000,
     return runs, launches
 
 
+#: phase 19's churn between the cold round and the compared one, and the
+#: pushes that arrive while its last round runs
+WIRE_ADDS = 2_000
+WIRE_REMOVES = 1_000
+WIRE_USAGE = 200
+WIRE_FLAPS = 20
+WIRE_LIVE = 600
+#: seconds between two of those pushes
+WIRE_LIVE_PACE_S = 0.002
+WIRE_LIMIT_S = 240.0
+#: the kernels whose launches phase 19 reports
+WIRE_KERNELS = ("select_candidates", "refresh_candidates", "round_fit_choose",
+                "segmented_prefix_accept", "greedy_scan")
+
+
+def wire_bytes(op: str) -> float:
+    """The payload bytes the port's wire codec has seen for ``op`` (encode
+    or decode) in this process: the sum of ``wire_payload_bytes``."""
+    from koordinator_tpu_torch import metrics
+
+    return sum(s for labels, _c, _n, s in metrics.wire_payload_bytes.state()
+               if labels.get("op") == op)
+
+
+def wire_wait(sync, service, what: str, timeout: float = 120.0) -> float:
+    """Seconds until the sync client caught up with the service."""
+    t0 = time.perf_counter()
+    while sync.rv != service.rv:
+        check(time.perf_counter() - t0 < timeout,
+              f"phase 19: {what} applied within {timeout} s")
+        time.sleep(0.001)
+    return time.perf_counter() - t0
+
+
+def wire_bootstrap(device, service, path: str, n_nodes: int):
+    """A fresh Scheduler on ``device`` bootstrapped from the service at
+    ``path`` through StateSyncClient and SchedulerBinding; returns
+    (scheduler, sync client, rpc client, the bootstrap's numbers)."""
+    from koordinator_tpu_torch.scheduler.scheduler import Scheduler
+    from koordinator_tpu_torch.scheduler.snapshot import ClusterSnapshot
+    from koordinator_tpu_torch.transport import RpcClient, StateSyncClient
+    from koordinator_tpu_torch.transport.deltasync import SchedulerBinding
+
+    sched = Scheduler(ClusterSnapshot(capacity=n_nodes, device=device),
+                      device=device)
+    sync_client = StateSyncClient(SchedulerBinding(sched))
+    client = RpcClient(path, on_push=sync_client.on_push, timeout=300.0)
+    client.connect()
+    decoded = wire_bytes("decode")
+    sync(device)
+    t0 = time.perf_counter()
+    events = sync_client.bootstrap(client)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    check(sync_client.rv == service.rv and sync_client.proto == 4,
+          "phase 19: the bootstrap caught up on protocol 4")
+    return sched, sync_client, client, dict(
+        seconds=seconds, events=events,
+        bytes=wire_bytes("decode") - decoded,
+        nodes=len(sched.snapshot.node_index), pending=len(sched.pending))
+
+
+def wire_solve(device, client, sched, label: str) -> tuple[dict, dict]:
+    """One round through solve_remote: (its result document, its numbers:
+    the call's wall beside the round's own wall inside schedule_round, as
+    its flight record has it)."""
+    from koordinator_tpu_torch.transport.services import solve_remote
+
+    seq = sched.round_seq
+    sync(device)
+    t0 = time.perf_counter()
+    doc = solve_remote(client, deadline_ms=300_000)
+    remote_s = time.perf_counter() - t0
+    rec = sched.flight_recorder.last()
+    check(sched.round_seq == seq + 1 and rec.round == sched.round_seq,
+          f"phase 19 {label}: one round ran")
+    return doc, dict(round=label, remote_s=remote_s,
+                     in_process_s=rec.duration_s,
+                     wire_s=remote_s - rec.duration_s,
+                     solve_path=sched._current_path(),
+                     pods=doc["round_pods"],
+                     placed=len(doc["assignments"]),
+                     failed=len(doc["failures"]))
+
+
+def wire_accounting(sched, label: str) -> None:
+    """No node over its allocatable on a requested dimension, and the node
+    accounting equal to the bound pods' requests."""
+    state = sched.snapshot.state
+    requested = state.node_requested.cpu().numpy().astype(np.int64)
+    alloc = state.node_allocatable.cpu().numpy().astype(np.int64)
+    check(bool((requested <= np.maximum(alloc, 0)).all()),
+          f"phase 19 {label}: no node overcommitted")
+    expect = np.zeros_like(requested)
+    for bp in sched.bound.values():
+        expect[sched.snapshot.node_index[bp.node]] += bp.requests
+    check(np.array_equal(expect, requested),
+          f"phase 19 {label}: the accounting equals the bound pods'")
+
+
+def phase_wire(device, n_nodes: int = 10_240, n_pods: int = 50_000,
+               adds: int = WIRE_ADDS, removes: int = WIRE_REMOVES,
+               usage: int = WIRE_USAGE, flaps: int = WIRE_FLAPS,
+               live: int = WIRE_LIVE, budget_s: float = 90.0):
+    """Phase 19 (the transport at the flagship width): a StateSyncService on
+    a unix-socket RpcServer holds the main path's 10,240 nodes and 50,000
+    pods; a Scheduler bootstraps from it through StateSyncClient and
+    SchedulerBinding and solves a cold round through solve_remote; a burst
+    of churn follows as live pushes (pod adds, removes of bound pods, node
+    usage refreshes, and the last nodes drained, removed and upserted
+    again).  A second, fresh Scheduler then bootstraps from the service's
+    snapshot.  The state feed carries no binds, so it takes the live
+    scheduler's bound pods through ``add_bound_pods`` (the informer replay
+    of bound pods) and leaves its pending queue, and it takes the live
+    one's rotation-id registry, the per-pod tie-break identity the live
+    one assigned in its earlier rounds; then the two run the next round
+    through solve_remote and their assignments, failure messages,
+    nominations and node accounting must be equal.  Last, a round is
+    issued through solve_remote while a thread pushes pod adds and usage
+    refreshes: the pushes apply under the scheduler's lock, so the
+    accounting after it equals the bound pods' and every pushed pod is
+    bound or pending.  Returns (the phase's record, the launches of the
+    kernels in the phase)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from koordinator_tpu_torch.kernels import build
+    from koordinator_tpu_torch.transport import RpcClient, RpcServer
+    from koordinator_tpu_torch.transport import StateSyncService
+    from koordinator_tpu_torch.transport.services import SolveService
+
+    t_phase = time.perf_counter()
+    build.reset_launch_counts()
+    rng = np.random.default_rng(19)
+    nodes, pods = main_path_specs(0, n_nodes, n_pods)
+    d = tempfile.mkdtemp(prefix="kw")
+    servers, clients = [], []
+    pusher = None
+    record: dict = dict(nodes=n_nodes, pods=n_pods)
+    try:
+        service = StateSyncService(retention=8192)
+        t0 = time.perf_counter()
+        for n in nodes:
+            service.upsert_node(n.name, n.allocatable, usage=n.usage)
+        for p in pods:
+            service.add_pod(p.name, p.requests, priority=p.priority)
+        record["fill_s"] = time.perf_counter() - t0
+        path = os.path.join(d, "sched.sock")
+        server = RpcServer(path)
+        servers.append(server)
+        service.attach(server)
+        server.start()
+
+        # the live scheduler: bootstrap, the cold round over the wire
+        live_s, live_sync, live_client, boot = wire_bootstrap(
+            device, service, path, n_nodes)
+        clients.append(live_client)
+        SolveService(live_s).attach(server)
+        record["bootstrap"] = boot
+        check(boot["nodes"] == n_nodes and boot["pending"] == n_pods,
+              "phase 19: the live scheduler holds the whole cluster")
+        doc, cold = wire_solve(device, live_client, live_s, "cold")
+        check(cold["placed"] > 0, "phase 19: the cold round bound pods")
+        wire_accounting(live_s, "cold")
+        rounds = [cold]
+
+        # churn as live pushes
+        base = live_sync.applied
+        t0 = time.perf_counter()
+        req = np.zeros((adds, R), np.int32)
+        req[:, CPU] = rng.integers(100, 4_000, adds)
+        req[:, MEM] = rng.integers(128, 8_192, adds)
+        prio = rng.integers(3_000, 9_999, adds)
+        for k in range(adds):
+            service.add_pod(f"wire-{k}", req[k], priority=int(prio[k]))
+        bound = sorted(live_s.bound)
+        flapped = [n.name for n in nodes[-flaps:]] if flaps else []
+        drained = [name for name in bound
+                   if live_s.bound[name].node in set(flapped)]
+        others = sorted(set(bound) - set(drained))
+        for name in rng.choice(others, size=min(removes, len(others)),
+                               replace=False):
+            service.remove_pod(str(name))
+        for k in rng.choice(n_nodes, size=usage, replace=False):
+            u = (nodes[k].allocatable * rng.random(R) * 0.5).astype(np.int32)
+            service.update_node_usage(nodes[k].name, u)
+        for name in drained:
+            service.remove_pod(name)
+        for name in reversed(flapped):
+            service.remove_node(name)
+        spec_of = {n.name: n for n in nodes}
+        for name in flapped:
+            service.upsert_node(name, spec_of[name].allocatable,
+                                usage=spec_of[name].usage)
+        push_s = time.perf_counter() - t0
+        catch_up_s = wire_wait(live_sync, service, "the churn")
+        churn_events = live_sync.applied - base
+        record["churn"] = dict(
+            adds=adds, removes=min(removes, len(others)), drained=len(drained),
+            usage=usage, flapped=len(flapped), events=churn_events,
+            push_s=push_s, applied_s=push_s + catch_up_s,
+            apply_rate_per_s=churn_events / (push_s + catch_up_s))
+
+        # a fresh scheduler from the service's snapshot after the churn
+        fresh_s, fresh_sync, fresh_client, boot2 = wire_bootstrap(
+            device, service, path, n_nodes)
+        clients.append(fresh_client)
+        record["fresh_bootstrap"] = boot2
+        fresh_s.add_bound_pods([
+            dataclasses.replace(
+                bp, node_generation=fresh_s.snapshot.node_generation[bp.node])
+            for bp in live_s.bound.values()])
+        for name in live_s.bound:
+            fresh_s.dequeue(name)
+        fresh_s._rot_ids = dict(live_s._rot_ids)
+        fresh_s._rot_counter = live_s._rot_counter
+        # neither comes over the feed: a restart from it alone binds
+        # differently on the batch path (the reference's feed is the same)
+        record["fresh_took_live_bound_pods"] = len(live_s.bound)
+        record["fresh_took_live_rot_ids"] = True
+        check(sorted(fresh_s.pending) == sorted(live_s.pending),
+              "phase 19: the fresh scheduler's queue is the live one's")
+        check(fresh_s.snapshot.node_index == live_s.snapshot.node_index,
+              "phase 19: the fresh scheduler's node rows are the live one's")
+        fresh_path = os.path.join(d, "fresh.sock")
+        fresh_server = RpcServer(fresh_path)
+        servers.append(fresh_server)
+        SolveService(fresh_s).attach(fresh_server)
+        fresh_server.start()
+        fresh_solver = RpcClient(fresh_path, timeout=300.0)
+        clients.append(fresh_solver)
+        fresh_solver.connect()
+        live_doc, live_next = wire_solve(device, live_client, live_s, "next")
+        fresh_doc, fresh_next = wire_solve(device, fresh_solver, fresh_s,
+                                           "next_fresh")
+        for key in ("assignments", "failures", "nominations", "round_pods"):
+            check(live_doc[key] == fresh_doc[key],
+                  f"phase 19: the live and the fresh scheduler's {key}")
+        check(bool((live_s.snapshot.state.node_requested
+                    == fresh_s.snapshot.state.node_requested).all()),
+              "phase 19: the live and the fresh node accounting")
+        wire_accounting(live_s, "next")
+        rounds += [live_next, fresh_next]
+
+        # a round while pushes arrive
+        n_adds = live * 5 // 6
+        lreq = np.zeros((n_adds, R), np.int32)
+        lreq[:, CPU] = rng.integers(100, 4_000, n_adds)
+        lreq[:, MEM] = rng.integers(128, 8_192, n_adds)
+        refresh = rng.choice(n_nodes, size=live - n_adds, replace=False)
+        errors: list = []
+
+        def push():
+            # paced, so that pushes keep arriving while the round runs
+            try:
+                for k in range(n_adds):
+                    service.add_pod(f"live-{k}", lreq[k], priority=5_000)
+                    if k % 5 == 4 and k // 5 < len(refresh):
+                        node = nodes[int(refresh[k // 5])]
+                        service.update_node_usage(node.name, (
+                            node.allocatable * 0.25).astype(np.int32))
+                    time.sleep(WIRE_LIVE_PACE_S)
+            except Exception as e:  # reported and failed below
+                errors.append(repr(e))
+
+        base = live_sync.applied
+        pusher = threading.Thread(target=push, daemon=True)
+        pusher.start()
+        # the round starts once a quarter of the pushes applied
+        t0 = time.perf_counter()
+        while live_sync.applied - base < live // 4:
+            check(time.perf_counter() - t0 < 60,
+                  "phase 19: the live pushes started applying")
+            time.sleep(0.001)
+        applied_before = live_sync.applied - base
+        live_doc, during = wire_solve(device, live_client, live_s,
+                                      "during_pushes")
+        applied_during = live_sync.applied - base - applied_before
+        pusher.join(120)
+        check(not pusher.is_alive() and not errors,
+              f"phase 19: the pusher finished ({errors})")
+        wire_wait(live_sync, service, "the live pushes")
+        during.update(pushes_applied_before=applied_before,
+                      pushes_applied_during=applied_during,
+                      pushes=live_sync.applied - base)
+        check(during["pods"] > 0 and applied_during > 0
+              and applied_before + applied_during < during["pushes"],
+              "phase 19: the round solved pushed pods while pushes arrived")
+        wire_accounting(live_s, "during_pushes")
+        for k in range(n_adds):
+            name = f"live-{k}"
+            check(name in live_s.bound or name in live_s.pending,
+                  f"phase 19: {name} bound or pending")
+        rounds.append(during)
+        record["rounds"] = rounds
+    finally:
+        if pusher is not None:
+            pusher.join(60)
+        for c in clients:
+            c.close()
+        for s in servers:
+            s.stop()
+        shutil.rmtree(d, ignore_errors=True)
+    launches = dict(build.LAUNCHES)
+    record["launches"] = {k: launches[k] for k in WIRE_KERNELS}
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        for k in ("select_candidates", "round_fit_choose",
+                  "segmented_prefix_accept"):
+            check(launches[k] > 0, f"phase 19: {k} launched")
+    record["phase_s"] = time.perf_counter() - t_phase
+    record["budget_s"] = budget_s
+    emit("wire", nvidia_smi=smi_name_power() if on_card else None, **record)
+    check(record["phase_s"] <= budget_s,
+          f"phase 19 within {budget_s} s ({record['phase_s']:.1f})")
+    return record, launches
+
+
 def _per_call_ms(times) -> dict | None:
     if not times:
         return None
@@ -7549,6 +7910,8 @@ def main() -> int:
     topo_records, k8, topo_launches = phase_topology(device)
     gate_records, gate_launches, gate_k1 = phase_gates(device)
     _, obs_launches = phase_observability(device)
+    with watchdog(WIRE_LIMIT_S, "phase 19 (wire)"):
+        _, wire_launches = phase_wire(device)
     kernels[1:1] = [dict(
         name="refresh_candidates", route="cuda",
         source=CSRC + "refresh_candidates.cu",
@@ -7687,6 +8050,11 @@ def main() -> int:
         n18 = obs_launches.get(entry["name"], 0)
         if n18:
             entry["phase18"] = dict(launches=n18)
+    # phase 19 (the transport): the launches of its rounds over the wire
+    for entry in kernels:
+        n19 = wire_launches.get(entry["name"], 0)
+        if n19:
+            entry["phase19"] = dict(launches=n19)
     k1_entry = next(e for e in kernels if e["name"] == "select_candidates")
     k1_entry.setdefault("phase17", {}).update(
         dense={k: gate_k1["dense"][k] for k in (

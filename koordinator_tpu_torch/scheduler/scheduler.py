@@ -146,15 +146,24 @@ the blocking copies of its results (``_block_timed``: ``device_block``,
 and ``capacity_slack{dim}``.  The hooks never feed a decision: the binds
 are the same with every hook off.
 
+Served over the wire (``transport/``), state pushes apply on the RPC
+client's reader thread while rounds run on the server's: every informer
+mutation (the queue, bound pods, gangs, PDBs, reservations) and every
+round hold ``lock``, a re-entrant lock, as the JAX scheduler's do.  With a
+``debug_service`` (``scheduler/services.py`` ``DebugService``) whose
+``dump_top_n_scores`` is above 0, each round records every pod's top-N
+node scores against the state it starts from, before the solve.
+
 Left out of this reduced shell, and kept by the JAX scheduler: forecast and
 quality modes (so the topology planner is the baseline one), tenancy, the
-solve mesh, the debug service and the introspection gauges
+solve mesh and the introspection gauges
 (``solver_device_bytes``, the shard counts, the recompile accounting).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 
 import numpy as np
@@ -335,7 +344,8 @@ class Scheduler:
                  hints=None, elector=None,
                  staleness_threshold_sec: float | None = None,
                  staleness_exit_sec: float | None = None, faults=None,
-                 trace_pods: bool = False, flight_ring_size: int = 256):
+                 trace_pods: bool = False, flight_ring_size: int = 256,
+                 debug_service=None):
         if device is not None and torch.device(device) != snapshot.device:
             raise ValueError(f"device {device} differs from the snapshot's "
                              f"{snapshot.device}")
@@ -364,8 +374,16 @@ class Scheduler:
         #: chaos seam: ``faults.on_solve()`` runs at the start of the Solve
         #: phase when set
         self.faults = faults
+        #: debug service (services.DebugService): with its
+        #: ``dump_top_n_scores`` above 0, each round records the top-N
+        #: node scores of every pod before the solve
+        self.debug_service = debug_service
         #: the last deciding round's result (the standby's empty one)
         self.last_result = SchedulingResult({}, {}, 0)
+        #: serializes rounds against the informer-driven mutations: the
+        #: sync binding applies pushes on the RPC client's reader thread
+        #: while the solve service runs rounds on a server thread
+        self.lock = threading.RLock()
         self.gang_passes = gang_passes
         #: CoschedulingArgs.DefaultTimeout: WaitTime for gangs that don't
         #: set their own
@@ -539,12 +557,14 @@ class Scheduler:
     # -- registration -----------------------------------------------------------
 
     def register_gang(self, record: GangRecord) -> None:
-        if record.wait_time_sec is None:
-            record.wait_time_sec = self.gang_default_timeout_sec
-        self.gangs[record.name] = record
+        with self.lock:
+            if record.wait_time_sec is None:
+                record.wait_time_sec = self.gang_default_timeout_sec
+            self.gangs[record.name] = record
 
     def register_pdb(self, record: PdbRecord) -> None:
-        self.pdbs[record.name] = record
+        with self.lock:
+            self.pdbs[record.name] = record
 
     def add_bound_pod(self, pod: BoundPod,
                       resource_status: dict | None = None) -> None:
@@ -554,9 +574,10 @@ class Scheduler:
         fine-grained annotations ({"resource-status": {"cpuset": "0,1"},
         "device-allocated": {...}}) into the CPU and device managers, so a
         restart cannot re-grant pinned cores or in-use device minors."""
-        self.add_bound_pods([pod])
-        if resource_status:
-            self._restore_fine_grained(pod, resource_status)
+        with self.lock:
+            self.add_bound_pods([pod])
+            if resource_status:
+                self._restore_fine_grained(pod, resource_status)
 
     def _restore_fine_grained(self, pod: BoundPod, status: dict) -> None:
         """Annotations are persisted external data: a malformed or stale
@@ -588,14 +609,15 @@ class Scheduler:
     def add_bound_pods(self, pods: list[BoundPod]) -> None:
         """:meth:`add_bound_pod` for many pods, their node charges in one
         device update (integer adds commute: the same bits)."""
-        by_node: dict[str, np.ndarray] = {}
-        for pod in pods:
-            self.bound[pod.name] = pod
-            if pod.node in self.snapshot.node_index:
-                cur = by_node.get(pod.node)
-                req = pod.requests.astype(np.int32)
-                by_node[pod.node] = req if cur is None else cur + req
-        self.snapshot.reserve_batch(by_node)
+        with self.lock:
+            by_node: dict[str, np.ndarray] = {}
+            for pod in pods:
+                self.bound[pod.name] = pod
+                if pod.node in self.snapshot.node_index:
+                    cur = by_node.get(pod.node)
+                    req = pod.requests.astype(np.int32)
+                    by_node[pod.node] = req if cur is None else cur + req
+            self.snapshot.reserve_batch(by_node)
 
     def enable_overuse_revoke(self, revoke_fn,
                               delay_evict_sec: float = 5.0) -> None:
@@ -616,6 +638,17 @@ class Scheduler:
     # -- queue ----------------------------------------------------------------
 
     def enqueue(self, pod: PodSpec) -> None:
+        with self.lock:
+            self._enqueue_locked(pod)
+
+    def enqueue_many(self, pods: list[PodSpec]) -> None:
+        """:meth:`enqueue` for many pods under one lock acquisition (the
+        sync binding routes a run of pod adds here)."""
+        with self.lock:
+            for pod in pods:
+                self._enqueue_locked(pod)
+
+    def _enqueue_locked(self, pod: PodSpec) -> None:
         # arrivals: only NEW names count (a resync replaying a pending pod
         # is no arrival), and the journey's enqueue stamp is the first
         if pod.name not in self.pending:
@@ -652,23 +685,20 @@ class Scheduler:
         never traced)."""
         return self._pod_trace_ids.get(name)
 
-    def enqueue_many(self, pods: list[PodSpec]) -> None:
-        for pod in pods:
-            self.enqueue(pod)
-
     def dequeue(self, pod_name: str) -> None:
-        # a deleted nominated preemptor releases its assumed node and quota
-        # charge, and must not pin a later pod of the same name
-        pod = self.pending.pop(pod_name, None)
-        self.pod_traces.pop(pod_name, None)
-        if pod is not None:
-            self._pending_rev += 1
-            journey.LEDGER.forget(pod_name)
-        if pod_name in self.nominations and pod is not None:
-            self._nomination_release(pod)
-        else:
-            self.nominations.pop(pod_name, None)
-            self._nomination_gen.pop(pod_name, None)
+        with self.lock:
+            # a deleted nominated preemptor releases its assumed node and quota
+            # charge, and must not pin a later pod of the same name
+            pod = self.pending.pop(pod_name, None)
+            self.pod_traces.pop(pod_name, None)
+            if pod is not None:
+                self._pending_rev += 1
+                journey.LEDGER.forget(pod_name)
+            if pod_name in self.nominations and pod is not None:
+                self._nomination_release(pod)
+            else:
+                self.nominations.pop(pod_name, None)
+                self._nomination_gen.pop(pod_name, None)
 
     # -- bound pods -------------------------------------------------------------
 
@@ -676,12 +706,13 @@ class Scheduler:
         """Informer pod delete, whatever state the pod is in: a pending or
         nominated pod is dequeued; a bound pod releases its node charge and
         its quota charge."""
-        if name in self.pending or name in self.nominations:
-            self.dequeue(name)
-        bound = self.bound.get(name)
-        if bound is not None:
-            self.remove_bound_pod(name)
-            self._charge_quota_used(bound, sign=-1)
+        with self.lock:
+            if name in self.pending or name in self.nominations:
+                self.dequeue(name)
+            bound = self.bound.get(name)
+            if bound is not None:
+                self.remove_bound_pod(name)
+                self._charge_quota_used(bound, sign=-1)
 
     def remove_bound_pod(self, name: str) -> None:
         """Release a bound pod's node charge iff still tracked (its quota
@@ -690,9 +721,10 @@ class Scheduler:
         remainder (the reserved capacity stays charged to the node, hidden
         from non-owners) and frees only its spill; once the reservation is
         gone or consumed, the drawn part frees with the pod."""
-        pod = self.bound.pop(name, None)
-        if pod is not None:
-            self._release_bound_capacity(pod)
+        with self.lock:
+            pod = self.bound.pop(name, None)
+            if pod is not None:
+                self._release_bound_capacity(pod)
 
     def _release_bound_capacity(self, bp: BoundPod) -> None:
         """Shared freeing for a bound pod leaving the cluster (informer
@@ -738,31 +770,33 @@ class Scheduler:
         unchanged (same requests, same pin) only the mutable spec fields
         move; otherwise the old reservation is removed first (returning its
         remainder) so the new one cannot double-charge the node."""
-        spec.created_at = self.clock()
-        old = self.reservations.get(spec.name)
-        if old is not None and old.phase in (ReservationPhase.AVAILABLE,
-                                             ReservationPhase.SUCCEEDED):
-            if (np.array_equal(old.requests, spec.requests)
-                    and spec.node in (None, old.node)):
-                old.owners = spec.owners
-                old.ttl_sec = spec.ttl_sec
-                old.restricted = spec.restricted
-                # owner edits change who matches
-                self._rsv_match_cache = None
-                return
-            self.remove_reservation(spec.name)
-        self.reservations.upsert(spec)
-        # a still-queued reserve-pod carries the OLD requests: drop it so
-        # the next tick queues the updated one
-        if self.pending.pop(RSV_POD_PREFIX + spec.name, None) is not None:
-            self._pending_rev += 1
+        with self.lock:
+            spec.created_at = self.clock()
+            old = self.reservations.get(spec.name)
+            if old is not None and old.phase in (ReservationPhase.AVAILABLE,
+                                                 ReservationPhase.SUCCEEDED):
+                if (np.array_equal(old.requests, spec.requests)
+                        and spec.node in (None, old.node)):
+                    old.owners = spec.owners
+                    old.ttl_sec = spec.ttl_sec
+                    old.restricted = spec.restricted
+                    # owner edits change who matches
+                    self._rsv_match_cache = None
+                    return
+                self.remove_reservation(spec.name)
+            self.reservations.upsert(spec)
+            # a still-queued reserve-pod carries the OLD requests: drop it so
+            # the next tick queues the updated one
+            if self.pending.pop(RSV_POD_PREFIX + spec.name, None) is not None:
+                self._pending_rev += 1
 
     def remove_reservation(self, name: str) -> None:
         """Reservation CR deleted: return the unallocated remainder and
         drop any queued reserve-pod."""
-        self.reservations.remove(name, self.snapshot)
-        if self.pending.pop(RSV_POD_PREFIX + name, None) is not None:
-            self._pending_rev += 1
+        with self.lock:
+            self.reservations.remove(name, self.snapshot)
+            if self.pending.pop(RSV_POD_PREFIX + name, None) is not None:
+                self._pending_rev += 1
 
     def _reservation_tick(self, now: float) -> None:
         """Expire reservations; move Pending ones toward Available (pinned
@@ -1267,52 +1301,53 @@ class Scheduler:
         is the empty result; a closed startup ``barrier`` decides nothing
         and leaves ``last_result`` as it was.  Then the staleness watchdog
         (degraded mode), and the phases, each timed by ``monitor``."""
-        self._round_begin()
-        start_wall = time.time()
-        t0 = time.perf_counter()
-        with tracing.TRACER.span(
-                "scheduler.round", service="scheduler",
-                attributes={"round": self.round_seq}) as span:
-            try:
-                result = self._round()
-            finally:
-                self._journey_round_t0 = None
-            duration = time.perf_counter() - t0
-            path = self._current_path()
-            if not self._round_recordable:
-                # a gated round: last_solver and last_solve_path are the
-                # last deciding round's, and no solve ran
-                span.set_attributes({"gated": True})
-            else:
-                span.set_attributes({
-                    "solver": self.last_solver,
-                    "solve_path": path,
-                    "pods": result.round_pods,
-                    "placed": len(result.assignments),
-                    "failed": len(result.failures),
-                    "suspended": self.last_suspended,
-                    "degraded": self.degraded,
-                    "staleness_s": self._last_staleness_s,
-                    "dirty_node_frac": self.last_dirty_node_frac,
-                    "dirty_pod_frac": self.last_dirty_pod_frac,
-                    "solve_wall_s": self.monitor.round_timings.get(
-                        "Solve", 0.0),
-                    "solve_device_s": self._solve_device_s,
-                })
-        if self._round_recordable:
-            self._round_flight_record(result, span.trace_id, start_wall,
-                                      duration, path)
-            self._publish_round_introspection()
-            if timeline.RECORDER.enabled:
-                # the scheduler's round is its timeline cycle
-                doc = timeline.RECORDER.finish_cycle(
-                    self.round_seq, t0, time.perf_counter(), mode="round")
-                if doc is not None:
-                    self.flight_recorder.annotate_round(
-                        self.round_seq, "", cycle_seq=doc["cycle"],
-                        cycle_critical_cause=doc["critical_cause"],
-                        cycle_critical_seconds=doc["critical_seconds"])
-        return result
+        with self.lock:
+            self._round_begin()
+            start_wall = time.time()
+            t0 = time.perf_counter()
+            with tracing.TRACER.span(
+                    "scheduler.round", service="scheduler",
+                    attributes={"round": self.round_seq}) as span:
+                try:
+                    result = self._round()
+                finally:
+                    self._journey_round_t0 = None
+                duration = time.perf_counter() - t0
+                path = self._current_path()
+                if not self._round_recordable:
+                    # a gated round: last_solver and last_solve_path are the
+                    # last deciding round's, and no solve ran
+                    span.set_attributes({"gated": True})
+                else:
+                    span.set_attributes({
+                        "solver": self.last_solver,
+                        "solve_path": path,
+                        "pods": result.round_pods,
+                        "placed": len(result.assignments),
+                        "failed": len(result.failures),
+                        "suspended": self.last_suspended,
+                        "degraded": self.degraded,
+                        "staleness_s": self._last_staleness_s,
+                        "dirty_node_frac": self.last_dirty_node_frac,
+                        "dirty_pod_frac": self.last_dirty_pod_frac,
+                        "solve_wall_s": self.monitor.round_timings.get(
+                            "Solve", 0.0),
+                        "solve_device_s": self._solve_device_s,
+                    })
+            if self._round_recordable:
+                self._round_flight_record(result, span.trace_id, start_wall,
+                                          duration, path)
+                self._publish_round_introspection()
+                if timeline.RECORDER.enabled:
+                    # the scheduler's round is its timeline cycle
+                    doc = timeline.RECORDER.finish_cycle(
+                        self.round_seq, t0, time.perf_counter(), mode="round")
+                    if doc is not None:
+                        self.flight_recorder.annotate_round(
+                            self.round_seq, "", cycle_seq=doc["cycle"],
+                            cycle_critical_cause=doc["critical_cause"],
+                            cycle_critical_seconds=doc["critical_seconds"])
+            return result
 
     def _round_flight_record(self, result: SchedulingResult, trace_id: str,
                              start_wall: float, duration: float,
@@ -1422,6 +1457,15 @@ class Scheduler:
             # the share of the padded pod rows no pod occupies
             metrics.solver_batch_padding_waste.set(
                 1.0 - len(pods) / max(batch.capacity, 1))
+        if (self.debug_service is not None
+                and self.debug_service.dump_top_n_scores > 0):
+            # debug only: every pod's node scores against the state the
+            # round starts from (before the pre-pass adopts its binds)
+            scores, _ = score_pods(self.snapshot.state, batch, self.config)
+            self.debug_service.record_scores(
+                pods, scores.cpu().numpy(),
+                [self.snapshot.node_name(r) or str(r)
+                 for r in range(self.snapshot.state.capacity)])
 
         with monitor.phase("Solve"):
             # the dispatch: the fault seam, the pre-pass and the solve's
@@ -2405,49 +2449,50 @@ class Scheduler:
         """Per-term score decomposition (``ops/explain.decompose_scores``)
         of a pending pod's top-k feasible nodes, or a bound pod's node,
         against the current state; None for an unknown pod."""
-        pod = self.pending.get(name)
-        bound = self.bound.get(name)
-        if pod is None and bound is None:
-            return None
-        self.snapshot.flush()
-        state = self.snapshot.state
+        with self.lock:
+            pod = self.pending.get(name)
+            bound = self.bound.get(name)
+            if pod is None and bound is None:
+                return None
+            self.snapshot.flush()
+            state = self.snapshot.state
 
-        def decompose(batch, node_rows: np.ndarray) -> list[dict]:
-            cand = torch.from_numpy(
-                node_rows[None, :].astype(np.int32)).to(self.device)
-            terms = {t: v[0].cpu().numpy()
-                     for t, v in ex.decompose_scores(
-                         state, batch, self.config, cand).items()}
-            return [
-                {"node": self.snapshot.node_name(int(r)) or str(int(r)),
-                 "score": int(terms["total"][j]),
-                 "terms": {t: int(v[j]) for t, v in terms.items()
-                           if t != "total"}}
-                for j, r in enumerate(node_rows)
-            ]
+            def decompose(batch, node_rows: np.ndarray) -> list[dict]:
+                cand = torch.from_numpy(
+                    node_rows[None, :].astype(np.int32)).to(self.device)
+                terms = {t: v[0].cpu().numpy()
+                         for t, v in ex.decompose_scores(
+                             state, batch, self.config, cand).items()}
+                return [
+                    {"node": self.snapshot.node_name(int(r)) or str(int(r)),
+                     "score": int(terms["total"][j]),
+                     "terms": {t: int(v[j]) for t, v in terms.items()
+                               if t != "total"}}
+                    for j, r in enumerate(node_rows)
+                ]
 
-        if pod is not None:
+            if pod is not None:
+                batch = PodBatch.build(
+                    pod.requests[None].astype(np.int32),
+                    priority=np.array([pod.priority], np.int32),
+                    feasible=self.snapshot.feasibility_row(pod)[None],
+                    node_capacity=self.snapshot.capacity, capacity=16,
+                    device=self.device)
+                scores, feasible = score_pods(state, batch, self.config)
+                row = scores[0].cpu().numpy()
+                masked = np.where(feasible[0].cpu().numpy(), row, -1)
+                order = np.argsort(-masked, kind="stable")[:max(k, 1)]
+                order = order[masked[order] >= 0]
+                if order.size == 0:
+                    return []
+                return decompose(batch, order)
+            row_idx = self.snapshot.node_index.get(bound.node)
+            if row_idx is None:
+                return []
             batch = PodBatch.build(
-                pod.requests[None].astype(np.int32),
-                priority=np.array([pod.priority], np.int32),
-                feasible=self.snapshot.feasibility_row(pod)[None],
+                bound.requests[None].astype(np.int32),
                 node_capacity=self.snapshot.capacity, capacity=16,
                 device=self.device)
-            scores, feasible = score_pods(state, batch, self.config)
-            row = scores[0].cpu().numpy()
-            masked = np.where(feasible[0].cpu().numpy(), row, -1)
-            order = np.argsort(-masked, kind="stable")[:max(k, 1)]
-            order = order[masked[order] >= 0]
-            if order.size == 0:
-                return []
-            return decompose(batch, order)
-        row_idx = self.snapshot.node_index.get(bound.node)
-        if row_idx is None:
-            return []
-        batch = PodBatch.build(
-            bound.requests[None].astype(np.int32),
-            node_capacity=self.snapshot.capacity, capacity=16,
-            device=self.device)
-        out = decompose(batch, np.array([row_idx], np.int32))
-        out[0]["winner"] = True
-        return out
+            out = decompose(batch, np.array([row_idx], np.int32))
+            out[0]["winner"] = True
+            return out

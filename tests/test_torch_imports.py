@@ -14,7 +14,11 @@ delete and a restore through ``add_bound_pod``'s ``resource_status``; then
 the round's gates: a standby round, a closed barrier, a hinted round on a
 dense mask and a degraded round; then a round with every observability hook
 on: traced pods, an exporter on the tracer, the timeline recorder and the
-journey ledger, a flight record and the metrics' exposition)."""
+journey ledger, a flight record and the metrics' exposition; then a round
+served over a unix socket: a ``StateSyncService`` on an ``RpcServer``, a
+scheduler bootstrapped through ``StateSyncClient`` and ``SchedulerBinding``,
+a live push, ``solve_remote``, a hook call and the debug service's
+routes)."""
 
 import os
 import re
@@ -322,6 +326,59 @@ assert timeline.RECORDER.cycles()[0]["cycle"] == ots.round_seq
 assert any(r["stage"] == "ingest" for r in journey.LEDGER.report()["series"])
 assert "koord_scheduler_pending_pods" in metrics.expose_all(openmetrics=True)
 assert ots.pod_trace_id("o0") is not None
+# a round served over a unix socket, the scheduler fed by the state sync
+import tempfile
+from koordinator_tpu_torch import runtimeproxy
+from koordinator_tpu_torch.scheduler.services import DebugService
+from koordinator_tpu_torch.transport import (
+    RpcClient, RpcServer, StateSyncClient, StateSyncService)
+from koordinator_tpu_torch.transport.deltasync import SchedulerBinding
+from koordinator_tpu_torch.transport.services import (
+    HookService, SolveService, hook_remote, solve_remote)
+sock = tempfile.mkdtemp(prefix="kt") + "/s.sock"
+server = RpcServer(sock)
+service = StateSyncService()
+service.attach(server)
+wsched = Scheduler(ClusterSnapshot(capacity=16, device="cpu"), device="cpu")
+debug = DebugService(wsched)
+wsched.debug_service = debug
+SolveService(wsched).attach(server)
+HookService(runtimeproxy.Dispatcher()).attach(server)
+server.start()
+try:
+    for i in range(8):
+        a = np.zeros(10, np.int32)
+        a[0], a[1] = rng.integers(8000, 64000), rng.integers(16384, 262144)
+        service.upsert_node(f"s{i}", a)
+    sync = StateSyncClient(SchedulerBinding(wsched))
+    client = RpcClient(sock, on_push=sync.on_push)
+    client.connect()
+    try:
+        assert sync.bootstrap(client) == 8
+        debug.handle("/apis/v1/__debug/set-top-n", {"n": "2"})
+        for j in range(12):
+            q = np.zeros(10, np.int32)
+            q[0], q[1] = rng.integers(100, 4000), rng.integers(128, 8192)
+            service.add_pod(f"s{j}", q, priority=j)
+        import time
+        deadline = time.monotonic() + 30
+        while sync.rv != service.rv and time.monotonic() < deadline:
+            time.sleep(0.01)
+        doc = solve_remote(client, deadline_ms=60_000)
+        assert len(doc["assignments"]) == 12 and doc["round_pods"] == 12
+        assert len(debug.last_scores) == 12
+        assert hook_remote(client, runtimeproxy.HookType.PRE_RUN_POD_SANDBOX,
+                           runtimeproxy.HookRequest())["labels"] == {}
+        for route in ("/apis/v1/nodes", "/debug/rounds", "/metrics",
+                      "/debug/explain/s0"):
+            assert debug.handle(route, {})[0] == 200
+        assert debug.handle("/debug/profile", {})[0] == 403
+    finally:
+        client.close()
+finally:
+    server.stop()
+    import shutil
+    shutil.rmtree(sock.rsplit("/", 1)[0], ignore_errors=True)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "koordinator_tpu"))
 print("LOADED", bad)
@@ -342,6 +399,17 @@ def test_the_observability_modules_are_checked():
     names = {os.path.relpath(p, REPO) for p in _sources()}
     for mod in ("metrics", "tracing", "timeline", "journey",
                 "scheduler/flight_recorder"):
+        assert f"koordinator_tpu_torch/{mod}.py" in names
+
+
+def test_the_transport_modules_are_checked():
+    """The transport and debug-service copies are among the sources the
+    import-line check reads."""
+    names = {os.path.relpath(p, REPO) for p in _sources()}
+    for mod in ("transport/__init__", "transport/wire", "transport/retry",
+                "transport/faults", "transport/channel",
+                "transport/deltasync", "transport/services",
+                "scheduler/services", "runtimeproxy"):
         assert f"koordinator_tpu_torch/{mod}.py" in names
 
 

@@ -9,6 +9,8 @@ imported inside the functions, never at module scope.
 from __future__ import annotations
 
 import dataclasses
+import time
+import types
 
 import numpy as np
 import torch
@@ -267,3 +269,150 @@ def reset_observability(enabled: bool = True) -> None:
             if isinstance(exporter, tr.InMemoryExporter):
                 tr.TRACER.remove_exporter(exporter)
         tr.TRACER.ring.clear()
+
+
+def host(value) -> np.ndarray:
+    """A JAX array or a torch tensor as a numpy array."""
+    if isinstance(value, torch.Tensor):
+        return value.cpu().numpy()
+    return np.asarray(value)
+
+
+def sync_fingerprint(sched) -> dict:
+    """What a state feed builds in a scheduler of either package, as plain
+    data: the fine-grained registries (raw device inventory by type, each
+    node's CPU topology), the reservations, the snapshot's node rows and
+    specs and its flushed device state, and the pending and bound pods."""
+    snap = sched.snapshot
+    snap.flush()
+    out = {
+        "node_index": dict(sorted(snap.node_index.items())),
+        "specs": {n: (host(s.allocatable).tolist(),
+                      None if s.usage is None else host(s.usage).tolist(),
+                      None if s.agg_usage is None
+                      else host(s.agg_usage).tolist(),
+                      None if s.prod_usage is None
+                      else host(s.prod_usage).tolist(),
+                      dict(s.labels), dict(s.taints))
+                  for n, s in sorted(snap.node_specs.items())},
+        "state": {f: host(getattr(snap.state, f)).tolist() for f in (
+            "node_allocatable", "node_requested", "node_usage",
+            "node_agg_usage", "node_prod_usage", "node_valid",
+            "node_class")},
+        "rsv": sorted((s.name, host(s.requests).tolist(), s.allocate_once,
+                       s.phase.value, s.node)
+                      for s in sched.reservations.specs()),
+        "pending": {n: (host(p.requests).tolist(), int(p.priority), p.quota,
+                        p.gang, dict(p.node_selector), dict(p.labels),
+                        p.owner, int(p.qos))
+                    for n, p in sorted(sched.pending.items())},
+        "bound": {n: (b.node, host(b.requests).tolist())
+                  for n, b in sorted(sched.bound.items())},
+    }
+    dm, cm = sched.device_manager, sched.cpu_manager
+    if dm is not None:
+        out["devices"] = {t: dict(sorted(raw.items()))
+                          for t, raw in sorted(dm._raw.items())}
+    if cm is not None:
+        out["cpus"] = {n: host(st.topology.core_of).tolist()
+                       for n, st in sorted(cm._nodes.items())}
+    return out
+
+
+# -- the transport suites' two packages ---------------------------------------
+
+
+PKGS = ("jax", "torch")
+
+
+def side(pkg: str) -> types.SimpleNamespace:
+    """One package's transport, scheduler and managers, by name (the JAX
+    package imported here, never at module scope)."""
+    if pkg == "jax":
+        from koordinator_tpu import runtimeproxy
+        from koordinator_tpu.ops.numa import CPUTopology
+        from koordinator_tpu.quota.tree import UNBOUNDED, QuotaTree
+        from koordinator_tpu.scheduler.cpu_manager import CPUManager
+        from koordinator_tpu.scheduler.device_manager import DeviceManager
+        from koordinator_tpu.scheduler.scheduler import GangRecord, Scheduler
+        from koordinator_tpu.scheduler.snapshot import (
+            ClusterSnapshot,
+            NodeSpec,
+        )
+        from koordinator_tpu.transport import channel, deltasync, wire
+        from koordinator_tpu.transport import services
+
+        dev: dict = {}
+    else:
+        from koordinator_tpu_torch import runtimeproxy
+        from koordinator_tpu_torch.ops.numa import CPUTopology
+        from koordinator_tpu_torch.quota.tree import UNBOUNDED, QuotaTree
+        from koordinator_tpu_torch.scheduler.cpu_manager import CPUManager
+        from koordinator_tpu_torch.scheduler.device_manager import (
+            DeviceManager,
+        )
+        from koordinator_tpu_torch.scheduler.scheduler import (
+            GangRecord,
+            Scheduler,
+        )
+        from koordinator_tpu_torch.scheduler.snapshot import (
+            ClusterSnapshot,
+            NodeSpec,
+        )
+        from koordinator_tpu_torch.transport import channel, deltasync, wire
+        from koordinator_tpu_torch.transport import services
+
+        dev = {"device": "cpu"}
+
+    def config():
+        from koordinator_tpu.ops.assignment import ScoringConfig as J
+
+        cfg = J.default().replace(
+            usage_thresholds=np.zeros(R, np.int32),
+            estimator_defaults=np.zeros(R, np.int32))
+        return cfg if pkg == "jax" else port(cfg, "ScoringConfig")
+
+    def scheduler(capacity: int = 16, managers: bool = False,
+                  zero_thresholds: bool = True, **kw):
+        """A Scheduler on a fresh snapshot; ``zero_thresholds``: the
+        transport suite's config (no usage thresholds or estimator
+        defaults), else the default one."""
+        snap = ClusterSnapshot(capacity=capacity, **dev)
+        if managers:
+            kw.update(cpu_manager=CPUManager(**dev),
+                      device_manager=DeviceManager(**dev))
+        if zero_thresholds:
+            kw["config"] = config()
+        return Scheduler(snap, **dev, **kw)
+
+    def topology(cores: int):
+        return CPUTopology.uniform(sockets=1, numa_per_socket=1,
+                                   cores_per_numa=cores, **dev)
+
+    return types.SimpleNamespace(
+        pkg=pkg, channel=channel, deltasync=deltasync, wire=wire,
+        services=services, runtimeproxy=runtimeproxy,
+        RpcServer=channel.RpcServer, RpcClient=channel.RpcClient,
+        RpcError=channel.RpcError, RpcRemoteError=channel.RpcRemoteError,
+        FrameType=wire.FrameType, StateSyncService=deltasync.StateSyncService,
+        StateSyncClient=deltasync.StateSyncClient,
+        SchedulerBinding=deltasync.SchedulerBinding,
+        SolveService=services.SolveService, solve_remote=services.solve_remote,
+        ClusterSnapshot=ClusterSnapshot, NodeSpec=NodeSpec,
+        QuotaTree=QuotaTree, UNBOUNDED=UNBOUNDED, GangRecord=GangRecord,
+        scheduler=scheduler, topology=topology, dev=dev)
+
+
+def rv(cpu: int = 0, memory: int = 0, **extra) -> np.ndarray:
+    """A resource vector; ``extra`` by resource name."""
+    from koordinator_tpu_torch.api.resources import resource_vector
+
+    return np.asarray(resource_vector({"cpu": cpu, "memory": memory,
+                                       **extra}), np.int32)
+
+
+def wait_until(pred, timeout: float = 10.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not pred() and time.monotonic() < deadline:
+        time.sleep(0.005)
+    assert pred(), "condition not reached in time"
