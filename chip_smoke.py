@@ -274,7 +274,30 @@ first failure:
    beside its in-process wall (the flight record's) and their difference
    (the wire's share), the pushes applied before and during the last
    round, the launches of K1, K2, K3a, K3b and K4 in the phase, and the
-   card's name and power limit.
+   card's name and power limit;
+20. the koord-scheduler binary (``phase_binary``): the port's
+   ``main_koord_scheduler`` assembled on the card as a sidecar (a TCP
+   socket, the HTTP gateway, no leader election, the profile endpoint
+   armed), its scheduler, kit and snapshot state checked on the card, and
+   beside it an in-process Scheduler built with the kwargs the binary
+   passes; both are fed the main path's 10,240 nodes and 50,000 pods
+   through their state-sync services; the cold round runs through
+   ``solve_remote`` over the socket and in process, binding alike; 1,000
+   pods (50 of them larger than any node) reach the binary as STATE_PUSH
+   frames and the twin in process, and the next round runs by ``POST
+   /v1/solve`` while a thread holds ``GET /debug/profile?seconds=3``: the
+   two bind alike and the capture's Chrome trace names the round's kernels
+   (launched on the solve's thread); ``/metrics`` holds
+   ``solver_device_bytes{kind="cluster_state"}`` equal to the snapshot
+   state's bytes, ``solver_shard_count`` 1 and a
+   ``solver_recompiles_total`` series for every kit entry the rounds used,
+   ``/debug/slo`` its sharding section inactive and ``/debug/steady``
+   answers; native/conformance_client.c, built with gcc, passes against a
+   second, small assembly on the card; stopping both leaves none of their
+   threads.  The ``binary`` line gives the fills' seconds, each round's
+   wall (socket, gateway, in process), the capture's size and kernel
+   names, the C client's wall and the launches of the two rounds on the
+   binary, with the card's name and power limit.
 
 The Diagnose phase (K7, ``explain_counts``): every round of phases 9, 12,
 13 and 15 runs with the Scheduler's default ``explain=True``, and
@@ -314,8 +337,9 @@ its launches over phase 12's four rounds, and under ``phase13`` the
 launches over phase 13's three rounds, with K1's, K3b's and K4's numbers
 at its round 1, and under ``phase17`` the launches over phase 17's rounds
 (K1's with its dense and factored numbers), under ``phase18`` the
-launches over phase 18's hooks-on run, and under ``phase19`` the launches
-over phase 19's rounds;
+launches over phase 18's hooks-on run, under ``phase19`` the launches
+over phase 19's rounds, and under ``phase20`` those over phase 20's two
+rounds on the binary;
 K4's numbers are those at the steady round's rescue, K3b's at the cold
 solve's first round behind the quota tree, K4r's at round 2's pre-pass,
 K1a's at phase 14's cold round;
@@ -1123,16 +1147,17 @@ def main_path_specs(seed: int = 0, n_nodes: int = 10_240,
 
 
 @contextlib.contextmanager
-def solve_probe(log: list, device):
-    """Time each solve the scheduler makes (CUDA events on the card) and
-    keep its inputs, by wrapping the scheduler module's ``gang_assign`` (the
+def solve_probe(log: list, device, sched):
+    """Time each solve ``sched`` makes (CUDA events on the card) and keep
+    its inputs, by wrapping its solver kit's ``solve`` (``gang_assign``: the
     full batch path and the greedy rescue and rounds) and
     ``Scheduler._solve_batch_incremental`` (the candidate-cache path)."""
     import torch
 
     from koordinator_tpu_torch.scheduler import scheduler as sched_mod
 
-    real = sched_mod.gang_assign
+    kit = sched.kit
+    real = kit.solve
     real_inc = sched_mod.Scheduler._solve_batch_incremental
     on_card = torch.device(device).type == "cuda"
 
@@ -1162,12 +1187,12 @@ def solve_probe(log: list, device):
                      solver="batch", state=self.snapshot.state, batch=batch,
                      cfg=self.config, quota=quota)
 
-    sched_mod.gang_assign = probe
+    kit.solve = probe
     sched_mod.Scheduler._solve_batch_incremental = probe_inc
     try:
         yield
     finally:
-        sched_mod.gang_assign = real
+        kit.solve = real
         sched_mod.Scheduler._solve_batch_incremental = real_inc
 
 
@@ -1197,7 +1222,7 @@ def run_round(device, n_nodes: int, n_pods: int, seed: int = 0):
                       device=device)
     sched.enqueue_many(pods)
     log: list = []
-    with solve_probe(log, device):
+    with solve_probe(log, device, sched):
         sync(device)
         t0 = time.perf_counter()
         result = sched.schedule_round()
@@ -2075,7 +2100,7 @@ def phase_steady(device, n_nodes: int = 10_240, n_pods: int = 50_000,
             log: list = []
             n_diag = len(dlog)
             build.reset_launch_counts()
-            with solve_probe(log, device), checked_diagnose(dlog):
+            with solve_probe(log, device, sched), checked_diagnose(dlog):
                 sync(device)
                 t0 = time.perf_counter()
                 res = sched.schedule_round()
@@ -2273,14 +2298,14 @@ def owner_pods(rng, start: int, count: int):
 
 
 @contextlib.contextmanager
-def prepass_probe(log: list, device):
-    """Keep the inputs and outputs of every reservation pre-pass scan the
-    scheduler runs, with its time (CUDA events on the card)."""
+def prepass_probe(log: list, device, sched):
+    """Keep the inputs and outputs of every reservation pre-pass scan
+    ``sched`` runs (its solver kit's ``rsv_solve``), with its time (CUDA
+    events on the card)."""
     import torch
 
-    from koordinator_tpu_torch.scheduler import scheduler as sched_mod
-
-    real = sched_mod.reservation_greedy_assign
+    kit = sched.kit
+    real = kit.rsv_solve
     on_card = torch.device(device).type == "cuda"
 
     def probe(state, pods, cfg, rsv, match, quota=None, boost=10_000):
@@ -2300,11 +2325,11 @@ def prepass_probe(log: list, device):
                         match=match, quota=quota, out=out, ms=ms))
         return out
 
-    sched_mod.reservation_greedy_assign = probe
+    kit.rsv_solve = probe
     try:
         yield
     finally:
-        sched_mod.reservation_greedy_assign = real
+        kit.rsv_solve = real
 
 
 def scan_rows(pods, quota, assignments) -> list[int]:
@@ -2530,7 +2555,7 @@ def phase_reservations(device, n_nodes: int = 10_240, n_pods: int = 50_000,
         before = len(sched.reservations)
         log: list = []
         build.reset_launch_counts()
-        with prepass_probe(log, device):
+        with prepass_probe(log, device, sched):
             sync(device)
             t0 = time.perf_counter()
             res = sched.schedule_round()
@@ -3637,8 +3662,8 @@ def phase_gke(device, n_nodes: int = GKE_NODES, n_pods: int = 50_000,
         log, rlog, plog = [], [], []
         n_diag = len(dlog)
         build.reset_launch_counts()
-        with solve_probe(log, device), refresh_probe(rlog), \
-                prepass_probe(plog, device), checked_diagnose(dlog):
+        with solve_probe(log, device, sched), refresh_probe(rlog), \
+                prepass_probe(plog, device, sched), checked_diagnose(dlog):
             sync(device)
             t0 = time.perf_counter()
             res = sched.schedule_round()
@@ -3914,7 +3939,7 @@ def phase_gangs(device, n_nodes: int = 10_240, n_pods: int = 50_000,
         log: list = []
         n_diag = len(dlog)
         build.reset_launch_counts()
-        with solve_probe(log, device), checked_diagnose(dlog):
+        with solve_probe(log, device, sched), checked_diagnose(dlog):
             sync(device)
             t0 = time.perf_counter()
             res = sched.schedule_round()
@@ -4105,7 +4130,7 @@ def phase_approx(device, n_nodes: int = 10_240, n_pods: int = 50_000,
             sched.enqueue_many(new)
         log: list = []
         build.reset_launch_counts()
-        with solve_probe(log, device):
+        with solve_probe(log, device, sched):
             sync(device)
             t0 = time.perf_counter()
             res = sched.schedule_round()
@@ -5081,7 +5106,7 @@ def phase_preemption(device, n_nodes: int = 10_240,
     # record the kernels' calls: the chains, the gang members' preempt_one
     # and the revoke walk, with their outputs
     chains, ones, walks = [], [], []
-    real_chain, real_one = smod.preempt_chain, smod.preempt_one
+    real_chain, real_one = sched.kit.preempt_chain, sched.kit.preempt
     real_sel = orv.select_overuse_victims
 
     def rec_chain(*a):
@@ -5110,7 +5135,7 @@ def phase_preemption(device, n_nodes: int = 10_240,
         post_ms.append((time.perf_counter() - t1) * 1e3)
 
     sched._run_preemption = timed_post
-    smod.preempt_chain, smod.preempt_one = rec_chain, rec_one
+    sched.kit.preempt_chain, sched.kit.preempt = rec_chain, rec_one
     orv.select_overuse_victims = rec_sel
     records, launches, dlog = [], {}, []
     try:
@@ -5166,7 +5191,7 @@ def phase_preemption(device, n_nodes: int = 10_240,
             records.append(rec)
             emit("preempt_round", **rec)
     finally:
-        smod.preempt_chain, smod.preempt_one = real_chain, real_one
+        sched.kit.preempt_chain, sched.kit.preempt = real_chain, real_one
         orv.select_overuse_victims = real_sel
         sched._run_preemption = real_post
     check(records[0]["nominated"] > 0 and records[0]["evicted"] > 0,
@@ -5320,18 +5345,18 @@ def checked_diagnose(log: list):
     import dataclasses
 
     from koordinator_tpu_torch.kernels import explain_counts as k7
-    from koordinator_tpu_torch.ops import explain as ex
     from koordinator_tpu_torch.quota.admission import quota_admission_mask
     from koordinator_tpu_torch.scheduler.diagnosis import (
         diagnosis_from_counts,
     )
     from koordinator_tpu_torch.scheduler.scheduler import Scheduler
 
-    real_diagnose, real_counts = Scheduler._diagnose, ex.explain_counts
+    real_diagnose = Scheduler._diagnose
 
     def diagnose(self, pods, batch, a, quota, new_quota, placed_gangs, now,
                  result):
         calls = []
+        real_counts = self.kit.explain_counts
         fail_rows = [i for i, pod in enumerate(pods)
                      if int(a[i]) < 0 and pod.name not in result.assignments]
 
@@ -5340,12 +5365,12 @@ def checked_diagnose(log: list):
             calls.append(((state, small, cfg), out))
             return out
 
-        ex.explain_counts = kernel
+        self.kit.explain_counts = kernel
         try:
             real_diagnose(self, pods, batch, a, quota, new_quota,
                           placed_gangs, now, result)
         finally:
-            ex.explain_counts = real_counts
+            self.kit.explain_counts = real_counts
         t0 = time.perf_counter()
         check(len(calls) == (1 if self.explain and fail_rows else 0),
               "Diagnose counted once a round with a failure")
@@ -6573,7 +6598,7 @@ def gates_run(device, n_nodes: int, n_pods: int, n_hinted: int,
         out = {}
 
         def go():
-            with solve_probe(log, device):
+            with solve_probe(log, device, sched):
                 sync(device)
                 t0 = time.perf_counter()
                 out["res"] = sched.schedule_round()
@@ -7444,6 +7469,412 @@ def phase_wire(device, n_nodes: int = 10_240, n_pods: int = 50_000,
     return record, launches
 
 
+BIN_CAPACITY = 16_384
+BIN_ADDS = 1_000
+#: of the adds, pods asking more cpu than any node has: the second round's
+#: rescue (K4) and Diagnose (K7) rows
+BIN_HUGE = 50
+BIN_PROFILE_S = 3.0
+BIN_LIMIT_S = 240.0
+#: the kernels whose launches phase 20 reports
+BIN_KERNELS = ("select_candidates", "refresh_candidates", "round_fit_choose",
+               "segmented_prefix_accept", "greedy_scan", "explain_counts")
+#: the kernels of the second round as a profiler trace names them
+BIN_TRACE_KERNELS = ("select_candidates_kernel", "round_fit_choose_kernel",
+                     "round_accept_kernel", "greedy_scan_kernel",
+                     "explain_counts_kernel")
+C_CLIENT = "native/conformance_client.c"
+
+
+def bin_http(port: int, path: str, body: bytes | None = None,
+             timeout: float = 300.0):
+    """(status, body bytes) of one request to the gateway on ``port``
+    (POST when ``body`` is given)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=body,
+        method="POST" if body is not None else "GET")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def bin_metric(text: str, name: str, labels: str = "") -> float | None:
+    """The value of the series ``<prefix>name{labels}`` in an exposition."""
+    for line in text.splitlines():
+        if line.startswith("#"):
+            continue
+        key, _, value = line.rpartition(" ")
+        base, _, rest = key.partition("{")
+        if base.endswith(name) and rest.rstrip("}") == labels:
+            return float(value)
+    return None
+
+
+def bin_round(device, fn, label: str, sched) -> tuple[dict, dict]:
+    """One round through ``fn()`` (a result document with ``assignments``
+    and ``failures``): (the document, its numbers)."""
+    seq = sched.round_seq
+    sync(device)
+    t0 = time.perf_counter()
+    doc = fn()
+    wall_s = time.perf_counter() - t0
+    check(sched.round_seq == seq + 1, f"phase 20 {label}: one round ran")
+    return doc, dict(round=label, wall_s=wall_s,
+                     in_process_s=sched.flight_recorder.last().duration_s,
+                     solve_path=sched._current_path(),
+                     pods=doc["round_pods"], placed=len(doc["assignments"]),
+                     failed=len(doc["failures"]))
+
+
+def bin_in_process(sched) -> dict:
+    res = sched.schedule_round()
+    return {"assignments": dict(res.assignments),
+            "failures": {n: d.message() for n, d in res.failures.items()},
+            "round_pods": res.round_pods}
+
+
+def bin_twin(device, capacity: int):
+    """A port Scheduler built with the kwargs the binary passes, fed by its
+    own StateSyncService through an in-process SchedulerBinding, as the
+    binary's sidecar assembly feeds its own."""
+    from koordinator_tpu_torch.ops.assignment import ScoringConfig
+    from koordinator_tpu_torch.scheduler import ClusterSnapshot, Scheduler
+    from koordinator_tpu_torch.scheduler.cpu_manager import CPUManager
+    from koordinator_tpu_torch.scheduler.device_manager import DeviceManager
+    from koordinator_tpu_torch.scheduler.explanation import (
+        ExplanationStore,
+        WorkloadAuditor,
+    )
+    from koordinator_tpu_torch.transport.deltasync import (
+        SchedulerBinding,
+        StateSyncService,
+    )
+
+    twin = Scheduler(
+        ClusterSnapshot(capacity=capacity, device=device),
+        config=ScoringConfig.default(device), gang_passes=2,
+        gang_default_timeout_sec=600.0, batch_solver_threshold=1024,
+        enable_preemption=None, preempt_fn=None, elector=None,
+        staleness_threshold_sec=None, trace_pods=False, explain=True,
+        flight_ring_size=256, explanations=ExplanationStore(),
+        auditor=WorkloadAuditor(), cpu_manager=CPUManager(device=device),
+        device_manager=DeviceManager(device=device))
+    service = StateSyncService()
+    service.attach_binding(SchedulerBinding(twin))
+    return twin, service
+
+
+def bin_fill(service, nodes, pods) -> float:
+    t0 = time.perf_counter()
+    for n in nodes:
+        service.upsert_node(n.name, n.allocatable, usage=n.usage)
+    for p in pods:
+        service.add_pod(p.name, p.requests, priority=p.priority)
+    return time.perf_counter() - t0
+
+
+def bin_trace_kernels(path: str) -> list[str]:
+    """The distinct CUDA kernel names (as the profiler demangles them) a
+    Chrome trace holds."""
+    with open(path) as f:
+        doc = json.load(f)
+    events = doc.get("traceEvents", doc) if isinstance(doc, dict) else doc
+    return sorted({str(e.get("name", "")) for e in events
+                   if isinstance(e, dict) and e.get("cat") == "kernel"})
+
+
+def bin_c_client(device, out_dir: str) -> dict:
+    """Phase 20 (e): native/conformance_client.c, built with the host
+    compiler, against a second, small assembly on ``device``: the checks of
+    tests/test_c_conformance.py's full-protocol case."""
+    import torch
+
+    from koordinator_tpu_torch.api.resources import (
+        NUM_RESOURCE_DIMS,
+        resource_vector,
+    )
+    from koordinator_tpu_torch.cmd.binaries import main_koord_scheduler
+
+    on_card = torch.device(device).type == "cuda"
+    exe = os.path.join(out_dir, "conformance_client")
+    t0 = time.perf_counter()
+    proc = subprocess.run(["gcc", "-O2", "-Wall", "-Werror", "-o", exe,
+                           C_CLIENT], capture_output=True, text=True,
+                          timeout=120)
+    check(proc.returncode == 0,
+          f"phase 20: the C client compiles ({proc.stderr.strip()})")
+    build_s = time.perf_counter() - t0
+    asm = main_koord_scheduler(
+        ["--node-capacity", "16", "--listen-socket", "tcp://127.0.0.1:0",
+         "--disable-leader-election"],
+        device=None if on_card else device)
+    try:
+        sched = asm.component
+        check(sched.device.type == torch.device(device).type,
+              "phase 20: the small assembly on the phase's device")
+        asm.state_sync.upsert_node(
+            "py-node", resource_vector(cpu=8_000, memory=32_768))
+        asm.state_sync.add_pod("py-pod",
+                               resource_vector(cpu=1_000, memory=1_024))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [exe, "127.0.0.1", asm.server.address.rsplit(":", 1)[1],
+             str(NUM_RESOURCE_DIMS)], capture_output=True, text=True,
+            timeout=60)
+        wall_s = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"phase 20: the C client passes ({proc.stderr.strip()})")
+        result = json.loads(proc.stdout)
+        for key, want in (("skew_rejected", True), ("snapshot_events", 2),
+                          ("snapshot_rv", 2), ("snapshot_arrays_ok", True),
+                          ("node_rv", 3), ("pod_rv", 4),
+                          ("c_pod_node", "c-node"), ("lease_acquired", True),
+                          ("stale_cas_refused", True)):
+            check(result.get(key) == want,
+                  f"phase 20: the C client's {key} is {want!r} "
+                  f"({result.get(key)!r})")
+        check(result["deltas_seen"] >= 1 and "py-pod" in result["assignments"],
+              "phase 20: the C client saw deltas and py-pod's bind")
+        check("c-pod" not in sched.pending,
+              "phase 20: the C client's pod left the pending queue")
+    finally:
+        asm.stop()
+    return dict(build_s=build_s, wall_s=wall_s, result=result)
+
+
+def phase_binary(device, n_nodes: int = 10_240, n_pods: int = 50_000,
+                 capacity: int = BIN_CAPACITY, adds: int = BIN_ADDS,
+                 huge: int = BIN_HUGE, profile_s: float = BIN_PROFILE_S,
+                 budget_s: float = 30.0):
+    """Phase 20 (the koord-scheduler binary on the card): the port's
+    ``main_koord_scheduler`` assembled as a sidecar (TCP socket, HTTP
+    gateway, no leader election, the profile endpoint on), and a port
+    Scheduler built with the kwargs the binary passes beside it, in
+    process.  Both take the main path's 10,240 nodes and 50,000 pods
+    through their state-sync services; the cold round runs through
+    ``solve_remote`` over the socket and in process, and must bind alike;
+    then ``adds`` pod adds (``huge`` of them larger than any node) reach
+    the binary as STATE_PUSH frames and the twin in process, and the next
+    round runs by ``POST /v1/solve`` while a thread holds
+    ``GET /debug/profile?seconds=N``: the two bind alike and the capture's
+    trace names the round's kernels, launched on the solve's thread while
+    the capture ran on the gateway's.  ``/metrics`` then holds the
+    introspection gauges (the cluster state's device bytes as the snapshot's
+    tensors sum them, one shard, a first-call series for every kit entry
+    the rounds used); ``/debug/slo`` carries the sharding section inactive
+    and ``/debug/steady`` answers.  Last, native/conformance_client.c runs
+    against a second, small assembly (``bin_c_client``), and stopping both
+    assemblies leaves none of their threads.  Returns (the phase's record,
+    the launches of the kernels in its two rounds on the big assembly)."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from koordinator_tpu_torch.cmd.binaries import main_koord_scheduler
+    from koordinator_tpu_torch.kernels import build
+    from koordinator_tpu_torch.ops import introspection as insp
+    from koordinator_tpu_torch.transport import RpcClient
+    from koordinator_tpu_torch.transport.services import solve_remote
+    from koordinator_tpu_torch.transport.wire import FrameType
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    threads_before = set(threading.enumerate())
+    rng = np.random.default_rng(20)
+    nodes, pods = main_path_specs(0, n_nodes, n_pods)
+    d = tempfile.mkdtemp(prefix="kb")
+    prof_dir = os.path.join(d, "profile")
+    asm = client = capturer = None
+    record: dict = dict(nodes=n_nodes, pods=n_pods, capacity=capacity)
+    try:
+        # (a) the assembly, on the card unless the phase runs elsewhere
+        t0 = time.perf_counter()
+        asm = main_koord_scheduler(
+            ["--node-capacity", str(capacity),
+             "--listen-socket", "tcp://127.0.0.1:0", "--http-port", "0",
+             "--disable-leader-election", "--enable-profile-endpoint",
+             "--profile-dir", prof_dir],
+            device=None if on_card else device)
+        record["assemble_s"] = time.perf_counter() - t0
+        sched = asm.component
+        dev_type = torch.device(device).type
+        check(sched.device.type == dev_type and sched.kit.device.type
+              == dev_type, "phase 20: the binary's scheduler and kit on the "
+              "phase's device")
+        state = sched.snapshot.state
+        check(all(getattr(state, f).device.type == dev_type
+                  for f in state.__dataclass_fields__),
+              "phase 20: every tensor of the snapshot state on the device")
+        twin, twin_service = bin_twin(device, capacity)
+
+        # (b) the fill and the cold round
+        record["fill_s"] = bin_fill(asm.state_sync, nodes, pods)
+        record["twin_fill_s"] = bin_fill(twin_service, nodes, pods)
+        check(len(sched.pending) == n_pods == len(twin.pending)
+              and len(sched.snapshot.node_index) == n_nodes,
+              "phase 20: both schedulers hold the whole cluster")
+        client = RpcClient(asm.server.address, timeout=300.0)
+        client.connect()
+        build.reset_launch_counts()
+        cold, cold_n = bin_round(
+            device, lambda: solve_remote(client, deadline_ms=300_000),
+            "cold_socket", sched)
+        launches = dict(build.LAUNCHES)
+        twin_cold, twin_cold_n = bin_round(
+            device, lambda: bin_in_process(twin), "cold_in_process", twin)
+        for key in ("assignments", "failures", "round_pods"):
+            check(cold[key] == twin_cold[key],
+                  f"phase 20: the cold round's {key}, socket and in process")
+        check(cold_n["placed"] > 0, "phase 20: the cold round bound pods")
+        rounds = [cold_n, twin_cold_n]
+
+        # (c) pushes by STATE_PUSH frames, the next round on the gateway
+        # under a profile capture
+        req = np.zeros((adds, R), np.int32)
+        req[:, CPU] = rng.integers(100, 4_000, adds)
+        req[:, MEM] = rng.integers(128, 8_192, adds)
+        req[:huge, CPU] = 100_000   # past every node's 64,000
+        prio = rng.integers(3_000, 9_999, adds)
+        t0 = time.perf_counter()
+        for k in range(adds):
+            _, doc, _ = client.call(
+                FrameType.STATE_PUSH,
+                {"kind": "pod_add", "name": f"bin-{k}",
+                 "priority": int(prio[k])}, {"requests": req[k]})
+        record["push_s"] = time.perf_counter() - t0
+        for k in range(adds):
+            twin_service.add_pod(f"bin-{k}", req[k], priority=int(prio[k]))
+        check(sorted(sched.pending) == sorted(twin.pending),
+              "phase 20: the pushes reached both queues alike")
+        capture = sched.profile_capture
+        prof: dict = {}
+
+        def hold_capture():
+            prof["status"], prof["body"] = bin_http(
+                asm.gateway.port, f"/debug/profile?seconds={profile_s}")
+
+        capturer = threading.Thread(target=hold_capture, daemon=True)
+        capturer.start()
+        t0 = time.perf_counter()
+        while not capture.recording:
+            check(time.perf_counter() - t0 < 60 and capturer.is_alive(),
+                  "phase 20: the profile capture started")
+            time.sleep(0.005)
+        record["capture_start_s"] = time.perf_counter() - t0
+
+        def gateway_round():
+            status, body = bin_http(asm.gateway.port, "/v1/solve", b"{}")
+            check(status == 200, f"phase 20: POST /v1/solve ({status})")
+            return json.loads(body)
+
+        build.reset_launch_counts()
+        second, second_n = bin_round(device, gateway_round, "next_gateway",
+                                     sched)
+        for k, n in build.LAUNCHES.items():
+            launches[k] += n
+        check(capture.recording,
+              "phase 20: the gateway's round ran inside the capture")
+        capturer.join(120)
+        check(not capturer.is_alive() and prof.get("status") == 200,
+              f"phase 20: the capture answered ({prof.get('status')}, "
+              f"{prof.get('body', b'')[:200]!r})")
+        twin_second, twin_second_n = bin_round(
+            device, lambda: bin_in_process(twin), "next_in_process", twin)
+        for key in ("assignments", "failures", "round_pods"):
+            check(second[key] == twin_second[key],
+                  f"phase 20: the next round's {key}, gateway and in "
+                  "process")
+        check(second_n["failed"] >= huge,
+              "phase 20: the pods past every node failed")
+        rounds += [second_n, twin_second_n]
+        record["rounds"] = rounds
+        trace = os.path.join(json.loads(prof["body"])["dir"], insp.TRACE_FILE)
+        found = bin_trace_kernels(trace)
+        record["capture"] = dict(
+            seconds=profile_s, bytes=os.path.getsize(trace),
+            kernel_names=len(found),
+            round_kernels=[k for k in BIN_TRACE_KERNELS
+                           if any(k in name for name in found)])
+        if on_card:
+            check(bool(record["capture"]["round_kernels"]),
+                  f"phase 20: the capture's trace names the round's "
+                  f"kernels ({[n[:80] for n in found]})")
+
+        # (d) the introspection surface
+        status, body = bin_http(asm.gateway.port, "/metrics")
+        check(status == 200, "phase 20: GET /metrics")
+        text = body.decode()
+        state_bytes = sum(int(getattr(sched.snapshot.state, f).nbytes)
+                          for f in sched.snapshot.state.__dataclass_fields__)
+        got = bin_metric(text, "solver_device_bytes", 'kind="cluster_state"')
+        check(got == float(state_bytes),
+              f"phase 20: solver_device_bytes{{cluster_state}} {got} is the "
+              f"state's {state_bytes}")
+        check(bin_metric(text, "solver_shard_count") == 1.0,
+              "phase 20: solver_shard_count 1")
+        used = {}
+        for entry in vars(sched.kit).values():
+            if isinstance(entry, insp.InstrumentedJit) and entry._seen:
+                used[entry.name] = sorted(entry._seen)
+                for shape in entry._seen:
+                    # the twin's kit counts its own first calls too
+                    check((bin_metric(
+                        text, "solver_recompiles_total",
+                        f'fn="{entry.name}",shape="{shape}"') or 0) >= 1,
+                        f"phase 20: a first-call series for {entry.name} "
+                        f"at {shape}")
+        check({"gang_assign", "select_candidates", "assign_round_pass"}
+              <= set(used), f"phase 20: the rounds used the kit ({used})")
+        record["kit_entries"] = used
+        record["device_bytes"] = dict(cluster_state=state_bytes,
+                                      candidate_cache=bin_metric(
+                                          text, "solver_device_bytes",
+                                          'kind="candidate_cache"'))
+        status, body = bin_http(asm.gateway.port, "/debug/slo")
+        check(status == 200 and json.loads(body)["sharding"]["active"]
+              is False, "phase 20: /debug/slo's sharding section inactive")
+        status, _ = bin_http(asm.gateway.port, "/debug/steady")
+        check(status == 200, "phase 20: /debug/steady answers")
+
+        # (e) the C client against a small assembly
+        record["c_client"] = bin_c_client(device, d)
+    finally:
+        if capturer is not None:
+            capturer.join(60)
+        if client is not None:
+            client.close()
+        if asm is not None:
+            asm.stop()
+        shutil.rmtree(d, ignore_errors=True)
+    # (f) no thread of either assembly left
+    t0 = time.perf_counter()
+    while set(threading.enumerate()) - threads_before:
+        check(time.perf_counter() - t0 < 10,
+              f"phase 20: the assemblies' threads ended "
+              f"({set(threading.enumerate()) - threads_before})")
+        time.sleep(0.01)
+    record["launches"] = {k: launches[k] for k in BIN_KERNELS}
+    if on_card:
+        for k in ("select_candidates", "round_fit_choose",
+                  "segmented_prefix_accept", "greedy_scan",
+                  "explain_counts"):
+            check(launches[k] > 0, f"phase 20: {k} launched")
+    record["phase_s"] = time.perf_counter() - t_phase
+    record["budget_s"] = budget_s
+    emit("binary", nvidia_smi=smi_name_power() if on_card else None,
+         **record)
+    check(record["phase_s"] <= budget_s,
+          f"phase 20 within {budget_s} s ({record['phase_s']:.1f})")
+    return record, launches
+
+
 def _per_call_ms(times) -> dict | None:
     if not times:
         return None
@@ -7912,6 +8343,8 @@ def main() -> int:
     _, obs_launches = phase_observability(device)
     with watchdog(WIRE_LIMIT_S, "phase 19 (wire)"):
         _, wire_launches = phase_wire(device)
+    with watchdog(BIN_LIMIT_S, "phase 20 (binary)"):
+        _, bin_launches = phase_binary(device)
     kernels[1:1] = [dict(
         name="refresh_candidates", route="cuda",
         source=CSRC + "refresh_candidates.cu",
@@ -8055,6 +8488,11 @@ def main() -> int:
         n19 = wire_launches.get(entry["name"], 0)
         if n19:
             entry["phase19"] = dict(launches=n19)
+    # phase 20 (the scheduler binary): the launches of its two rounds
+    for entry in kernels:
+        n20 = bin_launches.get(entry["name"], 0)
+        if n20:
+            entry["phase20"] = dict(launches=n20)
     k1_entry = next(e for e in kernels if e["name"] == "select_candidates")
     k1_entry.setdefault("phase17", {}).update(
         dense={k: gate_k1["dense"][k] for k in (

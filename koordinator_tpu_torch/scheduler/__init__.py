@@ -8,6 +8,8 @@
                      (schedule_diagnosis.go)
 - ``explanation`` -- placement explanations, ScheduleExplanation
                      persistence and the workload auditor
+- ``solver_kit``  -- the solve entries every round calls, with their
+                     first-call accounting (shareable across schedulers)
 """
 
 from koordinator_tpu_torch.scheduler.snapshot import (

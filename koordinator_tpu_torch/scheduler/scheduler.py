@@ -154,10 +154,21 @@ round hold ``lock``, a re-entrant lock, as the JAX scheduler's do.  With a
 ``dump_top_n_scores`` is above 0, each round records every pod's top-N
 node scores against the state it starts from, before the solve.
 
+Every solve call goes through ``kit``, a
+:class:`~koordinator_tpu_torch.scheduler.solver_kit.SolverKit` (built here
+unless ``solver_kit`` hands one in; schedulers handed one kit share its
+first-call accounting).  A round past the gates publishes the introspection
+gauges: ``solver_device_bytes{kind=cluster_state|candidate_cache}``, and
+``solver_shard_count`` and ``solver_axis_shard_count{axis}`` at 1 (one
+device, no mesh); :meth:`Scheduler.sharding_report` is the ``/debug/slo``
+document's ``sharding`` section.  The binary assembly attaches
+``slo_monitor``, ``trend_engine`` and ``profile_capture``
+(``/debug/slo``, ``/debug/steady``, ``/debug/profile``); :meth:`Scheduler.stop`
+stops the SLO sampler.
+
 Left out of this reduced shell, and kept by the JAX scheduler: forecast and
-quality modes (so the topology planner is the baseline one), tenancy, the
-solve mesh and the introspection gauges
-(``solver_device_bytes``, the shard counts, the recompile accounting).
+quality modes (so the topology planner is the baseline one), tenancy and
+the solve mesh.
 """
 
 from __future__ import annotations
@@ -185,7 +196,7 @@ from koordinator_tpu_torch.ops.assignment import (
     _threshold_mask,
     score_pods,
 )
-from koordinator_tpu_torch.ops.gang import GangInfo, gang_assign
+from koordinator_tpu_torch.ops.gang import GangInfo
 from koordinator_tpu_torch.ops.network_topology import (
     TopologyArrays,
     TopologyRequirements,
@@ -193,12 +204,8 @@ from koordinator_tpu_torch.ops.network_topology import (
     plan_gang_placement,
 )
 from koordinator_tpu_torch.ops.numa import EXCLUSIVE_PCPU_LEVEL
-from koordinator_tpu_torch.ops.preemption import (
-    ScheduledPods,
-    preempt_chain,
-    preempt_one,
-)
-from koordinator_tpu_torch.ops.reservation import reservation_greedy_assign
+from koordinator_tpu_torch.ops import introspection as insp
+from koordinator_tpu_torch.ops.preemption import ScheduledPods
 from koordinator_tpu_torch.quota.admission import (
     HEADROOM_CLAMP,
     QuotaDeviceState,
@@ -226,6 +233,7 @@ from koordinator_tpu_torch.scheduler.reservations import (
     ReservationPhase,
 )
 from koordinator_tpu_torch.scheduler.snapshot import ClusterSnapshot, PodSpec
+from koordinator_tpu_torch.scheduler.solver_kit import SolverKit
 from koordinator_tpu_torch.state.cluster_state import PodBatch, _bucket
 
 #: pending-queue key prefix for synthetic reserve-pods (koordinator models a
@@ -345,12 +353,22 @@ class Scheduler:
                  staleness_threshold_sec: float | None = None,
                  staleness_exit_sec: float | None = None, faults=None,
                  trace_pods: bool = False, flight_ring_size: int = 256,
-                 debug_service=None):
+                 debug_service=None, solver_kit: SolverKit | None = None):
         if device is not None and torch.device(device) != snapshot.device:
             raise ValueError(f"device {device} differs from the snapshot's "
                              f"{snapshot.device}")
+        if solver_kit is not None and solver_kit.device != snapshot.device:
+            raise ValueError(f"the solver kit's device {solver_kit.device} "
+                             f"differs from the snapshot's {snapshot.device}")
         self.snapshot = snapshot
         self.device = snapshot.device
+        #: the solve entries (shared when handed in): every solve call of
+        #: the round goes through the kit's instrumented entries
+        self.kit = (solver_kit if solver_kit is not None
+                    else SolverKit(device=self.device))
+        self.mesh = self.kit.mesh
+        self.shard_min_nodes = self.kit.shard_min_nodes
+        self.solver_shard_count = self.kit.shards
         self.config = (config if config is not None
                        else ScoringConfig.default(self.device))
         self.quota_tree = quota_tree
@@ -553,6 +571,22 @@ class Scheduler:
         #: the journey ledger's solve edge; None outside a round, so a bind
         #: made outside one stamps its own commit edge
         self._journey_round_t0: float | None = None
+
+        # -- self-observability, attached by the binary assembly --
+        #: slo_monitor.SloMonitor (serves /debug/slo; its fast-burn
+        #: breaches dump the flight recorder)
+        self.slo_monitor = None
+        #: trend.TrendEngine (serves /debug/steady); None answers 501
+        self.trend_engine = None
+        #: introspection.ProfilerCapture behind /debug/profile; None
+        #: answers 403 (gated off by default)
+        self.profile_capture = None
+
+    def stop(self) -> None:
+        """Assembly-level teardown (``Assembled.stop``): stops the attached
+        SLO sampler thread when one is running."""
+        if self.slo_monitor is not None:
+            self.slo_monitor.stop()
 
     # -- registration -----------------------------------------------------------
 
@@ -880,7 +914,7 @@ class Scheduler:
         small, idx = batch.compact(matched)
         m_small = np.zeros((small.capacity, rsv_set.capacity), bool)
         m_small[: len(idx)] = match[idx]
-        a_r, rc, new_state, _, new_quota = reservation_greedy_assign(
+        a_r, rc, new_state, _, new_quota = self.kit.rsv_solve(
             self.snapshot.state, small, self.config, rsv_set,
             torch.from_numpy(m_small).to(self.device), quota)
         a_r, rc = a_r.cpu().numpy(), rc.cpu().numpy()
@@ -1375,25 +1409,64 @@ class Scheduler:
         ))
 
     def _publish_round_introspection(self) -> None:
-        """``capacity_slack{dim}``: each dimension's free share of the live
+        """The round's introspection gauges: ``solver_device_bytes`` of the
+        persistent solver tensors (the cluster state and the candidate
+        cache, from tensor metadata only: no sync), the shard counts (1:
+        one device, no mesh) and, with ``explain``,
+        ``capacity_slack{dim}``: each dimension's free share of the live
         nodes' allocatable (1.0 where none is allocatable), the headroom
-        beside the round's fit_<dim> rejections; with ``explain`` only.
-        The two masked sums accumulate in float32 (a 10,000-node sum of
-        int32 quantities overflows int32)."""
+        beside the round's fit_<dim> rejections (the kit's ``slack_sums``:
+        two masked float32 sums, since a 10,000-node sum of int32
+        quantities overflows int32)."""
+        cand = self._cand_cache
+        metrics.solver_device_bytes.set(
+            float(insp.device_bytes(self.snapshot.state)),
+            labels={"kind": "cluster_state"})
+        metrics.solver_device_bytes.set(
+            float(insp.device_bytes(cand["cache"] if cand else None)),
+            labels={"kind": "candidate_cache"})
+        metrics.solver_shard_count.set(float(self.solver_shard_count))
+        metrics.solver_axis_shard_count.set(
+            float(self.solver_shard_count), labels={"axis": "nodes"})
+        metrics.solver_axis_shard_count.set(
+            float(self.kit.pod_shards), labels={"axis": "pods"})
         if not self.explain:
             return
-        st = self.snapshot.state
-        valid = st.node_valid[:, None]
-        free_sum = torch.where(
-            valid, st.node_allocatable - st.node_requested, 0).to(
-                torch.float32).sum(dim=0).cpu().numpy()
-        alloc_sum = torch.where(valid, st.node_allocatable, 0).to(
-            torch.float32).sum(dim=0).cpu().numpy()
+        free_sum, alloc_sum = self.kit.slack_sums(self.snapshot.state)
+        free_sum = free_sum.cpu().numpy()
+        alloc_sum = alloc_sum.cpu().numpy()
         for dim in ResourceDim:
             total = float(alloc_sum[dim])
             metrics.capacity_slack.set(
                 (float(free_sum[dim]) / total) if total > 0 else 1.0,
                 labels={"dim": dim.name.lower()})
+
+    def sharding_report(self) -> dict:
+        """The /debug/slo "sharded solve" section, as the JAX scheduler
+        gives it with no mesh: one shard, the per-device bytes of the
+        persistent solver tensors, and the first calls per (fn, shape)
+        bucket of the solver entries (``solver_recompiles_total``)."""
+        cand = self._cand_cache
+
+        def _by_shard(tree):
+            return {str(d): b for d, b in
+                    insp.device_bytes_by_shard(tree).items()}
+
+        return {
+            "solver_shard_count": 1,
+            "active": False,
+            "mesh": None,
+            "pod_shard_count": 1,
+            "shard_min_nodes": self.shard_min_nodes,
+            "device_bytes_by_shard": {
+                "cluster_state": _by_shard(self.snapshot.state),
+                "candidate_cache": _by_shard(
+                    cand["cache"] if cand else None),
+            },
+            "recompiles_by_shape": {
+                f"{lbl.get('fn', '?')}[{lbl.get('shape', '?')}]": int(v)
+                for lbl, v in metrics.solver_recompiles.items()},
+        }
 
     def _round(self) -> SchedulingResult:
         """The round inside its span: the gates, then the phases."""
@@ -1501,7 +1574,7 @@ class Scheduler:
                 if solver == "batch":
                     metrics.incremental_solve_total.inc(
                         labels={"path": self.last_solve_path})
-                assignments, new_state, new_quota = gang_assign(
+                assignments, new_state, new_quota = self.kit.solve(
                     self.snapshot.state, batch, self.config, gangs, quota,
                     passes=self.gang_passes, solver=solver)
                 self._dispatch_done()
@@ -1612,7 +1685,7 @@ class Scheduler:
         small, idx = batch.replace(
             gang_id=torch.from_numpy(rescue_gid.astype(np.int32)).to(
                 self.device)).compact(leftover)
-        r_small, new_state, new_quota = gang_assign(
+        r_small, new_state, new_quota = self.kit.solve(
             new_state, small, self.config, gangs, new_quota,
             passes=self.gang_passes, solver="greedy")
         r = self._block_timed(r_small)[: len(idx)]
@@ -1656,8 +1729,8 @@ class Scheduler:
             row_pos = {int(r): j for j, r in enumerate(idx)}
         t_compact = time.perf_counter()
         if small is not None:
-            c_dev, f_dev = ex.explain_counts(self.snapshot.state, small,
-                                             self.config)
+            c_dev, f_dev = self.kit.explain_counts(self.snapshot.state,
+                                                   small, self.config)
             counts, feas = c_dev.cpu().numpy(), f_dev.cpu().numpy()
         t_counts = time.perf_counter()
         total_nodes = len(self.snapshot.node_index)
@@ -1721,8 +1794,8 @@ class Scheduler:
         return "exact" if self.cand_method == "auto" else self.cand_method
 
     def _select(self, state, batch: PodBatch, k: int, method: str):
-        return ba.select_candidates(state, batch, self.config, k=k,
-                                    method=method, with_scores=True)
+        return self.kit.select_scored(state, batch, self.config, k=k,
+                                      method=method, with_scores=True)
 
     def _solve_batch_incremental(self, pods: list[PodSpec],
                                  batch: PodBatch, quota):
@@ -1786,7 +1859,7 @@ class Scheduler:
             def dev(a):
                 return torch.from_numpy(a).to(self.device)
 
-            aligned, touch = ba.align_candidate_cache(
+            aligned, touch = self.kit.align_cands(
                 meta["cache"], dev(map_rows), dev(map_ok), dev(dirty_np))
             dirty_pods = changed | touch.cpu().numpy()
             pod_frac = float(dirty_pods.sum()) / max(len(pods), 1)
@@ -1799,7 +1872,7 @@ class Scheduler:
             self.last_dirty_pod_frac = pod_frac
             if max(node_frac, pod_frac) <= self.incremental_dirty_threshold:
                 path = "incremental"
-                _, cache = ba.refresh_candidates(
+                _, cache = self.kit.refresh_cands(
                     snap.state, batch, self.config, aligned, dev(drows),
                     dev(dvalid), k=k)
                 if dirty_pods.any():
@@ -1808,7 +1881,7 @@ class Scheduler:
                     rows_pad = np.full(small.capacity, batch.capacity,
                                        np.int32)
                     rows_pad[: len(idx)] = idx
-                    cache = ba.scatter_candidate_rows(
+                    cache = self.kit.scatter_cands(
                         cache, dev(rows_pad), sk, sn, ss)
             else:
                 path = "full_fallback"
@@ -1825,7 +1898,7 @@ class Scheduler:
         }
         self.last_solve_path = path
         try:
-            a, state, quota, est_accum = ba.assign_round_pass(
+            a, state, quota, est_accum = self.kit.pass1(
                 snap.state, batch, quota, cache.cand_key, cache.cand_node,
                 self.config)
         except Exception:
@@ -1849,7 +1922,7 @@ class Scheduler:
                 if not leftover.any():
                     break
                 small, idx = batch.compact(leftover)
-                a2, state, quota, est_accum = ba.assign_followup_pass(
+                a2, state, quota, est_accum = self.kit.pass2(
                     state, est_accum, small, quota, self.config, k=ctx["k"],
                     method=ctx["method"])
                 a2_np = self._block_timed(a2)[: len(idx)]
@@ -2275,7 +2348,7 @@ class Scheduler:
                     quota_hr.astype(np.int64) - job_assumed[p.quota],
                     -HEADROOM_CLAMP, HEADROOM_CLAMP).astype(np.int32)
             qid = quota_index.get(p.quota, -1) if p.quota else -1
-            out = preempt_one(
+            out = self.kit.preempt(
                 cur_state, cur_sched,
                 torch.from_numpy(p.requests.astype(np.int32)).to(self.device),
                 p.priority, qid, feas[mask_row[p.name]], cur_pdb,
@@ -2331,7 +2404,7 @@ class Scheduler:
         def dev(a):
             return torch.from_numpy(a).to(self.device)
 
-        out = preempt_chain(
+        out = self.kit.preempt_chain(
             state, sched, dev(reqs), dev(pris), dev(qids),
             feas[rows].contiguous(), dev(same_q),
             torch.ones(c, dtype=torch.bool, device=self.device), pdb_allowed,

@@ -10,10 +10,8 @@ stdlib HTTP server. Built-in routes cover the reference's debug surface:
 nodes, pending pods, gangs, quotas, last-round diagnosis, metrics scrape,
 and the runtime-togglable top-N score dump.
 
-The routes that read a module the port has not copied (the SLO monitor,
-the trend engine, the forecast plane, tenancy, the profile capture) answer
-as the JAX package's do for a scheduler without it: 501, and 403 for
-``/debug/profile``.
+The routes that read a module the port has not copied (the forecast plane,
+tenancy) answer as the JAX package's do for a scheduler without it: 501.
 """
 
 from __future__ import annotations
@@ -206,12 +204,35 @@ def debug_latency_body(scheduler, params: dict | None = None) -> dict:
 
 
 def debug_profile_body(scheduler, seconds) -> dict:
-    """The /debug/profile?seconds=N payload.  The port has no profile
-    capture yet (it comes with the compile accounting), so the route
-    answers as the JAX package's does for a scheduler without one: 403,
-    before ``seconds`` is read."""
-    raise DebugApiError(403, "profiling endpoint disabled (enable at "
-                             "assembly with --enable-profile-endpoint)")
+    """The /debug/profile?seconds=N payload: an on-demand torch.profiler
+    capture.  403 while the gate is off (the default), 400 for a
+    ``seconds`` that is not a finite number, 409 while a capture is in
+    flight — shared by both HTTP surfaces."""
+    from koordinator_tpu_torch.ops.introspection import (
+        ProfileBusy,
+        ProfileDisabled,
+    )
+
+    capture = getattr(scheduler, "profile_capture", None)
+    if capture is None:
+        raise DebugApiError(403, "profiling endpoint disabled (enable at "
+                                 "assembly with --enable-profile-endpoint)")
+    import math
+
+    try:
+        seconds_f = float(seconds)
+    except (TypeError, ValueError):
+        raise DebugApiError(400, "seconds must be a number") from None
+    if not math.isfinite(seconds_f):
+        # nan survives float() and min/max clamping — it would start a
+        # trace and then die in sleep() as a blanket 500
+        raise DebugApiError(400, "seconds must be finite")
+    try:
+        return capture.capture(seconds_f)
+    except ProfileDisabled as e:
+        raise DebugApiError(403, str(e)) from None
+    except ProfileBusy as e:
+        raise DebugApiError(409, str(e)) from None
 
 
 def debug_trace_body(scheduler, pod: str) -> dict:
@@ -489,8 +510,8 @@ class DebugService:
         return debug_latency_body(self.scheduler, params)
 
     def _profile(self, params: dict) -> object:
-        """On-demand profile capture (/debug/profile?seconds=N); 403 in
-        the port, which has no capture yet."""
+        """On-demand torch.profiler capture (/debug/profile?seconds=N);
+        403 unless the gate was enabled at assembly."""
         return debug_profile_body(self.scheduler,
                                   params.get("seconds", 1.0))
 

@@ -262,6 +262,10 @@ class _ConnHandler(socketserver.BaseRequestHandler):
         import time as _time
 
         server: RpcServer = self.server.rpc  # type: ignore[attr-defined]
+        if server.kind == "tcp":
+            # a reply and a push often leave back to back: with Nagle on,
+            # the second waits for the peer's delayed ACK (~40 ms a call)
+            self.request.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         recv = _recv_exact(self.request, faults=server.faults)
         conn = _Conn(self.request, faults=server.faults)
         server._on_connect(conn)

@@ -393,7 +393,7 @@ def prepass_inputs(dev: str) -> dict:
     now[0] = 10.0
     sched.enqueue_many(cs.owner_pods(rng, 0, 3_000))
     log: list = []
-    with cs.prepass_probe(log, dev):
+    with cs.prepass_probe(log, dev, sched):
         sched.schedule_round()
     return log[0]
 
@@ -426,7 +426,7 @@ def kernel_cases(dev: str):
     nodes, specs, leaf_max = cs.steady_specs(3, 10_240, 50_000)
     sched = cs.steady_scheduler(dev, nodes, specs, leaf_max, threshold=1.0)
     slog: list = []
-    with cs.solve_probe(slog, dev):
+    with cs.solve_probe(slog, dev, sched):
         sched.schedule_round()
         refreshed, new = cs.steady_delta(np.random.default_rng(5), nodes, 1)
         for spec in refreshed:
@@ -706,7 +706,7 @@ def preempt_inputs(dev: str) -> dict:
         sched.register_gang(smod.GangRecord(name=name, min_member=size))
     sched.enqueue_many(arrivals)
     chains, walks = [], []
-    real_chain, real_sel = smod.preempt_chain, orv.select_overuse_victims
+    real_chain, real_sel = sched.kit.preempt_chain, orv.select_overuse_victims
 
     def rec_chain(*a):
         chains.append(a)
@@ -716,7 +716,7 @@ def preempt_inputs(dev: str) -> dict:
         walks.append(a)
         return real_sel(*a)
 
-    smod.preempt_chain, orv.select_overuse_victims = rec_chain, rec_sel
+    sched.kit.preempt_chain, orv.select_overuse_victims = rec_chain, rec_sel
     try:
         for rnd, t in enumerate(cs.PREEMPT_TIMES):
             now[0] = t
@@ -730,7 +730,7 @@ def preempt_inputs(dev: str) -> dict:
                     preemption_policy="Never") for j in range(100)])
             sched.schedule_round()
     finally:
-        smod.preempt_chain, orv.select_overuse_victims = real_chain, real_sel
+        sched.kit.preempt_chain, orv.select_overuse_victims = real_chain, real_sel
     full = max(chains, key=lambda a: a[2].shape[0])
     return dict(chain=full, revoke=walks[-1],
                 one_quota=cs.k6_problem(161, 50_000, 1, dev,

@@ -18,7 +18,10 @@ journey ledger, a flight record and the metrics' exposition; then a round
 served over a unix socket: a ``StateSyncService`` on an ``RpcServer``, a
 scheduler bootstrapped through ``StateSyncClient`` and ``SchedulerBinding``,
 a live push, ``solve_remote``, a hook call and the debug service's
-routes)."""
+routes; then rounds through the ``koord-scheduler`` binary,
+``main_koord_scheduler``: pushes and a solve over its TCP socket, a solve
+on its HTTP gateway, and its ``/metrics``, ``/debug/slo``, ``/debug/steady``
+and a real ``/debug/profile`` capture)."""
 
 import os
 import re
@@ -379,6 +382,49 @@ finally:
     server.stop()
     import shutil
     shutil.rmtree(sock.rsplit("/", 1)[0], ignore_errors=True)
+# rounds through the koord-scheduler binary: over its TCP socket and its
+# HTTP gateway, with the introspection routes and a real profile capture
+import json
+import urllib.request
+from koordinator_tpu_torch.cmd.binaries import main_koord_scheduler
+from koordinator_tpu_torch.transport.wire import FrameType
+pdir = tempfile.mkdtemp(prefix="kp")
+asm = main_koord_scheduler(["--node-capacity", "16", "--listen-socket",
+                            "tcp://127.0.0.1:0", "--http-port", "0",
+                            "--disable-leader-election",
+                            "--enable-profile-endpoint", "--profile-dir",
+                            pdir], device="cpu")
+try:
+    for i in range(6):
+        a = np.zeros(10, np.int32)
+        a[0], a[1] = rng.integers(8000, 64000), rng.integers(16384, 262144)
+        asm.state_sync.upsert_node(f"b{i}", a)
+    client = RpcClient(asm.server.address)
+    client.connect()
+    try:
+        for j in range(10):
+            q = np.zeros(10, np.int32)
+            q[0], q[1] = rng.integers(100, 4000), rng.integers(128, 8192)
+            client.call(FrameType.STATE_PUSH, {"kind": "pod_add",
+                                               "name": f"b{j}"},
+                        {"requests": q})
+        assert len(solve_remote(client)["assignments"]) == 10
+    finally:
+        client.close()
+    base = f"http://127.0.0.1:{asm.gateway.port}"
+    asm.state_sync.add_pod("late", np.asarray([100, 128] + [0] * 8, np.int32))
+    with urllib.request.urlopen(urllib.request.Request(
+            base + "/v1/solve", data=b"{}", method="POST"), timeout=60) as r:
+        assert json.loads(r.read())["assignments"] == {
+            "late": asm.component.bound["late"].node}
+    for route in ("/metrics", "/debug/slo", "/debug/steady",
+                  "/debug/profile?seconds=0.01"):
+        with urllib.request.urlopen(base + route, timeout=60) as r:
+            assert r.status == 200
+    assert asm.component.sharding_report()["recompiles_by_shape"]
+finally:
+    asm.stop()
+    shutil.rmtree(pdir, ignore_errors=True)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "koordinator_tpu"))
 print("LOADED", bad)
@@ -410,6 +456,17 @@ def test_the_transport_modules_are_checked():
                 "transport/faults", "transport/channel",
                 "transport/deltasync", "transport/services",
                 "scheduler/services", "runtimeproxy"):
+        assert f"koordinator_tpu_torch/{mod}.py" in names
+
+
+def test_the_binary_modules_are_checked():
+    """The solver kit, the introspection module and the scheduler binary's
+    modules are among the sources the import-line check reads."""
+    names = {os.path.relpath(p, REPO) for p in _sources()}
+    for mod in ("ops/introspection", "scheduler/solver_kit",
+                "koordlet/metriccache", "selftelemetry", "slo_monitor",
+                "trend", "ha", "transport/http_gateway", "cmd/__init__",
+                "cmd/component_config", "cmd/binaries"):
         assert f"koordinator_tpu_torch/{mod}.py" in names
 
 
